@@ -1,0 +1,4 @@
+"""Dense decoder model of the port."""
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]
