@@ -6,15 +6,20 @@
 Phases, each printing one line (a failed phase raises: no ok line, exit
 code 1):
 
-1. build   — nvcc builds the three CUDA kernels of
+1. build   — nvcc builds the four CUDA kernels of
    ``src/repro_torch/kernels/csrc`` for sm_90a, all at once.
-2. kernels — each kernel against its plain PyTorch version on the card at
-   the serving slice's shapes (bf16; M in {8, 16, 128, 512}, (K, N) in
-   {(768, 768), (768, 3072), (3072, 768)}): QDQ panels bitwise, GEMM
-   outputs within one bf16 ulp (+1e-5 max|y|), and the stream kernel
-   bitwise against quantize_rows + tiled_mm (equal summation order).
-   Times with CUDA events, L2 flushed before every launch, beside the
-   plain version and ``torch.matmul`` on the same pre-quantized operands.
+2. kernels — each kernel against its plain PyTorch version on the card,
+   bf16, with CUDA-event times (L2 flushed before every launch) beside
+   the plain version, the bound and ``torch.matmul`` / SDPA on the same
+   inputs.  Serving shapes (M in {8, 16, 128, 512}, (K, N) in {(768, 768),
+   (768, 3072), (3072, 768)}) and, in a second line (``train_kernels``),
+   the training step's shapes at 8192 tokens: the FFN forward, its dgrad
+   (w read transposed, pass x pass) and wgrad (x read transposed, K =
+   8192, fp8 blocks), the attention linears' two-pass route forward,
+   dgrad and wgrad (token modes, both trans flags), and flash attention
+   at (96, 1024, 64).  QDQ panels bitwise, GEMM outputs within one bf16
+   ulp (+1e-5 max|y|), the stream kernel bitwise against quantize_rows +
+   tiled_mm in the same layout, attention within one bf16 ulp + 1e-5.
 3. slice   — serves gpt2-125m at full width (12 layers, d 768, d_ff 3072,
    vocab 50257; seeded init) through the packed-FP4 ``ContinuousBatcher``
    (fp8 KV, paper_fp4, linear_impl "pallas"): 8 slots, max_len 1024, 16
@@ -26,11 +31,27 @@ code 1):
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
-4. the launch counts of the slice's run (every count must be > 0) and the
-   ``{"kernels": [...]}`` line; the card line; the ok line last.
+4. train   — trains gpt2-125m at full width and depth (seeded init,
+   ``SyntheticLM``, global batch 8 x 1024, 8 steps, paper_fp4, linear and
+   attention impl "pallas"; the §3.3 switch to bf16 at step 7) through
+   ``Trainer``.  Prints per-step loss and plan, the step-time p50 over
+   the steps after the first, tokens/s, peak memory and each kernel's
+   launches per step (transposed launches apart), then a
+   ``train_profile`` line splitting one paper_fp4 step by kernel.  Gates:
+   finite losses with step 6 below step 0; every kernel launched (the
+   three GEMM kernels also in a transposed layout); an op replay of step
+   0 — every fwd, dgrad and wgrad matmul and every flash call of layers 0
+   and 11 again on the CPU on the card's own inputs, quantized operands
+   bitwise and outputs within OP_BOUND — and a control (layer 0's wq
+   dgrad replayed with trans_b off) that must miss it.
+5. the launch counts of each path's run (every kernel of a path must
+   have run in it) and the ``{"kernels": [...]}`` line (launches from the
+   train path, times at its shapes); the card line; the ok line last.
 
-Exits non-zero without a result when there is no CUDA device or when the
-port is not beside this script.
+The serving phase keeps the full depth: the whole run, build included,
+takes about two minutes on one H100 80GB HBM3 (700 W), a tenth of the
+1200 s it is allowed.  Exits non-zero without a result when there is no
+CUDA device or when the port is not beside this script.
 """
 import json
 import os
@@ -66,6 +87,10 @@ SHAPES_KN = ((768, 768), (768, 3072), (3072, 768))
 OP_BOUND = {"float32": 1e-5, "bfloat16": 1e-3}
 TF_BOUND = 0.25
 TF_TOKENS = 256
+# The train phase: gpt2-125m, global batch 8 x 1024 tokens, 8 steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+REPLAY_LAYERS = (0, 11)
 
 
 def card_line() -> str:
@@ -124,6 +149,12 @@ def phase_build(card):
           "sources": list(build.SOURCES), "ptxas": ptxas})
 
 
+def _bound(nbytes, flops, peak):
+    """(least ms, "bytes" | "operations") of a call on the card."""
+    t_b, t_o = nbytes / H100_BYTES_PER_S, flops / peak
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
 def phase_kernels(torch, card):
     """Hold each kernel against its plain version; return per-kernel
     records of the main-path shapes."""
@@ -147,10 +178,6 @@ def phase_kernels(torch, card):
                 f"GEMM out of tolerance: max err {err.max().item()}")
         return err.max().item()
 
-    def bound(nbytes, flops, peak):
-        t_b, t_o = nbytes / H100_BYTES_PER_S, flops / peak
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
-
     for m in SHAPES_M:
         for k in sorted({k for k, _ in SHAPES_KN}):
             x = rand(m, k)
@@ -161,7 +188,7 @@ def phase_kernels(torch, card):
             if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
                 raise AssertionError(f"quantize_rows ({m}, {k}) not bitwise")
             # abs, max, divide, round (~4 ops), multiply per element
-            b_ms, b_by = bound(4 * m * k, 8 * m * k, H100_F32_FLOPS)
+            b_ms, b_by = _bound(4 * m * k, 8 * m * k, H100_F32_FLOPS)
             rows.append({
                 "name": "quantize_rows", "shape": [m, k],
                 "max_abs_err": 0.0,
@@ -182,7 +209,7 @@ def phase_kernels(torch, card):
                 raise AssertionError(
                     f"qmm_stream ({m}, {k}, {n}) != quantize_rows + "
                     "tiled_mm bitwise")
-            b_ms, b_by = bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
+            b_ms, b_by = _bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
                                H100_BF16_FLOPS)
             rows.append({
                 "name": "qmm_stream", "shape": [m, k, n],
@@ -205,6 +232,163 @@ def phase_kernels(torch, card):
     torch.cuda.synchronize()
     emit({"phase": "kernels", "card": card, "dtype": "bfloat16",
           "ok": True, "table": rows})
+    return rows
+
+
+def phase_train_kernels(torch, card):
+    """The training step's kernel calls at gpt2-125m's shapes (8192
+    tokens, bf16), each against its plain version on the same inputs;
+    return per-call records."""
+    import torch.nn.functional as F_nn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.kernels import tiled_mm as tm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    timer = Timer(torch)
+    rows = []
+    t, d, f = TRAIN_TOKENS, 768, 3072
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def bitwise(y, ref, what):
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"{what} not bitwise equal to its plain "
+                                 "version")
+
+    def gemm_err(y, ref, what):
+        y, ref = y.float(), ref.float()
+        err = (y - ref).abs()
+        if not bool((err <= 2.0 ** -7 * ref.abs()
+                     + 1e-5 * ref.abs().max()).all()):
+            raise AssertionError(f"{what} out of tolerance: max err "
+                                 f"{err.max().item()}")
+        return err.max().item()
+
+    def gemm_bound(m, k, n):
+        return _bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
+                      H100_BF16_FLOPS)
+
+    def quant(role, x, mode, fmt, trans):
+        """quantize_rows as the two-pass route runs it (result in the
+        stored layout); returns the quantized panel."""
+        kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=trans)
+        y = qr.quantize_rows(x, **kw)
+        bitwise(y, qr.quantize_rows_plain(x, **kw), f"quantize_rows {role}")
+        n = x.numel()
+        b_ms, b_by = _bound(4 * n, 8 * n, H100_F32_FLOPS)
+        rows.append({
+            "name": "quantize_rows", "role": role, "shape": list(x.shape),
+            "trans": trans, "max_abs_err": 0.0,
+            "ms": timer.ms(lambda: qr.quantize_rows(x, **kw), iters=10),
+            "plain_ms": timer.ms(lambda: qr.quantize_rows_plain(x, **kw),
+                                 iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+        return y
+
+    # FFN (qmm_stream): fwd fp4 block x fp4 tile; dgrad pass x pass with
+    # w read transposed; wgrad fp8 blocks with x read transposed.
+    x, h = rand(t, d, scale=2), rand(t, f, scale=2)
+    g_d, g_f = rand(t, d, scale=0.01), rand(t, f, scale=0.01)
+    w_up, w_down = rand(d, f, scale=0.05), rand(f, d, scale=0.05)
+    fp4 = dict(a_fmt="fp4_e2m1", b_fmt="fp4_e2m1")
+    fp8 = dict(a_fmt="fp8_e4m3", b_fmt="fp8_e5m2")
+    stream_calls = [
+        ("fwd w_up", x, w_up, dict(a_mode="block", b_mode="tile", **fp4)),
+        ("fwd w_down", h, w_down, dict(a_mode="block", b_mode="tile",
+                                       **fp4)),
+        ("dgrad w_up", g_f, w_up, dict(a_mode="pass", b_mode="pass",
+                                       a_fmt="bf16", b_fmt="bf16",
+                                       trans_b=True)),
+        ("dgrad w_down", g_d, w_down, dict(a_mode="pass", b_mode="pass",
+                                           a_fmt="bf16", b_fmt="bf16",
+                                           trans_b=True)),
+        ("wgrad w_up", x, g_f, dict(a_mode="block", b_mode="block",
+                                    trans_a=True, **fp8)),
+        ("wgrad w_down", h, g_d, dict(a_mode="block", b_mode="block",
+                                      trans_a=True, **fp8)),
+    ]
+    for role, a, b, kw in stream_calls:
+        ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
+        y = qs.qmm_stream(a, b, **kw)
+        err = gemm_err(y, qs.qmm_stream_plain(a, b, **kw),
+                       f"qmm_stream {role}")
+        aq = (a if kw["a_mode"] == "pass" else qr.quantize_rows(
+            a, mode=kw["a_mode"], fmt_name=kw["a_fmt"], trans=ta,
+            emit_trans=ta))
+        bq = (b if kw["b_mode"] == "pass" else qr.quantize_rows(
+            b, mode=kw["b_mode"], fmt_name=kw["b_fmt"], trans=not tb,
+            emit_trans=not tb))
+        two = tm.tiled_mm(aq, bq, trans_a=ta, trans_b=tb)
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), two.view(torch.int16)):
+            raise AssertionError(f"qmm_stream {role} != quantize_rows + "
+                                 "tiled_mm bitwise")
+        ae, be = (aq.T if ta else aq), (bq.T if tb else bq)
+        (m, k), n = ae.shape, be.shape[1]
+        b_ms, b_by = gemm_bound(m, k, n)
+        rows.append({
+            "name": "qmm_stream", "role": role, "shape": [m, k, n],
+            "trans": ta or tb, "max_abs_err": err,
+            "ms": timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=5),
+            "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
+                                 iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5)})
+
+    # Attention linears (two-pass, token modes): fwd x . w; dgrad
+    # g . w^T; wgrad x^T . g.
+    w = rand(d, d, scale=0.05)
+    tok = [
+        ("fwd wq", x, w, ("fp8_e4m3", "fp8_e4m3"), False, False),
+        ("dgrad wq", g_d, w, ("fp8_e5m2", "fp8_e4m3"), False, True),
+        ("wgrad wq", x, g_d, ("fp8_e4m3", "fp8_e5m2"), True, False),
+    ]
+    for role, a, b, (fa_, fb_), ta, tb in tok:
+        aq = quant(f"{role} lhs", a, "token", fa_, ta)
+        bq = quant(f"{role} rhs", b, "token", fb_, not tb)
+        kw = dict(trans_a=ta, trans_b=tb)
+        y = tm.tiled_mm(aq, bq, **kw)
+        err = gemm_err(y, tm.tiled_mm_plain(aq, bq, **kw), f"tiled_mm {role}")
+        ae, be = (aq.T if ta else aq), (bq.T if tb else bq)
+        (m, k), n = ae.shape, be.shape[1]
+        b_ms, b_by = gemm_bound(m, k, n)
+        rows.append({
+            "name": "tiled_mm", "role": role, "shape": [m, k, n],
+            "trans": ta or tb, "max_abs_err": err,
+            "ms": timer.ms(lambda: tm.tiled_mm(aq, bq, **kw), iters=5),
+            "plain_ms": timer.ms(lambda: tm.tiled_mm_plain(aq, bq, **kw),
+                                 iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5)})
+
+    # Flash attention forward, (B*H, S, D) = (96, 1024, 64), causal.
+    bh, s_, dh = TRAIN_BATCH * 12, TRAIN_SEQ, 64
+    q, k, v = (rand(bh, s_, dh) for _ in range(3))
+    o = fa.flash_attention_fwd(q, k, v)
+    ref = fa.flash_attention_fwd_plain(q, k, v)
+    err = (o.float() - ref.float()).abs()
+    if not bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all()):
+        raise AssertionError("flash_attention out of tolerance: max err "
+                             f"{err.max().item()}")
+    q4, k4, v4 = (x_.view(TRAIN_BATCH, 12, s_, dh) for x_ in (q, k, v))
+    b_ms, b_by = _bound(2 * 4 * bh * s_ * dh,
+                        2 * dh * s_ * (s_ + 1) * bh, H100_BF16_FLOPS)
+    rows.append({
+        "name": "flash_attention", "role": "fwd", "shape": [bh, s_, dh],
+        "trans": False, "max_abs_err": err.max().item(),
+        "ms": timer.ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
+        "plain_ms": timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
+                             iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: F_nn.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), iters=10)})
+    torch.cuda.synchronize()
+    emit({"phase": "train_kernels", "card": card, "dtype": "bfloat16",
+          "tokens": t, "ok": True, "table": rows})
     return rows
 
 
@@ -421,7 +605,7 @@ def phase_slice(torch, card):
     engine.prefill, engine.generate_step = timed_prefill, timed_step
     ids = [batcher.submit(p, new_tokens) for p in prompts]
     for kern in (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL):
-        kern.launches = 0
+        kern.reset()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -479,6 +663,257 @@ def phase_slice(torch, card):
     return launches
 
 
+class TrainRecorder:
+    """While entered, records step 0's quantized matmul roles (fwd, dgrad,
+    wgrad) and flash attention calls of the layers in REPLAY_LAYERS: the
+    card's inputs (cloned) and outputs, for ``replay_train_ops``.
+
+    Roles are told apart by their trans flags; a call's layer comes from
+    the order of the forward (gpt2: wq, wk, wv, wo, w_up, w_down per
+    layer, one flash call per layer) and, in the backward, from the
+    tensors the forward saw: dgrad reads the forward's weight, wgrad its
+    input."""
+
+    NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+
+    def __enter__(self):
+        from repro_torch.core import qlinear as ql
+        from repro_torch.kernels import ops
+        self.records, self.n_fwd, self.n_flash = [], 0, 0
+        self._w, self._x = {}, {}
+        self._saved = [(ql, "_role", ql._role),
+                       (ops, "flash_attention_fwd", ops.flash_attention_fwd)]
+        ql._role = self._role(ql._role)
+        ops.flash_attention_fwd = self._flash(ops.flash_attention_fwd)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def _keep(self, layer, role, fn, args, kw, y):
+        if layer in REPLAY_LAYERS:
+            self.records.append({
+                "layer": layer, "role": role, "fn": fn, "kw": kw,
+                "args": [a.detach().clone() if hasattr(a, "detach") else a
+                         for a in args], "out": y.detach().clone()})
+
+    def _role(self, fn):
+        def call(impl, a, b, spec_a, spec_b, *, trans_a=False,
+                 trans_b=False):
+            y = fn(impl, a, b, spec_a, spec_b, trans_a=trans_a,
+                   trans_b=trans_b)
+            if trans_b:                          # dgrad: b is the weight
+                layer, name = self._w[b.data_ptr()]
+                role = f"dgrad {name}"
+            elif trans_a:                        # wgrad: a is the input
+                layer = self._x[a.data_ptr()]
+                role = f"wgrad {tuple(b.shape)}"
+            else:
+                layer, j = divmod(self.n_fwd, len(self.NAMES))
+                self.n_fwd += 1
+                self._w[b.data_ptr()] = (layer, self.NAMES[j])
+                self._x[a.data_ptr()] = layer
+                role = f"fwd {self.NAMES[j]}"
+            self._keep(layer, role, fn, (impl, a, b, spec_a, spec_b),
+                       dict(trans_a=trans_a, trans_b=trans_b), y)
+            return y
+        return call
+
+    def _flash(self, fn):
+        def call(q, k, v, *, causal=True):
+            y = fn(q, k, v, causal=causal)
+            self._keep(self.n_flash, "flash", fn, (q, k, v),
+                       dict(causal=causal), y)
+            self.n_flash += 1
+            return y
+        return call
+
+
+def replay_train_ops(torch, records):
+    """Each recorded card call again on the CPU (the plain versions) on
+    the card's inputs.  Returns per-record (layer, role, relative L2 of
+    the output, quantized operand elements that differ) and the control:
+    layer 0's wq dgrad replayed with trans_b off."""
+    from repro_torch.core.qlinear import kernel_quant_mode
+    from repro_torch.kernels import quantize_rows as qr
+
+    def rel(y, ref):
+        y, ref = y.cpu().double(), ref.double()
+        return float((y - ref).norm() / max(float(ref.norm()), 1e-30))
+
+    def q_diff(x, spec, trans):
+        """Elements of the card's quantization of operand ``x`` that differ
+        from the plain version's on the CPU (two-pass layout)."""
+        if spec.is_passthrough:
+            return 0
+        kw = dict(mode=kernel_quant_mode(spec), fmt_name=spec.fmt,
+                  trans=trans, emit_trans=trans)
+        return int((qr.quantize_rows(x, **kw).cpu()
+                    != qr.quantize_rows_plain(x.cpu(), **kw)).sum())
+
+    out, control = [], None
+    for r in records:
+        args = [a.cpu() if hasattr(a, "cpu") else a for a in r["args"]]
+        ref = r["fn"](*args, **r["kw"])
+        row = {"layer": r["layer"], "role": r["role"],
+               "rel_l2": rel(r["out"], ref), "quantized_differing": 0}
+        if r["role"] != "flash":
+            _, a, b, spec_a, spec_b = r["args"]
+            ta, tb = r["kw"]["trans_a"], r["kw"]["trans_b"]
+            row["quantized_differing"] = (q_diff(a, spec_a, ta)
+                                          + q_diff(b, spec_b, not tb))
+        out.append(row)
+        if r["layer"] == 0 and r["role"] == "dgrad wq":
+            bad = r["fn"](*args, trans_a=False, trans_b=False)
+            control = rel(r["out"], bad)
+    return out, control
+
+
+def profile_train_step(torch, fn, state, batch, card) -> None:
+    """Split of one training step (paper_fp4 plan) from a
+    ``torch.profiler`` trace: device time by kernel group and the
+    device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state.params, state.opt_state, batch, 0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups = (("qmm_stream", ("qmm_stream_kernel",)),
+              ("quantize_rows", ("quantize_rows_kernel",
+                                 "quantize_cols_kernel",
+                                 "tensor_amax_kernel")),
+              ("tiled_mm", ("tiled_mm_kernel",)),
+              ("flash_attention", ("flash_fwd_kernel",)),
+              ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
+              ("memcpy_memset", ("Memcpy", "Memset")))
+    by_group, by_name = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        group = next((g for g, keys in groups
+                      if any(k in ev.key for k in keys)), "other_torch")
+        by_group[group] = by_group.get(group, 0.0) + ms
+        by_name[ev.key[:80]] = ms
+    busy = sum(by_group.values()) if by_group else None
+    emit({"phase": "train_profile", "card": card, "plan": "paper_fp4",
+          "wall_ms": wall_ms,
+          "device_ms": busy if busy else "not measured",
+          "device_busy_share": busy / wall_ms if busy else "not measured",
+          "device_ms_by_group": by_group,
+          "top_kernels_ms": dict(sorted(by_name.items(),
+                                        key=lambda kv: -kv[1])[:10])})
+
+
+def phase_train(torch, card):
+    """Train gpt2-125m at full width and depth for TRAIN_STEPS steps;
+    gate the run (see the module docstring); return the path's launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
+                                          attention_impl="pallas")
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=TRAIN_STEPS,
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       log_every=0)
+    trainer = Trainer(build_model(cfg), tcfg,
+                      SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                  seed=0))
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.reset()
+    per_step = []
+    for step in range(TRAIN_STEPS):
+        before = {k.name: (k.launches, k.trans_launches) for k in kernels}
+        if step == 0:
+            with TrainRecorder() as rec:
+                state = trainer.train(state, num_steps=1)
+        else:
+            state = trainer.train(state, num_steps=1)
+        per_step.append({k.name: [k.launches - before[k.name][0],
+                                  k.trans_launches - before[k.name][1]]
+                         for k in kernels})
+    launches = {k.name: k.launches for k in kernels}
+    trans = {k.name: k.trans_launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    dts = [r["dt"] for r in hist]
+    p50 = float(np.median(dts[1:]))
+    if rec.n_fwd != 6 * cfg.n_layers or rec.n_flash != cfg.n_layers:
+        raise AssertionError(f"recorded {rec.n_fwd} forward matmuls and "
+                             f"{rec.n_flash} flash calls in step 0")
+    replay, control = replay_train_ops(torch, rec.records)
+    del rec
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    failures = []
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss: {losses}")
+    elif not losses[6] < losses[0]:
+        failures.append(f"loss did not fall: step 0 {losses[0]}, step 6 "
+                        f"{losses[6]}")
+    switch = trainer.schedule.switch_step
+    plans = [r["recipe"] for r in hist]
+    if switch != 7 or plans != ["paper_fp4"] * 7 + ["bf16"]:
+        failures.append(f"switch step {switch}, plans {plans}")
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never ran: {launches}")
+    if min(trans[k] for k in ("qmm_stream", "quantize_rows",
+                              "tiled_mm")) <= 0 or \
+            launches["qmm_stream"] <= trans["qmm_stream"]:
+        failures.append(f"a layout never ran: launches {launches}, "
+                        f"transposed {trans}")
+    if not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if control is None or not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    emit({"phase": "train", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab_size": cfg.vocab_size, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS, "recipe": "paper_fp4",
+          "switch_step": switch, "losses": losses, "plans": plans,
+          "step_ms": [dt * 1e3 for dt in dts],
+          "step_p50_ms_after_first": p50 * 1e3,
+          "tokens_per_s": TRAIN_TOKENS / p50,
+          "max_memory_allocated": int(peak),
+          "launches_per_step": per_step,
+          "launches": launches, "trans_launches": trans,
+          "op_replay": {"calls": len(replay), "layers": list(REPLAY_LAYERS),
+                        "rel_l2_max": worst, "bound": bound,
+                        "quantized_differing": q_bad,
+                        "rel_l2_max_by_role": {
+                            k: max(r["rel_l2"] for r in replay
+                                   if r["role"].split()[0] == k)
+                            for k in ("fwd", "dgrad", "wgrad", "flash")},
+                        "control_wq_dgrad_without_trans_b": control}})
+    if failures:
+        raise AssertionError("train phase: " + "; ".join(failures))
+    fn = trainer._step_fn(trainer.plan)
+    profile_train_step(torch, fn, state, trainer._batch(trainer.pipeline, 0),
+                       card)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -496,27 +931,33 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     card = card_line()
     phase_build(card)
-    rows = phase_kernels(torch, card)
-    launches = phase_slice(torch, card)
-    emit({"launches": launches})
+    phase_kernels(torch, card)
+    rows = phase_train_kernels(torch, card)
+    serve_launches = phase_slice(torch, card)
+    train_launches = phase_train(torch, card)
+    emit({"launches": {"serve": serve_launches, "train": train_launches},
+          "seconds": time.perf_counter() - t0})
 
-    main_shape = {"quantize_rows": [8, 768], "qmm_stream": [8, 768, 3072],
-                  "tiled_mm": [8, 768, 768]}
-    source = {"quantize_rows": "src/repro_torch/kernels/csrc/quantize_rows.cu",
-              "qmm_stream": "src/repro_torch/kernels/csrc/qmm_stream.cu",
-              "tiled_mm": "src/repro_torch/kernels/csrc/tiled_mm.cu"}
+    # One record per kernel: launches from the train path, the call of
+    # the training step that the row stands for (its first forward use).
+    main_role = {"qmm_stream": "fwd w_up", "quantize_rows": "fwd wq lhs",
+                 "tiled_mm": "fwd wq", "flash_attention": "fwd"}
+    source = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"quantize_rows": "src/repro/kernels/fp4_matmul.py:283",
                 "qmm_stream": "src/repro/kernels/fp4_matmul.py:713",
-                "tiled_mm": "src/repro/kernels/fp4_matmul.py:576"}
+                "tiled_mm": "src/repro/kernels/fp4_matmul.py:576",
+                "flash_attention": "src/repro/kernels/flash_attention.py:33"}
     kernels = []
-    for name in ("qmm_stream", "quantize_rows", "tiled_mm"):
+    for name in ("qmm_stream", "quantize_rows", "tiled_mm",
+                 "flash_attention"):
         mine = [r for r in rows if r["name"] == name]
-        rep = next(r for r in mine if r["shape"] == main_shape[name])
+        rep = next(r for r in mine if r["role"] == main_role[name])
         kernels.append({
-            "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source.format(name),
+            "replaces": replaces[name], "launches": train_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -1,12 +1,12 @@
-"""Model configuration dataclasses (the dense serving subset of
+"""Model and training configuration dataclasses (the dense subset of
 ``repro.configs.base``, same field names and defaults)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
-__all__ = ["ModelConfig", "LayerSpec", "get_config"]
+__all__ = ["ModelConfig", "LayerSpec", "TrainConfig", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +77,50 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Field-for-field the reference ``TrainConfig``.  The port's
+    ``Trainer`` runs one device with AdamW, the uniform plan and the §3.3
+    switch; it raises ``NotImplementedError`` for every field of a
+    feature it does not have yet (telemetry, the controller, fp8 gradient
+    compression, meshes, checkpoints, cost calibration, other plan
+    presets) rather than ignore it."""
+
+    recipe: str = "paper_fp4"
+    total_steps: int = 200
+    global_batch: int = 8
+    seq_len: int = 512
+    microbatch: int = 0          # 0 = no gradient accumulation
+    learning_rate: float = 6e-4
+    warmup_frac: float = 0.0015
+    min_lr_frac: float = 0.1
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 0    # 0 = disabled
+    checkpoint_dir: str = ""
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = False
+    grad_compression: str = "none"   # none | fp8 (error-feedback)
+    mesh_shape: Optional[Tuple[int, ...]] = None
+    mesh_axes: Optional[Tuple[str, ...]] = None
+    fsdp: bool = True
+    log_every: int = 10
+    telemetry: bool = False
+    telemetry_every: int = 1
+    telemetry_jsonl: str = ""
+    target_recipe: str = "bf16"      # stage-2 recipe of the §3.3 schedule
+    controller: Optional[object] = None
+    plan_preset: str = "uniform"
+    plan_k: int = 2
+    plan_frac: float = 0.5
+    profiler_warmup: int = 2
+    cost_calibration: str = ""
 
 
 ARCHS = ["gpt2-125m", "llama-125m", "tiny"]

@@ -1,8 +1,16 @@
-"""Quantized linear, forward only (counterpart of
+"""Quantized linear with per-role precision (counterpart of
 ``repro.core.qlinear``).
 
 ``qlinear(x, w, recipe, impl=...)`` runs ``y = Q(x) @ Q(w)`` with the
-recipe's forward specs.  ``impl`` is the config's ``linear_impl``:
+recipe's forward specs; under autograd its backward runs the recipe's two
+backward matmuls, each quantizing its operands along its own reduction
+axis, and passes the gradients on by straight-through estimation:
+
+    dgrad  dx = Q(g) @ Q(w^T)   (``dgrad_g`` x ``dgrad_w``, reduction N)
+    wgrad  dw = Q(x^T) @ Q(g)   (``wgrad_x`` x ``wgrad_g``, reduction M)
+
+``dx`` comes back in x's dtype and ``dw`` in w's dtype.  ``impl`` is the
+config's ``linear_impl``:
 
 * ``"qdq"`` — unfused QDQ then a matmul in the input dtype (``dot_qdq``);
 * ``"pallas"`` / ``"pallas_two_pass"`` — the fused pipeline of
@@ -14,11 +22,14 @@ recipe's forward specs.  ``impl`` is the config's ``linear_impl``:
 
 A ``PackedTensor`` weight takes ``packed_linear``: the quantize-once panel
 is expanded (bitwise equal to the training QDQ) and fed to the matmul as a
-pass-mode operand, so only the activations are quantized per call.
-This slice has no backward: the STE gradients come with training.
+pass-mode operand, so only the activations are quantized per call; it is
+forward only (serving).  Stochastic-rounding specs are not ported and
+raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -27,18 +38,22 @@ from repro_torch.core.packed import PackedTensor
 from repro_torch.core.quantize import BF16_SPEC, QuantSpec, qdq
 from repro_torch.core.recipe import MatmulRecipe
 
-__all__ = ["qlinear", "packed_linear", "dot_qdq", "kernel_quant_mode",
-           "kernel_unsupported_reason", "LINEAR_IMPLS"]
+__all__ = ["qlinear", "qmatmul", "packed_linear", "dot_qdq",
+           "kernel_quant_mode", "kernel_unsupported_reason", "matmul_impl",
+           "LINEAR_IMPLS"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
 
 
 def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
-            spec_b: QuantSpec) -> torch.Tensor:
-    """QDQ both operands of ``a @ b`` (reduction axes 1 and 0), then the
-    matmul in the input dtype."""
-    return torch.matmul(qdq(a, spec_a, 1), qdq(b, spec_b, 0))
+            spec_b: QuantSpec, *, trans_a: bool = False,
+            trans_b: bool = False) -> torch.Tensor:
+    """QDQ both operands of ``A' @ B'`` (``A' = a.T`` under ``trans_a``,
+    same for B'; reduction axes 1 and 0), then the matmul in the input
+    dtype."""
+    return torch.matmul(qdq(a.T if trans_a else a, spec_a, 1),
+                        qdq(b.T if trans_b else b, spec_b, 0))
 
 
 def kernel_unsupported_reason(spec: QuantSpec) -> Optional[str]:
@@ -70,14 +85,17 @@ def kernel_quant_mode(spec: QuantSpec) -> Optional[str]:
 
 
 def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
-               spec_b: QuantSpec, *, pipeline: Optional[str] = None
+               spec_b: QuantSpec, *, trans_a: bool = False,
+               trans_b: bool = False, pipeline: Optional[str] = None
                ) -> torch.Tensor:
-    """One matmul through the fused kernels.  A spec they cannot realize
+    """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
+    operands read in their stored layout.  A spec they cannot realize
     raises on a CUDA tensor and takes ``dot_qdq`` on a CPU tensor."""
     mode_a, mode_b = kernel_quant_mode(spec_a), kernel_quant_mode(spec_b)
     if mode_a is None or mode_b is None:
         if a.device.type == "cpu":
-            return dot_qdq(a, b, spec_a, spec_b)
+            return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
+                           trans_b=trans_b)
         reasons = [r for r in (kernel_unsupported_reason(spec_a),
                                kernel_unsupported_reason(spec_b)) if r]
         raise NotImplementedError(
@@ -85,7 +103,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             f"{spec_b.to_str()}: {'; '.join(reasons)}")
     from repro_torch.kernels.ops import pallas_qmm
     return pallas_qmm(a, b, spec_a, spec_b, mode_a=mode_a, mode_b=mode_b,
-                      pipeline=pipeline)
+                      trans_a=trans_a, trans_b=trans_b, pipeline=pipeline)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -118,23 +136,77 @@ def packed_linear(x: torch.Tensor, w: PackedTensor, recipe: MatmulRecipe,
     return y
 
 
+def _role(impl: str, a, b, spec_a: QuantSpec, spec_b: QuantSpec, *,
+          trans_a: bool = False, trans_b: bool = False) -> torch.Tensor:
+    """One matmul role under ``impl`` (stored operands, trans flags)."""
+    if impl == "qdq":
+        return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
+                       trans_b=trans_b)
+    return _dot_fused(a, b, spec_a, spec_b, trans_a=trans_a,
+                      trans_b=trans_b, pipeline=_check_impl(impl))
+
+
+class _QMatmul(torch.autograd.Function):
+    """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE)."""
+
+    @staticmethod
+    def forward(ctx, x, w, recipe: MatmulRecipe, impl: str):
+        ctx.save_for_backward(x, w)
+        ctx.recipe, ctx.impl = recipe, impl
+        return _role(impl, x, w, recipe.fwd_x, recipe.fwd_w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        r, g = ctx.recipe, g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
+            dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w,
+                       trans_b=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
+            dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g,
+                       trans_a=True).to(w.dtype)
+        return dx, dw, None, None
+
+
+def qmatmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe, *,
+            impl: str = "qdq") -> torch.Tensor:
+    """``y = Q(x2d) @ Q(w)`` for a (M, K) x (K, N) pair, differentiable
+    (the reference's ``qmatmul`` / ``pallas_qmatmul`` custom_vjp)."""
+    _check_impl(impl)
+    for f in dataclasses.fields(recipe):
+        spec = getattr(recipe, f.name)
+        if spec.stochastic:
+            raise NotImplementedError(
+                f"{f.name} {spec.to_str()}: stochastic rounding is not "
+                "ported")
+    return _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe, impl)
+
+
+def matmul_impl(impl: str):
+    """Resolve a ``linear_impl`` value to its matmul (the reference's
+    name): ``qmatmul`` bound to that impl."""
+    _check_impl(impl)
+    return functools.partial(qmatmul, impl=impl)
+
+
 def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
             bias: Optional[torch.Tensor] = None,
             impl: str = "qdq") -> torch.Tensor:
     """Linear over the last axis of ``x``: (..., K) @ (K, N) -> (..., N),
-    quantized per the recipe's forward specs."""
+    quantized per the recipe (forward specs now, backward specs in the
+    gradient); a passthrough recipe is one plain matmul."""
     if isinstance(w, PackedTensor):
         return packed_linear(x, w, recipe, bias=bias, impl=impl)
-    pipeline = _check_impl(impl)
+    _check_impl(impl)
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
     if recipe.is_passthrough:
         y = torch.matmul(x2d, w)
-    elif impl == "qdq":
-        y = dot_qdq(x2d, w, recipe.fwd_x, recipe.fwd_w)
     else:
-        y = _dot_fused(x2d.contiguous(), w.contiguous(), recipe.fwd_x,
-                       recipe.fwd_w, pipeline=pipeline)
+        y = qmatmul(x2d, w, recipe, impl=impl)
     y = y.reshape(*x.shape[:-1], w.shape[-1])
     if bias is not None:
         y = y + bias

@@ -1,11 +1,13 @@
-"""Precision recipes and layer-resolved plans (the serving subset of
-``repro.core.recipe``).
+"""Precision recipes and layer-resolved plans (counterpart of
+``repro.core.recipe``; the depth-graded presets and the plan transforms
+of the controller are not ported).
 
 A linear ``y = x @ w`` has three matmuls (fwd, dgrad, wgrad), each with
 two quantized operands; ``MatmulRecipe`` holds the six ``QuantSpec``s.
 ``PrecisionRecipe`` maps module classes (attn / ffn / head) to recipes;
-``PrecisionPlan`` resolves that template over depth.  The serving path
-reads only the forward specs.
+``PrecisionPlan`` resolves that template over depth; ``stage2_plan`` is
+the §3.3 switch as a plan transform.  ``RECIPES`` holds every recipe of
+the reference with the same spec strings.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from typing import Dict, Optional, Tuple, Union
 from repro_torch.core.quantize import QuantSpec
 
 __all__ = ["MatmulRecipe", "PrecisionRecipe", "LayerRecipe",
-           "PrecisionPlan", "RECIPES", "as_plan", "MM_BF16", "MM_FP8",
-           "MM_FFN_PAPER"]
+           "PrecisionPlan", "RECIPES", "as_plan", "stage2_plan",
+           "MM_BF16", "MM_FP8", "MM_FP4_ALL", "MM_FFN_PAPER"]
 
 _ROLES = ("fwd_x", "fwd_w", "dgrad_g", "dgrad_w", "wgrad_x", "wgrad_g")
 
@@ -68,6 +70,7 @@ def _mm(fwd: str, bwd_w: str, bwd_d: Optional[str], *,
 
 MM_BF16 = MatmulRecipe()
 MM_FP8 = _mm("fp8", "fp8", "fp8")
+MM_FP4_ALL = _mm("fp4", "fp4", "fp4", fwd_gran="block", wgrad_gran="block")
 MM_FFN_PAPER = _mm("fp4", "fp8", None, fwd_gran="block", wgrad_gran="block")
 
 
@@ -139,10 +142,59 @@ def as_plan(p: Union[PrecisionPlan, PrecisionRecipe], n_layers: int
     return PrecisionPlan.uniform(p, n_layers)
 
 
+def stage2_plan(plan: PrecisionPlan, target: PrecisionPlan
+                ) -> PrecisionPlan:
+    """The §3.3 stage-2 switch: every row and the head take the target
+    plan's cells (identity if already equal)."""
+    if (plan.layers == target.layers
+            and plan.head_linear == target.head_linear):
+        return plan
+    return dataclasses.replace(plan, name=target.name, layers=target.layers,
+                               head_linear=target.head_linear)
+
+
 RECIPES = {
     "bf16": PrecisionRecipe("bf16"),
     "fp8": PrecisionRecipe("fp8", attn_linear=MM_FP8, ffn_linear=MM_FP8),
     "paper_fp4": PrecisionRecipe(
         "paper_fp4", attn_linear=MM_FP8, ffn_linear=MM_FFN_PAPER,
         target_precision_frac=0.075),
+    "paper_fp4_nosched": PrecisionRecipe(
+        "paper_fp4_nosched", attn_linear=MM_FP8, ffn_linear=MM_FFN_PAPER),
+    # Table 2 ablation grid (attn / ffn / fp4-linear-backward)
+    "all_fp4": PrecisionRecipe(
+        "all_fp4", attn_linear=MM_FP4_ALL, ffn_linear=MM_FP4_ALL),
+    "t2_fp4_fp8_fp8": PrecisionRecipe(
+        "t2_fp4_fp8_fp8",
+        attn_linear=_mm("fp4", "fp8", "fp8", fwd_gran="block"),
+        ffn_linear=MM_FP8),
+    "t2_fp8_fp4_fp4": PrecisionRecipe(
+        "t2_fp8_fp4_fp4", attn_linear=MM_FP8, ffn_linear=MM_FP4_ALL),
+    "t2_fp8_fp4_fp8": PrecisionRecipe(
+        "t2_fp8_fp4_fp8", attn_linear=MM_FP8,
+        ffn_linear=_mm("fp4", "fp8", "fp8", fwd_gran="block")),
+    # App. B model-size-dependent variants
+    "gpt125m_fp4": PrecisionRecipe(
+        "gpt125m_fp4", attn_linear=MM_FP8,
+        ffn_linear=_mm("fp4", "fp4", None, fwd_gran="token",
+                       wgrad_gran="token"),
+        target_precision_frac=0.075),
+    "gpt335m_fp4": PrecisionRecipe(
+        "gpt335m_fp4", attn_linear=MM_FP8,
+        ffn_linear=_mm("fp4", "fp4", None, fwd_gran="token",
+                       wgrad_gran="block"),
+        target_precision_frac=0.075),
+    "all_fp4_sched": PrecisionRecipe(
+        "all_fp4_sched", attn_linear=MM_FP4_ALL, ffn_linear=MM_FP4_ALL,
+        target_precision_frac=0.1),
+    # beyond the paper: per-block FP4 with stochastic rounding on the
+    # FP4 weight gradients (SR is not ported: running it raises)
+    "fine_grained_fp4": PrecisionRecipe(
+        "fine_grained_fp4", attn_linear=MM_FP8,
+        ffn_linear=dataclasses.replace(
+            MM_FP4_ALL,
+            wgrad_g=QuantSpec("fp4_e2m1", "block", stochastic=True),
+            dgrad_g=QuantSpec("fp8_e5m2", "token")),
+        target_precision_frac=0.075),
 }
+

@@ -1,0 +1,4 @@
+"""Deterministic LM data (counterpart of ``repro.data``)."""
+from repro_torch.data.pipeline import SyntheticLM
+
+__all__ = ["SyntheticLM"]

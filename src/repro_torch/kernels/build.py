@@ -19,12 +19,12 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 __all__ = ["SOURCES", "build_all", "load", "BUILD_DIR", "NVCC_FLAGS",
-           "CudaKernel"]
+           "CudaKernel", "cuda_operands", "effective_dims", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("quantize_rows", "qmm_stream", "tiled_mm")
+SOURCES = ("quantize_rows", "qmm_stream", "tiled_mm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,7 +94,9 @@ class CudaKernel:
     ``launches`` goes up by the number of kernels a successful call of
     the entry point launched (``kernels``, one unless the wrapper says
     otherwise) and nowhere else, so a run can show that its path went
-    through the kernel.  Wrappers do not call the entry point for an
+    through the kernel; ``trans_launches`` counts the part of them that
+    read or wrote an operand transposed (``trans``: the backward
+    matmuls' layouts).  Wrappers do not call the entry point for an
     empty output.  The entry point returns ``cudaGetLastError()``; a
     non-zero code raises.
     """
@@ -103,9 +105,13 @@ class CudaKernel:
         self.name = name
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.trans_launches = 0
         self._fn = None
 
-    def launch(self, *args, kernels: int = 1) -> None:
+    def reset(self) -> None:
+        self.launches = self.trans_launches = 0
+
+    def launch(self, *args, kernels: int = 1, trans: bool = False) -> None:
         if self._fn is None:
             fn = getattr(load(self.name), f"{self.name}_launch")
             fn.argtypes = self.argtypes
@@ -115,6 +121,8 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += kernels
+        if trans:
+            self.trans_launches += kernels
 
 
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -138,6 +146,18 @@ def cuda_operands(*ts):
     if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, not {dt}")
     return code
+
+
+def effective_dims(a, b, trans_a: bool, trans_b: bool):
+    """(M, K, N) of ``A' @ B'`` with ``A' = a.T`` under ``trans_a`` (same
+    for B'); raises if the inner dims differ."""
+    m, k = (a.shape[1], a.shape[0]) if trans_a else a.shape
+    kb, n = (b.shape[1], b.shape[0]) if trans_b else b.shape
+    if k != kb:
+        raise ValueError(f"inner dims differ: {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} (trans_a={trans_a}, "
+                         f"trans_b={trans_b})")
+    return m, k, n
 
 
 def stream_ptr(t) -> int:

@@ -12,31 +12,91 @@
 // which order like unsigned ints for non-negative values) and then runs
 // the block-mode grid with that amax.
 //
+// trans / emit_trans (the reference's flags): under trans the operand is
+// stored (cols, rows) and read transposed; under emit_trans the result is
+// written (cols, rows).  The backward matmuls quantize along their own
+// reduction axis, which for wgrad's x^T and for a (K, N) weight is a
+// column of the stored array: a 1 x 128 group is 128 stored rows of one
+// column, and a token group a whole column.  Reading one such group per
+// block would make every warp load touch 32 rows; instead a transposed
+// block / token / tensor launch gives each block 32 neighbouring quant
+// rows (lane = quant row, the 8 warps stride down the stored rows), so a
+// warp reads 32 neighbouring elements of one stored row.  Transposed tile
+// groups (128 x 128) keep one block per group and walk it with the stored
+// row fastest.  No transposed copy of an operand is ever made.
+//
 // Bound: bytes.  It reads each input element once or twice (the second
-// read of a row hits L1/L2) and writes each once; at the slice's shapes
-// (rows <= 512, cols = 768) it moves under 2 MB, so the launch and the
-// per-row reduction latency dominate, not bandwidth.  Design answer: one
+// read of a group hits L1/L2) and writes each once.  At the serving
+// shapes (rows <= 512, cols = 768) it moves under 2 MB, so the launch and
+// the per-row reduction latency dominate; at the training shapes (8192 x
+// 768 bf16, 12.6 MB each way) the bound is ~7.5 us.  Design answer: one
 // pass per group with no scratch in device memory; making it fast (vector
 // loads, several rows per block) is later work.
 #include "codec.cuh"
 
 namespace {
 
+constexpr int kStrip = 32;  // quant rows per block of a transposed launch
+
+// Row-major groups (or any tile group): one block per gr x gc group.
 template <typename T>
 __global__ void __launch_bounds__(256)
     quantize_rows_kernel(const T* __restrict__ x, T* __restrict__ y,
                          int rows, int cols, int group_rows, int group_cols,
-                         codec::Fmt f,
+                         codec::Fmt f, int trans, int emit_trans,
                          const unsigned int* __restrict__ tensor_amax) {
   const int r0 = blockIdx.x * group_rows, c0 = blockIdx.y * group_cols;
   const int r1 = min(r0 + group_rows, rows), c1 = min(c0 + group_cols, cols);
-  const float amax = tensor_amax ? __uint_as_float(*tensor_amax)
-                                 : codec::region_amax(x, cols, r0, r1, c0, c1);
+  float amax;
+  if (tensor_amax)
+    amax = __uint_as_float(*tensor_amax);
+  else if (trans)  // stored (cols, rows): the same region, axes swapped
+    amax = codec::region_amax(x, rows, c0, c1, r0, r1);
+  else
+    amax = codec::region_amax(x, cols, r0, r1, c0, c1);
   const T sc = codec::from_f32<T>(codec::group_scale(amax, f));
-  const int w = c1 - c0, n = (r1 - r0) * w;
+  const int h = r1 - r0, w = c1 - c0, n = h * w;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long idx = (long)(r0 + i / w) * cols + c0 + i % w;
-    y[idx] = codec::qdq(x[idx], sc, f);
+    // the stored layout's contiguous axis runs fastest
+    const int r = trans ? r0 + i % h : r0 + i / w;
+    const int c = trans ? c0 + i / h : c0 + i % w;
+    const long rc = (long)r * cols + c, cr = (long)c * rows + r;
+    y[emit_trans ? cr : rc] = codec::qdq(x[trans ? cr : rc], sc, f);
+  }
+}
+
+// Transposed read, groups of one quant row (block, token, tensor): a
+// strip of kStrip quant rows by the columns [c0, c0 + group_cols).
+template <typename T>
+__global__ void __launch_bounds__(256)
+    quantize_cols_kernel(const T* __restrict__ x, T* __restrict__ y,
+                         int rows, int cols, int group_cols, codec::Fmt f,
+                         int emit_trans,
+                         const unsigned int* __restrict__ tensor_amax) {
+  __shared__ float part[8][kStrip];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kStrip + lane, c0 = blockIdx.y * group_cols;
+  const int c1 = min(c0 + group_cols, cols);
+  const bool live = r < rows;
+  float amax;
+  if (tensor_amax) {
+    amax = __uint_as_float(*tensor_amax);
+  } else {
+    float m = 0.f;
+    if (live)
+      for (int c = c0 + warp; c < c1; c += 8)
+        m = fmaxf(m, fabsf(codec::to_f32(x[(long)c * rows + r])));
+    part[warp][lane] = m;
+    __syncthreads();
+    amax = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) amax = fmaxf(amax, part[w][lane]);
+  }
+  const T sc = codec::from_f32<T>(codec::group_scale(amax, f));
+  if (!live) return;
+  for (int c = c0 + warp; c < c1; c += 8) {
+    const long cr = (long)c * rows + r;
+    y[emit_trans ? cr : (long)r * cols + c] = codec::qdq(x[cr], sc, f);
   }
 }
 
@@ -54,7 +114,8 @@ __global__ void __launch_bounds__(256)
 
 template <typename T>
 int launch(const void* x, void* y, int rows, int cols, int mode,
-           codec::Fmt f, unsigned int* scratch, cudaStream_t s) {
+           codec::Fmt f, int trans, int emit_trans, unsigned int* scratch,
+           cudaStream_t s) {
   int gr, gc;
   const unsigned int* tensor_amax = nullptr;
   switch (mode) {
@@ -73,28 +134,40 @@ int launch(const void* x, void* y, int rows, int cols, int mode,
     }
     default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((rows + gr - 1) / gr, (cols + gc - 1) / gc);
-  const int threads = gr * gc >= 256 ? 256 : 128;
-  quantize_rows_kernel<T><<<grid, threads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), rows, cols, gr, gc, f,
-      tensor_amax);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  if (trans && gr == 1) {
+    const dim3 grid((rows + kStrip - 1) / kStrip, (cols + gc - 1) / gc);
+    quantize_cols_kernel<T><<<grid, 256, 0, s>>>(xp, yp, rows, cols, gc, f,
+                                                 emit_trans, tensor_amax);
+  } else {
+    const dim3 grid((rows + gr - 1) / gr, (cols + gc - 1) / gc);
+    const int threads = gr * gc >= 256 ? 256 : 128;
+    quantize_rows_kernel<T><<<grid, threads, 0, s>>>(
+        xp, yp, rows, cols, gr, gc, f, trans, emit_trans, tensor_amax);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  mode: codec::Mode (not kPass).
-// scratch: one zeroed uint32 on the device, used by tensor mode only.
+// rows x cols is the quant orientation; x is stored (cols, rows) under
+// trans, y is written (cols, rows) under emit_trans.  dtype: 0 = float32,
+// 1 = bfloat16.  mode: codec::Mode (not kPass).  scratch: one zeroed
+// uint32 on the device, used by tensor mode only.
 extern "C" int quantize_rows_launch(const void* x, void* y, int rows,
                                     int cols, int dtype, int mode,
                                     float qmax, int emin, int mbits,
-                                    int pow2, void* scratch, void* stream) {
+                                    int pow2, int trans, int emit_trans,
+                                    void* scratch, void* stream) {
   const codec::Fmt f{qmax, emin, mbits, pow2};
   auto* sc = static_cast<unsigned int*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || cols <= 0) return 0;
-  if (dtype == 0) return launch<float>(x, y, rows, cols, mode, f, sc, s);
+  if (dtype == 0)
+    return launch<float>(x, y, rows, cols, mode, f, trans, emit_trans, sc, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, y, rows, cols, mode, f, sc, s);
+    return launch<__nv_bfloat16>(x, y, rows, cols, mode, f, trans,
+                                 emit_trans, sc, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,17 +1,27 @@
-// tiled_mm: y = A . B for pre-quantized (or pass-mode) operands, f32
-// accumulation, output in the input dtype.  A is (M, K), B is (K, N),
-// both row-major.
+// tiled_mm: y = A' . B' for pre-quantized (or pass-mode) operands, f32
+// accumulation, output in the input dtype.  A' is (M, K), stored row-major
+// as A (M, K), or as A (K, M) read transposed under trans_a; B' is (K, N),
+// stored as B (K, N), or as B (N, K) under trans_b.
 //
 // Replaces repro/kernels/fp4_matmul.py::_mm_kernel (via _tiled_matmul),
 // the two-pass pipeline's phase 2.  The TPU kernel carries its f32
 // accumulator in VMEM scratch across the sequential K grid axis; here one
 // block owns one BM x BN output tile, loops over K itself and keeps the
 // accumulator in registers, staging BK-deep A and B tiles in shared
-// memory.  Ragged M / N / K edges are masked in the kernel (zero fill on
-// load, no store), so no operand is padded.
+// memory.  Each K step issues all of a thread's global loads into
+// registers before any shared store, so the loads are in flight together
+// (a block walks K serially; at M = 8 the load latency is the kernel's
+// time).  The trans flags are the reference's index maps: the tile loads
+// read the stored layout in place (the stored row's contiguous axis
+// fastest, so a warp reads neighbouring addresses) and write the shared
+// tiles in the effective orientation; the shared tiles are padded by one
+// column so those transposing writes do not collide on banks.  Ragged
+// M / N / K edges are masked in the kernel (zero fill on load, no store),
+// so no operand is padded.
 //
 // Bound: at decode (M = 8) bytes, the K x N weight panel (768 x 768 bf16,
-// 1.2 MB: 0.35 us at 3.35 TB/s); at prefill operations, 2 M N K.  This
+// 1.2 MB: 0.35 us at 3.35 TB/s); at prefill and training operations,
+// 2 M N K (8192 x 768 x 768: 9.7 GFLOP, 9.8 us at 989 TFLOP/s bf16).  This
 // first version is a CUDA-core FMA GEMM with 16 x 32 tiles for M <= 16 and
 // 64 x 64 otherwise; tensor-core (mma / wgmma) tiles are later work.
 #include "codec.cuh"
@@ -21,13 +31,13 @@ namespace {
 constexpr int kBK = 32;
 constexpr int kThreads = 256;  // 16 x 16
 
-template <typename T, int BM, int BN>
+template <typename T, int BM, int BN, bool trans_a, bool trans_b>
 __global__ void __launch_bounds__(kThreads)
     tiled_mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     T* __restrict__ c, int M, int N, int K) {
   constexpr int TM = BM / 16, TN = BN / 16;
   __shared__ float As[BM][kBK + 1];
-  __shared__ float Bs[kBK][BN];
+  __shared__ float Bs[kBK][BN + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[TM][TN];
@@ -37,15 +47,37 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int i = threadIdx.x; i < BM * kBK; i += kThreads) {
-      const int r = m0 + i / kBK, k = k0 + i % kBK;
-      As[i / kBK][i % kBK] =
-          (r < M && k < K) ? codec::to_f32(a[(long)r * K + k]) : 0.f;
+    constexpr int NA = BM * kBK / kThreads, NB = kBK * BN / kThreads;
+    float ra[NA], rb[NB];
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int ri = trans_a ? i % BM : i / kBK;
+      const int ki = trans_a ? i / BM : i % kBK;
+      const int r = m0 + ri, k = k0 + ki;
+      ra[j] = (r < M && k < K)
+          ? codec::to_f32(a[trans_a ? (long)k * M + r : (long)r * K + k])
+          : 0.f;
     }
-    for (int i = threadIdx.x; i < kBK * BN; i += kThreads) {
-      const int k = k0 + i / BN, n = n0 + i % BN;
-      Bs[i / BN][i % BN] =
-          (k < K && n < N) ? codec::to_f32(b[(long)k * N + n]) : 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int ki = trans_b ? i % kBK : i / BN;
+      const int ni = trans_b ? i / kBK : i % BN;
+      const int k = k0 + ki, n = n0 + ni;
+      rb[j] = (k < K && n < N)
+          ? codec::to_f32(b[trans_b ? (long)n * K + k : (long)k * N + n])
+          : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NA; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      As[trans_a ? i % BM : i / kBK][trans_a ? i / BM : i % kBK] = ra[j];
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      Bs[trans_b ? i % kBK : i / BN][trans_b ? i / kBK : i % BN] = rb[j];
     }
     __syncthreads();
 #pragma unroll 8
@@ -73,30 +105,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, int BM, int BN, bool TA, bool TB>
+void run(const T* a, const T* b, T* c, int M, int N, int K, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  tiled_mm_kernel<T, BM, BN, TA, TB><<<grid, kThreads, 0, s>>>(a, b, c, M, N,
+                                                               K);
+}
+
+// The trans flags are template arguments, so the layout costs no index
+// arithmetic at run time: at decode shapes (M = 8) a thread does as few
+// FMAs a K step as it does loads.
+template <typename T, int BM, int BN>
+void run(const T* a, const T* b, T* c, int M, int N, int K, int ta, int tb,
+         cudaStream_t s) {
+  if (ta && tb) run<T, BM, BN, true, true>(a, b, c, M, N, K, s);
+  else if (ta) run<T, BM, BN, true, false>(a, b, c, M, N, K, s);
+  else if (tb) run<T, BM, BN, false, true>(a, b, c, M, N, K, s);
+  else run<T, BM, BN, false, false>(a, b, c, M, N, K, s);
+}
+
 template <typename T>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           cudaStream_t s) {
+           int ta, int tb, cudaStream_t s) {
   const auto* ap = static_cast<const T*>(a);
   const auto* bp = static_cast<const T*>(b);
   auto* cp = static_cast<T*>(c);
-  if (M <= 16) {
-    const dim3 grid((N + 31) / 32, (M + 15) / 16);
-    tiled_mm_kernel<T, 16, 32><<<grid, kThreads, 0, s>>>(ap, bp, cp, M, N, K);
-  } else {
-    const dim3 grid((N + 63) / 64, (M + 63) / 64);
-    tiled_mm_kernel<T, 64, 64><<<grid, kThreads, 0, s>>>(ap, bp, cp, M, N, K);
-  }
+  if (M <= 16)
+    run<T, 16, 32>(ap, bp, cp, M, N, K, ta, tb, s);
+  else
+    run<T, 64, 64>(ap, bp, cp, M, N, K, ta, tb, s);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
+// float32, 1 = bfloat16.
 extern "C" int tiled_mm_launch(const void* a, const void* b, void* c, int M,
-                               int N, int K, int dtype, void* stream) {
+                               int N, int K, int dtype, int trans_a,
+                               int trans_b, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
-  if (dtype == 0) return launch<float>(a, b, c, M, N, K, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, b, c, M, N, K, s);
+  if (dtype == 0) return launch<float>(a, b, c, M, N, K, trans_a, trans_b, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(a, b, c, M, N, K, trans_a, trans_b, s);
   return (int)cudaErrorInvalidValue;
 }

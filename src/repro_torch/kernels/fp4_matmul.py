@@ -11,6 +11,12 @@
 ``token``/``tensor`` scales span the whole reduction axis, so their amax
 must be complete before any element quantizes: those modes always take
 ``two_pass`` (``resolve_pipeline``), as in the reference.
+
+Transposed operands (dgrad's ``w^T``, wgrad's ``x^T``) are never copied:
+every kernel reads the stored layout in place.  In ``two_pass`` the
+quantize pass writes its result back in the stored layout of its operand
+and the matmul pass reads it with the operand's trans flag, so each
+kernel reads and writes along the contiguous axis.
 """
 from __future__ import annotations
 
@@ -52,10 +58,10 @@ def quantize_panels(t: torch.Tensor, *, mode: str = "block",
                     sr: bool = False, trans: bool = False,
                     collect_stats: bool = False) -> torch.Tensor:
     """The quantize pass on its own: QDQ of the effective operand
-    (``t.T`` under ``trans``), groups along its axis 1."""
-    eff = t.T.contiguous() if trans else t
-    return quantize_rows(eff, mode=mode, fmt_name=fmt_name, pow2=pow2,
-                         sr=sr, collect_stats=collect_stats)
+    (``t.T`` under ``trans``, read in place), groups along its axis 1;
+    returned in the effective orientation, as the reference returns it."""
+    return quantize_rows(t, mode=mode, fmt_name=fmt_name, pow2=pow2,
+                         trans=trans, sr=sr, collect_stats=collect_stats)
 
 
 def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
@@ -80,16 +86,17 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
                           b_fmt=b_fmt, a_pow2=a_pow2, b_pow2=b_pow2,
                           trans_a=trans_a, trans_b=trans_b, a_sr=a_sr,
                           b_sr=b_sr, collect_stats=collect_stats)
-    # Stats, as in the reference, come from the quantized operands only.
+    # Each quantize pass writes in its operand's stored layout (emit_trans
+    # undoes trans), so tiled_mm keeps the original trans flags.  Stats, as
+    # in the reference, come from the quantized operands only.
     if a_mode != "pass":
-        a = quantize_panels(a, mode=a_mode, fmt_name=a_fmt, pow2=a_pow2,
-                            sr=a_sr, trans=trans_a,
-                            collect_stats=collect_stats)
-        trans_a = False
+        # A's quant orientation (M, K) is A' itself.
+        a = quantize_rows(a, mode=a_mode, fmt_name=a_fmt, pow2=a_pow2,
+                          trans=trans_a, emit_trans=trans_a, sr=a_sr,
+                          collect_stats=collect_stats)
     if b_mode != "pass":
-        # B's quant orientation is (N, K): groups reduce over K.
-        b = quantize_panels(b, mode=b_mode, fmt_name=b_fmt, pow2=b_pow2,
-                            sr=b_sr, trans=not trans_b,
-                            collect_stats=collect_stats).T.contiguous()
-        trans_b = False
+        # B's quant orientation is (N, K) = B'.T: groups reduce over K.
+        b = quantize_rows(b, mode=b_mode, fmt_name=b_fmt, pow2=b_pow2,
+                          trans=not trans_b, emit_trans=not trans_b,
+                          sr=b_sr, collect_stats=collect_stats)
     return tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b)

@@ -1,5 +1,6 @@
-"""Public quantized-matmul entry point (counterpart of
-``repro.kernels.ops.pallas_qmm``).
+"""Public kernel entry points (counterpart of ``repro.kernels.ops``):
+``pallas_qmm`` (the quantized matmul) and ``flash_attention`` (the
+differentiable attention core).
 
 The reference pads every operand to multiples of 128 and slices the
 result back to (M, N).  The port's kernels mask the ragged edges
@@ -14,9 +15,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantize import QuantSpec
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fp4_matmul import fused_qmm
 
-__all__ = ["pallas_qmm"]
+__all__ = ["pallas_qmm", "flash_attention"]
 
 
 def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
@@ -33,3 +35,42 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
         a_sr=spec_a.stochastic and mode_a != "pass",
         b_sr=spec_b.stochastic and mode_b != "pass",
         trans_a=trans_a, trans_b=trans_b, pipeline=pipeline)
+
+
+class _Flash(torch.autograd.Function):
+    """(B, S, H, D) attention: the flash kernel forward; the backward
+    recomputes through ``chunked_attention`` under autograd, as the
+    reference's ``_flash_bwd`` takes the vjp of ``chunked_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk):
+        b, s, h, d = q.shape
+        kvh = k.shape[2]
+
+        def heads_first(t, n):       # (B, S, n, D) -> (B*n, S, D)
+            return t.transpose(1, 2).reshape(b * n, s, d).contiguous()
+        o = flash_attention_fwd(heads_first(q, h), heads_first(k, kvh),
+                                heads_first(v, kvh), causal=causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.chunk = causal, chunk
+        return o.reshape(b, h, s, d).transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.models.attention import chunked_attention
+        q, k, v = ctx.saved_tensors
+        pos = torch.arange(q.shape[1], dtype=torch.int32, device=q.device)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = chunked_attention(*leaves, pos, pos, causal=ctx.causal,
+                                    chunk=ctx.chunk)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, chunk: int = 1024) -> torch.Tensor:
+    """Differentiable attention, q (B, S, H, D), k / v (B, S, KVH, D):
+    the flash kernel forward (the plain version on CPU tensors), the
+    chunked backward; ``chunk`` is the backward's KV chunk."""
+    return _Flash.apply(q, k, v, causal, chunk)

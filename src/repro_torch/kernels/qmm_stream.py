@@ -2,9 +2,11 @@
 CUDA kernel ``csrc/qmm_stream.cu``, replacing
 ``repro/kernels/fp4_matmul.py::_stream_kernel``.
 
-``y = Q(A) @ Q(B)`` for A (M, K), B (K, N), each operand ``pass``,
+``y = Q(A') @ Q(B')`` for A' (M, K), B' (K, N), each operand ``pass``,
 ``block`` (1 x 128 groups along K) or ``tile`` (128 x 128), f32
-accumulation, output in A's dtype.  Ragged M / N / K edges are masked in
+accumulation, output in A's dtype.  ``A' = a.T`` under ``trans_a`` and
+``B' = b.T`` under ``trans_b``: the kernel reads the stored layout in
+place.  Ragged M / N / K edges are masked in
 the kernel; the result equals the reference's zero-padded computation
 sliced back to (M, N).  ``qmm_stream_plain`` is the plain version.
 """
@@ -14,7 +16,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import CudaKernel, cuda_operands, stream_ptr
+from repro_torch.kernels.build import (CudaKernel, cuda_operands,
+                                       effective_dims, stream_ptr)
 from repro_torch.kernels.quantize_rows import MODE_CODES, fmt_args, mode_spec
 from repro_torch.kernels.ref import qmm_ref
 
@@ -25,7 +28,7 @@ STREAM_MODES = ("pass", "block", "tile")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("qmm_stream",
                     [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _F, _I, _I, _I, _F, _I, _I, _I, _P])
+                     _F, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P])
 
 
 def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
@@ -47,9 +50,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                b_sr: bool = False, collect_stats: bool = False
                ) -> torch.Tensor:
     """``Q(A') @ Q(B')``; CUDA tensors launch the kernel, CPU tensors take
-    the plain version.  Stochastic rounding and the stats epilogue raise on
-    every device, the trans layouts on CUDA (all three come with the
-    training slice)."""
+    the plain version.  Stochastic rounding and the stats epilogue are not
+    ported and raise on every device."""
     if a_sr or b_sr or collect_stats:
         raise NotImplementedError(
             "qmm_stream: stochastic rounding and the stats epilogue are not "
@@ -63,15 +65,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                                 a_fmt=a_fmt, b_fmt=b_fmt, a_pow2=a_pow2,
                                 b_pow2=b_pow2, trans_a=trans_a,
                                 trans_b=trans_b)
-    if trans_a or trans_b:
-        raise NotImplementedError(
-            "qmm_stream: transposed layouts (dgrad / wgrad) are not ported "
-            "yet")
     dtype = cuda_operands(a, b)
-    (m, k), (kb, n) = a.shape, b.shape
-    if k != kb:
-        raise ValueError(f"inner dims differ: {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
+    m, k, n = effective_dims(a, b, trans_a, trans_b)
     c = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if c.numel() == 0:
         return c
@@ -79,5 +74,6 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
         KERNEL.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                       dtype, MODE_CODES[a_mode], MODE_CODES[b_mode],
                       *fmt_args(a_mode, a_fmt, a_pow2),
-                      *fmt_args(b_mode, b_fmt, b_pow2), stream_ptr(a))
+                      *fmt_args(b_mode, b_fmt, b_pow2), int(trans_a),
+                      int(trans_b), stream_ptr(a), trans=trans_a or trans_b)
     return c

@@ -4,9 +4,11 @@ pipeline) — CUDA kernel ``csrc/quantize_rows.cu``, replacing
 
 QDQ of a 2-D operand in quant orientation (rows, reduction), groups along
 axis 1: ``block`` (1 x 128), ``tile`` (128 x 128), ``token`` (one row) or
-``tensor`` (everything), round-to-nearest-even.  The plain version
-``quantize_rows_plain`` computes the same bits with PyTorch ops; the
-wrapper takes it only for a tensor on the CPU.
+``tensor`` (everything), round-to-nearest-even.  Under ``trans`` the
+stored operand is the transpose of the quant orientation and is read in
+place; under ``emit_trans`` the result is written transposed.  The plain
+version ``quantize_rows_plain`` computes the same bits with PyTorch ops;
+the wrapper takes it only for a tensor on the CPU.
 """
 from __future__ import annotations
 
@@ -38,7 +40,8 @@ def fmt_args(mode: str, fmt_name: str, pow2: bool):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("quantize_rows",
-                    [_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _P])
+                    [_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P,
+                     _P])
 
 
 def mode_spec(mode: str, fmt_name: str, pow2: bool) -> QuantSpec:
@@ -49,19 +52,24 @@ def mode_spec(mode: str, fmt_name: str, pow2: bool) -> QuantSpec:
 
 
 def quantize_rows_plain(x: torch.Tensor, *, mode: str, fmt_name: str,
-                        pow2: bool = False) -> torch.Tensor:
+                        pow2: bool = False, trans: bool = False,
+                        emit_trans: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same bits)."""
-    return quantize_panels_ref(x, mode_spec(mode, fmt_name, pow2))
+    q = quantize_panels_ref(x, mode_spec(mode, fmt_name, pow2), trans=trans)
+    return q.T.contiguous() if emit_trans else q
 
 
 def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
-                  pow2: bool = False, sr: bool = False,
+                  pow2: bool = False, trans: bool = False,
+                  emit_trans: bool = False, sr: bool = False,
                   collect_stats: bool = False) -> torch.Tensor:
-    """QDQ ``x`` (rows, reduction) per ``mode`` into ``fmt_name``.
+    """QDQ of ``x`` (rows, reduction) per ``mode`` into ``fmt_name``; of
+    ``x.T`` under ``trans``, read in place.  The result is (rows,
+    reduction), or its transpose under ``emit_trans``.
 
     A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version.  Stochastic rounding and the stats epilogue come with the
-    training slice and raise until then.
+    version.  Stochastic rounding and the stats epilogue are not ported
+    and raise.
     """
     if sr or collect_stats:
         raise NotImplementedError(
@@ -72,17 +80,21 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     args = fmt_args(mode, fmt_name, pow2)
     if x.device.type == "cpu":
         return quantize_rows_plain(x, mode=mode, fmt_name=fmt_name,
-                                   pow2=pow2)
+                                   pow2=pow2, trans=trans,
+                                   emit_trans=emit_trans)
     dtype = cuda_operands(x)
-    y = torch.empty_like(x)
+    rows, cols = (x.shape[1], x.shape[0]) if trans else x.shape
+    y = torch.empty((cols, rows) if emit_trans else (rows, cols),
+                    dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     scratch = (torch.zeros(1, dtype=torch.int32, device=x.device)
                if mode == "tensor" else None)
     with torch.cuda.device(x.device):
         # tensor mode is two kernels: the whole-tensor amax, then the QDQ
-        KERNEL.launch(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
-                      dtype, MODE_CODES[mode], *args,
+        KERNEL.launch(x.data_ptr(), y.data_ptr(), rows, cols, dtype,
+                      MODE_CODES[mode], *args, int(trans), int(emit_trans),
                       None if scratch is None else scratch.data_ptr(),
-                      stream_ptr(x), kernels=2 if mode == "tensor" else 1)
+                      stream_ptr(x), kernels=2 if mode == "tensor" else 1,
+                      trans=trans or emit_trans)
     return y

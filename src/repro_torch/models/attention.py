@@ -1,11 +1,15 @@
 """Self-attention with KV caches (counterpart of
-``repro.models.attention``, dense serving subset).
+``repro.models.attention``, dense subset).
 
-The Q/K/V/O projections are the recipe's attention-class linears; the
-attention core is plain PyTorch, ported from the reference's chunked
-online softmax (the reference computes it in jnp too).  It is not SDPA:
-unwritten cache slots carry position -1 and are masked by position, and
-the chunked f32 accumulation is the reference's numerics.
+The Q/K/V/O projections are the recipe's attention-class linears.  The
+attention core without a cache takes the flash kernel under
+``attention_impl="pallas"`` when there is no window and the sequence is a
+multiple of 128 (``kernels.ops.flash_attention``, the reference's route);
+otherwise, and over a cache, it is plain PyTorch, ported from the
+reference's chunked online softmax (the reference computes it in jnp
+too).  It is not SDPA: unwritten cache slots carry position -1 and are
+masked by position, and the chunked f32 accumulation is the reference's
+numerics.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.recipe import MatmulRecipe
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.nn.layers import linear, rope
 from repro_torch.nn.params import ParamSpec
 
@@ -121,9 +126,14 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
         k = rope(k, positions, cfg.rope_theta)
     window = cfg.sliding_window
     if cache is None:
-        out = chunked_attention(q, k, v, positions, positions,
-                                causal=causal, window=window,
-                                chunk=cfg.attention_chunk)
+        if (cfg.attention_impl == "pallas" and not window
+                and sq % 128 == 0):
+            out = flash_attention(q, k, v, causal=causal,
+                                  chunk=cfg.attention_chunk)
+        else:
+            out = chunked_attention(q, k, v, positions, positions,
+                                    causal=causal, window=window,
+                                    chunk=cfg.attention_chunk)
     else:
         k_all, v_all, k_pos = _update_cache(cache, k, v, cache_len, window,
                                             cfg.kv_cache_format)

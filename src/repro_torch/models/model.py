@@ -1,9 +1,11 @@
-"""Model API for the dense family: init, forward, prefill, decode_step
-(counterpart of ``repro.models.model``).
+"""Model API for the dense family: init, loss, forward, prefill,
+decode_step (counterpart of ``repro.models.model``).
 
 Parameters are a nested dict mirroring the reference's tree; precision
 enters through the ``plan`` argument (a ``PrecisionPlan``, or a
-``PrecisionRecipe`` coerced to the uniform plan).
+``PrecisionRecipe`` coerced to the uniform plan).  ``loss`` and
+``hidden`` run under autograd (training); the serving entry points run
+without it.
 """
 from __future__ import annotations
 
@@ -19,20 +21,11 @@ from repro_torch.core.recipe import PrecisionPlan, as_plan
 from repro_torch.models import stack as stack_lib
 from repro_torch.nn.layers import apply_norm, linear
 from repro_torch.nn.params import ParamSpec, init_params
+from repro_torch.tree import tree_map
 
 __all__ = ["Model", "build_model", "tree_map"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor / PackedTensor leaf of a nested
-    dict / list tree."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 class Model:
@@ -98,11 +91,11 @@ class Model:
     def _plan(self, p) -> PrecisionPlan:
         return as_plan(p, self.cfg.n_layers)
 
-    # -- forward (no cache) ---------------------------------------------
+    # -- training forward / loss (no cache) -----------------------------
 
-    @torch.no_grad()
-    def forward(self, params, tokens: torch.Tensor, plan) -> torch.Tensor:
-        """Logits of every position, (B, S, V) — teacher forcing."""
+    def _body(self, params, tokens: torch.Tensor, plan):
+        """(compute-dtype params, plan, the stack's output) of a forward
+        with no cache."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -110,7 +103,58 @@ class Model:
         x = self._embed(params, tokens, positions)
         x = stack_lib.run_stack(params["stack"], self.cfg, plan, x,
                                 positions=positions)
+        return params, plan, x
+
+    def _logits(self, params, tokens: torch.Tensor, plan) -> torch.Tensor:
+        params, plan, x = self._body(params, tokens, plan)
         return self._head(params, x, plan)
+
+    @torch.no_grad()
+    def forward(self, params, tokens: torch.Tensor, plan) -> torch.Tensor:
+        """Logits of every position, (B, S, V) — teacher forcing."""
+        return self._logits(params, tokens, plan)
+
+    def hidden(self, params, batch: Dict[str, torch.Tensor], plan
+               ) -> torch.Tensor:
+        """Training-mode forward up to (excluding) the LM head: the final
+        norm's output."""
+        params, _, x = self._body(params, batch["tokens"], plan)
+        return apply_norm(params["final_norm"], x, self.cfg.norm)
+
+    @staticmethod
+    def _xent_terms(logits: torch.Tensor, targets: torch.Tensor):
+        """(sum nll, sum lse^2, n_tokens) over positions with target >= 0,
+        in f32."""
+        mask = targets >= 0
+        lt = torch.where(mask, targets, torch.zeros_like(targets)).long()
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lt[..., None]).squeeze(-1)
+        nll = ((lse - gold) * mask).sum()
+        z2 = ((lse * mask) ** 2).sum()
+        return nll, z2, mask.sum()
+
+    def loss(self, params, batch: Dict[str, torch.Tensor], plan
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy (f32) under autograd; ``targets == -1``
+        masks a position.  Returns (loss, metrics) with the reference's
+        metric names (``loss``, ``tokens``, ``z_loss`` when set,
+        ``total_loss``)."""
+        if self.cfg.loss_chunk:
+            raise NotImplementedError(
+                "loss_chunk > 0 (the chunked, rematerialized head) is not "
+                "ported")
+        logits = self._logits(params, batch["tokens"], plan)
+        nll, z2, n = self._xent_terms(logits, batch["targets"])
+        denom = torch.clamp(n, min=1)
+        loss = nll / denom
+        metrics = {"loss": loss, "tokens": denom}
+        if self.cfg.z_loss:
+            zl = self.cfg.z_loss * z2 / denom
+            loss = loss + zl
+            metrics["z_loss"] = zl
+        metrics["total_loss"] = loss
+        return loss, metrics
 
     # -- serving ---------------------------------------------------------
 

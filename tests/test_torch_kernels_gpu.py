@@ -9,7 +9,11 @@ here: the card's machine has none.  Run on the card with
 bitwise; GEMM outputs within f32 rtol 1e-5 / atol 1e-5 * max|y|, or
 one bf16 ulp (2^-7 |y|) + 1e-5 * max|y| in bf16 (the
 kernels and cuBLAS sum in different orders); the stream pipeline bitwise
-equal to quantize pass + matmul pass (both kernels sum in k order).
+equal to quantize pass + matmul pass (both kernels sum in k order), in
+every trans layout; flash attention within f32 rtol / atol 1e-5 or one
+bf16 ulp + 1e-5 of its plain version; the autograd Functions' gradients
+on the card within the GEMM bar (qlinear) or 1e-4 (attention, f32) of
+the same Functions on the CPU.
 """
 import pytest
 import torch
@@ -17,8 +21,10 @@ import torch
 from repro_torch.core.packed import pack_tensor
 from repro_torch.core.qlinear import qlinear
 from repro_torch.core.quantize import QuantSpec
-from repro_torch.core.recipe import MatmulRecipe
+from repro_torch.core.recipe import MM_FFN_PAPER, MM_FP8, MatmulRecipe
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp4_matmul as fm
+from repro_torch.kernels import ops
 from repro_torch.kernels import qmm_stream as qs
 from repro_torch.kernels import quantize_rows as qr
 from repro_torch.kernels import tiled_mm as tm
@@ -99,8 +105,9 @@ def test_tiled_mm_matches_plain(cuda, m, k, n, dtype):
 
 
 def test_unported_modes_raise_on_cuda(cuda):
-    """Stochastic rounding, the stats epilogue and the transposed layouts
-    raise on a CUDA tensor instead of running the plain version."""
+    """Stochastic rounding and the stats epilogue raise on a CUDA tensor
+    instead of running the plain version (the transposed layouts are
+    ported: test_*_transposed_*)."""
     a = _rand((8, 128), torch.bfloat16, 5)
     b = _rand((128, 128), torch.bfloat16, 6)
     with pytest.raises(NotImplementedError):
@@ -108,12 +115,11 @@ def test_unported_modes_raise_on_cuda(cuda):
     with pytest.raises(NotImplementedError):
         qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3",
                          collect_stats=True)
-    for kw in ({"a_sr": True}, {"collect_stats": True}, {"trans_b": True}):
+    for kw in ({"a_sr": True}, {"collect_stats": True},
+               {"a_sr": True, "trans_b": True}):
         with pytest.raises(NotImplementedError):
             fm.fused_qmm(a, b, a_mode="block", b_mode="pass",
                          b_fmt="bf16", **kw)
-    with pytest.raises(NotImplementedError):
-        tm.tiled_mm(a, b, trans_a=True)
     launched = (qr.KERNEL.launches, qs.KERNEL.launches, tm.KERNEL.launches)
     with pytest.raises(NotImplementedError):
         fm.fused_qmm(a, b, a_mode="token", b_mode="pass", b_fmt="bf16",
@@ -155,3 +161,139 @@ def test_launch_counts(cuda):
     qr.quantize_rows(x, mode="tensor", fmt_name="fp8_e4m3")
     qr.quantize_rows(x, mode="token", fmt_name="fp8_e4m3")
     assert qr.KERNEL.launches == launched[0] + 3
+
+
+# -- the training slice: transposed layouts, flash attention, autograd --
+
+TRANS = [(False, False), (True, False), (False, True), (True, True)]
+# M ragged, K ragged (one short group), N ragged; M = 1.
+TRANS_SHAPES = ((130, 200, 96), (1, 768, 256))
+
+
+def _stored(shape, trans, dtype, seed, scale=1.0):
+    """A random operand whose effective (trans-applied) shape is
+    ``shape``, stored transposed under ``trans``."""
+    x = _rand(shape[::-1] if trans else shape, dtype, seed) * scale
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans,emit_trans", [(False, True), (True, False),
+                                              (True, True)])
+@pytest.mark.parametrize("mode,fmt", [("token", "fp8_e5m2"),
+                                      ("block", "fp8_e4m3"),
+                                      ("tile", "fp4_e2m1"),
+                                      ("tensor", "fp8_e5m2")])
+@pytest.mark.parametrize("shape", [(130, 200), (1, 768), (300, 8)])
+def test_quantize_rows_transposed_bitwise(cuda, shape, mode, fmt, trans,
+                                          emit_trans, dtype):
+    """The quantize pass reading the stored operand transposed and / or
+    writing its result transposed, ragged edges both ways."""
+    x = _stored(shape, trans, dtype, 10)
+    kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=emit_trans)
+    y = qr.quantize_rows(x, **kw)
+    ref = qr.quantize_rows_plain(x, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("b_mode", ["pass", "block", "tile"])
+@pytest.mark.parametrize("a_mode", ["pass", "block", "tile"])
+@pytest.mark.parametrize("m,k,n", TRANS_SHAPES)
+def test_qmm_stream_transposed(cuda, m, k, n, a_mode, b_mode, trans_a,
+                               trans_b, dtype):
+    """Every (mode, trans_a, trans_b) of the stream kernel against its
+    plain version, and bitwise against quantize pass + matmul pass in the
+    same layout."""
+    a = _stored((m, k), trans_a, dtype, 11)
+    b = _stored((k, n), trans_b, dtype, 12, 0.05)
+    kw = dict(a_mode=a_mode, b_mode=b_mode, a_fmt="fp8_e4m3",
+              b_fmt="fp8_e5m2", trans_a=trans_a, trans_b=trans_b)
+    y = qs.qmm_stream(a, b, **kw)
+    assert y.shape == (m, n)
+    _assert_gemm_close(y, qs.qmm_stream_plain(a, b, **kw))
+    two = fm.fused_qmm(a, b, pipeline="two_pass", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(two))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_tiled_mm_transposed(cuda, m, k, n, trans_a, trans_b, dtype):
+    a = _stored((m, k), trans_a, dtype, 13)
+    b = _stored((k, n), trans_b, dtype, 14)
+    kw = dict(trans_a=trans_a, trans_b=trans_b)
+    _assert_gemm_close(tm.tiled_mm(a, b, **kw), tm.tiled_mm_plain(a, b, **kw))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("a_mode,b_mode", [("token", "token"),
+                                           ("tensor", "block")])
+def test_two_pass_token_modes_transposed(cuda, a_mode, b_mode, trans_a,
+                                         trans_b, dtype):
+    """Token / tensor modes (the attention linears' two-pass route) in
+    every trans layout against the plain pipeline, ragged 130 x 200 x
+    96."""
+    a = _stored((130, 200), trans_a, dtype, 15)
+    b = _stored((200, 96), trans_b, dtype, 16, 0.05)
+    kw = dict(a_mode=a_mode, b_mode=b_mode, a_fmt="fp8_e5m2",
+              b_fmt="fp8_e4m3", trans_a=trans_a, trans_b=trans_b)
+    y = fm.fused_qmm(a, b, **kw)
+    _assert_gemm_close(y, fm.fused_qmm(a.cpu(), b.cpu(), **kw).cuda())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [128, 1024])
+@pytest.mark.parametrize("rep", [1, 2])
+@pytest.mark.parametrize("d", [16, 64])
+def test_flash_attention_matches_plain(cuda, d, rep, s, dtype):
+    q = _rand((4, s, d), dtype, 17)
+    k, v = _rand((4 // rep, s, d), dtype, 18), _rand((4 // rep, s, d),
+                                                    dtype, 19)
+    o = fa.flash_attention_fwd(q, k, v)
+    ref = fa.flash_attention_fwd_plain(q, k, v)
+    assert o.dtype == q.dtype and o.shape == q.shape
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(o.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("recipe", [MM_FP8, MM_FFN_PAPER],
+                         ids=["MM_FP8", "MM_FFN_PAPER"])
+def test_qlinear_grads_card_vs_cpu(cuda, recipe, dtype):
+    """The STE backward on the card (dgrad with w read transposed, wgrad
+    with x read transposed) against the same Function on the CPU on the
+    same inputs: outputs and both gradients within the GEMM bar."""
+    x = _rand((300, 256), dtype, 20)
+    w = _rand((256, 192), dtype, 21) * 0.05
+    g = _rand((300, 192), dtype, 22)
+    out = []
+    for dev in ("cuda", "cpu"):
+        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        y = qlinear(xd, wd, recipe, impl="pallas")
+        y.backward(g.to(dev))
+        out.append((y, xd.grad, wd.grad))
+    for a, b in zip(*out):
+        assert a.dtype == b.dtype == dtype
+        _assert_gemm_close(a, b.cuda())
+
+
+def test_flash_attention_grads_card_vs_cpu(cuda):
+    """``ops.flash_attention`` (kernel forward, chunked backward) on the
+    card against the CPU, f32, GQA 4 / 2 heads: rtol / atol 1e-4."""
+    q = _rand((2, 256, 4, 16), torch.float32, 23)
+    k, v = (_rand((2, 256, 2, 16), torch.float32, s) for s in (24, 25))
+    g = _rand((2, 256, 4, 16), torch.float32, 26)
+    out = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, chunk=128)
+        o.backward(g.to(dev))
+        out.append([o] + [t.grad for t in leaves])
+    for a, b in zip(*out):
+        torch.testing.assert_close(a, b.cuda(), rtol=1e-4, atol=1e-4)
