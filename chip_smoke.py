@@ -6,7 +6,7 @@
 Phases, each printing one line (a failed phase raises: no ok line, exit
 code 1):
 
-1. build   — nvcc builds the four CUDA kernels of
+1. build   — nvcc builds the five CUDA kernels of
    ``src/repro_torch/kernels/csrc`` for sm_90a, all at once.
 2. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with CUDA-event times (L2 flushed before every launch) beside
@@ -44,19 +44,53 @@ code 1):
    and 11 again on the CPU on the card's own inputs, quantized operands
    bitwise and outputs within OP_BOUND — and a control (layer 0's wq
    dgrad replayed with trans_b off) that must miss it.
-5. the launch counts of each path's run (every kernel of a path must
+5. train_telemetry — the instrumented training step: gpt2-125m at full
+   width and depth (seeded init, ``SyntheticLM``, 8 x 1024 tokens, 4
+   steps), ``fine_grained_fp4`` (its FFN wgrad gradient operand rounds
+   stochastically in ``qmm_stream``), both impls "pallas",
+   ``telemetry=True`` every step with a JSONL log in a temporary
+   directory, ``profiler_warmup=1``.  Prints per-step loss and plan, step
+   p50 and tokens/s beside the same recipe with telemetry off and the
+   paper_fp4 step of phase 4, peak memory and launches per kernel per
+   step (SR and stats launches apart).  Gates: finite losses; every stats
+   key of the reference's schema present and finite for all 12 layers and
+   the head, with 4 / 2 taps per layer; one JSONL row per step; an op
+   replay of step 0 for layers 0 and 11 (every fwd, dgrad and wgrad call,
+   the SR wgrad included: quantized operands bitwise with their SR seeds,
+   outputs within OP_BOUND, the forward stats vectors to STATS_RTOL) and a
+   control (layer 0's SR wgrad replayed with salt 5 for 4) that must miss.
+   Two ``train_telemetry_profile`` lines split one step of the recipe
+   without and with telemetry by kernel.
+6. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
+   ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
+   tiles and fp8 rows, each output bitwise against the plain version.
+7. the launch counts of each path's run (every kernel of a path must
    have run in it) and the ``{"kernels": [...]}`` line (launches from the
-   train path, times at its shapes); the card line; the ok line last.
+   train path, ``quantize_blockwise``'s from phase 6, times at the
+   training shapes); the card line; the ok line last.
+
+Phase 2 has a third line, ``telemetry_kernels``, at the training shapes:
+stochastic rounding in ``quantize_rows`` (token and block, both trans
+settings) and in ``qmm_stream`` (the wgrad call: ``b_sr``, ``trans_a``),
+bitwise against the plain versions and the stream kernel against
+quantize_rows + tiled_mm; SR unbiasedness on the card (the mean over 64
+seeds within the bounds of ``tests/test_rounding.py``); the stats
+epilogue of both kernels against the plain versions (lanes 0-2 and 5-7
+bitwise, 3-4 within STATS_RTOL) and stream stats bitwise equal to
+two-pass stats; ``quantize_blockwise`` tile and per-row bitwise at 8192 x
+768 and a ragged shape; each mode's time beside its mode-off time, its
+plain time and its bound.
 
 The serving phase keeps the full depth: the whole run, build included,
-takes about two minutes on one H100 80GB HBM3 (700 W), a tenth of the
-1200 s it is allowed.  Exits non-zero without a result when there is no
-CUDA device or when the port is not beside this script.
+takes about three minutes on one H100 80GB HBM3 (700 W), under a fifth of
+the 1200 s it is allowed.  Exits non-zero without a result when there is
+no CUDA device or when the port is not beside this script.
 """
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -91,6 +125,14 @@ TF_TOKENS = 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 REPLAY_LAYERS = (0, 11)
+# The stats epilogue against its plain version: lanes 0-2 and 5-7 (counts
+# and scale extrema) bitwise, lanes 3-4 (sums of squares) within this
+# relative bound (both fold in one canonical order, so they are expected
+# bitwise as well; the line reports whether they were).
+STATS_RTOL = 1e-6
+# The train_telemetry phase: 4 instrumented steps of an 8-step schedule
+# (the switch to bf16 comes after them).
+TEL_STEPS, TEL_SCHEDULE = 4, 8
 
 
 def card_line() -> str:
@@ -389,6 +431,193 @@ def phase_train_kernels(torch, card):
     torch.cuda.synchronize()
     emit({"phase": "train_kernels", "card": card, "dtype": "bfloat16",
           "tokens": t, "ok": True, "table": rows})
+    return rows
+
+
+def check_stats(torch, got, ref, what):
+    """A stats vector against its plain version: lanes 0-2 and 5-7
+    bitwise, 3-4 within STATS_RTOL.  Returns (worst relative difference of
+    lanes 3-4, whether all eight lanes are bitwise equal)."""
+    got, ref = got.cpu(), ref.cpu()
+    lanes = [0, 1, 2, 5, 6, 7]
+    if not torch.equal(got[lanes], ref[lanes]):
+        raise AssertionError(f"{what}: stats lanes 0-2 / 5-7 differ: "
+                             f"{got.tolist()} vs {ref.tolist()}")
+    rel = float(((got[3:5] - ref[3:5]).abs()
+                 / ref[3:5].abs().clamp_min(1e-30)).max())
+    if not rel <= STATS_RTOL:
+        raise AssertionError(f"{what}: stats lanes 3-4 off by {rel}")
+    return rel, bool(torch.equal(got, ref))
+
+
+def phase_telemetry_kernels(torch, card):
+    """Stochastic rounding, the stats epilogue and quantize_blockwise at
+    the training shapes (8192 tokens, bf16), each against its plain
+    version, with its time beside the same kernel with the mode off."""
+    from repro_torch.core.qlinear import ZERO_KEY
+    from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize as qb
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.kernels import tiled_mm as tm
+    from repro_torch.kernels.rounding import fold_seed
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    timer = Timer(torch)
+    rows, checks = [], {}
+    t, d, f = TRAIN_TOKENS, 768, 3072
+    seed = fold_seed(ZERO_KEY, 4, 1)      # the FFN wgrad's B operand
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def bitwise(y, ref, what):
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"{what} not bitwise equal")
+
+    def gemm_err(y, ref, what):
+        y, ref = y.float(), ref.float()
+        err = (y - ref).abs()
+        if not bool((err <= 2.0 ** -7 * ref.abs()
+                     + 1e-5 * ref.abs().max()).all()):
+            raise AssertionError(f"{what} out of tolerance: max err "
+                                 f"{err.max().item()}")
+        return err.max().item()
+
+    def row(name, mode, shape, fn, off_fn, plain_fn, bound, err=0.0,
+            iters=10, **extra):
+        b_ms, b_by = bound
+        rows.append({"name": name, "mode": mode, "shape": list(shape),
+                     "max_abs_err": err, "ms": timer.ms(fn, iters=iters),
+                     "mode_off_ms": timer.ms(off_fn, iters=iters),
+                     "plain_ms": timer.ms(plain_fn, iters=3),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     **extra})
+
+    x, g_f = rand(t, d, scale=2), rand(t, f, scale=0.01)
+    w_up = rand(d, f, scale=0.05)
+    n = x.numel()
+    # element ops: QDQ ~8, the counter hash ~16 more, the stats ~12 more
+    qdq_bound = {"rtn": _bound(4 * n, 8 * n, H100_F32_FLOPS),
+                 "sr": _bound(4 * n, 24 * n, H100_F32_FLOPS),
+                 "stats": _bound(4 * n, 20 * n, H100_F32_FLOPS)}
+
+    # quantize_rows with SR: token and block, read in place or transposed
+    for mode, fmt in (("token", "fp8_e5m2"), ("block", "fp4_e2m1")):
+        for trans in (False, True):
+            kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=trans)
+            y = qr.quantize_rows(x, sr=True, seed=seed, **kw)
+            bitwise(y, qr.quantize_rows_plain(x, seed=seed, **kw),
+                    f"quantize_rows {mode} sr trans={trans}")
+            if torch.equal(y, qr.quantize_rows(x, **kw)):
+                raise AssertionError("SR equals RTN")
+            row("quantize_rows", f"{mode} sr", x.shape,
+                lambda: qr.quantize_rows(x, sr=True, seed=seed, **kw),
+                lambda: qr.quantize_rows(x, **kw),
+                lambda: qr.quantize_rows_plain(x, seed=seed, **kw),
+                qdq_bound["sr"], trans=trans)
+    # the stats epilogue of quantize_rows: the attention forward's x
+    kw = dict(mode="token", fmt_name="fp8_e4m3")
+    y, st = qr.quantize_rows(x, collect_stats=True, **kw)
+    y_ref, st_ref = qr.quantize_rows_plain(x, collect_stats=True, **kw)
+    bitwise(y, y_ref, "quantize_rows token with stats")
+    checks["quantize_rows_stats"] = check_stats(torch, st, st_ref,
+                                                "quantize_rows token")
+    row("quantize_rows", "token stats", x.shape,
+        lambda: qr.quantize_rows(x, collect_stats=True, **kw),
+        lambda: qr.quantize_rows(x, **kw),
+        lambda: qr.quantize_rows_plain(x, collect_stats=True, **kw),
+        qdq_bound["stats"], trans=False)
+
+    # qmm_stream, the FFN wgrad of fine_grained_fp4: x read transposed,
+    # the gradient operand rounded stochastically (b_sr)
+    fp4 = dict(a_fmt="fp4_e2m1", b_fmt="fp4_e2m1")
+    kw = dict(a_mode="block", b_mode="block", trans_a=True, **fp4)
+    y = qs.qmm_stream(x, g_f, b_sr=True, seed_b=seed, **kw)
+    err = gemm_err(y, qs.qmm_stream_plain(x, g_f, seed_b=seed, **kw),
+                   "qmm_stream wgrad b_sr")
+    aq = qr.quantize_rows(x, mode="block", fmt_name="fp4_e2m1", trans=True,
+                          emit_trans=True)
+    bkw = dict(mode="block", fmt_name="fp4_e2m1", trans=True,
+               emit_trans=True)
+    bq = qr.quantize_rows(g_f, sr=True, seed=seed, **bkw)
+    bitwise(bq, qr.quantize_rows_plain(g_f, seed=seed, **bkw),
+            "the wgrad's SR gradient panel")
+    bitwise(y, tm.tiled_mm(aq, bq, trans_a=True),
+            "qmm_stream wgrad b_sr vs quantize_rows + tiled_mm")
+    row("qmm_stream", "wgrad b_sr", (d, t, f),
+        lambda: qs.qmm_stream(x, g_f, b_sr=True, seed_b=seed, **kw),
+        lambda: qs.qmm_stream(x, g_f, **kw),
+        lambda: qs.qmm_stream_plain(x, g_f, seed_b=seed, **kw),
+        _bound(2 * (t * d + t * f + d * f), 2 * t * d * f, H100_BF16_FLOPS),
+        err, iters=5, trans=True)
+    # the stats epilogue of qmm_stream: the FFN forward, both operands
+    kw = dict(a_mode="block", b_mode="tile", **fp4)
+    y, st = qs.qmm_stream(x, w_up, collect_stats=True, **kw)
+    y_ref, st_ref = qs.qmm_stream_plain(x, w_up, collect_stats=True, **kw)
+    err = gemm_err(y, y_ref, "qmm_stream fwd with stats")
+    y2, st2 = fm.fused_qmm(x, w_up, pipeline="two_pass", collect_stats=True,
+                           **kw)
+    bitwise(y, y2, "qmm_stream fwd with stats vs two-pass")
+    for i, op in enumerate("ab"):
+        checks[f"qmm_stream_stats_{op}"] = check_stats(
+            torch, st[i], st_ref[i], f"qmm_stream stats {op}")
+        if not torch.equal(st[i], st2[i]):
+            raise AssertionError(f"stream stats {op} != two-pass stats")
+    checks["stream_stats_equal_two_pass"] = True
+    row("qmm_stream", "fwd stats", (t, d, f),
+        lambda: qs.qmm_stream(x, w_up, collect_stats=True, **kw),
+        lambda: qs.qmm_stream(x, w_up, **kw),
+        lambda: qs.qmm_stream_plain(x, w_up, collect_stats=True, **kw),
+        _bound(2 * (t * d + d * f + t * f), 2 * t * d * f, H100_BF16_FLOPS),
+        err, iters=5, trans=False)
+
+    # SR is unbiased on the card: 64 rows of [0.01 .. 5.9, 6.0] (token
+    # scale exactly 1, so the QDQ is the grid rounding itself), fp4, 64
+    # seeds: 4096 draws a value (tests/test_rounding.py: 4000, 5 sigma)
+    v = torch.cat([torch.linspace(0.01, 5.9, 97), torch.tensor([6.0])])
+    xs = v.expand(64, 98).contiguous().cuda()
+    acc = torch.zeros(97, dtype=torch.float64, device="cuda")
+    for s_ in range(64):
+        acc += qr.quantize_rows(xs, mode="token", fmt_name="fp4_e2m1",
+                                sr=True, seed=s_)[:, :97].double().sum(0)
+    dev = acc.cpu() / (64 * 64) - v[:97].double()
+    sr_mean = {"max_abs_dev": float(dev.abs().max()),
+               "mean_dev": float(dev.mean()), "bounds": [0.08, 0.01],
+               "seeds": 64, "draws": 64 * 64}
+    if not (sr_mean["max_abs_dev"] < 0.08 and abs(sr_mean["mean_dev"])
+            < 0.01):
+        raise AssertionError(f"SR is biased on the card: {sr_mean}")
+
+    # quantize_blockwise (_q_kernel's port): tiles and rows, at the
+    # training shape and a ragged one
+    for shape in ((t, d), (1000, 300)):
+        xb = rand(*shape, scale=2)
+        nb = xb.numel()
+        for per_row in (False, True):
+            y = qb.quantize_blockwise(xb, "fp4_e2m1", per_row=per_row)
+            bitwise(y, qb.quantize_blockwise_plain(xb, "fp4_e2m1",
+                                                   per_row=per_row),
+                    f"quantize_blockwise {shape} per_row={per_row}")
+            if shape == (t, d):
+                b_ms, b_by = _bound(4 * nb, 8 * nb, H100_F32_FLOPS)
+                rows.append({
+                    "name": "quantize_blockwise",
+                    "mode": "per_row" if per_row else "tile",
+                    "shape": list(shape), "max_abs_err": 0.0,
+                    "ms": timer.ms(lambda: qb.quantize_blockwise(
+                        xb, "fp4_e2m1", per_row=per_row)),
+                    "plain_ms": timer.ms(lambda: qb.quantize_blockwise_plain(
+                        xb, "fp4_e2m1", per_row=per_row), iters=5),
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    torch.cuda.synchronize()
+    emit({"phase": "telemetry_kernels", "card": card, "dtype": "bfloat16",
+          "tokens": t, "ok": True, "stats_rtol": STATS_RTOL,
+          "stats_checks": {k: (c if isinstance(c, bool) else
+                               {"lanes_3_4_rel": c[0], "bitwise": c[1]})
+                           for k, c in checks.items()},
+          "sr_mean_on_card": sr_mean, "table": rows})
     return rows
 
 
@@ -696,13 +925,13 @@ class TrainRecorder:
             self.records.append({
                 "layer": layer, "role": role, "fn": fn, "kw": kw,
                 "args": [a.detach().clone() if hasattr(a, "detach") else a
-                         for a in args], "out": y.detach().clone()})
+                         for a in args], "out": _clone(y)})
 
     def _role(self, fn):
         def call(impl, a, b, spec_a, spec_b, *, trans_a=False,
-                 trans_b=False):
+                 trans_b=False, **kw):
             y = fn(impl, a, b, spec_a, spec_b, trans_a=trans_a,
-                   trans_b=trans_b)
+                   trans_b=trans_b, **kw)
             if trans_b:                          # dgrad: b is the weight
                 layer, name = self._w[b.data_ptr()]
                 role = f"dgrad {name}"
@@ -716,7 +945,7 @@ class TrainRecorder:
                 self._x[a.data_ptr()] = layer
                 role = f"fwd {self.NAMES[j]}"
             self._keep(layer, role, fn, (impl, a, b, spec_a, spec_b),
-                       dict(trans_a=trans_a, trans_b=trans_b), y)
+                       dict(trans_a=trans_a, trans_b=trans_b, **kw), y)
             return y
         return call
 
@@ -730,50 +959,83 @@ class TrainRecorder:
         return call
 
 
-def replay_train_ops(torch, records):
+def _clone(y):
+    """A detached copy of a kernel call's result: a tensor, or (y, (stats
+    vectors or None))."""
+    if isinstance(y, tuple):
+        return tuple(_clone(v) for v in y)
+    return None if y is None else y.detach().clone()
+
+
+def replay_train_ops(torch, records, control_role="dgrad wq",
+                     control_kw=None):
     """Each recorded card call again on the CPU (the plain versions) on
     the card's inputs.  Returns per-record (layer, role, relative L2 of
-    the output, quantized operand elements that differ) and the control:
-    layer 0's wq dgrad replayed with trans_b off."""
-    from repro_torch.core.qlinear import kernel_quant_mode
+    the output, quantized operand elements that differ, for a call with
+    the stats epilogue its stats checks) and the control: layer 0's
+    ``control_role`` replayed with ``control_kw`` (default: trans_b off,
+    from a paper_fp4 step's wq dgrad)."""
+    from repro_torch.core.qlinear import ZERO_KEY, kernel_quant_mode
     from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.kernels.rounding import fold_seed
 
     def rel(y, ref):
         y, ref = y.cpu().double(), ref.double()
         return float((y - ref).norm() / max(float(ref.norm()), 1e-30))
 
-    def q_diff(x, spec, trans):
+    def q_diff(x, spec, trans, kw, which):
         """Elements of the card's quantization of operand ``x`` that differ
-        from the plain version's on the CPU (two-pass layout)."""
+        from the plain version's on the CPU (two-pass layout; an SR spec
+        with the seed its role folds)."""
         if spec.is_passthrough:
             return 0
-        kw = dict(mode=kernel_quant_mode(spec), fmt_name=spec.fmt,
-                  trans=trans, emit_trans=trans)
-        return int((qr.quantize_rows(x, **kw).cpu()
-                    != qr.quantize_rows_plain(x.cpu(), **kw)).sum())
+        qkw = dict(mode=kernel_quant_mode(spec), fmt_name=spec.fmt,
+                   trans=trans, emit_trans=trans)
+        if spec.stochastic:
+            qkw.update(sr=True, seed=fold_seed(ZERO_KEY, kw["salt"], which))
+        got = qr.quantize_rows(x, **qkw).cpu()
+        qkw.pop("sr", None)
+        return int((got != qr.quantize_rows_plain(x.cpu(), **qkw)).sum())
 
     out, control = [], None
     for r in records:
         args = [a.cpu() if hasattr(a, "cpu") else a for a in r["args"]]
         ref = r["fn"](*args, **r["kw"])
+        y, y_ref = r["out"], ref
+        stats = stats_ref = None
+        if isinstance(y, tuple):                # the stats epilogue's calls
+            (y, stats), (y_ref, stats_ref) = y, ref
         row = {"layer": r["layer"], "role": r["role"],
-               "rel_l2": rel(r["out"], ref), "quantized_differing": 0}
+               "rel_l2": rel(y, y_ref), "quantized_differing": 0}
         if r["role"] != "flash":
             _, a, b, spec_a, spec_b = r["args"]
-            ta, tb = r["kw"]["trans_a"], r["kw"]["trans_b"]
-            row["quantized_differing"] = (q_diff(a, spec_a, ta)
-                                          + q_diff(b, spec_b, not tb))
+            kw = r["kw"]
+            row["quantized_differing"] = (
+                q_diff(a, spec_a, kw["trans_a"], kw, 0)
+                + q_diff(b, spec_b, not kw["trans_b"], kw, 1))
+            row["sr"] = spec_a.stochastic or spec_b.stochastic
+        if stats is not None:
+            row["stats"] = [None if s_ is None else check_stats(
+                torch, s_, sr_, f"layer {r['layer']} {r['role']}")
+                for s_, sr_ in zip(stats, stats_ref)]
         out.append(row)
-        if r["layer"] == 0 and r["role"] == "dgrad wq":
-            bad = r["fn"](*args, trans_a=False, trans_b=False)
-            control = rel(r["out"], bad)
+        if r["layer"] == 0 and r["role"] == control_role:
+            bad = r["fn"](*args, **{**r["kw"], **(
+                control_kw or dict(trans_a=False, trans_b=False))})
+            control = rel(y, bad[0] if isinstance(bad, tuple) else bad)
     return out, control
 
 
-def profile_train_step(torch, fn, state, batch, card) -> None:
-    """Split of one training step (paper_fp4 plan) from a
-    ``torch.profiler`` trace: device time by kernel group and the
-    device's busy share of the step's wall time."""
+# Host-side phase spans of the train loop (telemetry.profiler.phase_span):
+# user annotations in a trace, not device work.
+PHASE_SPANS = ("data", "step", "host", "fwd", "bwd", "optim")
+
+
+def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
+                       plan="paper_fp4") -> None:
+    """Split of one training step (of ``plan``) from a ``torch.profiler``
+    trace: device time by kernel group and the device's busy share of the
+    step's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -789,11 +1051,13 @@ def profile_train_step(torch, fn, state, batch, card) -> None:
                                  "tensor_amax_kernel")),
               ("tiled_mm", ("tiled_mm_kernel",)),
               ("flash_attention", ("flash_fwd_kernel",)),
+              ("stats_fold", ("stats_slab_kernel", "stats_total_kernel")),
               ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
               ("memcpy_memset", ("Memcpy", "Memset")))
     by_group, by_name = {}, {}
+    n_launches = 0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU:
+        if ev.device_type == DeviceType.CPU or ev.key in PHASE_SPANS:
             continue
         ms = ev.self_device_time_total / 1e3
         if ms <= 0:
@@ -802,8 +1066,10 @@ def profile_train_step(torch, fn, state, batch, card) -> None:
                       if any(k in ev.key for k in keys)), "other_torch")
         by_group[group] = by_group.get(group, 0.0) + ms
         by_name[ev.key[:80]] = ms
+        n_launches += ev.count
     busy = sum(by_group.values()) if by_group else None
-    emit({"phase": "train_profile", "card": card, "plan": "paper_fp4",
+    emit({"phase": phase, "card": card, "plan": plan,
+          "device_ops": n_launches,
           "wall_ms": wall_ms,
           "device_ms": busy if busy else "not measured",
           "device_busy_share": busy / wall_ms if busy else "not measured",
@@ -911,7 +1177,223 @@ def phase_train(torch, card):
     fn = trainer._step_fn(trainer.plan)
     profile_train_step(torch, fn, state, trainer._batch(trainer.pipeline, 0),
                        card)
+    return launches, p50 * 1e3
+
+
+def telemetry_schema(n_layers):
+    """The metric keys of an instrumented fine_grained_fp4 step of the
+    reference (``repro.telemetry.collect``): every layer's forward-side
+    taps (attention: 4 linears, FFN: 2; all four operand slots quantized),
+    its backward probe rows, its gradient norm, and the per-class
+    aggregates, the head's included."""
+    stats = ("clip", "underflow", "rel_err", "scale_spread")
+    slots = ("fwd_x", "fwd_w", "wgrad_x", "dgrad_w")
+    grad = ("dgrad_g/clip", "dgrad_g/underflow", "dgrad_g/rel_err",
+            "wgrad_g/clip", "wgrad_g/underflow", "wgrad_g/rel_err",
+            "gout_norm", "taps")
+    keys = {f"tel/bwd/{c}/{g}" for c in ("attn", "ffn", "head", "other")
+            for g in grad}
+    for i in range(n_layers):
+        keys.add(f"tel/gnorm/l{i:02d}")
+        for scope, n_mm in (("attn", 4), ("ffn", 2)):
+            keys |= {f"tel/l{i:02d}/{scope}/mm{j}/{slot}/{stat}"
+                     for j in range(n_mm) for slot in slots
+                     for stat in stats}
+        keys |= {f"tel/bwd/l{i:02d}/{c}/{g}" for c in ("attn", "ffn",
+                                                        "other")
+                 for g in grad}
+    return keys
+
+
+def phase_train_telemetry(torch, card, paper_p50_ms):
+    """The instrumented training step (see the module docstring): gate
+    the run; return the path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.telemetry.writer import read_jsonl
+    from repro_torch.train.trainer import Trainer
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
+                                          attention_impl="pallas")
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    base = dict(recipe="fine_grained_fp4", total_steps=TEL_SCHEDULE,
+                global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=0,
+                profiler_warmup=1)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = os.path.join(tmp, "telemetry.jsonl")
+        trainer = Trainer(build_model(cfg), TrainConfig(
+            **base, telemetry=True, telemetry_every=1,
+            telemetry_jsonl=log_path), pipeline)
+        state = trainer.init_state(seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.reset()
+        per_step = []
+        for step in range(TEL_STEPS):
+            before = {k.name: k.counts() for k in kernels}
+            if step == 0:
+                with TrainRecorder() as rec:
+                    state = trainer.train(state, num_steps=1)
+            else:
+                state = trainer.train(state, num_steps=1)
+            per_step.append({k.name: {c: v - before[k.name][c]
+                                      for c, v in k.counts().items()}
+                             for k in kernels})
+        counts = {k.name: k.counts() for k in kernels}
+        launches = {k.name: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        summary = trainer.step_time_summary()
+        trainer.close()
+        log_rows = read_jsonl(log_path)
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    plans = [r["recipe"] for r in hist]
+    # the same recipe with telemetry off, for the overhead
+    plain = Trainer(build_model(cfg), TrainConfig(**base), pipeline)
+    plain.train(plain.init_state(seed=0), num_steps=TEL_STEPS)
+    plain_summary = plain.step_time_summary()
+
+    replay, control = replay_train_ops(
+        torch, rec.records, control_role=f"wgrad {(TRAIN_TOKENS, 3072)}",
+        control_kw={"salt": 5})
+    n_fwd, n_flash = rec.n_fwd, rec.n_flash
+    del rec
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    stats_rel = max(c[0] for r in replay for c in r.get("stats", ())
+                    if c is not None)
+    stats_bitwise = all(c[1] for r in replay for c in r.get("stats", ())
+                        if c is not None)
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss: {losses}")
+    if plans != ["fine_grained_fp4"] * TEL_STEPS:
+        failures.append(f"plans {plans}")
+    if n_fwd != 6 * cfg.n_layers or n_flash != cfg.n_layers:
+        failures.append(f"recorded {n_fwd} forward matmuls and {n_flash} "
+                        "flash calls in step 0")
+    want = telemetry_schema(cfg.n_layers)
+    for r in hist:
+        got = {k for k in r if k.startswith("tel/")}
+        if got != want:
+            failures.append(f"step {r['step']}: telemetry keys missing "
+                            f"{sorted(want - got)[:5]}, extra "
+                            f"{sorted(got - want)[:5]}")
+        bad = [k for k in want & got if not np.isfinite(r[k])]
+        if bad:
+            failures.append(f"step {r['step']}: non-finite {bad[:5]}")
+        taps = tuple({r.get(f"tel/bwd/l{i:02d}/{c}/taps")
+                      for i in range(cfg.n_layers)} for c in ("attn", "ffn"))
+        if taps != ({4.0}, {2.0}):
+            failures.append(f"step {r['step']}: taps per layer {taps}")
+    if [r.get("step") for r in log_rows] != list(range(TEL_STEPS)) or any(
+            set(lr) != set(h) for lr, h in zip(log_rows, hist)):
+        failures.append(f"JSONL log: {len(log_rows)} rows, steps "
+                        f"{[r.get('step') for r in log_rows]}")
+    sr_wgrad = [r for r in replay if r.get("sr")]
+    if not sr_wgrad:
+        failures.append("no stochastic-rounding call was replayed")
+    if not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if control is None or not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    if min(launches.values()) <= 0 or counts["qmm_stream"]["sr"] <= 0 or \
+            min(counts[k]["stats"] for k in ("qmm_stream",
+                                             "quantize_rows")) <= 0:
+        failures.append(f"a kernel or mode of the path never ran: {counts}")
+    p50 = summary.get("p50_ms")
+    # FP4 health, the mean over the 12 layers of a few of the stats a step
+    health = {f"{key}/{stat}": [float(np.mean([
+        r[f"tel/l{i:02d}/{key}/{stat}"] for i in range(cfg.n_layers)]))
+        for r in hist]
+        for key in ("ffn/mm0/fwd_x", "ffn/mm1/fwd_x", "ffn/mm0/fwd_w",
+                    "attn/mm0/fwd_x")
+        for stat in ("underflow", "rel_err")}
+    health.update({f"bwd/ffn/wgrad_g/{stat}": [float(np.mean([
+        r[f"tel/bwd/l{i:02d}/ffn/wgrad_g/{stat}"]
+        for i in range(cfg.n_layers)])) for r in hist]
+        for stat in ("underflow", "rel_err")})
+    emit({"phase": "train_telemetry", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "steps": TEL_STEPS, "recipe": "fine_grained_fp4",
+          "telemetry_every": 1, "losses": losses, "plans": plans,
+          "step_ms": [r["dt"] * 1e3 for r in hist],
+          "step_p50_ms": p50,
+          "tokens_per_s": summary.get("tokens_per_sec"),
+          "mfu": summary.get("mfu"),
+          "telemetry_off_step_p50_ms": plain_summary.get("p50_ms"),
+          "telemetry_off_tokens_per_s": plain_summary.get("tokens_per_sec"),
+          "paper_fp4_step_p50_ms": paper_p50_ms,
+          "max_memory_allocated": int(peak),
+          "health_mean_over_layers": health,
+          "metrics_per_row": len(hist[0]), "telemetry_keys": len(want),
+          "jsonl_rows": len(log_rows),
+          "launches_per_step": per_step, "counts": counts,
+          "op_replay": {"calls": len(replay), "layers": list(REPLAY_LAYERS),
+                        "rel_l2_max": worst, "bound": bound,
+                        "quantized_differing": q_bad,
+                        "sr_calls": len(sr_wgrad),
+                        "sr_rel_l2_max": max(
+                            (r["rel_l2"] for r in sr_wgrad), default=None),
+                        "stats_lanes_3_4_rel_max": stats_rel,
+                        "stats_bitwise": stats_bitwise,
+                        "stats_rtol": STATS_RTOL,
+                        "control_sr_wgrad_salt_5": control}})
+    if failures:
+        raise AssertionError("train_telemetry phase: " + "; ".join(failures))
+    batch = trainer._batch(pipeline, 0)
+    for tel in (False, True):
+        profile_train_step(torch, trainer._step_fn(trainer.plan, tel), state,
+                           batch, card, phase="train_telemetry_profile",
+                           plan="fine_grained_fp4" + " with telemetry" * tel)
     return launches
+
+
+def phase_blockwise(torch, card):
+    """``kernels.ops.quantize_blockwise`` over every 2-D weight of a seeded
+    gpt2-125m (bf16): fp4 (128 x 128) tiles and fp8 (1 x 128) rows, each
+    bitwise against the plain version; returns the launch count."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as qb
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("gpt2-125m").replace(scan_layers=False)
+    weights = [p.to(torch.bfloat16) for p in
+               tree_leaves(build_model(cfg).init(seed=0)) if p.dim() == 2]
+    calls = [(w, fmt, per_row) for w in weights
+             for fmt, per_row in (("fp4_e2m1", False), ("fp8_e4m3", True))]
+    torch.cuda.synchronize()
+    qb.KERNEL.reset()
+    t0 = time.perf_counter()
+    outs = [ops.quantize_blockwise(w, fmt, per_row=per_row)
+            for w, fmt, per_row in calls]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = qb.KERNEL.launches
+    bad = sum(not torch.equal(y.view(torch.int16), qb.quantize_blockwise_plain(
+        w, fmt, per_row=per_row).view(torch.int16))
+        for y, (w, fmt, per_row) in zip(outs, calls))
+    emit({"phase": "blockwise", "card": card, "model": cfg.name,
+          "weights": len(weights),
+          "elements": sum(w.numel() for w in weights), "calls": len(calls),
+          "launches": launches, "wall_ms": wall_ms,
+          "outputs_differing": bad})
+    if bad or launches != len(calls):
+        raise AssertionError(f"blockwise: {bad} outputs differ from the "
+                             f"plain version, {launches} launches for "
+                             f"{len(calls)} calls")
+    return {"quantize_blockwise": launches}
 
 
 def main() -> int:
@@ -936,28 +1418,38 @@ def main() -> int:
     phase_build(card)
     phase_kernels(torch, card)
     rows = phase_train_kernels(torch, card)
+    tel_rows = phase_telemetry_kernels(torch, card)
     serve_launches = phase_slice(torch, card)
-    train_launches = phase_train(torch, card)
-    emit({"launches": {"serve": serve_launches, "train": train_launches},
+    train_launches, paper_p50_ms = phase_train(torch, card)
+    tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
+    block_launches = phase_blockwise(torch, card)
+    emit({"launches": {"serve": serve_launches, "train": train_launches,
+                       "train_telemetry": tel_launches,
+                       "blockwise": block_launches},
           "seconds": time.perf_counter() - t0})
 
-    # One record per kernel: launches from the train path, the call of
-    # the training step that the row stands for (its first forward use).
+    # One record per kernel: launches from the path that runs it (the
+    # train path; quantize_blockwise's own entry point), the call that the
+    # row stands for (its first forward use at the training shapes).
+    launches = {**train_launches, **block_launches}
     main_role = {"qmm_stream": "fwd w_up", "quantize_rows": "fwd wq lhs",
-                 "tiled_mm": "fwd wq", "flash_attention": "fwd"}
+                 "tiled_mm": "fwd wq", "flash_attention": "fwd",
+                 "quantize_blockwise": "tile"}
     source = "src/repro_torch/kernels/csrc/{}.cu"
     replaces = {"quantize_rows": "src/repro/kernels/fp4_matmul.py:283",
                 "qmm_stream": "src/repro/kernels/fp4_matmul.py:713",
                 "tiled_mm": "src/repro/kernels/fp4_matmul.py:576",
-                "flash_attention": "src/repro/kernels/flash_attention.py:33"}
+                "flash_attention": "src/repro/kernels/flash_attention.py:33",
+                "quantize_blockwise": "src/repro/kernels/quantize.py:25"}
     kernels = []
     for name in ("qmm_stream", "quantize_rows", "tiled_mm",
-                 "flash_attention"):
-        mine = [r for r in rows if r["name"] == name]
-        rep = next(r for r in mine if r["role"] == main_role[name])
+                 "flash_attention", "quantize_blockwise"):
+        mine = [r for r in rows + tel_rows if r["name"] == name]
+        rep = next(r for r in mine
+                   if r.get("role", r.get("mode")) == main_role[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source.format(name),
-            "replaces": replaces[name], "launches": train_launches[name],
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

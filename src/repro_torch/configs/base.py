@@ -82,11 +82,13 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Field-for-field the reference ``TrainConfig``.  The port's
-    ``Trainer`` runs one device with AdamW, the uniform plan and the §3.3
-    switch; it raises ``NotImplementedError`` for every field of a
-    feature it does not have yet (telemetry, the controller, fp8 gradient
-    compression, meshes, checkpoints, cost calibration, other plan
-    presets) rather than ignore it."""
+    ``Trainer`` runs one device with AdamW, the uniform plan, the §3.3
+    switch, quantization telemetry (``telemetry``, ``telemetry_every``,
+    ``telemetry_jsonl``) and the step timer (``profiler_warmup``); it
+    raises ``NotImplementedError`` for every field of a feature it does
+    not have yet (the controller, fp8 gradient compression, meshes,
+    checkpoints, cost calibration, other plan presets) rather than
+    ignore it."""
 
     recipe: str = "paper_fp4"
     total_steps: int = 200

@@ -23,12 +23,23 @@ config's ``linear_impl``:
 A ``PackedTensor`` weight takes ``packed_linear``: the quantize-once panel
 is expanded (bitwise equal to the training QDQ) and fed to the matmul as a
 pass-mode operand, so only the activations are quantized per call; it is
-forward only (serving).  Stochastic-rounding specs are not ported and
-raise.
+forward only (serving).
+
+Stochastic-rounding specs draw their noise from the zero key (the model
+passes no key, so the reference's ``qlinear`` uses ``_zero_key()`` for
+every call) salted per role: 0 fwd, 2 dgrad, 4 wgrad.  The kernels use
+the counter hash of ``kernels.rounding`` (bitwise the reference's
+interpret-mode noise); the ``"qdq"`` impl draws from a ``torch.Generator``
+seeded from the same folded seed, equal to the reference's ``jax.random``
+stream only in distribution.
+
+Telemetry (``telemetry.collect``): with a collector installed, each
+quantized linear records its forward-side operand stats (under
+``"pallas"`` the fwd_x / fwd_w slots come from the kernels' stats
+epilogue, ``pallas_qmatmul_stats``) and wraps its output in ``grad_tap``.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import Optional
 
@@ -37,23 +48,38 @@ import torch
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.quantize import BF16_SPEC, QuantSpec, qdq
 from repro_torch.core.recipe import MatmulRecipe
+from repro_torch.kernels.rounding import fold_seed
+from repro_torch.telemetry import collect as telemetry
 
-__all__ = ["qlinear", "qmatmul", "packed_linear", "dot_qdq",
-           "kernel_quant_mode", "kernel_unsupported_reason", "matmul_impl",
-           "LINEAR_IMPLS"]
+__all__ = ["qlinear", "qmatmul", "pallas_qmatmul_stats", "packed_linear",
+           "dot_qdq", "kernel_quant_mode", "kernel_unsupported_reason",
+           "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
+ZERO_KEY = (0, 0)   # the reference's _zero_key(): the key every layer uses
+
+
+def _generator(spec: QuantSpec, salt: int, which: int, device):
+    """The QDQ path's SR noise source for one operand (None for RTN)."""
+    if not spec.stochastic:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(fold_seed(ZERO_KEY, salt, which) & 0xFFFFFFFF)
+    return g
 
 
 def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             spec_b: QuantSpec, *, trans_a: bool = False,
-            trans_b: bool = False) -> torch.Tensor:
+            trans_b: bool = False, salt: int = 0) -> torch.Tensor:
     """QDQ both operands of ``A' @ B'`` (``A' = a.T`` under ``trans_a``,
     same for B'; reduction axes 1 and 0), then the matmul in the input
-    dtype."""
-    return torch.matmul(qdq(a.T if trans_a else a, spec_a, 1),
-                        qdq(b.T if trans_b else b, spec_b, 0))
+    dtype; ``salt`` seeds a stochastic spec's noise."""
+    return torch.matmul(
+        qdq(a.T if trans_a else a, spec_a, 1,
+            generator=_generator(spec_a, salt, 0, a.device)),
+        qdq(b.T if trans_b else b, spec_b, 0,
+            generator=_generator(spec_b, salt, 1, b.device)))
 
 
 def kernel_unsupported_reason(spec: QuantSpec) -> Optional[str]:
@@ -86,16 +112,18 @@ def kernel_quant_mode(spec: QuantSpec) -> Optional[str]:
 
 def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, trans_a: bool = False,
-               trans_b: bool = False, pipeline: Optional[str] = None
-               ) -> torch.Tensor:
+               trans_b: bool = False, salt: int = 0,
+               pipeline: Optional[str] = None, collect_stats: bool = False):
     """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
-    operands read in their stored layout.  A spec they cannot realize
-    raises on a CUDA tensor and takes ``dot_qdq`` on a CPU tensor."""
+    operands read in their stored layout; with ``collect_stats`` returns
+    ``(y, (stats_a, stats_b))``.  A spec they cannot realize raises on a
+    CUDA tensor and takes ``dot_qdq`` on a CPU tensor (no stats)."""
     mode_a, mode_b = kernel_quant_mode(spec_a), kernel_quant_mode(spec_b)
     if mode_a is None or mode_b is None:
         if a.device.type == "cpu":
-            return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                           trans_b=trans_b)
+            y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
+                        trans_b=trans_b, salt=salt)
+            return (y, (None, None)) if collect_stats else y
         reasons = [r for r in (kernel_unsupported_reason(spec_a),
                                kernel_unsupported_reason(spec_b)) if r]
         raise NotImplementedError(
@@ -103,7 +131,9 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             f"{spec_b.to_str()}: {'; '.join(reasons)}")
     from repro_torch.kernels.ops import pallas_qmm
     return pallas_qmm(a, b, spec_a, spec_b, mode_a=mode_a, mode_b=mode_b,
-                      trans_a=trans_a, trans_b=trans_b, pipeline=pipeline)
+                      trans_a=trans_a, trans_b=trans_b, key_data=ZERO_KEY,
+                      salt=salt, pipeline=pipeline,
+                      collect_stats=collect_stats)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -137,38 +167,50 @@ def packed_linear(x: torch.Tensor, w: PackedTensor, recipe: MatmulRecipe,
 
 
 def _role(impl: str, a, b, spec_a: QuantSpec, spec_b: QuantSpec, *,
-          trans_a: bool = False, trans_b: bool = False) -> torch.Tensor:
-    """One matmul role under ``impl`` (stored operands, trans flags)."""
+          trans_a: bool = False, trans_b: bool = False, salt: int = 0,
+          collect_stats: bool = False):
+    """One matmul role under ``impl`` (stored operands, trans flags; the
+    SR salt of the role); stats only under the fused impls."""
     if impl == "qdq":
         return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                       trans_b=trans_b)
+                       trans_b=trans_b, salt=salt)
     return _dot_fused(a, b, spec_a, spec_b, trans_a=trans_a,
-                      trans_b=trans_b, pipeline=_check_impl(impl))
+                      trans_b=trans_b, salt=salt, pipeline=_check_impl(impl),
+                      collect_stats=collect_stats)
 
 
 class _QMatmul(torch.autograd.Function):
-    """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE)."""
+    """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE).  With
+    ``collect_stats`` the forward also returns its quantized operands'
+    stats vectors (no gradient; None for a pass operand)."""
 
     @staticmethod
-    def forward(ctx, x, w, recipe: MatmulRecipe, impl: str):
+    def forward(ctx, x, w, recipe: MatmulRecipe, impl: str,
+                collect_stats: bool):
         ctx.save_for_backward(x, w)
         ctx.recipe, ctx.impl = recipe, impl
-        return _role(impl, x, w, recipe.fwd_x, recipe.fwd_w)
+        out = _role(impl, x, w, recipe.fwd_x, recipe.fwd_w, salt=0,
+                    collect_stats=collect_stats)
+        if not collect_stats:
+            return out
+        y, stats = out
+        ctx.mark_non_differentiable(*(s for s in stats if s is not None))
+        return (y, *stats)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_stats_grads):
         x, w = ctx.saved_tensors
         r, g = ctx.recipe, g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
-            dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w,
-                       trans_b=True).to(x.dtype)
+            dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w, trans_b=True,
+                       salt=2).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
-            dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g,
-                       trans_a=True).to(w.dtype)
-        return dx, dw, None, None
+            dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g, trans_a=True,
+                       salt=4).to(w.dtype)
+        return dx, dw, None, None, None
 
 
 def qmatmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe, *,
@@ -176,13 +218,19 @@ def qmatmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe, *,
     """``y = Q(x2d) @ Q(w)`` for a (M, K) x (K, N) pair, differentiable
     (the reference's ``qmatmul`` / ``pallas_qmatmul`` custom_vjp)."""
     _check_impl(impl)
-    for f in dataclasses.fields(recipe):
-        spec = getattr(recipe, f.name)
-        if spec.stochastic:
-            raise NotImplementedError(
-                f"{f.name} {spec.to_str()}: stochastic rounding is not "
-                "ported")
-    return _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe, impl)
+    return _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe, impl,
+                          False)
+
+
+def pallas_qmatmul_stats(x2d: torch.Tensor, w: torch.Tensor,
+                         recipe: MatmulRecipe):
+    """``qmatmul(impl="pallas")`` that also returns the forward's stats
+    vectors ``(y, (stats_x, stats_w))``, from the same kernel launch that
+    quantizes the operands for the product (None for a pass operand);
+    ``y`` and the gradients are those of ``qmatmul``."""
+    y, sx, sw = _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe,
+                               "pallas", True)
+    return y, (sx, sw)
 
 
 def matmul_impl(impl: str):
@@ -206,7 +254,26 @@ def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
     if recipe.is_passthrough:
         y = torch.matmul(x2d, w)
     else:
-        y = qmatmul(x2d, w, recipe, impl=impl)
+        # Telemetry taps (no-ops without a collector).  Under "pallas" the
+        # fwd_x / fwd_w stats come from the epilogue of the kernels that
+        # feed the product; the other forward-side slots (wgrad_x,
+        # dgrad_w: other orientations) are computed by tap_matmul.
+        y = fused_fwd = None
+        if impl == "pallas" and telemetry.active() is not None:
+            ma = kernel_quant_mode(recipe.fwd_x)
+            mb = kernel_quant_mode(recipe.fwd_w)
+            if (ma is not None and mb is not None
+                    and (ma != "pass" or mb != "pass")):
+                from repro_torch.kernels.fp4_matmul import \
+                    finalize_quant_stats
+                y, (sa, sb) = pallas_qmatmul_stats(x2d, w, recipe)
+                fused_fwd = {slot: None if s is None
+                             else finalize_quant_stats(s)
+                             for slot, s in (("fwd_x", sa), ("fwd_w", sb))}
+        telemetry.tap_matmul(x2d, w, recipe, fused_fwd=fused_fwd)
+        if y is None:
+            y = qmatmul(x2d, w, recipe, impl=impl)
+        y = telemetry.grad_tap(y, recipe)
     y = y.reshape(*x.shape[:-1], w.shape[-1])
     if bias is not None:
         y = y + bias

@@ -23,7 +23,8 @@ from repro_torch.core import formats as F
 from repro_torch.kernels.rounding import group_scale, pow2_floor
 
 __all__ = ["QuantSpec", "BF16_SPEC", "qdq", "quantize_dequantize",
-           "compute_scale", "scale_from_amax", "pow2_floor"]
+           "compute_scale", "scale_from_amax", "pow2_floor",
+           "underflow_rate"]
 
 
 def scale_from_amax(amax: torch.Tensor, fmt: F.FloatFormat,
@@ -168,3 +169,14 @@ def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
 
 
 qdq = quantize_dequantize
+
+
+def underflow_rate(x: torch.Tensor, spec: QuantSpec,
+                   reduction_axis: int = -1) -> torch.Tensor:
+    """Fraction of nonzero inputs that quantize to exactly zero (the
+    Fig. 1(b) diagnostic), round to nearest."""
+    x2d = x.reshape(-1, x.shape[-1])
+    y = quantize_dequantize(x2d, spec, reduction_axis % 2)
+    nonzero = x2d.abs() > 0
+    under = nonzero & (y == 0)
+    return under.sum() / torch.clamp(nonzero.sum(), min=1)

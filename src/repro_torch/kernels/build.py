@@ -19,12 +19,14 @@ from pathlib import Path
 from typing import Dict, Tuple
 
 __all__ = ["SOURCES", "build_all", "load", "BUILD_DIR", "NVCC_FLAGS",
-           "CudaKernel", "cuda_operands", "effective_dims", "stream_ptr"]
+           "CudaKernel", "cuda_operands", "effective_dims", "stream_ptr",
+           "stats_buffers"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("quantize_rows", "qmm_stream", "tiled_mm", "flash_attention")
+SOURCES = ("quantize_rows", "qmm_stream", "tiled_mm", "flash_attention",
+           "quantize_blockwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,22 +98,29 @@ class CudaKernel:
     otherwise) and nowhere else, so a run can show that its path went
     through the kernel; ``trans_launches`` counts the part of them that
     read or wrote an operand transposed (``trans``: the backward
-    matmuls' layouts).  Wrappers do not call the entry point for an
-    empty output.  The entry point returns ``cudaGetLastError()``; a
-    non-zero code raises.
+    matmuls' layouts), ``sr_launches`` the part that rounded
+    stochastically and ``stats_launches`` the part that collected the
+    stats epilogue (its fold included).  Wrappers do not call the entry
+    point for an empty output.  The entry point returns
+    ``cudaGetLastError()``; a non-zero code raises.
     """
 
     def __init__(self, name: str, argtypes):
         self.name = name
         self.argtypes = list(argtypes)
-        self.launches = 0
-        self.trans_launches = 0
+        self.reset()
         self._fn = None
 
     def reset(self) -> None:
         self.launches = self.trans_launches = 0
+        self.sr_launches = self.stats_launches = 0
 
-    def launch(self, *args, kernels: int = 1, trans: bool = False) -> None:
+    def counts(self) -> Dict[str, int]:
+        return {"launches": self.launches, "trans": self.trans_launches,
+                "sr": self.sr_launches, "stats": self.stats_launches}
+
+    def launch(self, *args, kernels: int = 1, trans: bool = False,
+               sr: bool = False, stats: bool = False) -> None:
         if self._fn is None:
             fn = getattr(load(self.name), f"{self.name}_launch")
             fn.argtypes = self.argtypes
@@ -121,8 +130,9 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += kernels
-        if trans:
-            self.trans_launches += kernels
+        self.trans_launches += kernels * trans
+        self.sr_launches += kernels * sr
+        self.stats_launches += kernels * stats
 
 
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
@@ -158,6 +168,17 @@ def effective_dims(a, b, trans_a: bool, trans_b: bool):
                          f"{tuple(b.shape)} (trans_a={trans_a}, "
                          f"trans_b={trans_b})")
     return m, k, n
+
+
+def stats_buffers(rows: int, cols: int, device):
+    """The stats epilogue's buffers for a (rows, cols) quant-orientation
+    operand: row partials (rows, k-slabs, 8), slab partials (block-rows,
+    k-slabs, 8) and the (8,) result, f32, every element written by the
+    kernels."""
+    import torch
+    ks, rb = -(-cols // 128), -(-rows // 128)
+    return tuple(torch.empty(n, dtype=torch.float32, device=device)
+                 for n in (rows * ks * 8, rb * ks * 8, 8))
 
 
 def stream_ptr(t) -> int:

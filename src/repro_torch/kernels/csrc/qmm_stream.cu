@@ -34,8 +34,23 @@
 // the wgrad K = 8192) it is operation-bound: 38.7 GFLOP, 39 us at the bf16
 // tensor-core rate.  mma / wgmma with TMA-fed shared-memory rings, and
 // reading packed FP4 codes for B in place of the dequantized panel, are
-// later work.  Stochastic rounding and the stats epilogue (telemetry) are
-// not built yet; the wrapper refuses them.
+// later work.
+//
+// Stochastic rounding keys each element's noise by its global (row, col)
+// in the operand's quant orientation, (m, k) for A and (n, k) for B,
+// never by the output tile the block owns: a tile that another block
+// re-quantizes draws the same noise, as the reference's
+// requantize-per-revisit branch does (fp4_matmul.py:786-819).  The stats
+// epilogue folds each quantized element exactly once: only the blocks of
+// the first output column (blockIdx.x == 0) write A's row partials and
+// only those of the first output row (blockIdx.y == 0) write B's, one per
+// (quant row, k-slab), computed from the shared tile before it is
+// quantized in place; codec.cuh's two fold kernels fold them after the
+// main kernel.  Zero-filled ragged edges add nothing to any lane, and the
+// count lane counts the columns inside K, which masks the padding as the
+// reference's m_real / k_real do.  Each quant row of a tile is QDQ'd by
+// one warp (lane l owns k = l, l+32, l+64, l+96), so the epilogue's row
+// partial is that warp's own reduction.
 #include "codec.cuh"
 
 namespace {
@@ -44,76 +59,113 @@ constexpr int kBK = codec::kGroup;
 constexpr int kPad = 2;        // shared-tile row pad (bank spread)
 constexpr int kThreads = 256;  // 16 x 16
 
-// QDQ the (rows x kBK) A tile in shared memory, groups along K.
-template <typename T, int BM>
+// One operand's quantization in a launch.
+struct Operand {
+  int mode;
+  codec::Fmt f;
+  codec::Sr sr;
+  float* part;  // row partials (quant rows, n_ks, 8), or null: no stats
+};
+
+// QDQ one quant row of a shared tile by one warp, in place: lane l owns
+// the k = l + 32 j elements, at(j) their shared-memory slot.  The scale
+// is the row's own (block mode) or the tile's (tile_s).  kExtra compiles
+// in SR and the stats epilogue (a launch with neither runs the kernel
+// without them); with stats, lane 0 writes the (grow, ks) row partial.
+template <typename T, bool kExtra, typename At>
+__device__ __forceinline__ void qdq_row(At at, const Operand& op,
+                                        float tile_s, int grow, int k0,
+                                        int K, int n_ks, bool stats) {
+  float xv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) xv[j] = codec::to_f32(at(j));
+  float s = tile_s;
+  if (op.mode == codec::kBlock) {
+    float m = fmaxf(fmaxf(fabsf(xv[0]), fabsf(xv[1])),
+                    fmaxf(fabsf(xv[2]), fabsf(xv[3])));
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    s = codec::group_scale(m, op.f);
+  }
+  const T sc = codec::from_f32<T>(s);
+  const int lane = threadIdx.x & 31;
+  float qv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const T q = codec::qdq(
+        at(j), sc, op.f,
+        kExtra ? codec::noise(op.sr, grow, k0 + lane + 32 * j) : -1.f);
+    at(j) = q;
+    qv[j] = codec::to_f32(q);
+  }
+  if constexpr (kExtra) {
+    if (stats)
+      codec::row_stats(
+          xv, qv, s, op.f, min(kBK, K - k0),
+          op.part + ((long)grow * n_ks + k0 / kBK) * codec::kStats);
+  }
+}
+
+// QDQ the (BM x kBK) A tile in shared memory, groups along K; one warp a
+// row.  A tile-mode group (128 rows) reaches past this block's BM rows:
+// its amax comes from device memory (L2-resident after the first block
+// reads it).
+template <typename T, int BM, bool kExtra>
 __device__ void qdq_a_tile(T (*As)[kBK + kPad], const T* __restrict__ a,
-                           int mode, const codec::Fmt& f, int m0, int k0,
-                           int M, int K, int trans_a) {
-  if (mode == codec::kBlock) {
-    // One warp per row: each lane owns 4 of the row's 128 K values.
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = warp; r < BM; r += kThreads / 32) {
-      float m = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBK / 32; ++j)
-        m = fmaxf(m, fabsf(codec::to_f32(As[r][lane + 32 * j])));
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const T sc = codec::from_f32<T>(codec::group_scale(m, f));
-#pragma unroll
-      for (int j = 0; j < kBK / 32; ++j)
-        As[r][lane + 32 * j] = codec::qdq(As[r][lane + 32 * j], sc, f);
-    }
-  } else if (mode == codec::kTile) {
-    // The 128-row tile reaches past this block's BM rows: its amax comes
-    // from device memory (L2-resident after the first block reads it).
+                           const Operand& op, int m0, int k0, int M, int K,
+                           int trans_a, int n_ks, bool stats) {
+  if (op.mode == codec::kPass) return;
+  float tile_s = 0.f;
+  if (op.mode == codec::kTile) {
     const int t0 = m0 - m0 % codec::kGroup, t1 = min(t0 + codec::kGroup, M);
     const int k1 = min(k0 + kBK, K);
-    const float amax = trans_a ? codec::region_amax(a, M, k0, k1, t0, t1)
-                               : codec::region_amax(a, K, t0, t1, k0, k1);
-    const T sc = codec::from_f32<T>(codec::group_scale(amax, f));
-    for (int i = threadIdx.x; i < BM * kBK; i += kThreads)
-      As[i / kBK][i % kBK] = codec::qdq(As[i / kBK][i % kBK], sc, f);
+    tile_s = codec::group_scale(
+        trans_a ? codec::region_amax(a, M, k0, k1, t0, t1)
+                : codec::region_amax(a, K, t0, t1, k0, k1), op.f);
   }
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < BM; r += kThreads / 32)
+    qdq_row<T, kExtra>([&](int j) -> T& { return As[r][lane + 32 * j]; }, op,
+               tile_s, m0 + r, k0, K, n_ks, stats && m0 + r < M);
 }
 
-// QDQ the (kBK x BN) B tile in shared memory, groups along K.
-template <typename T, int BN>
-__device__ void qdq_b_tile(T (*Bs)[BN + kPad], T* col_scale,
-                           const T* __restrict__ b, int mode,
-                           const codec::Fmt& f, int n0, int k0, int N,
-                           int K, int trans_b) {
-  if (mode == codec::kBlock) {
-    if (threadIdx.x < BN) {
-      float m = 0.f;
-      for (int k = 0; k < kBK; ++k)
-        m = fmaxf(m, fabsf(codec::to_f32(Bs[k][threadIdx.x])));
-      col_scale[threadIdx.x] = codec::from_f32<T>(codec::group_scale(m, f));
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < kBK * BN; i += kThreads)
-      Bs[i / BN][i % BN] =
-          codec::qdq(Bs[i / BN][i % BN], col_scale[i % BN], f);
-  } else if (mode == codec::kTile) {
+// QDQ the (kBK x BN) B tile in shared memory, groups along K (a quant row
+// is a column of the tile); one warp a column.
+template <typename T, int BN, bool kExtra>
+__device__ void qdq_b_tile(T (*Bs)[BN + kPad], const T* __restrict__ b,
+                           const Operand& op, int n0, int k0, int N, int K,
+                           int trans_b, int n_ks, bool stats) {
+  if (op.mode == codec::kPass) return;
+  float tile_s = 0.f;
+  if (op.mode == codec::kTile) {
     const int t0 = n0 - n0 % codec::kGroup, t1 = min(t0 + codec::kGroup, N);
     const int k1 = min(k0 + kBK, K);
-    const float amax = trans_b ? codec::region_amax(b, K, t0, t1, k0, k1)
-                               : codec::region_amax(b, N, k0, k1, t0, t1);
-    const T sc = codec::from_f32<T>(codec::group_scale(amax, f));
-    for (int i = threadIdx.x; i < kBK * BN; i += kThreads)
-      Bs[i / BN][i % BN] = codec::qdq(Bs[i / BN][i % BN], sc, f);
+    tile_s = codec::group_scale(
+        trans_b ? codec::region_amax(b, K, t0, t1, k0, k1)
+                : codec::region_amax(b, N, k0, k1, t0, t1), op.f);
   }
+  const int lane = threadIdx.x & 31;
+  for (int c = threadIdx.x >> 5; c < BN; c += kThreads / 32)
+    qdq_row<T, kExtra>([&](int j) -> T& { return Bs[lane + 32 * j][c]; }, op,
+               tile_s, n0 + c, k0, K, n_ks, stats && n0 + c < N);
 }
 
-template <typename T, int BM, int BN, bool trans_a, bool trans_b>
-__global__ void __launch_bounds__(kThreads)
+// Held to 5 blocks an SM (at most 51 registers a thread): left free,
+// nvcc gave some layouts 56-63 registers (4 blocks an SM), and the
+// round-to-nearest FFN wgrad ran 5% slower than with 48 on an H100.
+template <typename T, int BM, int BN, bool trans_a, bool trans_b,
+          bool kExtra>
+__global__ void __launch_bounds__(kThreads, 5)
     qmm_stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                      T* __restrict__ c, int M, int N, int K, int a_mode,
-                      int b_mode, codec::Fmt fa, codec::Fmt fb) {
+                      T* __restrict__ c, int M, int N, int K, Operand oa,
+                      Operand ob) {
   constexpr int TM = BM / 16, TN = BN / 16;
   __shared__ T As[BM][kBK + kPad];
   __shared__ T Bs[kBK][BN + kPad];
-  __shared__ T col_scale[BN];
+  const int n_ks = (K + kBK - 1) / kBK;
+  // each quantized element's stats fold once (see the header)
+  const bool stats_a = oa.part && blockIdx.x == 0;
+  const bool stats_b = ob.part && blockIdx.y == 0;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const T zero = codec::from_f32<T>(0.f);
@@ -139,8 +191,10 @@ __global__ void __launch_bounds__(kThreads)
           ? b[trans_b ? (long)n * K + k : (long)k * N + n] : zero;
     }
     __syncthreads();
-    qdq_a_tile<T, BM>(As, a, a_mode, fa, m0, k0, M, K, trans_a);
-    qdq_b_tile<T, BN>(Bs, col_scale, b, b_mode, fb, n0, k0, N, K, trans_b);
+    qdq_a_tile<T, BM, kExtra>(As, a, oa, m0, k0, M, K, trans_a, n_ks,
+                              stats_a);
+    qdq_b_tile<T, BN, kExtra>(Bs, b, ob, n0, k0, N, K, trans_b, n_ks,
+                              stats_b);
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < kBK; ++k) {
@@ -169,29 +223,34 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int BM, int BN, bool TA, bool TB>
 void run(const void* a, const void* b, void* c, int M, int N, int K,
-         int a_mode, int b_mode, codec::Fmt fa, codec::Fmt fb,
-         cudaStream_t s) {
+         const Operand& oa, const Operand& ob, cudaStream_t s) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  qmm_stream_kernel<T, BM, BN, TA, TB><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(c),
-      M, N, K, a_mode, b_mode, fa, fb);
+  auto* ap = static_cast<const T*>(a);
+  auto* bp = static_cast<const T*>(b);
+  if (oa.sr.on || ob.sr.on || oa.part || ob.part)
+    qmm_stream_kernel<T, BM, BN, TA, TB, true><<<grid, kThreads, 0, s>>>(
+        ap, bp, static_cast<T*>(c), M, N, K, oa, ob);
+  else
+    qmm_stream_kernel<T, BM, BN, TA, TB, false><<<grid, kThreads, 0, s>>>(
+        ap, bp, static_cast<T*>(c), M, N, K, oa, ob);
 }
 
 // The trans flags are template arguments: the index arithmetic of a
 // transposed load costs as much as the FMAs at decode shapes (M = 8), so
-// each layout gets its own instantiation.
+// each layout gets its own instantiation; so does a launch with SR or
+// stats (run), keeping their code out of the round-to-nearest kernel.
 template <typename T, int BM, int BN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           int a_mode, int b_mode, codec::Fmt fa, codec::Fmt fb, int ta,
-           int tb, cudaStream_t s) {
+           const Operand& oa, const Operand& ob, int ta, int tb,
+           cudaStream_t s) {
   if (ta && tb)
-    run<T, BM, BN, true, true>(a, b, c, M, N, K, a_mode, b_mode, fa, fb, s);
+    run<T, BM, BN, true, true>(a, b, c, M, N, K, oa, ob, s);
   else if (ta)
-    run<T, BM, BN, true, false>(a, b, c, M, N, K, a_mode, b_mode, fa, fb, s);
+    run<T, BM, BN, true, false>(a, b, c, M, N, K, oa, ob, s);
   else if (tb)
-    run<T, BM, BN, false, true>(a, b, c, M, N, K, a_mode, b_mode, fa, fb, s);
+    run<T, BM, BN, false, true>(a, b, c, M, N, K, oa, ob, s);
   else
-    run<T, BM, BN, false, false>(a, b, c, M, N, K, a_mode, b_mode, fa, fb, s);
+    run<T, BM, BN, false, false>(a, b, c, M, N, K, oa, ob, s);
   return (int)cudaGetLastError();
 }
 
@@ -199,34 +258,58 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 
 // M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
 // float32, 1 = bfloat16.  a_mode / b_mode: codec::kPass, kBlock or kTile.
-// Shared memory stays under the 48 KB static limit: bf16 64x64 tiles
-// (33 KB with the pad), f32 32x32 (34 KB), 16x32 for M <= 16.
+// a_sr / a_seed (b_*): stochastic rounding of the operand.  a_stats
+// (b_stats): null, or three f32 device pointers (row partials (M, n_ks,
+// 8), slab partials (ceil(M / 128), n_ks, 8), the (8,) result) for the
+// stats epilogue and its fold, n_ks = ceil(K / 128); for B the quant rows
+// are N.  Shared memory stays under the 48 KB static limit: bf16 64x64
+// tiles (33 KB with the pad), f32 32x32 (34 KB), 16x32 for M <= 16.
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int M, int N, int K, int dtype, int a_mode,
                                  int b_mode, float a_qmax, int a_emin,
                                  int a_mbits, int a_pow2, float b_qmax,
                                  int b_emin, int b_mbits, int b_pow2,
-                                 int trans_a, int trans_b, void* stream) {
-  const codec::Fmt fa{a_qmax, a_emin, a_mbits, a_pow2};
-  const codec::Fmt fb{b_qmax, b_emin, b_mbits, b_pow2};
+                                 int trans_a, int trans_b, int a_sr,
+                                 unsigned int a_seed, int b_sr,
+                                 unsigned int b_seed, void** a_stats,
+                                 void** b_stats, void* stream) {
+  const Operand oa{a_mode, codec::make_fmt(a_qmax, a_emin, a_mbits, a_pow2),
+                   {a_sr, a_seed},
+                   a_stats ? static_cast<float*>(a_stats[0]) : nullptr};
+  const Operand ob{b_mode, codec::make_fmt(b_qmax, b_emin, b_mbits, b_pow2),
+                   {b_sr, b_seed},
+                   b_stats ? static_cast<float*>(b_stats[0]) : nullptr};
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
       b_mode < codec::kPass || b_mode > codec::kTile)
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
-  if (dtype == 0) {
-    if (M <= 16)
-      return launch<float, 16, 32>(a, b, c, M, N, K, a_mode, b_mode, fa, fb,
-                                   trans_a, trans_b, s);
-    return launch<float, 32, 32>(a, b, c, M, N, K, a_mode, b_mode, fa, fb,
-                                 trans_a, trans_b, s);
-  }
-  if (dtype == 1) {
-    if (M <= 16)
-      return launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, a_mode, b_mode,
-                                           fa, fb, trans_a, trans_b, s);
-    return launch<__nv_bfloat16, 64, 64>(a, b, c, M, N, K, a_mode, b_mode,
-                                         fa, fb, trans_a, trans_b, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  int err;
+  if (dtype == 0)
+    err = M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
+                                          trans_b, s)
+                  : launch<float, 32, 32>(a, b, c, M, N, K, oa, ob, trans_a,
+                                          trans_b, s);
+  else if (dtype == 1)
+    err = M <= 16
+        ? launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
+                                        trans_b, s)
+        : launch<__nv_bfloat16, 64, 64>(a, b, c, M, N, K, oa, ob, trans_a,
+                                        trans_b, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err || (!a_stats && !b_stats)) return err;
+  const int n_ks = (K + kBK - 1) / kBK;
+  codec::StatsJobs jobs{};
+  int n = 0;
+  auto add = [&](void** st, int rows) {
+    if (st)
+      jobs.job[n++] = {static_cast<const float*>(st[0]),
+                       static_cast<float*>(st[1]), static_cast<float*>(st[2]),
+                       rows, n_ks};
+  };
+  add(a_stats, M);
+  add(b_stats, N);
+  codec::fold_stats(jobs, n, s);
+  return (int)cudaGetLastError();
 }

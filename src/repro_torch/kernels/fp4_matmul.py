@@ -17,6 +17,15 @@ every kernel reads the stored layout in place.  In ``two_pass`` the
 quantize pass writes its result back in the stored layout of its operand
 and the matmul pass reads it with the operand's trans flag, so each
 kernel reads and writes along the contiguous axis.
+
+Stochastic rounding (``a_sr`` / ``b_sr`` with ``seed_a`` / ``seed_b``)
+keys each element's noise by its coordinates in the operand's quant
+orientation, so both pipelines draw the same noise.  ``collect_stats``
+adds the quantize telemetry epilogue: ``(y, (stats_a, stats_b))`` with
+one (8,) f32 vector per quantized operand (None for ``pass``), folded in
+one canonical order (``ref.quant_stats_ref``) by every kernel, so the
+pipelines agree on them bit for bit; ``finalize_quant_stats`` reduces a
+vector to the telemetry stats.
 """
 from __future__ import annotations
 
@@ -26,10 +35,12 @@ import torch
 
 from repro_torch.kernels.qmm_stream import qmm_stream
 from repro_torch.kernels.quantize_rows import quantize_rows
+from repro_torch.kernels.ref import STATS_WIDTH
 from repro_torch.kernels.tiled_mm import tiled_mm
 
-__all__ = ["QUANT_MODES", "PIPELINES", "stream_supported",
-           "resolve_pipeline", "quantize_panels", "fused_qmm"]
+__all__ = ["QUANT_MODES", "PIPELINES", "STATS_WIDTH", "stream_supported",
+           "resolve_pipeline", "quantize_panels", "fused_qmm",
+           "finalize_quant_stats"]
 
 QUANT_MODES = ("pass", "block", "tile", "token", "tensor")
 PIPELINES = ("stream", "two_pass")
@@ -53,15 +64,39 @@ def resolve_pipeline(pipeline: Optional[str], a_mode: str,
     return pipeline
 
 
+def finalize_quant_stats(vec: torch.Tensor):
+    """Reduce a stats vector to the telemetry stat dict (clip, underflow,
+    rel_err, scale_spread), f32 0-dim tensors, as the reference does.
+
+    The square root is taken in f64 and rounded once to f32, which is the
+    correctly rounded f32 root the reference computes (PyTorch's CPU f32
+    ``sqrt`` is not correctly rounded for every input)."""
+    v = vec.reshape(STATS_WIDTH).to(torch.float32)
+    clip_c, under, nz, err2, val2, smin, smax, cnt = v.unbind()
+    smin = torch.minimum(smin, smax)   # the init value if no valid group
+    ratio = err2 / torch.clamp(val2, min=1e-30)
+    return {
+        "clip": clip_c / torch.clamp(cnt, min=1.0),
+        "underflow": under / torch.clamp(nz, min=1.0),
+        "rel_err": ratio.double().sqrt().float(),
+        # log(x) / log(2), as jnp.log2 computes it
+        "scale_spread": torch.log(torch.clamp(smax, min=1e-30)
+                                  / torch.clamp(smin, min=1e-30))
+        / torch.log(torch.full_like(smax, 2.0)),
+    }
+
+
 def quantize_panels(t: torch.Tensor, *, mode: str = "block",
                     fmt_name: str = "fp4_e2m1", pow2: bool = False,
-                    sr: bool = False, trans: bool = False,
-                    collect_stats: bool = False) -> torch.Tensor:
+                    sr: bool = False, seed=None, trans: bool = False,
+                    collect_stats: bool = False):
     """The quantize pass on its own: QDQ of the effective operand
     (``t.T`` under ``trans``, read in place), groups along its axis 1;
-    returned in the effective orientation, as the reference returns it."""
+    returned in the effective orientation, as the reference returns it,
+    or ``(values, stats)`` with ``collect_stats``."""
     return quantize_rows(t, mode=mode, fmt_name=fmt_name, pow2=pow2,
-                         trans=trans, sr=sr, collect_stats=collect_stats)
+                         trans=trans, sr=sr, seed=seed,
+                         collect_stats=collect_stats)
 
 
 def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
@@ -69,15 +104,17 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
               a_fmt: str = "fp4_e2m1", b_fmt: str = "fp4_e2m1",
               a_pow2: bool = False, b_pow2: bool = False,
               a_sr: bool = False, b_sr: bool = False,
+              seed_a=None, seed_b=None,
               trans_a: bool = False, trans_b: bool = False,
               pipeline: Optional[str] = None,
-              collect_stats: bool = False) -> torch.Tensor:
+              collect_stats: bool = False):
     """``y = Q(A') @ Q(B')``; ``A' = a.T`` under ``trans_a`` (same for B').
 
     Effective shapes A' (M, K), B' (K, N), any sizes: the kernels mask the
     ragged edges, which equals the reference's zero padding to multiples
     of 128 sliced back.  Per-operand modes ``pass | block | tile | token |
-    tensor``; groups of 128 along K.
+    tensor``; groups of 128 along K.  ``a_sr`` / ``b_sr`` need their
+    seeds; with ``collect_stats`` returns ``(y, (stats_a, stats_b))``.
     """
     if a_mode not in QUANT_MODES or b_mode not in QUANT_MODES:
         raise ValueError(f"unknown modes {(a_mode, b_mode)}")
@@ -85,18 +122,25 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
         return qmm_stream(a, b, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt,
                           b_fmt=b_fmt, a_pow2=a_pow2, b_pow2=b_pow2,
                           trans_a=trans_a, trans_b=trans_b, a_sr=a_sr,
-                          b_sr=b_sr, collect_stats=collect_stats)
+                          b_sr=b_sr, seed_a=seed_a, seed_b=seed_b,
+                          collect_stats=collect_stats)
     # Each quantize pass writes in its operand's stored layout (emit_trans
     # undoes trans), so tiled_mm keeps the original trans flags.  Stats, as
     # in the reference, come from the quantized operands only.
+    stats = [None, None]
     if a_mode != "pass":
         # A's quant orientation (M, K) is A' itself.
         a = quantize_rows(a, mode=a_mode, fmt_name=a_fmt, pow2=a_pow2,
                           trans=trans_a, emit_trans=trans_a, sr=a_sr,
-                          collect_stats=collect_stats)
+                          seed=seed_a, collect_stats=collect_stats)
+        if collect_stats:
+            a, stats[0] = a
     if b_mode != "pass":
         # B's quant orientation is (N, K) = B'.T: groups reduce over K.
         b = quantize_rows(b, mode=b_mode, fmt_name=b_fmt, pow2=b_pow2,
                           trans=not trans_b, emit_trans=not trans_b,
-                          sr=b_sr, collect_stats=collect_stats)
-    return tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b)
+                          sr=b_sr, seed=seed_b, collect_stats=collect_stats)
+        if collect_stats:
+            b, stats[1] = b
+    y = tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b)
+    return (y, tuple(stats)) if collect_stats else y

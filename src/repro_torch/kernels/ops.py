@@ -1,12 +1,14 @@
 """Public kernel entry points (counterpart of ``repro.kernels.ops``):
-``pallas_qmm`` (the quantized matmul) and ``flash_attention`` (the
-differentiable attention core).
+``pallas_qmm`` (the quantized matmul), ``quantize_blockwise`` (the
+standalone QDQ) and ``flash_attention`` (the differentiable attention
+core).
 
 The reference pads every operand to multiples of 128 and slices the
-result back to (M, N).  The port's kernels mask the ragged edges
-instead, which gives the same values: zero K padding adds nothing to the
-dot and leaves each row's amax groups unchanged, and padded M / N rows
-and columns are exactly the ones sliced away.
+result back.  The port's kernels mask the ragged edges instead, which
+gives the same values: zero padding adds nothing to a dot and leaves
+every group's amax unchanged, padded rows and columns are exactly the
+ones sliced away, and the stats epilogue counts only elements inside the
+operand, as the reference's ``real_dims`` masking does.
 """
 from __future__ import annotations
 
@@ -15,26 +17,49 @@ from typing import Optional
 import torch
 
 from repro_torch.core.quantize import QuantSpec
+from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fp4_matmul import fused_qmm
+from repro_torch.kernels.rounding import fold_seed
 
-__all__ = ["pallas_qmm", "flash_attention"]
+__all__ = ["pallas_qmm", "quantize_blockwise", "flash_attention"]
 
 
 def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, mode_a: str, mode_b: str,
                trans_a: bool = False, trans_b: bool = False,
-               pipeline: Optional[str] = None) -> torch.Tensor:
+               key_data=None, salt: int = 0,
+               pipeline: Optional[str] = None,
+               collect_stats: bool = False):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
-    name is the reference's; here it runs the CUDA kernels."""
+    name is the reference's; here it runs the CUDA kernels.
+
+    Stochastic specs draw their noise from seeds folded out of
+    ``key_data`` (raw uint32[2] key material) and ``salt`` (0 fwd, 2
+    dgrad, 4 wgrad), operand index 0 for A and 1 for B.  With
+    ``collect_stats`` returns ``(y, (stats_a, stats_b))``, raw stats
+    vectors (``fp4_matmul.finalize_quant_stats`` reduces them)."""
+    a_sr = spec_a.stochastic and mode_a != "pass"
+    b_sr = spec_b.stochastic and mode_b != "pass"
+    if (a_sr or b_sr) and key_data is None:
+        raise ValueError("a stochastic spec needs key_data")
     return fused_qmm(
         a, b, a_mode=mode_a, b_mode=mode_b, a_fmt=spec_a.fmt,
         b_fmt=spec_b.fmt, a_pow2=spec_a.pow2_scale,
-        b_pow2=spec_b.pow2_scale,
-        a_sr=spec_a.stochastic and mode_a != "pass",
-        b_sr=spec_b.stochastic and mode_b != "pass",
-        trans_a=trans_a, trans_b=trans_b, pipeline=pipeline)
+        b_pow2=spec_b.pow2_scale, a_sr=a_sr, b_sr=b_sr,
+        seed_a=fold_seed(key_data, salt, 0) if a_sr else None,
+        seed_b=fold_seed(key_data, salt, 1) if b_sr else None,
+        trans_a=trans_a, trans_b=trans_b, pipeline=pipeline,
+        collect_stats=collect_stats)
+
+
+def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",
+                       block: int = 128, *,
+                       per_row: bool = False) -> torch.Tensor:
+    """Tilewise QDQ of a 2-D array of any shape (the kernel masks the
+    ragged edge, which equals the reference's padding sliced back)."""
+    return _q.quantize_blockwise(x, fmt_name, block, per_row=per_row)
 
 
 class _Flash(torch.autograd.Function):

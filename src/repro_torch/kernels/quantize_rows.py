@@ -4,11 +4,14 @@ pipeline) — CUDA kernel ``csrc/quantize_rows.cu``, replacing
 
 QDQ of a 2-D operand in quant orientation (rows, reduction), groups along
 axis 1: ``block`` (1 x 128), ``tile`` (128 x 128), ``token`` (one row) or
-``tensor`` (everything), round-to-nearest-even.  Under ``trans`` the
-stored operand is the transpose of the quant orientation and is read in
-place; under ``emit_trans`` the result is written transposed.  The plain
-version ``quantize_rows_plain`` computes the same bits with PyTorch ops;
-the wrapper takes it only for a tensor on the CPU.
+``tensor`` (everything), round-to-nearest-even or, under ``sr``,
+stochastic rounding with the counter-hash noise of ``seed``.  Under
+``trans`` the stored operand is the transpose of the quant orientation and
+is read in place; under ``emit_trans`` the result is written transposed.
+``collect_stats`` adds the stats epilogue's (8,) f32 vector
+(``fp4_matmul.finalize_quant_stats`` reduces it).  The plain version
+``quantize_rows_plain`` computes the same bits with PyTorch ops; the
+wrapper takes it only for a tensor on the CPU.
 """
 from __future__ import annotations
 
@@ -18,8 +21,10 @@ import torch
 
 from repro_torch.core.formats import FORMATS
 from repro_torch.core.quantize import QuantSpec
-from repro_torch.kernels.build import CudaKernel, cuda_operands, stream_ptr
-from repro_torch.kernels.ref import quantize_panels_ref
+from repro_torch.kernels.build import (CudaKernel, cuda_operands,
+                                       stats_buffers, stream_ptr)
+from repro_torch.kernels.ref import qdq_grid_ref, quant_stats_ref
+from repro_torch.kernels.rounding import hash_uniform
 
 __all__ = ["quantize_rows", "quantize_rows_plain", "KERNEL", "MODE_CODES",
            "fmt_args"]
@@ -38,10 +43,10 @@ def fmt_args(mode: str, fmt_name: str, pow2: bool):
         raise ValueError(f"{fmt_name} has no kernel rounding grid")
     return (fmt.max_value, fmt.emin, fmt.mbits, int(pow2))
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNEL = CudaKernel("quantize_rows",
                     [_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P,
-                     _P])
+                     _I, _U, _P, _P, _P, _P])
 
 
 def mode_spec(mode: str, fmt_name: str, pow2: bool) -> QuantSpec:
@@ -51,50 +56,76 @@ def mode_spec(mode: str, fmt_name: str, pow2: bool) -> QuantSpec:
     return QuantSpec(fmt_name, mode, GROUP, pow2_scale=pow2)
 
 
+def sr_noise(rows: int, cols: int, seed, device) -> torch.Tensor:
+    """The kernels' SR noise of a (rows, cols) quant-orientation operand,
+    or None when ``seed`` is None (round to nearest)."""
+    if seed is None:
+        return None
+    return hash_uniform((rows, cols), seed, device=device)
+
+
 def quantize_rows_plain(x: torch.Tensor, *, mode: str, fmt_name: str,
                         pow2: bool = False, trans: bool = False,
-                        emit_trans: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same bits)."""
-    q = quantize_panels_ref(x, mode_spec(mode, fmt_name, pow2), trans=trans)
-    return q.T.contiguous() if emit_trans else q
+                        emit_trans: bool = False, seed=None,
+                        collect_stats: bool = False):
+    """Plain PyTorch version of the kernel (same bits, stats included);
+    ``seed`` None rounds to nearest."""
+    spec = mode_spec(mode, fmt_name, pow2)
+    xe = x.T if trans else x
+    q = qdq_grid_ref(xe, spec, 1, sr_noise(*xe.shape, seed, x.device))
+    y = q.T.contiguous() if emit_trans else q
+    if collect_stats:
+        return y, quant_stats_ref(xe, q, spec)
+    return y
 
 
 def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
                   pow2: bool = False, trans: bool = False,
-                  emit_trans: bool = False, sr: bool = False,
-                  collect_stats: bool = False) -> torch.Tensor:
+                  emit_trans: bool = False, sr: bool = False, seed=None,
+                  collect_stats: bool = False):
     """QDQ of ``x`` (rows, reduction) per ``mode`` into ``fmt_name``; of
     ``x.T`` under ``trans``, read in place.  The result is (rows,
-    reduction), or its transpose under ``emit_trans``.
+    reduction), or its transpose under ``emit_trans``; with
+    ``collect_stats``, ``(result, stats)``.  ``sr`` rounds stochastically
+    with the noise of ``seed`` (an int32 from ``rounding.fold_seed``).
 
-    A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version.  Stochastic rounding and the stats epilogue are not ported
-    and raise.
+    A CUDA tensor launches the kernel (the stats fold is two more,
+    tensor mode's amax another); a CPU tensor takes the plain version.
     """
-    if sr or collect_stats:
-        raise NotImplementedError(
-            "quantize_rows: stochastic rounding and the stats epilogue are "
-            "not ported yet")
     if mode not in MODE_CODES or mode == "pass":
         raise ValueError(f"unknown quantize mode {mode!r}")
+    if sr and seed is None:
+        raise ValueError("stochastic rounding needs a seed")
     args = fmt_args(mode, fmt_name, pow2)
+    seed = seed if sr else None
     if x.device.type == "cpu":
         return quantize_rows_plain(x, mode=mode, fmt_name=fmt_name,
                                    pow2=pow2, trans=trans,
-                                   emit_trans=emit_trans)
+                                   emit_trans=emit_trans, seed=seed,
+                                   collect_stats=collect_stats)
     dtype = cuda_operands(x)
     rows, cols = (x.shape[1], x.shape[0]) if trans else x.shape
     y = torch.empty((cols, rows) if emit_trans else (rows, cols),
                     dtype=x.dtype, device=x.device)
+    stats = stats_buffers(rows, cols, x.device) if collect_stats else None
     if y.numel() == 0:
-        return y
+        return (y, stats[-1].zero_()) if collect_stats else y
     scratch = (torch.zeros(1, dtype=torch.int32, device=x.device)
                if mode == "tensor" else None)
+    ptrs = [None] * 3 if stats is None else [t.data_ptr() for t in stats]
     with torch.cuda.device(x.device):
-        # tensor mode is two kernels: the whole-tensor amax, then the QDQ
+        # tensor mode's whole-tensor amax and the stats fold (two) are
+        # kernels of their own beside the QDQ
         KERNEL.launch(x.data_ptr(), y.data_ptr(), rows, cols, dtype,
                       MODE_CODES[mode], *args, int(trans), int(emit_trans),
                       None if scratch is None else scratch.data_ptr(),
-                      stream_ptr(x), kernels=2 if mode == "tensor" else 1,
-                      trans=trans or emit_trans)
-    return y
+                      int(sr), seed_arg(seed), *ptrs, stream_ptr(x),
+                      kernels=1 + (mode == "tensor") + 2 * collect_stats,
+                      trans=trans or emit_trans, sr=sr,
+                      stats=collect_stats)
+    return (y, stats[-1]) if collect_stats else y
+
+
+def seed_arg(seed) -> int:
+    """An int32 seed as the kernels' uint32 argument (0 when unused)."""
+    return 0 if seed is None else int(seed) & 0xFFFFFFFF

@@ -8,6 +8,13 @@ intermediate is exact.  ``quantize_tile`` is the group QDQ in the
 reference's dtype order: amax in the input dtype, scale in f32 (true
 division, eps floor), cast to the input dtype, divide, round, rescale in
 the input dtype.
+
+``hash_bits`` is the reference's counter hash for stochastic rounding:
+every element's noise is a hash of (seed, global row, global col), so it
+does not depend on how a kernel tiles the operand.  uint32 arithmetic is
+carried in int64 masked to 32 bits (PyTorch's ``uint32`` has no ``>>``
+or ``+`` on the CPU); products are split into 16-bit halves so no int64
+intermediate overflows.
 """
 from __future__ import annotations
 
@@ -16,7 +23,8 @@ from typing import Optional
 import torch
 
 __all__ = ["round_to_grid", "pow2_floor", "group_scale", "quantize_tile",
-           "snap_to_dtype"]
+           "snap_to_dtype", "hash_bits", "hash_uniform",
+           "uniform_from_bits", "fold_seed"]
 
 _F32_MANT = 23
 _F32_BIAS = 127
@@ -83,3 +91,62 @@ def quantize_tile(tile: torch.Tensor, fmt, *, per_row: bool,
     amax = (mag.amax(dim=-1, keepdim=True) if per_row else mag.amax())
     sc = group_scale(amax, fmt, pow2).to(tile.dtype)
     return round_to_grid(tile / sc, fmt, noise) * sc
+
+
+# ---------------------------------------------------------------------------
+# Counter-based uniform noise (stochastic rounding)
+# ---------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+_PHI = 0x9E3779B9   # golden-ratio increment
+_M1 = 0x85EBCA6B    # murmur3 finalizer constants
+_M2 = 0xC2B2AE35
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``(a * c) mod 2^32`` for int64 ``a`` in [0, 2^32) and a uint32
+    constant ``c``, without an int64 overflow."""
+    lo = (a & 0xFFFF) * c
+    hi = (((a >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, _M1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _M2)
+    return h ^ (h >> 16)
+
+
+def hash_bits(shape, seed: int, row0: int = 0, col0: int = 0,
+              device=None) -> torch.Tensor:
+    """uint32 hash bits (as int64) keyed by (seed, global row, global
+    col) for a ``shape`` = (rows, cols) tile at offset (row0, col0)."""
+    rows, cols = shape
+    r = (torch.arange(rows, dtype=torch.int64, device=device) + row0) & _MASK
+    c = (torch.arange(cols, dtype=torch.int64, device=device) + col0) & _MASK
+    h = ((seed & _MASK) * _PHI) & _MASK
+    h = _mix(h ^ _mul32(r, _M1))[:, None]
+    return _mix(h ^ _mul32(c, _M2)[None, :])
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> f32 uniform [0, 1) from the top 24 bits (exact)."""
+    return (bits >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def hash_uniform(shape, seed: int, row0: int = 0, col0: int = 0,
+                 device=None) -> torch.Tensor:
+    """f32 uniform [0, 1) noise keyed by (seed, global element)."""
+    return uniform_from_bits(hash_bits(shape, seed, row0, col0, device))
+
+
+def fold_seed(key_data, salt: int, which: int) -> int:
+    """The int32 kernel seed of raw uint32[2] key material, a salt (0 fwd,
+    2 dgrad, 4 wgrad) and the operand index (0 A, 1 B): the reference's
+    folding, on host integers."""
+    k0, k1 = (int(v) & _MASK for v in key_data)
+    base = k0 ^ ((k1 * _PHI) & _MASK)
+    base ^= ((salt * 2 + which) * _M1) & _MASK
+    return base - (1 << 32) if base >= 1 << 31 else base

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.build import (CudaKernel, cuda_operands,
                                        effective_dims, stream_ptr)
+from repro_torch.kernels.ref import f32_matmul
 
 __all__ = ["tiled_mm", "tiled_mm_plain", "KERNEL"]
 
@@ -26,10 +27,7 @@ def tiled_mm_plain(a: torch.Tensor, b: torch.Tensor, *,
                    trans_a: bool = False, trans_b: bool = False
                    ) -> torch.Tensor:
     """Plain PyTorch version: f32-accumulated ``A' @ B'`` in A's dtype."""
-    ae = a.T if trans_a else a
-    be = b.T if trans_b else b
-    return torch.matmul(ae.to(torch.float32),
-                        be.to(torch.float32)).to(a.dtype)
+    return f32_matmul(a.T if trans_a else a, b.T if trans_b else b, a.dtype)
 
 
 def tiled_mm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,

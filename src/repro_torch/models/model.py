@@ -21,6 +21,7 @@ from repro_torch.core.recipe import PrecisionPlan, as_plan
 from repro_torch.models import stack as stack_lib
 from repro_torch.nn.layers import apply_norm, linear
 from repro_torch.nn.params import ParamSpec, init_params
+from repro_torch.telemetry import collect as telemetry
 from repro_torch.tree import tree_map
 
 __all__ = ["Model", "build_model", "tree_map"]
@@ -86,27 +87,29 @@ class Model:
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
         w = (params["embed"].to(self.dtype).T if self.cfg.tie_embeddings
              else params["head"].to(self.dtype))
-        return linear(x, w, plan.head_linear, self.cfg)
+        with telemetry.module_scope("head"):
+            return linear(x, w, plan.head_linear, self.cfg)
 
     def _plan(self, p) -> PrecisionPlan:
         return as_plan(p, self.cfg.n_layers)
 
     # -- training forward / loss (no cache) -----------------------------
 
-    def _body(self, params, tokens: torch.Tensor, plan):
+    def _body(self, params, tokens: torch.Tensor, plan, aux=None):
         """(compute-dtype params, plan, the stack's output) of a forward
-        with no cache."""
+        with no cache; per-layer telemetry stats go into ``aux``."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x = self._embed(params, tokens, positions)
         x = stack_lib.run_stack(params["stack"], self.cfg, plan, x,
-                                positions=positions)
+                                positions=positions, aux=aux)
         return params, plan, x
 
-    def _logits(self, params, tokens: torch.Tensor, plan) -> torch.Tensor:
-        params, plan, x = self._body(params, tokens, plan)
+    def _logits(self, params, tokens: torch.Tensor, plan,
+                aux=None) -> torch.Tensor:
+        params, plan, x = self._body(params, tokens, plan, aux)
         return self._head(params, x, plan)
 
     @torch.no_grad()
@@ -139,12 +142,14 @@ class Model:
         """Next-token cross-entropy (f32) under autograd; ``targets == -1``
         masks a position.  Returns (loss, metrics) with the reference's
         metric names (``loss``, ``tokens``, ``z_loss`` when set,
-        ``total_loss``)."""
+        ``total_loss``, and the per-layer ``tel/l{i:02d}/...`` stats when
+        a telemetry collector is installed)."""
         if self.cfg.loss_chunk:
             raise NotImplementedError(
                 "loss_chunk > 0 (the chunked, rematerialized head) is not "
                 "ported")
-        logits = self._logits(params, batch["tokens"], plan)
+        aux: Dict[str, torch.Tensor] = {}
+        logits = self._logits(params, batch["tokens"], plan, aux)
         nll, z2, n = self._xent_terms(logits, batch["targets"])
         denom = torch.clamp(n, min=1)
         loss = nll / denom
@@ -153,6 +158,7 @@ class Model:
             zl = self.cfg.z_loss * z2 / denom
             loss = loss + zl
             metrics["z_loss"] = zl
+        metrics.update(aux)
         metrics["total_loss"] = loss
         return loss, metrics
 

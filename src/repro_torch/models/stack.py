@@ -6,6 +6,11 @@ layouts: ``{"layers": [per-layer dicts]}`` (unrolled) or
 ``{"groups": {"l00": dict of tensors with a leading layers axis}}``
 (scan-stacked; the dense family repeats with period 1).  Caches are one
 dict per layer, updated in place.
+
+With telemetry on, each layer runs in a collection frame
+(``telemetry.collect.layer_frame``) and its sublayers in module scopes
+(``attn``, ``ffn``); the frame's stats come out as ``tel/l{i:02d}/...``
+in the ``aux`` dict the caller passes.
 """
 from __future__ import annotations
 
@@ -14,11 +19,13 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import routing
 from repro_torch.core.recipe import LayerRecipe, PrecisionPlan
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.nn.layers import apply_norm
 from repro_torch.nn.params import ParamSpec, map_specs
+from repro_torch.telemetry import collect as telemetry
 
 __all__ = ["norm_specs", "stack_param_specs", "layer_params", "run_stack",
            "init_stack_cache"]
@@ -73,21 +80,34 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def _run_layer(params, cfg: ModelConfig, row: LayerRecipe, x, *,
-               positions, cache, cache_len):
-    h = apply_norm(params["mixer_norm"], x, cfg.norm)
-    x = x + attn_lib.attention(
-        params["mixer"], cfg, h, row.attn_linear, positions=positions,
-        cache=None if cache is None else cache["self"],
-        cache_len=cache_len)
-    h = apply_norm(params["ffn_norm"], x, cfg.norm)
-    return x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
+               positions, cache, cache_len, layer_idx: int,
+               aux: Optional[Dict[str, torch.Tensor]]):
+    with routing.layer_scope(f"L{layer_idx}"), \
+            telemetry.layer_frame(layer_idx) as tel_frame:
+        h = apply_norm(params["mixer_norm"], x, cfg.norm)
+        with telemetry.module_scope("attn"):
+            x = x + attn_lib.attention(
+                params["mixer"], cfg, h, row.attn_linear,
+                positions=positions,
+                cache=None if cache is None else cache["self"],
+                cache_len=cache_len)
+        h = apply_norm(params["ffn_norm"], x, cfg.norm)
+        with telemetry.module_scope("ffn"):
+            x = x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
+    if tel_frame is not None and aux is not None:
+        for k, v in tel_frame.stats.items():
+            aux[f"tel/l{layer_idx:02d}/{k}"] = v
+    return x
 
 
 def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
               x: torch.Tensor, *, positions: torch.Tensor,
               cache: Optional[Dict[str, List]] = None,
-              cache_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """All layers, each under its plan row; caches update in place."""
+              cache_len: Optional[torch.Tensor] = None,
+              aux: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """All layers, each under its plan row; caches update in place;
+    per-layer telemetry stats go into ``aux`` when given."""
     if plan.n_layers != cfg.n_layers:
         raise ValueError(f"plan has {plan.n_layers} layers, model "
                          f"{cfg.n_layers}")
@@ -95,5 +115,5 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
         x = _run_layer(layer_params(params, i), cfg, plan.layers[i], x,
                        positions=positions,
                        cache=None if cache is None else cache["layers"][i],
-                       cache_len=cache_len)
+                       cache_len=cache_len, layer_idx=i, aux=aux)
     return x

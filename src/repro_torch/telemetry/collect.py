@@ -1,0 +1,429 @@
+"""Quantization telemetry taps (counterpart of
+``repro.telemetry.collect``).
+
+The taps sit in ``core.qlinear.qlinear`` and are driven by a thread-local
+*collector* that the train step installs around the loss; with no
+collector every hook is a no-op and the step is exactly the
+telemetry-free one.
+
+Two channels carry the statistics out:
+
+* **Forward-side stats** (the operand slots whose tensors exist in the
+  forward: fwd_x, fwd_w, wgrad_x, dgrad_w).  ``models.stack`` opens a
+  :func:`layer_frame` per layer; each quantized linear pushes
+  ``{scope}/mm{j}/{slot}/{stat}`` scalars into the current frame and the
+  stack drains it into the loss metrics as ``tel/l{i:02d}/...``.  Taps
+  outside any layer (the LM head) land in the root frame, drained as
+  ``tel/...``.
+* **Gradient-side stats** (dgrad_g / wgrad_g: the cotangent exists only
+  in the backward).  :func:`grad_tap` wraps each quantized linear's output
+  in an identity ``torch.autograd.Function`` whose backward writes the
+  incoming cotangent's stats into its layer's row of a zero *probe*, one
+  ``(n_layers + 1, PROBE_SIZE)`` leaf per module class (the last row is
+  for taps outside the stack, the LM head).  The train step takes the
+  gradient of the loss with respect to the probes; the trailing
+  tap-count slot keeps the rows self-normalizing when microbatches add up.
+
+Statistics per operand slot (f32): ``clip`` (fraction above the group's
+clip point), ``underflow`` (fraction of nonzeros that quantize to 0, the
+Fig. 1b signal), ``rel_err`` (||x - Q(x)|| / ||x||) and ``scale_spread``
+(log2 of the max over the min group scale).
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+import threading
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core import routing
+from repro_torch.core.quantize import (QuantSpec, _blocked_view,
+                                       _group_amax, scale_from_amax)
+from repro_torch.core.recipe import MatmulRecipe
+
+__all__ = ["TelemetryCollector", "collecting", "active", "suppressed",
+           "module_scope", "layer_frame", "tap_matmul", "grad_tap",
+           "make_probes", "probe_metrics", "grad_norm_metrics",
+           "operand_stats", "cell_error_signals", "PROBE_CLASSES",
+           "GRAD_STATS", "PROBE_SIZE", "SCOPE_CLASS"]
+
+_TLS = threading.local()
+
+# Cap on sampled scale groups per operand stat (see ``operand_stats``).
+_SAMPLE_GROUPS = 128
+
+# Gradient-side stats per probe row; the final slot counts taps.
+GRAD_STATS = ("dgrad_g/clip", "dgrad_g/underflow", "dgrad_g/rel_err",
+              "wgrad_g/clip", "wgrad_g/underflow", "wgrad_g/rel_err",
+              "gnorm_sq")
+PROBE_SIZE = len(GRAD_STATS) + 1
+
+PROBE_CLASSES = ("attn", "ffn", "head", "other")
+# module scope -> probe / recipe class
+SCOPE_CLASS = {"attn": "attn", "cross": "attn",
+               "ffn": "ffn", "moe": "ffn", "ssm": "ffn",
+               "head": "head"}
+
+
+# ---------------------------------------------------------------------------
+# Collector and scopes
+# ---------------------------------------------------------------------------
+
+class _Frame:
+    """One collection frame (per layer, or the loss-level root)."""
+
+    def __init__(self) -> None:
+        self.stats: Dict[str, torch.Tensor] = {}
+        self._mm: Dict[str, int] = {}
+
+    def next_index(self, scope: str) -> int:
+        i = self._mm.get(scope, 0)
+        self._mm[scope] = i + 1
+        return i
+
+
+class TelemetryCollector:
+    """Frame stack, scope stack and probes for one loss evaluation."""
+
+    def __init__(self) -> None:
+        self.reset(None)
+
+    def reset(self, probes) -> None:
+        self.probes: Optional[Dict[str, torch.Tensor]] = probes
+        self._frames = [_Frame()]
+        self._scopes: list = []
+        self._layers: list = []
+
+    @property
+    def frame(self) -> _Frame:
+        return self._frames[-1]
+
+    @property
+    def layer_index(self) -> Optional[int]:
+        """The current layer, or None outside any layer frame."""
+        return self._layers[-1] if self._layers else None
+
+    @property
+    def scope_path(self) -> str:
+        return "/".join(self._scopes) if self._scopes else "top"
+
+    @property
+    def scope_root(self) -> str:
+        return self._scopes[0] if self._scopes else "top"
+
+    def drain_root(self) -> Dict[str, torch.Tensor]:
+        """Loss-level stats (the LM head's linear), 'tel/'-prefixed."""
+        root = self._frames[0]
+        out = {f"tel/{k}": v for k, v in root.stats.items()}
+        root.stats = {}
+        return out
+
+
+def active() -> Optional[TelemetryCollector]:
+    if getattr(_TLS, "suppress", 0):
+        return None
+    return getattr(_TLS, "collector", None)
+
+
+@contextlib.contextmanager
+def collecting(collector: TelemetryCollector, probes):
+    """Install ``collector`` for one loss evaluation."""
+    collector.reset(probes)
+    prev = getattr(_TLS, "collector", None)
+    _TLS.collector = collector
+    try:
+        yield collector
+    finally:
+        _TLS.collector = prev
+
+
+@contextlib.contextmanager
+def suppressed():
+    """Disable the taps inside."""
+    _TLS.suppress = getattr(_TLS, "suppress", 0) + 1
+    try:
+        yield
+    finally:
+        _TLS.suppress -= 1
+
+
+@contextlib.contextmanager
+def module_scope(name: str):
+    """Label the taps inside with a module scope ('attn', 'ffn', ...);
+    also the plan-class scope of ``core.routing``."""
+    with routing.class_scope(name):
+        col = active()
+        if col is None:
+            yield
+            return
+        col._scopes.append(name)
+        try:
+            yield
+        finally:
+            col._scopes.pop()
+
+
+@contextlib.contextmanager
+def layer_frame(index: Optional[int] = None):
+    """Open a per-layer collection frame; yields it (None when telemetry
+    is off).  ``index`` routes the layer's backward stats into its probe
+    row."""
+    col = active()
+    if col is None:
+        yield None
+        return
+    fr = _Frame()
+    col._frames.append(fr)
+    col._layers.append(index)
+    try:
+        yield fr
+    finally:
+        col._frames.pop()
+        col._layers.pop()
+
+
+# ---------------------------------------------------------------------------
+# Operand statistics
+# ---------------------------------------------------------------------------
+
+def _statable(spec: QuantSpec) -> bool:
+    return not spec.is_passthrough and spec.fmt != "fp16"
+
+
+def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
+                  reduction_axis: int) -> Dict[str, torch.Tensor]:
+    """Quant-health stats of one matmul operand under ``spec`` (f32 0-dim
+    tensors), in one blocked pass, as the reference computes them.
+
+    ``reduction_axis`` is relative to the stored layout.  For ``token`` /
+    ``block`` granularities the groups lie along the reduction axis, so
+    the operand is strided-subsampled along the other axis to at most
+    ``_SAMPLE_GROUPS`` groups first: per-group math stays exact and the
+    rates become a sample mean.
+    """
+    fmt = spec.format
+    if spec.granularity in ("token", "block"):
+        axis = 1 - reduction_axis
+        stride = a2d.shape[axis] // _SAMPLE_GROUPS
+        if stride > 1:
+            a2d = a2d[::stride] if axis == 0 else a2d[:, ::stride]
+    rows, cols = a2d.shape
+    af = _blocked_view(a2d, spec.granularity, spec.block,
+                       reduction_axis).to(torch.float32)
+    mag = af.abs()
+    scale = scale_from_amax(_group_amax(af, spec.granularity,
+                                        reduction_axis), fmt,
+                            spec.pow2_scale)
+    q = F.round_to_format(af / scale, fmt) * scale
+    nonzero = mag > 0
+    underflow = ((nonzero & (q == 0)).sum()
+                 / torch.clamp(nonzero.sum(), min=1))
+    rel_err = torch.sqrt(((af - q) ** 2).sum()
+                         / torch.clamp((af * af).sum(), min=1e-30))
+    clip = (mag > scale * (fmt.max_value * (1.0 + 1e-6))).sum() / (rows * cols)
+    spread = torch.log2(torch.clamp(scale.max(), min=1e-30)
+                        / torch.clamp(scale.min(), min=1e-30))
+    return {k: v.to(torch.float32) for k, v in (
+        ("clip", clip), ("underflow", underflow), ("rel_err", rel_err),
+        ("scale_spread", spread))}
+
+
+# slot -> (operand index, spec name, reduction axis in the stored (M, K)
+# x / (K, N) w layout)
+_FWD_SLOTS = (
+    ("fwd_x", 0, "fwd_x", 1),      # x quantized over K
+    ("fwd_w", 1, "fwd_w", 0),      # w quantized over K
+    ("wgrad_x", 0, "wgrad_x", 0),  # x^T quantized over M == x over axis 0
+    ("dgrad_w", 1, "dgrad_w", 1),  # w^T quantized over N == w over axis 1
+)
+
+
+def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
+               fused_fwd: Optional[Dict[str, Optional[Dict]]] = None
+               ) -> None:
+    """Record the forward-computable operand stats of one quantized matmul
+    into the current frame; no-op without a collector.  ``fused_fwd``
+    carries the fwd_x / fwd_w stats that the kernels' epilogue already
+    produced (full operand, no subsampling); those slots skip the
+    re-computation here."""
+    col = active()
+    if col is None:
+        return
+    fr = col.frame
+    scope = col.scope_path
+    j = fr.next_index(scope)
+    ops = (x2d.detach(), w.detach())
+    for slot, op_i, spec_name, axis in _FWD_SLOTS:
+        spec = getattr(recipe, spec_name)
+        if not _statable(spec):
+            continue
+        pre = fused_fwd.get(slot) if fused_fwd else None
+        stats = pre if pre is not None else operand_stats(
+            ops[op_i], spec, axis)
+        for stat, v in stats.items():
+            fr.stats[f"{scope}/mm{j}/{slot}/{stat}"] = v
+
+
+# ---------------------------------------------------------------------------
+# Gradient-side taps (probe gradients)
+# ---------------------------------------------------------------------------
+
+def make_probes(n_layers: int, device=None) -> Dict[str, torch.Tensor]:
+    """Zero ``(n_layers + 1, PROBE_SIZE)`` probe leaves per module class,
+    requiring gradients; row ``n_layers`` collects the taps outside the
+    stack (the LM head)."""
+    return {c: torch.zeros((n_layers + 1, PROBE_SIZE), dtype=torch.float32,
+                           device=device, requires_grad=True)
+            for c in PROBE_CLASSES}
+
+
+def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
+    g2 = g.reshape(-1, g.shape[-1])
+    vals = []
+    # dgrad: g reduced over N (axis 1); wgrad: g reduced over M (axis 0)
+    for spec, axis in ((recipe.dgrad_g, 1), (recipe.wgrad_g, 0)):
+        if _statable(spec):
+            s = operand_stats(g2, spec, axis)
+            vals += [s["clip"], s["underflow"], s["rel_err"]]
+        else:
+            vals += [torch.zeros((), device=g.device)] * 3
+    vals.append((g2.to(torch.float32) ** 2).sum())
+    vals.append(torch.ones((), device=g.device))   # tap count
+    return torch.stack(vals)
+
+
+class _GradTap(torch.autograd.Function):
+    """Identity on ``y``; its backward passes the cotangent on unchanged
+    and returns the cotangent's stats as the probe's gradient, in row
+    ``row``."""
+
+    @staticmethod
+    def forward(ctx, y, probe, row: int, recipe: MatmulRecipe):
+        ctx.row, ctx.recipe, ctx.shape = row, recipe, probe.shape
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        gp = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        gp[ctx.row] = _cotangent_stats(g, ctx.recipe)
+        return g, gp, None, None
+
+
+def grad_tap(y: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
+    """Identity whose backward writes the cotangent's quant stats into the
+    current layer's row of its module class's probe; the forward value
+    and the cotangent passed upstream are untouched."""
+    col = active()
+    if col is None or col.probes is None:
+        return y
+    if not (_statable(recipe.dgrad_g) or _statable(recipe.wgrad_g)):
+        return y
+    probe = col.probes[SCOPE_CLASS.get(col.scope_root, "other")]
+    idx = col.layer_index
+    last = probe.shape[0] - 1
+    row = last if idx is None else min(idx, last)
+    return _GradTap.apply(y, probe, row, recipe)
+
+
+def _vec_metrics(vec: torch.Tensor, prefix: str,
+                 out: Dict[str, torch.Tensor]) -> None:
+    cnt = vec[-1]
+    denom = torch.clamp(cnt, min=1.0)
+    for i, name in enumerate(GRAD_STATS):
+        if name == "gnorm_sq":
+            out[f"{prefix}/gout_norm"] = torch.sqrt(vec[i] / denom)
+        else:
+            out[f"{prefix}/{name}"] = vec[i] / denom
+    out[f"{prefix}/taps"] = cnt
+
+
+def probe_metrics(probe_grads: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Per-class aggregates ``tel/bwd/<cls>/<stat>`` (rows summed) and
+    per-layer rows ``tel/bwd/lNN/<cls>/<stat>`` for the in-stack classes;
+    the head's row feeds the aggregate only."""
+    out: Dict[str, torch.Tensor] = {}
+    for cls, arr in probe_grads.items():
+        _vec_metrics(arr.sum(dim=0), f"tel/bwd/{cls}", out)
+        if cls == "head":
+            continue
+        for layer in range(arr.shape[0] - 1):
+            _vec_metrics(arr[layer], f"tel/bwd/l{layer:02d}/{cls}", out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-cell error signals (pure Python over a history row)
+# ---------------------------------------------------------------------------
+
+_FWD_CELL_RE = re.compile(r"^tel/l(\d+)/([^/]+)/mm\d+/[^/]+/rel_err$")
+_BWD_CELL_RE = re.compile(
+    r"^tel/bwd/l(\d+)/([^/]+)/(?:dgrad_g|wgrad_g)/rel_err$")
+_HEAD_FWD_RE = re.compile(r"^tel/head/mm\d+/[^/]+/rel_err$")
+_HEAD_BWD_RE = re.compile(r"^tel/bwd/head/(?:dgrad_g|wgrad_g)/rel_err$")
+
+
+def cell_error_signals(row: Dict) -> Dict[str, float]:
+    """Mean quant relative error per plan cell (``"lNN/<cls>"``, or
+    ``"head"``) from one history row: the forward taps of every slot and
+    call site joined with the backward probe rows (rows with no taps are
+    skipped: an untapped row reads 0.0, which is no signal)."""
+    acc: Dict[str, list] = {}
+    for k, v in row.items():
+        if not isinstance(v, (int, float)):
+            continue
+        m = _FWD_CELL_RE.match(k)
+        if m:
+            cls = SCOPE_CLASS.get(m.group(2))
+            if cls in ("attn", "ffn"):
+                acc.setdefault(f"l{int(m.group(1)):02d}/{cls}",
+                               []).append(float(v))
+            continue
+        m = _BWD_CELL_RE.match(k)
+        if m:
+            layer, cls = int(m.group(1)), m.group(2)
+            if cls not in ("attn", "ffn"):
+                continue
+            if float(row.get(f"tel/bwd/l{layer:02d}/{cls}/taps", 0.0)) <= 0:
+                continue
+            acc.setdefault(f"l{layer:02d}/{cls}", []).append(float(v))
+            continue
+        if _HEAD_FWD_RE.match(k):
+            acc.setdefault("head", []).append(float(v))
+        elif (_HEAD_BWD_RE.match(k)
+              and float(row.get("tel/bwd/head/taps", 0.0)) > 0):
+            acc.setdefault("head", []).append(float(v))
+    return {c: sum(vs) / len(vs) for c, vs in acc.items()}
+
+
+# ---------------------------------------------------------------------------
+# Per-layer gradient norms
+# ---------------------------------------------------------------------------
+
+def grad_norm_metrics(grads) -> Dict[str, torch.Tensor]:
+    """Per-layer gradient norms ``tel/gnorm/lNN`` from the params-shaped
+    gradient tree, in either stack layout."""
+    from repro_torch.tree import tree_leaves
+    out: Dict[str, torch.Tensor] = {}
+    stack = grads.get("stack") if isinstance(grads, dict) else None
+    if not isinstance(stack, dict):
+        return out
+    if "groups" in stack:
+        groups = stack["groups"]
+        names = sorted(groups)
+        period = len(names)
+        for i, lname in enumerate(names):
+            ss = sum((leaf.to(torch.float32) ** 2).sum(
+                dim=tuple(range(1, leaf.dim())))
+                for leaf in tree_leaves(groups[lname]))
+            for g in range(ss.shape[0]):
+                out[f"tel/gnorm/l{g * period + i:02d}"] = torch.sqrt(ss[g])
+    elif "layers" in stack:
+        for i, sub in enumerate(stack["layers"]):
+            ss = sum((leaf.to(torch.float32) ** 2).sum()
+                     for leaf in tree_leaves(sub))
+            out[f"tel/gnorm/l{i:02d}"] = torch.sqrt(ss)
+    return out

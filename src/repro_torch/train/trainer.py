@@ -5,14 +5,18 @@ The trainer resolves ``TrainConfig.recipe`` into the uniform
 ``PrecisionPlan``, runs it for stage 1 and switches to the target plan
 (``TrainConfig.target_recipe``, default bf16) at
 ``schedule.switch_step`` (§3.3), keeping one step function per plan.
-Each step is timed on the host clock up to a device synchronization and
-appended to ``history`` as the reference's row (its metrics, ``step``,
-``recipe``, ``dt``, ``straggler``).
+Each step is timed on the host clock up to a device synchronization, fed
+to a ``StepTimer`` (``step_time_summary()``) and appended to ``history``
+as the reference's row (its metrics, ``step``, ``recipe``, ``dt``,
+``straggler``).  With ``TrainConfig.telemetry`` every
+``telemetry_every``-th step runs the instrumented step (quant stats in
+the row), the others the plain one; with ``telemetry_jsonl`` every row
+and every straggler event goes to a JSONL log through the asynchronous
+writer, complete when ``train()`` returns.
 
 Features of the reference's trainer that the port does not have yet —
-telemetry and its JSONL log, the adaptive controller, fp8 gradient
-compression, meshes, checkpoints and resume, cost calibration, the
-depth-graded plan presets, the step timer's warm-up setting — raise
+the adaptive controller, fp8 gradient compression, meshes, checkpoints
+and resume, cost calibration, the depth-graded plan presets — raise
 ``NotImplementedError`` when their ``TrainConfig`` field is set.
 ``ModelConfig.remat`` and ``scan_layers`` change no numbers: the port
 loops over layers and keeps every activation (gpt2-125m at batch
@@ -28,9 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core.cost_model import ModelDims
 from repro_torch.core.recipe import RECIPES, PrecisionPlan
 from repro_torch.core.schedule import TargetPrecisionSchedule
 from repro_torch.models.model import Model
+from repro_torch.telemetry.profiler import (StepTimer, device_peak_flops,
+                                            phase_span, train_step_flops)
+from repro_torch.telemetry.writer import AsyncJsonlWriter
 from repro_torch.train.train_step import (make_eval_step, make_optimizer,
                                           make_train_step)
 from repro_torch.tree import tree_map
@@ -41,15 +49,12 @@ _DEFAULTS = TrainConfig()
 # field -> the reference feature it turns on, for the fields the port
 # refuses when they differ from their default
 _UNPORTED = {
-    "telemetry": "quantization telemetry",
-    "telemetry_jsonl": "the telemetry JSONL log",
     "controller": "the adaptive precision controller",
     "grad_compression": "fp8 gradient compression",
     "mesh_shape": "mesh-native training",
     "checkpoint_every": "checkpointing",
     "cost_calibration": "measured cost calibration",
     "plan_preset": "depth-graded plan presets",
-    "profiler_warmup": "the step timer",
 }
 
 
@@ -111,9 +116,17 @@ class Trainer:
             self.plan, tcfg.total_steps,
             target=PrecisionPlan.uniform(RECIPES[tcfg.target_recipe],
                                          n_layers))
-        self._steps: Dict[PrecisionPlan, Callable] = {}
+        self._steps: Dict[tuple, Callable] = {}
         self.monitor = StepTimeMonitor()
         self.history: List[Dict[str, Any]] = []
+        # layer-resolved flops for the MFU of step_time_summary()
+        self.dims = ModelDims.from_config(model.cfg, seq_len=tcfg.seq_len)
+        self.timer = StepTimer(warmup=tcfg.profiler_warmup)
+        # rows and events go through a bounded queue to a writer thread,
+        # so disk latency never lands in a step
+        self.writer: Optional[AsyncJsonlWriter] = (
+            AsyncJsonlWriter(tcfg.telemetry_jsonl)
+            if tcfg.telemetry_jsonl else None)
 
     def init_state(self, seed: Optional[int] = None,
                    params=None) -> TrainState:
@@ -130,10 +143,17 @@ class Trainer:
         opt = make_optimizer(self.model, self.tcfg)
         return TrainState(params, opt.init(params), 0)
 
-    def _step_fn(self, plan: PrecisionPlan) -> Callable:
-        if plan not in self._steps:
-            self._steps[plan] = make_train_step(self.model, self.tcfg, plan)
-        return self._steps[plan]
+    def _step_fn(self, plan: PrecisionPlan,
+                 telemetry: Optional[bool] = None) -> Callable:
+        """The step of ``plan``, instrumented or not (default: as the
+        config says)."""
+        tel = self.tcfg.telemetry if telemetry is None else telemetry
+        key = (plan, tel)
+        if key not in self._steps:
+            tcfg = (self.tcfg if tel == self.tcfg.telemetry
+                    else dataclasses.replace(self.tcfg, telemetry=tel))
+            self._steps[key] = make_train_step(self.model, tcfg, plan)
+        return self._steps[key]
 
     def _batch(self, pipeline, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.model.device)
@@ -153,32 +173,77 @@ class Trainer:
             if self.schedule.is_switch_boundary(step):
                 log(f"[schedule] step {step}: switching to target precision "
                     f"({self.schedule.target_plan.name})")
-            fn = self._step_fn(plan)
-            batch = self._batch(self.pipeline, step)
+            # telemetry sampling: every N-th step runs the instrumented
+            # step, the others the plain one
+            tel_on = self.tcfg.telemetry and (
+                self.tcfg.telemetry_every <= 1
+                or step % self.tcfg.telemetry_every == 0)
+            fn = self._step_fn(plan, telemetry=tel_on)
+            with phase_span("data"):
+                batch = self._batch(self.pipeline, step)
             # the measured step ends in a device sync, so dt is the device
             # step time and not only the host's dispatch
-            _sync(dev)
-            t0 = time.perf_counter()
-            params, opt_state, metrics = fn(state.params, state.opt_state,
-                                            batch, step)
-            _sync(dev)
-            dt = time.perf_counter() - t0
+            with phase_span("step"):
+                _sync(dev)
+                t0 = time.perf_counter()
+                params, opt_state, metrics = fn(state.params,
+                                                state.opt_state, batch, step)
+                _sync(dev)
+                dt = time.perf_counter() - t0
+            self.timer.record(dt)
             straggler = self.monitor.record(step, dt)
             state = TrainState(params, opt_state, step + 1)
-            row: Dict[str, Any] = {k: float(v) for k, v in metrics.items()}
-            row["step"] = step
-            row["recipe"] = plan.name
-            row["dt"] = dt
-            row["straggler"] = straggler
-            self.history.append(row)
-            if straggler:
-                log(f"[straggler] step {step} took {dt:.2f}s "
-                    f"(ema {self.monitor.ema:.2f}s)")
-            if self.tcfg.log_every and step % self.tcfg.log_every == 0:
-                log(f"step {step:5d} loss {row['loss']:.4f} "
-                    f"gnorm {row['grad_norm']:.3f} lr {row['lr']:.2e} "
-                    f"[{plan.name}] {dt * 1000:.0f}ms")
+            with phase_span("host"):
+                self._record(step, plan, metrics, dt, straggler, log)
+        if self.writer is not None:
+            self.writer.flush()   # the log is complete once train() returns
         return state
+
+    def _record(self, step, plan, metrics, dt, straggler, log) -> None:
+        """The step's history row (its metrics read in one device-to-host
+        copy), the JSONL rows and the log lines."""
+        dev = self.model.device
+        tensors = [n for n, v in metrics.items()
+                   if isinstance(v, torch.Tensor)]
+        vals = dict(zip(tensors, torch.stack(
+            [metrics[n].detach().to(dev, torch.float32).reshape(())
+             for n in tensors]).tolist())) if tensors else {}
+        row: Dict[str, Any] = {n: vals[n] if n in vals else float(v)
+                               for n, v in metrics.items()}
+        row["step"] = step
+        row["recipe"] = plan.name
+        row["dt"] = dt
+        row["straggler"] = straggler
+        self.history.append(row)
+        if straggler:
+            log(f"[straggler] step {step} took {dt:.2f}s "
+                f"(ema {self.monitor.ema:.2f}s)")
+            if self.writer is not None:
+                self.writer.write({"event": "straggler", "step": step,
+                                   "dt": dt, "ema": self.monitor.ema,
+                                   "factor": self.monitor.factor})
+        if self.writer is not None:
+            self.writer.write(row)
+        if self.tcfg.log_every and step % self.tcfg.log_every == 0:
+            log(f"step {step:5d} loss {row['loss']:.4f} "
+                f"gnorm {row['grad_norm']:.3f} lr {row['lr']:.2e} "
+                f"[{plan.name}] {dt * 1000:.0f}ms")
+
+    def close(self) -> None:
+        """Close the JSONL writer (its rows are on disk after ``train``
+        returns already)."""
+        if self.writer is not None:
+            self.writer.close()
+
+    def step_time_summary(self) -> Dict[str, float]:
+        """Measured step-time statistics of this trainer's run so far:
+        p50/p95/p99/mean (ms), tokens/s at the median step, and MFU from
+        the model's ``ModelDims`` flops against the device's peak."""
+        tokens = self.tcfg.global_batch * self.tcfg.seq_len
+        return self.timer.summary(
+            tokens_per_step=tokens,
+            flops_per_step=train_step_flops(self.dims, tokens),
+            peak_flops=device_peak_flops(self.model.device))
 
     def evaluate(self, state: TrainState, n_batches: int = 8,
                  recipe=None) -> Dict[str, float]:

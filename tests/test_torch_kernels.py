@@ -101,7 +101,7 @@ def test_stream_equals_two_pass_on_cpu():
 
 def test_wrappers_dispatch_by_device():
     """On a CPU tensor each wrapper runs its plain version and launches
-    nothing; unported options raise instead of being approximated."""
+    nothing, stochastic rounding and the stats epilogue included."""
     _, (a, b) = _inputs(8, 128, 128, "float32")
     before = [k.KERNEL.launches for k in (quantize_rows, qmm_stream,
                                           tiled_mm)]
@@ -113,13 +113,21 @@ def test_wrappers_dispatch_by_device():
                                         tiled_mm)] == before
     assert t_fm.resolve_pipeline(None, "token", "pass") == "two_pass"
     assert t_fm.resolve_pipeline(None, "block", "pass") == "stream"
-    with pytest.raises(NotImplementedError):
+    q, st = quantize_rows.quantize_rows(a, mode="block", fmt_name="fp4_e2m1",
+                                        sr=True, seed=5, collect_stats=True)
+    q_ref, st_ref = quantize_rows.quantize_rows_plain(
+        a, mode="block", fmt_name="fp4_e2m1", seed=5, collect_stats=True)
+    assert torch.equal(q, q_ref) and torch.equal(st, st_ref)
+    y, (sa, sb) = qmm_stream.qmm_stream(a, b, a_mode="block", b_mode="pass",
+                                        a_fmt="fp4_e2m1", b_fmt="bf16",
+                                        a_sr=True, seed_a=5,
+                                        collect_stats=True)
+    assert sb is None and torch.equal(sa, st)
+    assert [k.KERNEL.launches for k in (quantize_rows, qmm_stream,
+                                        tiled_mm)] == before
+    with pytest.raises(ValueError, match="seed"):
         quantize_rows.quantize_rows(a, mode="block", fmt_name="fp4_e2m1",
                                     sr=True)
-    with pytest.raises(NotImplementedError):
-        qmm_stream.qmm_stream(a, b, a_mode="block", b_mode="pass",
-                              a_fmt="fp4_e2m1", b_fmt="bf16",
-                              collect_stats=True)
 
 
 @pytest.mark.parametrize("packed,dtype", [(False, "float32"),

@@ -13,7 +13,11 @@ equal to quantize pass + matmul pass (both kernels sum in k order), in
 every trans layout; flash attention within f32 rtol / atol 1e-5 or one
 bf16 ulp + 1e-5 of its plain version; the autograd Functions' gradients
 on the card within the GEMM bar (qlinear) or 1e-4 (attention, f32) of
-the same Functions on the CPU.
+the same Functions on the CPU.  Stochastic rounding: QDQ panels bitwise
+(the noise is the counter hash of each element's coordinates).  Stats
+vectors: lanes 0-2 and 5-7 (counts, scale extrema) bitwise, lanes 3-4
+(sums of squares) within rtol 1e-6 of the plain version, and bitwise
+between the two pipelines.  ``quantize_blockwise`` bitwise.
 """
 import pytest
 import torch
@@ -26,6 +30,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fp4_matmul as fm
 from repro_torch.kernels import ops
 from repro_torch.kernels import qmm_stream as qs
+from repro_torch.kernels import quantize as qb
 from repro_torch.kernels import quantize_rows as qr
 from repro_torch.kernels import tiled_mm as tm
 
@@ -104,28 +109,38 @@ def test_tiled_mm_matches_plain(cuda, m, k, n, dtype):
     _assert_gemm_close(tm.tiled_mm(a, b), tm.tiled_mm_plain(a, b))
 
 
-def test_unported_modes_raise_on_cuda(cuda):
-    """Stochastic rounding and the stats epilogue raise on a CUDA tensor
-    instead of running the plain version (the transposed layouts are
-    ported: test_*_transposed_*)."""
+def _assert_stats(got, ref):
+    """Counts and scale extrema bitwise, the two sums within rtol 1e-6."""
+    assert got.shape == ref.shape == (8,)
+    lanes = [0, 1, 2, 5, 6, 7]
+    assert torch.equal(got[lanes].cpu(), ref[lanes].cpu()), (got, ref)
+    torch.testing.assert_close(got[3:5].cpu(), ref[3:5].cpu(), rtol=1e-6,
+                               atol=0)
+
+
+def test_sr_and_stats_launch_on_cuda(cuda):
+    """Stochastic rounding and the stats epilogue launch their kernels on
+    a CUDA tensor (the counters show it); a stochastic spec without a
+    seed raises."""
     a = _rand((8, 128), torch.bfloat16, 5)
     b = _rand((128, 128), torch.bfloat16, 6)
-    with pytest.raises(NotImplementedError):
+    kernels = (qr.KERNEL, qs.KERNEL, tm.KERNEL)
+    before = [(k.sr_launches, k.stats_launches) for k in kernels]
+    qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3", sr=True, seed=3)
+    y, stats = qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3",
+                                collect_stats=True)
+    assert stats.shape == (8,) and stats.device.type == "cuda"
+    for pipeline in ("stream", "two_pass"):
+        y, (sa, sb) = fm.fused_qmm(a, b, a_mode="block", b_mode="pass",
+                                   b_fmt="bf16", a_sr=True, seed_a=1,
+                                   trans_b=True, pipeline=pipeline,
+                                   collect_stats=True)
+        assert sb is None and sa.shape == (8,)
+    after = [(k.sr_launches, k.stats_launches) for k in kernels]
+    assert after[0][0] > before[0][0] and after[0][1] > before[0][1]
+    assert after[1][0] > before[1][0] and after[1][1] > before[1][1]
+    with pytest.raises(ValueError, match="seed"):
         qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3", sr=True)
-    with pytest.raises(NotImplementedError):
-        qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3",
-                         collect_stats=True)
-    for kw in ({"a_sr": True}, {"collect_stats": True},
-               {"a_sr": True, "trans_b": True}):
-        with pytest.raises(NotImplementedError):
-            fm.fused_qmm(a, b, a_mode="block", b_mode="pass",
-                         b_fmt="bf16", **kw)
-    launched = (qr.KERNEL.launches, qs.KERNEL.launches, tm.KERNEL.launches)
-    with pytest.raises(NotImplementedError):
-        fm.fused_qmm(a, b, a_mode="token", b_mode="pass", b_fmt="bf16",
-                     a_sr=True)
-    assert (qr.KERNEL.launches, qs.KERNEL.launches,
-            tm.KERNEL.launches) == launched
 
 
 def _launches():
@@ -150,7 +165,8 @@ def test_spec_outside_the_kernels_raises_on_cuda(cuda, packed):
 
 def test_launch_counts(cuda):
     """The counters count kernels launched: none for an empty output, two
-    for tensor mode (whole-tensor amax, then the QDQ)."""
+    for tensor mode (whole-tensor amax, then the QDQ), two more for the
+    stats fold."""
     x = _rand((8, 256), torch.bfloat16, 9)
     launched = _launches()
     qr.quantize_rows(x[:0], mode="token", fmt_name="fp8_e4m3")
@@ -161,6 +177,12 @@ def test_launch_counts(cuda):
     qr.quantize_rows(x, mode="tensor", fmt_name="fp8_e4m3")
     qr.quantize_rows(x, mode="token", fmt_name="fp8_e4m3")
     assert qr.KERNEL.launches == launched[0] + 3
+    qr.quantize_rows(x, mode="token", fmt_name="fp8_e4m3",
+                     collect_stats=True)
+    assert qr.KERNEL.launches == launched[0] + 6
+    qs.qmm_stream(x, x.T.contiguous(), a_mode="block", b_mode="tile",
+                  a_fmt="fp4_e2m1", b_fmt="fp4_e2m1", collect_stats=True)
+    assert qs.KERNEL.launches == launched[1] + 3
 
 
 # -- the training slice: transposed layouts, flash attention, autograd --
@@ -297,3 +319,106 @@ def test_flash_attention_grads_card_vs_cpu(cuda):
         out.append([o] + [t.grad for t in leaves])
     for a, b in zip(*out):
         torch.testing.assert_close(a, b.cuda(), rtol=1e-4, atol=1e-4)
+
+
+# -- stochastic rounding, the stats epilogue, quantize_blockwise --------
+
+SEED = -1253433917      # fold_seed((0, 0), 4, 1): the FFN wgrad's B seed
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans,emit_trans", [(False, False), (True, True),
+                                              (True, False)])
+@pytest.mark.parametrize("mode,fmt", [("token", "fp8_e5m2"),
+                                      ("block", "fp4_e2m1"),
+                                      ("tile", "fp4_e2m1"),
+                                      ("tensor", "fp8_e4m3")])
+@pytest.mark.parametrize("shape", [(130, 200), (1, 768), (300, 8)])
+def test_quantize_rows_sr_stats(cuda, shape, mode, fmt, trans, emit_trans,
+                                dtype):
+    """SR panels bitwise and the stats vector against the plain version,
+    ragged both ways, every read / write layout."""
+    x = _stored(shape, trans, dtype, 30)
+    kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=emit_trans,
+              collect_stats=True)
+    y, st = qr.quantize_rows(x, sr=True, seed=SEED, **kw)
+    ref, st_ref = qr.quantize_rows_plain(x, seed=SEED, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(ref))
+    _assert_stats(st, st_ref)
+    # RTN with stats: the same values as without
+    y_rtn, st_rtn = qr.quantize_rows(x, **kw)
+    kw.pop("collect_stats")
+    assert torch.equal(_bits(y_rtn), _bits(qr.quantize_rows(x, **kw)))
+    _assert_stats(st_rtn, qr.quantize_rows_plain(x, collect_stats=True,
+                                                 **kw)[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("a_mode,b_mode", [("block", "tile"),
+                                           ("tile", "block"),
+                                           ("pass", "block"),
+                                           ("block", "pass")])
+@pytest.mark.parametrize("m,k,n", TRANS_SHAPES + ((8, 64, 3072),))
+def test_qmm_stream_sr_stats(cuda, m, k, n, a_mode, b_mode, trans_a,
+                             trans_b, dtype):
+    """The stream kernel with SR on both operands and the stats epilogue:
+    output within the GEMM bar of the plain version and bitwise equal to
+    the two-pass pipeline (SR quantize pass + matmul pass), stats against
+    the plain version and bitwise against the two-pass stats."""
+    a = _stored((m, k), trans_a, dtype, 31)
+    b = _stored((k, n), trans_b, dtype, 32, 0.05)
+    kw = dict(a_mode=a_mode, b_mode=b_mode, a_fmt="fp4_e2m1",
+              b_fmt="fp8_e5m2", trans_a=trans_a, trans_b=trans_b,
+              collect_stats=True)
+    seeds = dict(seed_a=SEED, seed_b=7)
+    y, stats = qs.qmm_stream(a, b, a_sr=True, b_sr=True, **seeds, **kw)
+    ref, ref_stats = qs.qmm_stream_plain(a, b, **seeds, **kw)
+    _assert_gemm_close(y, ref)
+    two, two_stats = fm.fused_qmm(a, b, a_sr=True, b_sr=True,
+                                  pipeline="two_pass", **seeds, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(two))
+    for got, r, t in zip(stats, ref_stats, two_stats):
+        assert (got is None) == (r is None) == (t is None)
+        if got is not None:
+            _assert_stats(got, r)
+            assert torch.equal(got, t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("fmt", ["fp4_e2m1", "fp8_e4m3"])
+@pytest.mark.parametrize("shape", [(130, 200), (1, 768), (300, 8),
+                                   (256, 384)])
+def test_quantize_blockwise_bitwise(cuda, shape, fmt, per_row, dtype):
+    x = _rand(shape, dtype, 33, zero_rows=(0,) if shape[0] > 1 else ())
+    y = qb.quantize_blockwise(x, fmt, per_row=per_row)
+    ref = qb.quantize_blockwise_plain(x, fmt, per_row=per_row)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+def test_qlinear_sr_stats_grads_card_vs_cpu(cuda):
+    """``pallas_qmatmul_stats`` under the fine_grained_fp4 FFN recipe (SR
+    wgrad gradient operand) on the card against the same Function on the
+    CPU: y, dx, dw within the GEMM bar, the forward stats to the stats
+    bar."""
+    from repro_torch.core.qlinear import pallas_qmatmul_stats
+    from repro_torch.core.recipe import RECIPES
+    recipe = RECIPES["fine_grained_fp4"].ffn_linear
+    x = _rand((300, 256), torch.bfloat16, 34)
+    w = _rand((256, 192), torch.bfloat16, 35) * 0.05
+    g = _rand((300, 192), torch.bfloat16, 36)
+    out = []
+    for dev in ("cuda", "cpu"):
+        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        y, stats = pallas_qmatmul_stats(xd, wd, recipe)
+        y.backward(g.to(dev))
+        out.append((y, xd.grad, wd.grad, stats))
+    for a, b in zip(out[0][:3], out[1][:3]):
+        _assert_gemm_close(a, b.cuda())
+    for a, b in zip(out[0][3], out[1][3]):
+        _assert_stats(a, b)

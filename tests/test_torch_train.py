@@ -338,14 +338,15 @@ def test_trainer_matches_jax(recipe):
 
 def test_trainer_refuses_unported_features():
     """Every TrainConfig field of a feature the port has not got raises
-    instead of being ignored."""
+    instead of being ignored (telemetry, its JSONL log and the step
+    timer's warm-up are ported: test_torch_telemetry)."""
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
-    for over in (dict(telemetry=True), dict(controller=object()),
+    for over in (dict(controller=object()),
                  dict(grad_compression="fp8"), dict(mesh_shape=(1, 1)),
                  dict(checkpoint_every=5), dict(cost_calibration="x.json"),
-                 dict(plan_preset="ramp"), dict(telemetry_jsonl="t.jsonl")):
+                 dict(plan_preset="ramp")):
         with pytest.raises(NotImplementedError):
             Trainer(model, TrainConfig(**over), pipe)
     with pytest.raises(NotImplementedError):
