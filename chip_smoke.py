@@ -7,7 +7,11 @@ Phases, each printing one line (a failed phase raises: no ok line, exit
 code 1):
 
 1. build   — nvcc builds the five CUDA kernels of
-   ``src/repro_torch/kernels/csrc`` for sm_90a, all at once.
+   ``src/repro_torch/kernels/csrc`` for sm_90a, all at once.  For
+   ``qmm_stream`` and ``tiled_mm`` it counts the HGMMA instructions in
+   ``cuobjdump -sass`` (gate: > 0, the products run on wgmma) and reads
+   registers and spills of their tensor-core kernels from ptxas (gate:
+   no spill, no serialized wgmma).
 2. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with CUDA-event times (L2 flushed before every launch) beside
    the plain version, the bound and ``torch.matmul`` / SDPA on the same
@@ -20,6 +24,11 @@ code 1):
    at (96, 1024, 64).  QDQ panels bitwise, GEMM outputs within one bf16
    ulp (+1e-5 max|y|), the stream kernel bitwise against quantize_rows +
    tiled_mm in the same layout, attention within one bf16 ulp + 1e-5.
+   Each ``qmm_stream`` / ``tiled_mm`` row names the route its launch took
+   (``tensor_core`` for bf16 with M > 16, else ``fma``), its TFLOP/s and
+   its share of the bound; rows 0-16 of the FFN forward and of the
+   attention forward ``tiled_mm`` at M = 8192 must equal the same calls on
+   the first 17 and the first 128 rows bit for bit.
 3. slice   — serves gpt2-125m at full width (12 layers, d 768, d_ff 3072,
    vocab 50257; seeded init) through the packed-FP4 ``ContinuousBatcher``
    (fp8 KV, paper_fp4, linear_impl "pallas"): 8 slots, max_len 1024, 16
@@ -36,10 +45,11 @@ code 1):
    attention impl "pallas"; the §3.3 switch to bf16 at step 7) through
    ``Trainer``.  Prints per-step loss and plan, the step-time p50 over
    the steps after the first, tokens/s, peak memory and each kernel's
-   launches per step (transposed launches apart), then a
+   launches per step (transposed and tensor-core launches apart), then a
    ``train_profile`` line splitting one paper_fp4 step by kernel.  Gates:
    finite losses with step 6 below step 0; every kernel launched (the
-   three GEMM kernels also in a transposed layout); an op replay of step
+   three GEMM kernels also in a transposed layout); every ``qmm_stream``
+   and ``tiled_mm`` launch on the tensor-core route; an op replay of step
    0 — every fwd, dgrad and wgrad matmul and every flash call of layers 0
    and 11 again on the CPU on the card's own inputs, quantized operands
    bitwise and outputs within OP_BOUND — and a control (layer 0's wq
@@ -52,7 +62,9 @@ code 1):
    directory, ``profiler_warmup=1``.  Prints per-step loss and plan, step
    p50 and tokens/s beside the same recipe with telemetry off and the
    paper_fp4 step of phase 4, peak memory and launches per kernel per
-   step (SR and stats launches apart).  Gates: finite losses; every stats
+   step (SR, stats and tensor-core launches apart).  Gates: finite
+   losses; every ``qmm_stream`` and ``tiled_mm`` launch on the
+   tensor-core route; every stats
    key of the reference's schema present and finite for all 12 layers and
    the head, with 4 / 2 taps per layer; one JSONL row per step; an op
    replay of step 0 for layers 0 and 11 (every fwd, dgrad and wgrad call,
@@ -88,6 +100,7 @@ no CUDA device or when the port is not beside this script.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -181,20 +194,85 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+# The libraries whose bf16 calls with M > 16 run gemm_sm90.cuh's wgmma
+# main loop, and the name their tensor-core kernels carry.
+TC_SOURCES = ("qmm_stream", "tiled_mm")
+
+
+def tc_kernel_report(log):
+    """Per tensor-core kernel of a ``-Xptxas -v`` log (entry functions
+    named ``*_tc_kernel*``): registers and spill bytes (stores + loads);
+    and ptxas' wgmma lines (e.g. serialized products)."""
+    report, cur = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for", 1)[1].strip()
+            base = re.search(r"([a-z_]+_tc_kernel)I(.*?)EEv", name)
+            # e.g. qmm_stream_tc_kernel<1,0,0>: its bool template flags
+            cur = base and "{}<{}>".format(base.group(1), ",".join(
+                re.findall(r"Lb(\d)E?", base.group(2) + "E")))
+        elif cur and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split()
+                    if w.isdigit()]
+            report.setdefault(cur, {})["spill_bytes"] = nums[1] + nums[2]
+        elif cur and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            report.setdefault(cur, {})["registers"] = int(
+                words[words.index("Used") + 1])
+    wgmma = [ln.strip() for ln in log.splitlines() if "wgmma" in ln]
+    return report, wgmma
+
+
 def phase_build(card):
+    """Build every kernel; show that the tensor-core kernels issue HGMMA
+    (``cuobjdump -sass``: products on wgmma, not mma.sync or FMA) and that
+    ptxas spilled nothing in them."""
     from repro_torch.kernels import build
     seconds, logs = build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
+    hgmma, tc_kernels, wgmma_notes = {}, {}, {}
+    for name in TC_SOURCES:
+        hgmma[name] = sum("HGMMA" in ln
+                          for ln in build.sass(name).splitlines())
+        tc_kernels[name], wgmma_notes[name] = tc_kernel_report(
+            logs.get(name, ""))
     emit({"phase": "build", "card": card, "seconds": seconds,
-          "sources": list(build.SOURCES), "ptxas": ptxas})
+          "sources": list(build.SOURCES), "hgmma_instructions": hgmma,
+          "tc_kernels": tc_kernels, "ptxas_wgmma": wgmma_notes,
+          "ptxas": ptxas})
+    spilled = {k: v for name in TC_SOURCES
+               for k, v in tc_kernels[name].items() if v.get("spill_bytes")}
+    serialized = [ln for name in TC_SOURCES for ln in wgmma_notes[name]
+                  if "serialized" in ln]
+    if min(hgmma.values()) <= 0 or not all(tc_kernels.values()) or \
+            spilled or serialized:
+        raise AssertionError(f"tensor-core kernels: HGMMA {hgmma}, ptxas "
+                             f"{tc_kernels}, spilled {spilled}, serialized "
+                             f"{serialized[:2]}")
 
 
 def _bound(nbytes, flops, peak):
     """(least ms, "bytes" | "operations") of a call on the card."""
     t_b, t_o = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def routed(kern, fn):
+    """Call ``fn`` (one call of a GEMM kernel); return (its result, the
+    route its launch took by the kernel's counters: "tensor_core" or
+    "fma")."""
+    tc = kern.tc_launches
+    y = fn()
+    return y, "tensor_core" if kern.tc_launches > tc else "fma"
+
+
+def gemm_fields(route, m, k, n, ms, bound_ms):
+    """A GEMM row's route, achieved TFLOP/s (2 M N K over its time) and
+    share of its bound."""
+    return {"route": route, "tflops": 2 * m * n * k / (ms * 1e-3) / 1e12,
+            "bound_share": bound_ms / ms}
 
 
 def phase_kernels(torch, card):
@@ -243,7 +321,7 @@ def phase_kernels(torch, card):
             a, w = rand(m, k), rand(k, n) * 0.05
             kw = dict(a_mode="block", b_mode="pass", a_fmt="fp4_e2m1",
                       b_fmt="bf16")
-            y = qs.qmm_stream(a, w, **kw)
+            y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, w, **kw))
             err = gemm_err(y, qs.qmm_stream_plain(a, w, **kw))
             aq = qr.quantize_rows(a, mode="block", fmt_name="fp4_e2m1")
             if not torch.equal(y.view(torch.int16),
@@ -253,28 +331,44 @@ def phase_kernels(torch, card):
                     "tiled_mm bitwise")
             b_ms, b_by = _bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
                                H100_BF16_FLOPS)
+            ms = timer.ms(lambda: qs.qmm_stream(a, w, **kw))
             rows.append({
                 "name": "qmm_stream", "shape": [m, k, n],
-                "max_abs_err": err,
-                "ms": timer.ms(lambda: qs.qmm_stream(a, w, **kw)),
+                "max_abs_err": err, "ms": ms,
                 "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, w,
                                                                  **kw)),
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": timer.ms(lambda: torch.matmul(aq, w))})
+                "library_ms": timer.ms(lambda: torch.matmul(aq, w)),
+                **gemm_fields(route, m, k, n, ms, b_ms)})
             if (k, n) == (768, 768):
                 xq = qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3")
-                err = gemm_err(tm.tiled_mm(xq, w), tm.tiled_mm_plain(xq, w))
+                y, route = routed(tm.KERNEL, lambda: tm.tiled_mm(xq, w))
+                err = gemm_err(y, tm.tiled_mm_plain(xq, w))
+                ms = timer.ms(lambda: tm.tiled_mm(xq, w))
                 rows.append({
                     "name": "tiled_mm", "shape": [m, k, n],
-                    "max_abs_err": err,
-                    "ms": timer.ms(lambda: tm.tiled_mm(xq, w)),
+                    "max_abs_err": err, "ms": ms,
                     "plain_ms": timer.ms(lambda: tm.tiled_mm_plain(xq, w)),
                     "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": timer.ms(lambda: torch.matmul(xq, w))})
+                    "library_ms": timer.ms(lambda: torch.matmul(xq, w)),
+                    **gemm_fields(route, m, k, n, ms, b_ms)})
     torch.cuda.synchronize()
     emit({"phase": "kernels", "card": card, "dtype": "bfloat16",
           "ok": True, "table": rows})
     return rows
+
+
+def row_independence(torch, what, call, y):
+    """Rows 0-16 of a training-shape call (``y``, M = 8192) bitwise equal
+    to the same call on the first 17 and the first 128 rows (``call(n)``):
+    a row's result does not depend on M."""
+    for n in (17, 128):
+        part = call(n)
+        torch.cuda.synchronize()
+        if not torch.equal(y[:17].view(torch.int16),
+                           part[:17].view(torch.int16)):
+            raise AssertionError(f"{what}: rows 0-16 at M = {y.shape[0]} "
+                                 f"differ from the call on {n} rows")
 
 
 def phase_train_kernels(torch, card):
@@ -355,7 +449,7 @@ def phase_train_kernels(torch, card):
     ]
     for role, a, b, kw in stream_calls:
         ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
-        y = qs.qmm_stream(a, b, **kw)
+        y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, b, **kw))
         err = gemm_err(y, qs.qmm_stream_plain(a, b, **kw),
                        f"qmm_stream {role}")
         aq = (a if kw["a_mode"] == "pass" else qr.quantize_rows(
@@ -372,14 +466,19 @@ def phase_train_kernels(torch, card):
         ae, be = (aq.T if ta else aq), (bq.T if tb else bq)
         (m, k), n = ae.shape, be.shape[1]
         b_ms, b_by = gemm_bound(m, k, n)
+        ms = timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=5)
         rows.append({
             "name": "qmm_stream", "role": role, "shape": [m, k, n],
-            "trans": ta or tb, "max_abs_err": err,
-            "ms": timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=5),
+            "trans": ta or tb, "max_abs_err": err, "ms": ms,
             "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
                                  iters=3),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5)})
+            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5),
+            **gemm_fields(route, m, k, n, ms, b_ms)})
+        if role == "fwd w_up":
+            row_independence(torch, "qmm_stream fwd w_up",
+                             lambda rows_: qs.qmm_stream(a[:rows_], b, **kw),
+                             y)
 
     # Attention linears (two-pass, token modes): fwd x . w; dgrad
     # g . w^T; wgrad x^T . g.
@@ -393,19 +492,24 @@ def phase_train_kernels(torch, card):
         aq = quant(f"{role} lhs", a, "token", fa_, ta)
         bq = quant(f"{role} rhs", b, "token", fb_, not tb)
         kw = dict(trans_a=ta, trans_b=tb)
-        y = tm.tiled_mm(aq, bq, **kw)
+        y, route = routed(tm.KERNEL, lambda: tm.tiled_mm(aq, bq, **kw))
         err = gemm_err(y, tm.tiled_mm_plain(aq, bq, **kw), f"tiled_mm {role}")
         ae, be = (aq.T if ta else aq), (bq.T if tb else bq)
         (m, k), n = ae.shape, be.shape[1]
         b_ms, b_by = gemm_bound(m, k, n)
+        ms = timer.ms(lambda: tm.tiled_mm(aq, bq, **kw), iters=5)
         rows.append({
             "name": "tiled_mm", "role": role, "shape": [m, k, n],
-            "trans": ta or tb, "max_abs_err": err,
-            "ms": timer.ms(lambda: tm.tiled_mm(aq, bq, **kw), iters=5),
+            "trans": ta or tb, "max_abs_err": err, "ms": ms,
             "plain_ms": timer.ms(lambda: tm.tiled_mm_plain(aq, bq, **kw),
                                  iters=5),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5)})
+            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5),
+            **gemm_fields(route, m, k, n, ms, b_ms)})
+        if role == "fwd wq":
+            row_independence(torch, "tiled_mm fwd wq",
+                             lambda rows_: tm.tiled_mm(aq[:rows_], bq, **kw),
+                             y)
 
     # Flash attention forward, (B*H, S, D) = (96, 1024, 64), causal.
     bh, s_, dh = TRAIN_BATCH * 12, TRAIN_SEQ, 64
@@ -638,10 +742,10 @@ def profile_decode(torch, engine, card, steps: int = 5) -> None:
             engine.generate_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    groups = (("qmm_stream", ("qmm_stream_kernel",)),
+    groups = (("qmm_stream", ("qmm_stream_kernel", "qmm_stream_tc_kernel")),
               ("quantize_rows", ("quantize_rows_kernel",
                                  "tensor_amax_kernel")),
-              ("tiled_mm", ("tiled_mm_kernel",)),
+              ("tiled_mm", ("tiled_mm_kernel", "tiled_mm_tc_kernel")),
               ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
               ("memcpy_memset", ("Memcpy", "Memset")))
     by_group, by_name = {}, {}
@@ -1045,11 +1149,11 @@ def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
         fn(state.params, state.opt_state, batch, 0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = (("qmm_stream", ("qmm_stream_kernel",)),
+    groups = (("qmm_stream", ("qmm_stream_kernel", "qmm_stream_tc_kernel")),
               ("quantize_rows", ("quantize_rows_kernel",
                                  "quantize_cols_kernel",
                                  "tensor_amax_kernel")),
-              ("tiled_mm", ("tiled_mm_kernel",)),
+              ("tiled_mm", ("tiled_mm_kernel", "tiled_mm_tc_kernel")),
               ("flash_attention", ("flash_fwd_kernel",)),
               ("stats_fold", ("stats_slab_kernel", "stats_total_kernel")),
               ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
@@ -1107,17 +1211,20 @@ def phase_train(torch, card):
         kern.reset()
     per_step = []
     for step in range(TRAIN_STEPS):
-        before = {k.name: (k.launches, k.trans_launches) for k in kernels}
+        before = {k.name: (k.launches, k.trans_launches, k.tc_launches)
+                  for k in kernels}
         if step == 0:
             with TrainRecorder() as rec:
                 state = trainer.train(state, num_steps=1)
         else:
             state = trainer.train(state, num_steps=1)
         per_step.append({k.name: [k.launches - before[k.name][0],
-                                  k.trans_launches - before[k.name][1]]
+                                  k.trans_launches - before[k.name][1],
+                                  k.tc_launches - before[k.name][2]]
                          for k in kernels})
     launches = {k.name: k.launches for k in kernels}
     trans = {k.name: k.trans_launches for k in kernels}
+    tc = {k.name: k.tc_launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
     losses = [r["loss"] for r in hist]
@@ -1148,6 +1255,10 @@ def phase_train(torch, card):
             launches["qmm_stream"] <= trans["qmm_stream"]:
         failures.append(f"a layout never ran: launches {launches}, "
                         f"transposed {trans}")
+    if any(tc[k] != launches[k] for k in TC_SOURCES):
+        failures.append(f"a GEMM launch of the 8192-token steps left the "
+                        f"tensor-core route: launches {launches}, "
+                        f"tensor-core {tc}")
     if not worst <= bound or q_bad:
         failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
                         f"{q_bad} quantized elements differ")
@@ -1163,7 +1274,9 @@ def phase_train(torch, card):
           "tokens_per_s": TRAIN_TOKENS / p50,
           "max_memory_allocated": int(peak),
           "launches_per_step": per_step,
+          "launches_per_step_fields": ["launches", "trans", "tensor_core"],
           "launches": launches, "trans_launches": trans,
+          "tensor_core_launches": tc,
           "op_replay": {"calls": len(replay), "layers": list(REPLAY_LAYERS),
                         "rel_l2_max": worst, "bound": bound,
                         "quantized_differing": q_bad,
@@ -1310,6 +1423,9 @@ def phase_train_telemetry(torch, card, paper_p50_ms):
             min(counts[k]["stats"] for k in ("qmm_stream",
                                              "quantize_rows")) <= 0:
         failures.append(f"a kernel or mode of the path never ran: {counts}")
+    if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
+        failures.append("a GEMM launch of the 8192-token steps left the "
+                        f"tensor-core route: {counts}")
     p50 = summary.get("p50_ms")
     # FP4 health, the mean over the 12 layers of a few of the stats a step
     health = {f"{key}/{stat}": [float(np.mean([

@@ -2,10 +2,11 @@
 libraries with a plain C interface, bound with ``ctypes``).
 
 Each ``*.cu`` source becomes one library, named by a hash of its text, of
-``codec.cuh`` and of the flags, in ``build/repro_torch_kernels/`` at the
-root of the checkout; an unchanged source is not rebuilt.  ``build_all``
-starts one ``nvcc`` per source at once.  Nothing is built or loaded when
-this module is imported: the CPU tests import every module.
+every header of ``csrc/`` (``*.cuh``) and of the flags, in
+``build/repro_torch_kernels/`` at the root of the checkout; a library
+whose source, headers and flags are unchanged is not rebuilt.
+``build_all`` starts one ``nvcc`` per source at once.  Nothing is built or
+loaded when this module is imported: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["SOURCES", "build_all", "load", "BUILD_DIR", "NVCC_FLAGS",
-           "CudaKernel", "cuda_operands", "effective_dims", "stream_ptr",
-           "stats_buffers"]
+__all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
+           "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
+           "stream_ptr", "stats_buffers"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -42,37 +43,43 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256()
-    for part in ((CSRC / f"{name}.cu").read_bytes(),
-                 (CSRC / "codec.cuh").read_bytes(),
-                 " ".join(NVCC_FLAGS).encode()):
-        h.update(part)
+    """The library of source ``name``: its path names a hash of the
+    source, of every header of ``CSRC`` (by name and text) and of the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> Tuple[float, Dict[str, str]]:
     """Compile every source that has no up-to-date library, one ``nvcc``
     process per source, all started together.  Returns (seconds, the
-    compiler's ``-Xptxas -v`` report per source).  Raises with the
-    compiler's output if any build fails."""
+    compiler's ``-Xptxas -v`` report per source, kept beside each library
+    for a later call).  Raises with the compiler's output if any build
+    fails."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    procs, logs, failed = {}, {}, []
     for name in names:
         out = _target(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (out, tmp, subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
     for name, (out, tmp, proc) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n"
                           f"{logs[name]}")
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -89,6 +96,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s library (``cuobjdump -sass``), built
+    first if needed."""
+    build_all((name,))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 class CudaKernel:
     """One kernel of ``csrc/``: its C entry point, bound on first launch,
     and the count of its launches.
@@ -100,32 +116,47 @@ class CudaKernel:
     read or wrote an operand transposed (``trans``: the backward
     matmuls' layouts), ``sr_launches`` the part that rounded
     stochastically and ``stats_launches`` the part that collected the
-    stats epilogue (its fold included).  Wrappers do not call the entry
-    point for an empty output.  The entry point returns
-    ``cudaGetLastError()``; a non-zero code raises.
+    stats epilogue (its fold included) and ``tc_launches`` the part that
+    ran on the tensor-core route (a GEMM kernel's bf16 calls with M > 16,
+    ``tensor_core``).  Wrappers do not call the entry point for an empty
+    output.  The entry point returns ``cudaGetLastError()``; a non-zero
+    code raises.
     """
 
     def __init__(self, name: str, argtypes):
         self.name = name
         self.argtypes = list(argtypes)
         self.reset()
-        self._fn = None
+        self._fn = self._route = None
 
     def reset(self) -> None:
         self.launches = self.trans_launches = 0
-        self.sr_launches = self.stats_launches = 0
+        self.sr_launches = self.stats_launches = self.tc_launches = 0
 
     def counts(self) -> Dict[str, int]:
         return {"launches": self.launches, "trans": self.trans_launches,
-                "sr": self.sr_launches, "stats": self.stats_launches}
+                "sr": self.sr_launches, "stats": self.stats_launches,
+                "tc": self.tc_launches}
+
+    def _bind(self, suffix: str, argtypes):
+        fn = getattr(load(self.name), f"{self.name}_{suffix}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def tensor_core(self, dtype: int, m: int) -> bool:
+        """Whether a launch of dtype code ``dtype`` with M = ``m`` takes
+        the tensor-core route: the library's own rule
+        (``gemm_sm90.cuh`` ``tensor_core_route``)."""
+        if self._route is None:
+            self._route = self._bind("route", [ctypes.c_int, ctypes.c_int])
+        return bool(self._route(dtype, m))
 
     def launch(self, *args, kernels: int = 1, trans: bool = False,
-               sr: bool = False, stats: bool = False) -> None:
+               sr: bool = False, stats: bool = False,
+               tc: bool = False) -> None:
         if self._fn is None:
-            fn = getattr(load(self.name), f"{self.name}_launch")
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self._bind("launch", self.argtypes)
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
@@ -133,6 +164,7 @@ class CudaKernel:
         self.trans_launches += kernels * trans
         self.sr_launches += kernels * sr
         self.stats_launches += kernels * stats
+        self.tc_launches += kernels * tc
 
 
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

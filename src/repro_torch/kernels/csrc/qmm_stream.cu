@@ -6,35 +6,42 @@
 //
 // Replaces repro/kernels/fp4_matmul.py::_stream_kernel (via _stream_qmm;
 // its QDQ is _qdq_stream_tile).  The TPU kernel walks (M/bm, N/bn, K/bk)
-// sequentially, keeps the f32 accumulator in VMEM scratch across the K grid
-// axis and caches quantized panels in VMEM across revisits.  Hopper blocks
-// run in no order, so here one block owns one BM x BN output tile and runs
-// the K loop itself with the accumulator in registers; each block
-// re-quantizes the A and B tiles it reads, which gives the same bits as a
-// cached panel because the codec is deterministic.  Each K step is one
-// 128-wide quant group: load the A and B tiles into shared memory (zero
-// outside the ragged M / N / K edges, which leaves every group's amax as
-// the reference's zero padding does), QDQ them in place, then accumulate
-// with an f32 FMA loop.  Each thread sums its outputs in k order, so a
-// row's result does not depend on M or on the tile shape.  The trans flags
-// (dgrad reads the weight as w^T, wgrad reads the activations as x^T)
-// only change the tile loads: they read the stored layout in place, its
-// contiguous axis fastest, and write the shared tiles in the effective
-// orientation, so the groups are taken along each matmul's own reduction
-// axis (for wgrad a 1 x 128 group is 128 tokens of one feature) with no
-// transposed copy in device memory.  The shared tiles carry a pad of two
-// elements a row so those transposing writes spread over the banks.
+// in order, keeps the f32 accumulator in VMEM across the K grid axis and
+// caches quantized panels in VMEM across revisits.  Hopper blocks run in
+// no order, so one block owns one output tile, runs the K loop itself
+// with the accumulator in registers, and re-quantizes the A and B tiles it
+// reads; the codec is deterministic, so that gives the cached panel's
+// bits.
 //
-// Bound: at decode (M = slots, 8) bytes, the B panel (K x N bf16, 4.7 MB
-// for the FFN up-projection: 1.4 us at 3.35 TB/s); at prefill (M up to
-// 512) operations, 2 M N K (2.4 GFLOP for 512 x 768 x 3072: 2.4 us at the
-// 989 TFLOP/s bf16 tensor-core rate).  This first version uses CUDA-core
-// FMAs and small tiles for M <= 16 so decode spreads over more blocks; it
-// is far from both bounds.  At the training shapes (8192 x 768 x 3072 and
-// the wgrad K = 8192) it is operation-bound: 38.7 GFLOP, 39 us at the bf16
-// tensor-core rate.  mma / wgmma with TMA-fed shared-memory rings, and
-// reading packed FP4 codes for B in place of the dequantized panel, are
-// later work.
+// Route (gemm_sm90.cuh tensor_core_route, of dtype and M alone):
+// - bf16, M > 16 (prefill, training): the tensor-core main loop of
+//   gemm_sm90.cuh, which tiled_mm.cu runs too.  128 x 128 output tiles,
+//   one 128-wide quant group a K step, a 3-stage cp.async ring in dynamic
+//   shared memory, wgmma m64n128k16 from 128-byte-swizzled tiles read in
+//   their stored layout (the trans flags are the descriptors' transpose
+//   bits).  Between a stage's arrival and its products the block QDQs the
+//   stage's A and B tiles in place: one warp a quant row, lane l owning
+//   k = l + 32 j, with the unchanged codec; a tile-mode group is the whole
+//   staged 128 x 128 tile, so its amax is a block max over shared memory.
+//   Bound: operations at every training shape, 2 M N K (8192 x 768 x
+//   3072: 38.7 GFLOP, 39 us at 989 TFLOP/s bf16).  What holds it back is
+//   the QDQ on the CUDA cores: each A tile is quantized N / 128 times and
+//   each B tile M / 128 times (the TPU kernel's cache_a / cache_b has no
+//   counterpart here yet), ~300 M QDQs of ~30 instructions at the FFN
+//   shapes, so a quantizing launch is expected near 0.3-0.6 ms; a pass x
+//   pass launch (the FFN dgrad) runs no QDQ and is a plain GEMM.
+// - f32 (tensor cores would take it as TF32), or M <= 16 (decode): CUDA-
+//   core FMA with 16 x 32 tiles for M <= 16 and 32 x 32 otherwise (f32),
+//   static shared memory; each K step loads the tiles (zero outside the
+//   ragged edges), QDQs them in place and accumulates in k order.  Decode
+//   is bytes-bound on the B panel (K x N bf16, 4.7 MB for the FFN up-
+//   projection: 1.4 us at 3.35 TB/s) and its step is host-bound; reading
+//   packed FP4 codes there is later work.
+//
+// Both routes sum each output element over k in increasing order and a
+// row's result does not depend on M within a route, so the stream
+// pipeline equals quantize_rows + tiled_mm (which follows the same rule)
+// bit for bit.
 //
 // Stochastic rounding keys each element's noise by its global (row, col)
 // in the operand's quant orientation, (m, k) for A and (n, k) for B,
@@ -42,16 +49,17 @@
 // re-quantizes draws the same noise, as the reference's
 // requantize-per-revisit branch does (fp4_matmul.py:786-819).  The stats
 // epilogue folds each quantized element exactly once: only the blocks of
-// the first output column (blockIdx.x == 0) write A's row partials and
-// only those of the first output row (blockIdx.y == 0) write B's, one per
-// (quant row, k-slab), computed from the shared tile before it is
-// quantized in place; codec.cuh's two fold kernels fold them after the
-// main kernel.  Zero-filled ragged edges add nothing to any lane, and the
-// count lane counts the columns inside K, which masks the padding as the
-// reference's m_real / k_real do.  Each quant row of a tile is QDQ'd by
-// one warp (lane l owns k = l, l+32, l+64, l+96), so the epilogue's row
-// partial is that warp's own reduction.
+// the first output column (n0 == 0) write A's row partials and only those
+// of the first output row (m0 == 0) write B's, one per (quant row,
+// k-slab), computed from the shared tile before it is quantized in place;
+// codec.cuh's two fold kernels fold them after the main kernel.
+// Zero-filled ragged edges add nothing to any lane, and the count lane
+// counts the columns inside K, which masks the padding as the reference's
+// m_real / k_real do.  Each quant row is QDQ'd by one warp, so the
+// epilogue's row partial is that warp's own reduction, the same as
+// quantize_rows'.
 #include "codec.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -163,11 +171,11 @@ __global__ void __launch_bounds__(kThreads, 5)
   __shared__ T As[BM][kBK + kPad];
   __shared__ T Bs[kBK][BN + kPad];
   const int n_ks = (K + kBK - 1) / kBK;
-  // each quantized element's stats fold once (see the header)
-  const bool stats_a = oa.part && blockIdx.x == 0;
-  const bool stats_b = ob.part && blockIdx.y == 0;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // each quantized element's stats fold once (see the header)
+  const bool stats_a = oa.part && n0 == 0;
+  const bool stats_b = ob.part && m0 == 0;
   const T zero = codec::from_f32<T>(0.f);
   float acc[TM][TN];
 #pragma unroll
@@ -254,7 +262,96 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
+// The tensor-core route: QDQ one staged 128 x 128 operand tile in place
+// (gemm_sm90.cuh's layout; kKMajor: quant rows are the stored rows).  A
+// tile-mode group is the whole stage, zero outside the operand, so its
+// amax is a block max over shared memory.  Quant rows past the operand
+// (rows) are zero and stay zero: skipped.
+template <bool kExtra, bool kKMajor>
+__device__ __forceinline__ void qdq_stage(uint8_t* tile, const Operand& op,
+                                          int mn0, int rows, int k0, int K,
+                                          int n_ks, bool stats) {
+  using bf16 = __nv_bfloat16;
+  if (op.mode == codec::kPass) return;
+  float tile_s = 0.f;
+  if (op.mode == codec::kTile) {
+    const auto* w = reinterpret_cast<const __nv_bfloat162*>(tile);
+    float m = 0.f;
+    for (int i = threadIdx.x; i < sm90::kOperandBytes / 4;
+         i += sm90::kThreads) {
+      const float2 v = __bfloat1622float2(w[i]);
+      m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+    }
+    tile_s = codec::group_scale(codec::block_max(m), op.f);
+  }
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < sm90::kTile && mn0 + q < rows;
+       q += sm90::kThreads / 32)
+    qdq_row<bf16, kExtra>(
+        [&](int j) -> bf16& {
+          const int k = lane + 32 * j;
+          return *reinterpret_cast<bf16*>(
+              tile + (kKMajor ? sm90::swz(q, k) : sm90::swz(k, q)));
+        },
+        op, tile_s, mn0 + q, k0, K, n_ks, stats);
+}
+
+// kAKMaj: A' is K-major (A stored (M, K)); kBKMaj: B' is K-major (B
+// stored (N, K), trans_b).
+template <bool kAKMaj, bool kBKMaj, bool kExtra>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    qmm_stream_tc_kernel(sm90::Operand a, sm90::Operand b,
+                         __nv_bfloat16* __restrict__ c, int M, int N, int K,
+                         Operand oa, Operand ob) {
+  extern __shared__ uint8_t smem[];
+  const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  const int n_ks = (K + kBK - 1) / kBK;
+  // each quantized element's stats fold once (see the header)
+  const bool stats_a = oa.part && n0 == 0;
+  const bool stats_b = ob.part && m0 == 0;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  sm90::mainloop<kAKMaj, kBKMaj>(
+      acc, smem, a, b, m0, n0, K, [&](uint8_t* ta, uint8_t* tb, int k0) {
+        qdq_stage<kExtra, kAKMaj>(ta, oa, m0, M, k0, K, n_ks, stats_a);
+        qdq_stage<kExtra, kBKMaj>(tb, ob, n0, N, k0, K, n_ks, stats_b);
+      });
+  sm90::store_tile(acc, c, M, N, m0, n0);
+}
+
+template <bool kAKMaj, bool kBKMaj, bool kExtra>
+int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
+           int N, int K, const Operand& oa, const Operand& ob,
+           cudaStream_t s) {
+  auto* kern = qmm_stream_tc_kernel<kAKMaj, kBKMaj, kExtra>;
+  const cudaError_t attr = sm90::allow_smem(kern);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
+                  (M + sm90::kTile - 1) / sm90::kTile);
+  kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
+      a, b, static_cast<__nv_bfloat16*>(c), M, N, K, oa, ob);
+  return (int)cudaGetLastError();
+}
+
+template <bool kExtra>
+int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
+              const Operand& oa, const Operand& ob, int ta, int tb,
+              cudaStream_t s) {
+  const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
+  const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
+  if (ta && tb)
+    return run_tc<false, true, kExtra>(A, B, c, M, N, K, oa, ob, s);
+  if (ta) return run_tc<false, false, kExtra>(A, B, c, M, N, K, oa, ob, s);
+  if (tb) return run_tc<true, true, kExtra>(A, B, c, M, N, K, oa, ob, s);
+  return run_tc<true, false, kExtra>(A, B, c, M, N, K, oa, ob, s);
+}
+
 }  // namespace
+
+extern "C" int qmm_stream_route(int dtype, int M) {
+  return sm90::tensor_core_route(dtype, M);
+}
 
 // M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
 // float32, 1 = bfloat16.  a_mode / b_mode: codec::kPass, kBlock or kTile.
@@ -262,8 +359,10 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 // (b_stats): null, or three f32 device pointers (row partials (M, n_ks,
 // 8), slab partials (ceil(M / 128), n_ks, 8), the (8,) result) for the
 // stats epilogue and its fold, n_ks = ceil(K / 128); for B the quant rows
-// are N.  Shared memory stays under the 48 KB static limit: bf16 64x64
-// tiles (33 KB with the pad), f32 32x32 (34 KB), 16x32 for M <= 16.
+// are N.  The route is qmm_stream_route(dtype, M): the tensor-core kernel
+// takes 193 KB of dynamic shared memory (3 stages of two 32 KB tiles),
+// the FMA kernels stay under the 48 KB static limit (f32 32x32 tiles,
+// 34 KB with the pad; 16x32 for M <= 16).
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int M, int N, int K, int dtype, int a_mode,
                                  int b_mode, float a_qmax, int a_emin,
@@ -281,23 +380,25 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                    b_stats ? static_cast<float*>(b_stats[0]) : nullptr};
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
-      b_mode < codec::kPass || b_mode > codec::kTile)
+      b_mode < codec::kPass || b_mode > codec::kTile ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
+  const bool extra = a_sr || b_sr || a_stats || b_stats;
   int err;
-  if (dtype == 0)
+  if (sm90::tensor_core_route(dtype, M))
+    err = extra ? launch_tc<true>(a, b, c, M, N, K, oa, ob, trans_a,
+                                  trans_b, s)
+                : launch_tc<false>(a, b, c, M, N, K, oa, ob, trans_a,
+                                   trans_b, s);
+  else if (dtype == 0)
     err = M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
                                           trans_b, s)
                   : launch<float, 32, 32>(a, b, c, M, N, K, oa, ob, trans_a,
                                           trans_b, s);
-  else if (dtype == 1)
-    err = M <= 16
-        ? launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
-                                        trans_b, s)
-        : launch<__nv_bfloat16, 64, 64>(a, b, c, M, N, K, oa, ob, trans_a,
-                                        trans_b, s);
   else
-    return (int)cudaErrorInvalidValue;
+    err = launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
+                                        trans_b, s);
   if (err || (!a_stats && !b_stats)) return err;
   const int n_ks = (K + kBK - 1) / kBK;
   codec::StatsJobs jobs{};

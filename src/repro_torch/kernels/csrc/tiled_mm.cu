@@ -6,25 +6,36 @@
 // Replaces repro/kernels/fp4_matmul.py::_mm_kernel (via _tiled_matmul),
 // the two-pass pipeline's phase 2.  The TPU kernel carries its f32
 // accumulator in VMEM scratch across the sequential K grid axis; here one
-// block owns one BM x BN output tile, loops over K itself and keeps the
-// accumulator in registers, staging BK-deep A and B tiles in shared
-// memory.  Each K step issues all of a thread's global loads into
-// registers before any shared store, so the loads are in flight together
-// (a block walks K serially; at M = 8 the load latency is the kernel's
-// time).  The trans flags are the reference's index maps: the tile loads
-// read the stored layout in place (the stored row's contiguous axis
-// fastest, so a warp reads neighbouring addresses) and write the shared
-// tiles in the effective orientation; the shared tiles are padded by one
-// column so those transposing writes do not collide on banks.  Ragged
-// M / N / K edges are masked in the kernel (zero fill on load, no store),
-// so no operand is padded.
+// block owns one output tile, loops over K itself and keeps the
+// accumulator in registers.  The trans flags are the reference's index
+// maps, realized by reading the stored layout in place; ragged M / N / K
+// edges are masked in the kernel (zero fill on load, no store), so no
+// operand is padded or copied.
 //
-// Bound: at decode (M = 8) bytes, the K x N weight panel (768 x 768 bf16,
-// 1.2 MB: 0.35 us at 3.35 TB/s); at prefill and training operations,
-// 2 M N K (8192 x 768 x 768: 9.7 GFLOP, 9.8 us at 989 TFLOP/s bf16).  This
-// first version is a CUDA-core FMA GEMM with 16 x 32 tiles for M <= 16 and
-// 64 x 64 otherwise; tensor-core (mma / wgmma) tiles are later work.
+// Route (gemm_sm90.cuh tensor_core_route, of dtype and M alone, the same
+// rule as qmm_stream.cu):
+// - bf16, M > 16 (prefill, training): the tensor-core main loop of
+//   gemm_sm90.cuh with nothing between a stage's arrival and its products:
+//   128 x 128 output tiles, 128-wide K steps through a 3-stage cp.async
+//   ring, wgmma m64n128k16 from 128-byte-swizzled tiles in their stored
+//   layout.  It is the loop qmm_stream.cu runs, so quantize_rows +
+//   tiled_mm equals the stream pipeline bit for bit.  Bound: operations,
+//   2 M N K (8192 x 768 x 768: 9.7 GFLOP, 9.8 us at 989 TFLOP/s bf16).
+//   What holds it back: every block loads its own A and B tiles (a 128 x
+//   128 tile does 64 flops per byte it loads, so the tensor cores would
+//   need ~15 TB/s from L2), a block waits for its products every step
+//   (only the loads of later steps stay in flight), and the 8192 x 768
+//   grid (384 tiles on 132 SMs) leaves a part-filled last wave.
+// - f32 (tensor cores would take it as TF32), or M <= 16 (decode): a
+//   CUDA-core FMA GEMM, 16 x 32 tiles for M <= 16, 64 x 64 otherwise (f32).
+//   Each K step issues all of a thread's global loads into registers
+//   before any shared store, so the loads are in flight together (at M = 8
+//   the load latency is the kernel's time); the shared tiles are padded by
+//   one column so transposing writes do not collide on banks.  Decode is
+//   bytes-bound on the K x N weight panel (768 x 768 bf16, 1.2 MB: 0.35 us
+//   at 3.35 TB/s).
 #include "codec.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -124,30 +135,74 @@ void run(const T* a, const T* b, T* c, int M, int N, int K, int ta, int tb,
   else run<T, BM, BN, false, false>(a, b, c, M, N, K, s);
 }
 
-template <typename T>
+template <typename T, int BM, int BN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
            int ta, int tb, cudaStream_t s) {
-  const auto* ap = static_cast<const T*>(a);
-  const auto* bp = static_cast<const T*>(b);
-  auto* cp = static_cast<T*>(c);
-  if (M <= 16)
-    run<T, 16, 32>(ap, bp, cp, M, N, K, ta, tb, s);
-  else
-    run<T, 64, 64>(ap, bp, cp, M, N, K, ta, tb, s);
+  run<T, BM, BN>(static_cast<const T*>(a), static_cast<const T*>(b),
+                 static_cast<T*>(c), M, N, K, ta, tb, s);
   return (int)cudaGetLastError();
+}
+
+// kAKMaj: A' is K-major (A stored (M, K)); kBKMaj: B' is K-major (B
+// stored (N, K), trans_b).
+template <bool kAKMaj, bool kBKMaj>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    tiled_mm_tc_kernel(sm90::Operand a, sm90::Operand b,
+                       __nv_bfloat16* __restrict__ c, int M, int N, int K) {
+  extern __shared__ uint8_t smem[];
+  const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  sm90::mainloop<kAKMaj, kBKMaj>(acc, smem, a, b, m0, n0, K,
+                                 [](uint8_t*, uint8_t*, int) {});
+  sm90::store_tile(acc, c, M, N, m0, n0);
+}
+
+template <bool kAKMaj, bool kBKMaj>
+int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
+           int N, int K, cudaStream_t s) {
+  auto* kern = tiled_mm_tc_kernel<kAKMaj, kBKMaj>;
+  const cudaError_t attr = sm90::allow_smem(kern);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
+                  (M + sm90::kTile - 1) / sm90::kTile);
+  kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
+      a, b, static_cast<__nv_bfloat16*>(c), M, N, K);
+  return (int)cudaGetLastError();
+}
+
+int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
+              int ta, int tb, cudaStream_t s) {
+  const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
+  const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
+  if (ta && tb) return run_tc<false, true>(A, B, c, M, N, K, s);
+  if (ta) return run_tc<false, false>(A, B, c, M, N, K, s);
+  if (tb) return run_tc<true, true>(A, B, c, M, N, K, s);
+  return run_tc<true, false>(A, B, c, M, N, K, s);
 }
 
 }  // namespace
 
+extern "C" int tiled_mm_route(int dtype, int M) {
+  return sm90::tensor_core_route(dtype, M);
+}
+
 // M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
-// float32, 1 = bfloat16.
+// float32, 1 = bfloat16.  The route is tiled_mm_route(dtype, M).
 extern "C" int tiled_mm_launch(const void* a, const void* b, void* c, int M,
                                int N, int K, int dtype, int trans_a,
                                int trans_b, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return 0;
-  if (dtype == 0) return launch<float>(a, b, c, M, N, K, trans_a, trans_b, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, c, M, N, K, trans_a, trans_b, s);
-  return (int)cudaErrorInvalidValue;
+  if (sm90::tensor_core_route(dtype, M))
+    return launch_tc(a, b, c, M, N, K, trans_a, trans_b, s);
+  if (dtype == 0)
+    return M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, trans_a,
+                                           trans_b, s)
+                   : launch<float, 64, 64>(a, b, c, M, N, K, trans_a,
+                                           trans_b, s);
+  return launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, trans_a, trans_b,
+                                       s);
 }

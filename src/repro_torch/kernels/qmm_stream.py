@@ -11,8 +11,10 @@ the kernel; the result equals the reference's zero-padded computation
 sliced back to (M, N).  ``a_sr`` / ``b_sr`` round an operand
 stochastically with the counter-hash noise of its seed, keyed in its
 quant orientation ((M, K) for A, (N, K) for B).  ``collect_stats`` adds
-the stats epilogue of each quantized operand.  ``qmm_stream_plain`` is
-the plain version.
+the stats epilogue of each quantized operand.  bf16 calls with M > 16
+run on the tensor cores, f32 and M <= 16 on CUDA-core FMA loops (the
+library's rule, ``KERNEL.tensor_core``; ``tiled_mm`` follows the same
+one).  ``qmm_stream_plain`` is the plain version.
 """
 from __future__ import annotations
 
@@ -108,7 +110,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                       seed_arg(seed_b), *ptrs, stream_ptr(a),
                       kernels=1 + 2 * (n_stats > 0),
                       trans=trans_a or trans_b,
-                      sr=a_sr or b_sr, stats=n_stats > 0)
+                      sr=a_sr or b_sr, stats=n_stats > 0,
+                      tc=KERNEL.tensor_core(dtype, m))
     if not collect_stats:
         return c
     return c, tuple(None if s is None else s[-1] for s in stats)

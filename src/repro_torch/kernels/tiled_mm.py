@@ -4,8 +4,10 @@ CUDA kernel ``csrc/tiled_mm.cu``, replacing
 
 ``y = A' @ B'`` over pre-quantized or pass-mode operands, f32
 accumulation, output in A's dtype; ``A' = a.T`` under ``trans_a`` and
-``B' = b.T`` under ``trans_b``, read in place.  ``tiled_mm_plain`` is the
-plain version.
+``B' = b.T`` under ``trans_b``, read in place.  bf16 calls with M > 16
+run on the tensor cores, f32 and M <= 16 on CUDA-core FMA loops, the
+same rule as ``qmm_stream`` (``KERNEL.tensor_core``).  ``tiled_mm_plain``
+is the plain version.
 """
 from __future__ import annotations
 
@@ -44,5 +46,6 @@ def tiled_mm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     with torch.cuda.device(a.device):
         KERNEL.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                       dtype, int(trans_a), int(trans_b), stream_ptr(a),
-                      trans=trans_a or trans_b)
+                      trans=trans_a or trans_b,
+                      tc=KERNEL.tensor_core(dtype, m))
     return c

@@ -9,8 +9,12 @@ here: the card's machine has none.  Run on the card with
 bitwise; GEMM outputs within f32 rtol 1e-5 / atol 1e-5 * max|y|, or
 one bf16 ulp (2^-7 |y|) + 1e-5 * max|y| in bf16 (the
 kernels and cuBLAS sum in different orders); the stream pipeline bitwise
-equal to quantize pass + matmul pass (both kernels sum in k order), in
-every trans layout; flash attention within f32 rtol / atol 1e-5 or one
+equal to quantize pass + matmul pass, in every trans layout (both kernels
+take one route by dtype and M, and on each route sum every output element
+over k in increasing order with the same instructions: FMA loops for f32
+and M <= 16, gemm_sm90.cuh's wgmma main loop for bf16 with M > 16); rows
+of a tensor-core call bitwise equal to the same rows of a call with
+fewer rows; flash attention within f32 rtol / atol 1e-5 or one
 bf16 ulp + 1e-5 of its plain version; the autograd Functions' gradients
 on the card within the GEMM bar (qlinear) or 1e-4 (attention, f32) of
 the same Functions on the CPU.  Stochastic rounding: QDQ panels bitwise
@@ -37,8 +41,10 @@ from repro_torch.kernels import tiled_mm as tm
 pytestmark = pytest.mark.gpu
 
 DTYPES = (torch.float32, torch.bfloat16)
-# M = 1, M not a multiple of 128, K = 64 (one short group), K ragged.
-SHAPES = ((1, 768, 3072), (130, 768, 768), (8, 64, 3072), (130, 200, 96))
+# M = 1, M not a multiple of 128, K = 64 (one short group), K ragged;
+# several 128 x 128 tensor-core tiles, ragged every way and aligned.
+SHAPES = ((1, 768, 3072), (130, 768, 768), (8, 64, 3072), (130, 200, 96),
+          (257, 384, 320), (256, 256, 256))
 
 
 @pytest.fixture
@@ -188,8 +194,10 @@ def test_launch_counts(cuda):
 # -- the training slice: transposed layouts, flash attention, autograd --
 
 TRANS = [(False, False), (True, False), (False, True), (True, True)]
-# M ragged, K ragged (one short group), N ragged; M = 1.
-TRANS_SHAPES = ((130, 200, 96), (1, 768, 256))
+# M ragged, K ragged (one short group), N ragged; M = 1; several
+# tensor-core tiles, ragged every way and aligned.
+TRANS_SHAPES = ((130, 200, 96), (1, 768, 256), (257, 384, 320),
+                (256, 256, 256))
 
 
 def _stored(shape, trans, dtype, seed, scale=1.0):
@@ -197,6 +205,52 @@ def _stored(shape, trans, dtype, seed, scale=1.0):
     ``shape``, stored transposed under ``trans``."""
     x = _rand(shape[::-1] if trans else shape, dtype, seed) * scale
     return x.contiguous()
+
+
+@pytest.mark.parametrize("kernel", ["qmm_stream", "tiled_mm"])
+@pytest.mark.parametrize("dtype,m,tc", [(torch.bfloat16, 17, True),
+                                        (torch.bfloat16, 300, True),
+                                        (torch.bfloat16, 16, False),
+                                        (torch.bfloat16, 1, False),
+                                        (torch.float32, 300, False)])
+def test_route_counters(cuda, kernel, dtype, m, tc):
+    """bf16 with M > 16 takes the tensor-core route, f32 or M <= 16 the
+    FMA route; the counters say which ran."""
+    a, b = _rand((m, 256), dtype, 40), _rand((256, 192), dtype, 41)
+    kern = qs.KERNEL if kernel == "qmm_stream" else tm.KERNEL
+    before = kern.counts()
+    if kernel == "qmm_stream":
+        qs.qmm_stream(a, b, a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+                      b_fmt="fp4_e2m1")
+    else:
+        tm.tiled_mm(a, b)
+    after = kern.counts()
+    assert after["launches"] == before["launches"] + 1
+    assert after["tc"] == before["tc"] + tc
+    assert kern.tensor_core(1 if dtype == torch.bfloat16 else 0, m) == tc
+
+
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("kernel", ["qmm_stream", "tiled_mm"])
+def test_rows_do_not_depend_on_m(cuda, kernel, trans_a, trans_b):
+    """On the tensor-core route a row's result does not depend on the
+    other rows: rows 0-16 of an M = 300 call bitwise equal an M = 17 call
+    on the same first 17 rows, in every layout."""
+    a = _stored((300, 384), trans_a, torch.bfloat16, 42)
+    b = _stored((384, 320), trans_b, torch.bfloat16, 43, 0.05)
+    a17 = (a[:, :17] if trans_a else a[:17]).contiguous()
+    kw = dict(trans_a=trans_a, trans_b=trans_b)
+    if kernel == "qmm_stream":
+        kw.update(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+                  b_fmt="fp4_e2m1")
+        fn, kern = qs.qmm_stream, qs.KERNEL
+    else:
+        fn, kern = tm.tiled_mm, tm.KERNEL
+    tc = kern.tc_launches
+    y, y17 = fn(a, b, **kw), fn(a17, b, **kw)
+    torch.cuda.synchronize()
+    assert kern.tc_launches == tc + 2
+    assert torch.equal(_bits(y[:17]), _bits(y17))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
