@@ -8,10 +8,10 @@ code 1):
 
 1. build   — nvcc builds the five CUDA kernels of
    ``src/repro_torch/kernels/csrc`` for sm_90a, all at once.  For
-   ``qmm_stream`` and ``tiled_mm`` it counts the HGMMA instructions in
-   ``cuobjdump -sass`` (gate: > 0, the products run on wgmma) and reads
-   registers and spills of their tensor-core kernels from ptxas (gate:
-   no spill, no serialized wgmma).
+   ``qmm_stream``, ``tiled_mm`` and ``flash_attention`` it counts the
+   HGMMA instructions in ``cuobjdump -sass`` (gate: > 0, the products run
+   on wgmma) and reads registers and spills of their tensor-core kernels
+   from ptxas (gate: no spill, no serialized wgmma).
 2. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with CUDA-event times (L2 flushed before every launch) beside
    the plain version, the bound and ``torch.matmul`` / SDPA on the same
@@ -21,9 +21,16 @@ code 1):
    (w read transposed, pass x pass) and wgrad (x read transposed, K =
    8192, fp8 blocks), the attention linears' two-pass route forward,
    dgrad and wgrad (token modes, both trans flags), and flash attention
-   at (96, 1024, 64).  QDQ panels bitwise, GEMM outputs within one bf16
-   ulp (+1e-5 max|y|), the stream kernel bitwise against quantize_rows +
-   tiled_mm in the same layout, attention within one bf16 ulp + 1e-5.
+   at (96, 1024, 64) and (48, 1024, 128).  QDQ panels bitwise, GEMM
+   outputs within one bf16 ulp (+1e-5 max|y|), the stream kernel bitwise
+   against quantize_rows + tiled_mm in the same layout, attention within
+   one bf16 ulp + 1e-5 (and, at D = 128 on the card tests' inputs, the
+   tensor-core kernel within the same bar of an f64 softmax, beside the
+   plain version and the reference's own f32 score order: the
+   ``flash_precision_d128`` record).  Each ``quantize_rows`` row gives
+   the blocks of its kernels from a profiler trace (gate: more than the
+   card's 132 SMs at 8192 x 768); each flash row its route, TFLOP/s and
+   share of bound.
    Each ``qmm_stream`` / ``tiled_mm`` row names the route its launch took
    (``tensor_core`` for bf16 with M > 16, else ``fma``), its TFLOP/s and
    its share of the bound; rows 0-16 of the FFN forward and of the
@@ -48,8 +55,9 @@ code 1):
    launches per step (transposed and tensor-core launches apart), then a
    ``train_profile`` line splitting one paper_fp4 step by kernel.  Gates:
    finite losses with step 6 below step 0; every kernel launched (the
-   three GEMM kernels also in a transposed layout); every ``qmm_stream``
-   and ``tiled_mm`` launch on the tensor-core route; an op replay of step
+   three GEMM kernels also in a transposed layout); every ``qmm_stream``,
+   ``tiled_mm`` and ``flash_attention`` launch on the tensor-core route
+   (bf16 throughout); an op replay of step
    0 — every fwd, dgrad and wgrad matmul and every flash call of layers 0
    and 11 again on the CPU on the card's own inputs, quantized operands
    bitwise and outputs within OP_BOUND — and a control (layer 0's wq
@@ -63,8 +71,8 @@ code 1):
    p50 and tokens/s beside the same recipe with telemetry off and the
    paper_fp4 step of phase 4, peak memory and launches per kernel per
    step (SR, stats and tensor-core launches apart).  Gates: finite
-   losses; every ``qmm_stream`` and ``tiled_mm`` launch on the
-   tensor-core route; every stats
+   losses; every ``qmm_stream``, ``tiled_mm`` and ``flash_attention``
+   launch on the tensor-core route; every stats
    key of the reference's schema present and finite for all 12 layers and
    the head, with 4 / 2 taps per layer; one JSONL row per step; an op
    replay of step 0 for layers 0 and 11 (every fwd, dgrad and wgrad call,
@@ -114,6 +122,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 H100_BYTES_PER_S = 3.35e12        # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12          # dense bf16 tensor cores
 H100_F32_FLOPS = 67e12            # f32 outside the tensor cores
+CARD_SMS = 132                    # H100 SXM streaming multiprocessors
 SHAPES_M = (8, 16, 128, 512)
 SHAPES_KN = ((768, 768), (768, 3072), (3072, 768))
 # Card vs CPU, teacher-forced logits of one request (256 tokens).
@@ -194,9 +203,10 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-# The libraries whose bf16 calls with M > 16 run gemm_sm90.cuh's wgmma
-# main loop, and the name their tensor-core kernels carry.
-TC_SOURCES = ("qmm_stream", "tiled_mm")
+# The libraries with a tensor-core route (kernels named *_tc_kernel): the
+# GEMM kernels' bf16 calls with M > 16 run gemm_sm90.cuh's wgmma main
+# loop, flash attention's bf16 calls flash_fwd_tc_kernel.
+TC_SOURCES = ("qmm_stream", "tiled_mm", "flash_attention")
 
 
 def tc_kernel_report(log):
@@ -208,9 +218,10 @@ def tc_kernel_report(log):
         if "Function properties for" in ln:
             name = ln.split("Function properties for", 1)[1].strip()
             base = re.search(r"([a-z_]+_tc_kernel)I(.*?)EEv", name)
-            # e.g. qmm_stream_tc_kernel<1,0,0>: its bool template flags
+            # e.g. qmm_stream_tc_kernel<1,0,0>: its bool template flags;
+            # flash_fwd_tc_kernel<64>: its head dimension
             cur = base and "{}<{}>".format(base.group(1), ",".join(
-                re.findall(r"Lb(\d)E?", base.group(2) + "E")))
+                re.findall(r"L[bi](\d+)E?", base.group(2) + "E")))
         elif cur and "spill stores" in ln:
             nums = [int(w) for w in ln.replace(",", " ").split()
                     if w.isdigit()]
@@ -371,6 +382,67 @@ def row_independence(torch, what, call, y):
                                  f"differ from the call on {n} rows")
 
 
+# The kernels of csrc/quantize_rows.cu (the stats fold's are codec.cuh's).
+QUANTIZE_ROWS_KERNELS = ("quantize_rows_kernel", "quantize_tok_kernel",
+                         "quantize_cols_kernel", "col_amax_kernel",
+                         "tensor_amax_kernel")
+
+
+def kernel_blocks(torch, fn):
+    """The blocks of each kernel one call of ``fn`` launches, from the
+    grid that a ``torch.profiler`` trace records: {kernel: x * y * z}."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    blocks = {}
+    for ev in events:
+        grid = ev.get("args", {}).get("grid")
+        name = re.search(r"(\w+_kernel)", ev.get("name", ""))
+        if ev.get("cat") == "kernel" and grid and name:
+            blocks[name.group(1)] = int(np.prod(grid))
+    return blocks
+
+
+def flash_precision(torch, fa):
+    """The flash yardstick at D = 128 on the card tests' inputs (q, k, v ~
+    3 N(0, 1) bf16, 4 heads x 1024 x 128, GQA 2): the tensor-core kernel,
+    the plain version (exact bf16 scores) and the reference's own score
+    order (q cast to f32 and scaled, one f32 dot) against the causal
+    softmax in f64.  Per output: max over outputs of the excess over the
+    gate (one bf16 ulp + 1e-5) and the count beyond it."""
+    def rand(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * 3).to(torch.bfloat16)
+    q = rand((4, 1024, 128), 17)
+    k, v = rand((2, 1024, 128), 18), rand((2, 1024, 128), 19)
+    kk, vv = (t.repeat_interleave(2, 0).double() for t in (k, v))
+    scores = torch.matmul(q.double(), kk.transpose(1, 2)) * fa._scale(128)
+    above = torch.ones(1024, 1024, dtype=torch.bool, device="cuda").triu(1)
+    truth = torch.matmul(torch.softmax(
+        scores.masked_fill(above, float("-inf")), dim=-1), vv)
+    outs = {"kernel": fa.flash_attention_fwd(q, k, v),
+            "plain": fa.flash_attention_fwd_plain(q, k, v),
+            "reference_order": fa.flash_attention_fwd_plain(
+                q.float(), k.float(), v.float()).to(torch.bfloat16)}
+    result = {}
+    for name, o in outs.items():
+        e = (o.double() - truth).abs() - (2.0 ** -7 * truth.abs() + 1e-5)
+        result[name] = {"max_excess": e.max().item(),
+                        "outputs_beyond_gate": int((e > 0).sum())}
+    if result["kernel"]["outputs_beyond_gate"]:
+        raise AssertionError(f"flash_attention d128 off the f64 softmax: "
+                             f"{result}")
+    return result
+
+
 def phase_train_kernels(torch, card):
     """The training step's kernel calls at gpt2-125m's shapes (8192
     tokens, bf16), each against its plain version on the same inputs;
@@ -416,9 +488,16 @@ def phase_train_kernels(torch, card):
         bitwise(y, qr.quantize_rows_plain(x, **kw), f"quantize_rows {role}")
         n = x.numel()
         b_ms, b_by = _bound(4 * n, 8 * n, H100_F32_FLOPS)
+        blocks = {k: n for k, n in kernel_blocks(
+            torch, lambda: qr.quantize_rows(x, **kw)).items()
+            if k in QUANTIZE_ROWS_KERNELS}
+        if x.numel() >= TRAIN_TOKENS * d and \
+                min(blocks.values(), default=0) <= CARD_SMS:
+            raise AssertionError(f"quantize_rows {role}: a kernel runs on "
+                                 f"{CARD_SMS} blocks or fewer: {blocks}")
         rows.append({
             "name": "quantize_rows", "role": role, "shape": list(x.shape),
-            "trans": trans, "max_abs_err": 0.0,
+            "trans": trans, "max_abs_err": 0.0, "blocks": blocks,
             "ms": timer.ms(lambda: qr.quantize_rows(x, **kw), iters=10),
             "plain_ms": timer.ms(lambda: qr.quantize_rows_plain(x, **kw),
                                  iters=5),
@@ -511,30 +590,39 @@ def phase_train_kernels(torch, card):
                              lambda rows_: tm.tiled_mm(aq[:rows_], bq, **kw),
                              y)
 
-    # Flash attention forward, (B*H, S, D) = (96, 1024, 64), causal.
-    bh, s_, dh = TRAIN_BATCH * 12, TRAIN_SEQ, 64
-    q, k, v = (rand(bh, s_, dh) for _ in range(3))
-    o = fa.flash_attention_fwd(q, k, v)
-    ref = fa.flash_attention_fwd_plain(q, k, v)
-    err = (o.float() - ref.float()).abs()
-    if not bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all()):
-        raise AssertionError("flash_attention out of tolerance: max err "
-                             f"{err.max().item()}")
-    q4, k4, v4 = (x_.view(TRAIN_BATCH, 12, s_, dh) for x_ in (q, k, v))
-    b_ms, b_by = _bound(2 * 4 * bh * s_ * dh,
-                        2 * dh * s_ * (s_ + 1) * bh, H100_BF16_FLOPS)
-    rows.append({
-        "name": "flash_attention", "role": "fwd", "shape": [bh, s_, dh],
-        "trans": False, "max_abs_err": err.max().item(),
-        "ms": timer.ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10),
-        "plain_ms": timer.ms(lambda: fa.flash_attention_fwd_plain(q, k, v),
-                             iters=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": timer.ms(lambda: F_nn.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), iters=10)})
+    # Flash attention forward, causal: (B*H, S, D) = (96, 1024, 64), the
+    # training step's; and (48, 1024, 128), the head dimension whose scale
+    # is not a power of two, at the same bytes.
+    for role, heads, dh in (("fwd", 12, 64), ("fwd d128", 6, 128)):
+        bh, s_ = TRAIN_BATCH * heads, TRAIN_SEQ
+        q, k, v = (rand(bh, s_, dh) for _ in range(3))
+        o, route = routed(fa.KERNEL, lambda: fa.flash_attention_fwd(q, k, v))
+        ref = fa.flash_attention_fwd_plain(q, k, v)
+        err = (o.float() - ref.float()).abs()
+        if not bool((err <= 2.0 ** -7 * ref.float().abs() + 1e-5).all()):
+            raise AssertionError(f"flash_attention {role} out of tolerance: "
+                                 f"max err {err.max().item()}")
+        q4, k4, v4 = (x_.view(TRAIN_BATCH, heads, s_, dh)
+                      for x_ in (q, k, v))
+        flops = 2 * dh * s_ * (s_ + 1) * bh
+        b_ms, b_by = _bound(2 * 4 * bh * s_ * dh, flops, H100_BF16_FLOPS)
+        ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10)
+        rows.append({
+            "name": "flash_attention", "role": role, "shape": [bh, s_, dh],
+            "trans": False, "max_abs_err": err.max().item(), "ms": ms,
+            "plain_ms": timer.ms(
+                lambda: fa.flash_attention_fwd_plain(q, k, v), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(
+                lambda: F_nn.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), iters=10),
+            "route": route, "tflops": flops / (ms * 1e-3) / 1e12,
+            "bound_share": b_ms / ms})
+    precision = flash_precision(torch, fa)
     torch.cuda.synchronize()
     emit({"phase": "train_kernels", "card": card, "dtype": "bfloat16",
-          "tokens": t, "ok": True, "table": rows})
+          "tokens": t, "ok": True, "table": rows,
+          "flash_precision_d128": precision})
     return rows
 
 
@@ -743,8 +831,7 @@ def profile_decode(torch, engine, card, steps: int = 5) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     groups = (("qmm_stream", ("qmm_stream_kernel", "qmm_stream_tc_kernel")),
-              ("quantize_rows", ("quantize_rows_kernel",
-                                 "tensor_amax_kernel")),
+              ("quantize_rows", QUANTIZE_ROWS_KERNELS),
               ("tiled_mm", ("tiled_mm_kernel", "tiled_mm_tc_kernel")),
               ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
               ("memcpy_memset", ("Memcpy", "Memset")))
@@ -1150,11 +1237,10 @@ def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = (("qmm_stream", ("qmm_stream_kernel", "qmm_stream_tc_kernel")),
-              ("quantize_rows", ("quantize_rows_kernel",
-                                 "quantize_cols_kernel",
-                                 "tensor_amax_kernel")),
+              ("quantize_rows", QUANTIZE_ROWS_KERNELS),
               ("tiled_mm", ("tiled_mm_kernel", "tiled_mm_tc_kernel")),
-              ("flash_attention", ("flash_fwd_kernel",)),
+              ("flash_attention", ("flash_fwd_kernel",
+                                   "flash_fwd_tc_kernel")),
               ("stats_fold", ("stats_slab_kernel", "stats_total_kernel")),
               ("cublas_gemm", ("gemm", "xmma", "cutlass", "Kernel2")),
               ("memcpy_memset", ("Memcpy", "Memset")))
@@ -1256,8 +1342,9 @@ def phase_train(torch, card):
         failures.append(f"a layout never ran: launches {launches}, "
                         f"transposed {trans}")
     if any(tc[k] != launches[k] for k in TC_SOURCES):
-        failures.append(f"a GEMM launch of the 8192-token steps left the "
-                        f"tensor-core route: launches {launches}, "
+        failures.append(f"a GEMM or bf16 flash launch of the 8192-token "
+                        f"steps left the tensor-core route: launches "
+                        f"{launches}, "
                         f"tensor-core {tc}")
     if not worst <= bound or q_bad:
         failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
@@ -1424,8 +1511,8 @@ def phase_train_telemetry(torch, card, paper_p50_ms):
                                              "quantize_rows")) <= 0:
         failures.append(f"a kernel or mode of the path never ran: {counts}")
     if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
-        failures.append("a GEMM launch of the 8192-token steps left the "
-                        f"tensor-core route: {counts}")
+        failures.append("a GEMM or bf16 flash launch of the 8192-token "
+                        f"steps left the tensor-core route: {counts}")
     p50 = summary.get("p50_ms")
     # FP4 health, the mean over the 12 layers of a few of the stats a step
     health = {f"{key}/{stat}": [float(np.mean([

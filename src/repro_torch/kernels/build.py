@@ -118,9 +118,9 @@ class CudaKernel:
     stochastically and ``stats_launches`` the part that collected the
     stats epilogue (its fold included) and ``tc_launches`` the part that
     ran on the tensor-core route (a GEMM kernel's bf16 calls with M > 16,
-    ``tensor_core``).  Wrappers do not call the entry point for an empty
-    output.  The entry point returns ``cudaGetLastError()``; a non-zero
-    code raises.
+    flash attention's bf16 calls: ``tensor_core``).  Wrappers do not call
+    the entry point for an empty output.  The entry point returns
+    ``cudaGetLastError()``; a non-zero code raises.
     """
 
     def __init__(self, name: str, argtypes):
@@ -144,13 +144,14 @@ class CudaKernel:
         fn.restype = ctypes.c_int
         return fn
 
-    def tensor_core(self, dtype: int, m: int) -> bool:
-        """Whether a launch of dtype code ``dtype`` with M = ``m`` takes
-        the tensor-core route: the library's own rule
-        (``gemm_sm90.cuh`` ``tensor_core_route``)."""
+    def tensor_core(self, *args: int) -> bool:
+        """Whether a launch takes the tensor-core route: the library's own
+        rule (its ``*_route`` entry point) of the launch's int arguments,
+        (dtype code, M) for the GEMM kernels (``gemm_sm90.cuh``
+        ``tensor_core_route``), the dtype code for flash attention."""
         if self._route is None:
-            self._route = self._bind("route", [ctypes.c_int, ctypes.c_int])
-        return bool(self._route(dtype, m))
+            self._route = self._bind("route", [ctypes.c_int] * len(args))
+        return bool(self._route(*args))
 
     def launch(self, *args, kernels: int = 1, trans: bool = False,
                sr: bool = False, stats: bool = False,

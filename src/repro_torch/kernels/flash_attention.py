@@ -4,10 +4,13 @@ kernel ``csrc/flash_attention.cu``, replacing
 
 q (B*H, S, D), k / v (B*KVH, S, D) with ``rep = H / KVH`` (the reference
 repeats K / V before the call; the kernel reads row ``bh // rep``
-instead), output (B*H, S, D) in q's dtype.  ``flash_attention_fwd_plain``
-is the plain version: the kernel's arithmetic (q cast to f32, then
-scaled; scores, probabilities and the running sums in f32; 128-key
-tiles), in PyTorch ops.
+instead), output (B*H, S, D) in q's dtype.  The route is a function of
+the dtype alone: bf16 runs the tensor-core kernel (wgmma products, P
+carried as three bf16 terms), f32 the CUDA-core FMA kernel;
+``KERNEL.counts()["tc"]`` counts the tensor-core launches.
+``flash_attention_fwd_plain`` is the plain version: the reference's
+online softmax (scores, probabilities and the running sums in f32;
+128-key tiles) with each route's scores, in PyTorch ops.
 """
 from __future__ import annotations
 
@@ -54,19 +57,36 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = True
                               ) -> torch.Tensor:
     """Plain PyTorch version: the reference kernel's online softmax over
-    128-key tiles, in f32."""
+    128-key tiles, in f32.
+
+    The scores follow each route's arithmetic.  f32: q cast to f32 and
+    scaled, then an f32 dot, as the reference (and the FMA kernel).
+    bf16: the exact dot of the bf16 operands (summed in f64, far below an
+    f32 ulp off), rounded once to f32, then scaled in f32.  The
+    tensor-core kernel's products are exact and its f32 sums land within
+    a few f32 ulps of that; the reference's own f32 order is itself off
+    the true outputs by more than the card's bar at D = 128 on the card
+    tests' inputs (see ``csrc/flash_attention.cu``)."""
     bh, s, d, rep = _check(q, k, v)
     kv = torch.arange(bh, device=q.device) // rep
-    kf = k.index_select(0, kv).to(torch.float32)
     vf = v.index_select(0, kv).to(torch.float32)
-    qf = q.to(torch.float32) * _scale(d)
+    if q.dtype == torch.bfloat16:
+        qs = q.to(torch.float64)
+        ks = k.index_select(0, kv).to(torch.float64)
+        post_scale = _scale(d)
+    else:
+        qs = q.to(torch.float32) * _scale(d)
+        ks = k.index_select(0, kv).to(torch.float32)
+        post_scale = None
     m = torch.full((bh, s, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((bh, s, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
     qpos = torch.arange(s, device=q.device)[:, None]
     tile = min(_TILE, s)
     for k0 in range(0, s, tile):
-        sc = torch.matmul(qf, kf[:, k0:k0 + tile].transpose(1, 2))
+        sc = torch.matmul(qs, ks[:, k0:k0 + tile].transpose(1, 2))
+        if post_scale is not None:
+            sc = sc.to(torch.float32) * post_scale
         if causal:
             kpos = torch.arange(k0, k0 + sc.shape[-1], device=q.device)
             sc = torch.where(kpos[None] <= qpos, sc,
@@ -85,8 +105,9 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
     """Causal attention forward over (BH, S, D).  CUDA tensors launch the
-    kernel (S a multiple of 64, D in 16 / 32 / 64 / 128, contiguous, one
-    dtype of f32 / bf16); CPU tensors take the plain version."""
+    kernel (S a multiple of 64, D in 16 / 32 / 64 / 128, contiguous and
+    16-byte aligned, one dtype of f32 / bf16); CPU tensors take the plain
+    version."""
     bh, s, d, rep = _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal)
@@ -102,13 +123,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if s % _SEQ_MULTIPLE or d not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes S % {_SEQ_MULTIPLE} == 0 and D "
                          f"in {_HEAD_DIMS}; got S={s}, D={d}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd takes contiguous q / k / v")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd takes contiguous, 16-byte "
+                         "aligned q / k / v")
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    dtype = 0 if q.dtype == torch.float32 else 1
     with torch.cuda.device(q.device):
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      bh, s, d, rep, _scale(d), int(causal),
-                      0 if q.dtype == torch.float32 else 1, stream_ptr(q))
+                      bh, s, d, rep, _scale(d), int(causal), dtype,
+                      stream_ptr(q), tc=KERNEL.tensor_core(dtype))
     return o

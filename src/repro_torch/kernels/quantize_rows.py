@@ -89,8 +89,9 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     ``collect_stats``, ``(result, stats)``.  ``sr`` rounds stochastically
     with the noise of ``seed`` (an int32 from ``rounding.fold_seed``).
 
-    A CUDA tensor launches the kernel (the stats fold is two more,
-    tensor mode's amax another); a CPU tensor takes the plain version.
+    A CUDA tensor launches the kernel (the stats fold is two more; the
+    cross-block amax of tensor mode and of a transposed token launch
+    another); a CPU tensor takes the plain version.
     """
     if mode not in MODE_CODES or mode == "pass":
         raise ValueError(f"unknown quantize mode {mode!r}")
@@ -110,17 +111,22 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     stats = stats_buffers(rows, cols, x.device) if collect_stats else None
     if y.numel() == 0:
         return (y, stats[-1].zero_()) if collect_stats else y
-    scratch = (torch.zeros(1, dtype=torch.int32, device=x.device)
-               if mode == "tensor" else None)
+    # the amax of a group that spans blocks (the whole tensor; a stored
+    # column under trans) is reduced by a kernel of its own into zeroed
+    # uint32s: one, or one per quant row
+    cross_block = mode == "tensor" or (mode == "token" and trans)
+    scratch = (torch.zeros(rows if mode == "token" else 1,
+                           dtype=torch.int32, device=x.device)
+               if cross_block else None)
     ptrs = [None] * 3 if stats is None else [t.data_ptr() for t in stats]
     with torch.cuda.device(x.device):
-        # tensor mode's whole-tensor amax and the stats fold (two) are
-        # kernels of their own beside the QDQ
+        # that amax and the stats fold (two) are kernels of their own
+        # beside the QDQ
         KERNEL.launch(x.data_ptr(), y.data_ptr(), rows, cols, dtype,
                       MODE_CODES[mode], *args, int(trans), int(emit_trans),
                       None if scratch is None else scratch.data_ptr(),
                       int(sr), seed_arg(seed), *ptrs, stream_ptr(x),
-                      kernels=1 + (mode == "tensor") + 2 * collect_stats,
+                      kernels=1 + cross_block + 2 * collect_stats,
                       trans=trans or emit_trans, sr=sr,
                       stats=collect_stats)
     return (y, stats[-1]) if collect_stats else y

@@ -171,8 +171,8 @@ def test_spec_outside_the_kernels_raises_on_cuda(cuda, packed):
 
 def test_launch_counts(cuda):
     """The counters count kernels launched: none for an empty output, two
-    for tensor mode (whole-tensor amax, then the QDQ), two more for the
-    stats fold."""
+    for tensor mode and for a transposed token launch (the cross-block
+    amax, then the QDQ), two more for the stats fold."""
     x = _rand((8, 256), torch.bfloat16, 9)
     launched = _launches()
     qr.quantize_rows(x[:0], mode="token", fmt_name="fp8_e4m3")
@@ -186,6 +186,9 @@ def test_launch_counts(cuda):
     qr.quantize_rows(x, mode="token", fmt_name="fp8_e4m3",
                      collect_stats=True)
     assert qr.KERNEL.launches == launched[0] + 6
+    qr.quantize_rows(x, mode="token", fmt_name="fp8_e4m3", trans=True,
+                     emit_trans=True)
+    assert qr.KERNEL.launches == launched[0] + 8
     qs.qmm_stream(x, x.T.contiguous(), a_mode="block", b_mode="tile",
                   a_fmt="fp4_e2m1", b_fmt="fp4_e2m1", collect_stats=True)
     assert qs.KERNEL.launches == launched[1] + 3
@@ -253,6 +256,11 @@ def test_rows_do_not_depend_on_m(cuda, kernel, trans_a, trans_b):
     assert torch.equal(_bits(y[:17]), _bits(y17))
 
 
+# (300, 1100): a transposed launch over several strips and 128-column
+# chunks, ragged both ways; (768, 8192): the attention wgrad's operands.
+QUANT_SHAPES = ((130, 200), (1, 768), (300, 8), (300, 1100), (768, 8192))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("trans,emit_trans", [(False, True), (True, False),
                                               (True, True)])
@@ -260,7 +268,7 @@ def test_rows_do_not_depend_on_m(cuda, kernel, trans_a, trans_b):
                                       ("block", "fp8_e4m3"),
                                       ("tile", "fp4_e2m1"),
                                       ("tensor", "fp8_e5m2")])
-@pytest.mark.parametrize("shape", [(130, 200), (1, 768), (300, 8)])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
 def test_quantize_rows_transposed_bitwise(cuda, shape, mode, fmt, trans,
                                           emit_trans, dtype):
     """The quantize pass reading the stored operand transposed and / or
@@ -324,10 +332,13 @@ def test_two_pass_token_modes_transposed(cuda, a_mode, b_mode, trans_a,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s", [128, 1024])
-@pytest.mark.parametrize("rep", [1, 2])
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("s", [128, 192, 1024])
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_attention_matches_plain(cuda, d, rep, s, dtype):
+    """Every head dimension (1/sqrt(D) a power of two for 16 and 64, not
+    for 32 and 128), GQA by index, S = 192 (a ragged 128-row q tile of
+    the tensor-core route)."""
     q = _rand((4, s, d), dtype, 17)
     k, v = _rand((4 // rep, s, d), dtype, 18), _rand((4 // rep, s, d),
                                                     dtype, 19)
@@ -336,6 +347,20 @@ def test_flash_attention_matches_plain(cuda, d, rep, s, dtype):
     assert o.dtype == q.dtype and o.shape == q.shape
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(o.float(), ref.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tc", [(torch.bfloat16, True),
+                                      (torch.float32, False)])
+def test_flash_attention_route(cuda, dtype, tc):
+    """bf16 takes the tensor-core route, f32 the FMA route; the counters
+    say which ran."""
+    q, k, v = (_rand((2, 128, 64), dtype, seed) for seed in (44, 45, 46))
+    before = fa.KERNEL.counts()
+    fa.flash_attention_fwd(q, k, v)
+    after = fa.KERNEL.counts()
+    assert after["launches"] == before["launches"] + 1
+    assert after["tc"] == before["tc"] + tc
+    assert fa.KERNEL.tensor_core(1 if dtype == torch.bfloat16 else 0) == tc
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -387,7 +412,7 @@ SEED = -1253433917      # fold_seed((0, 0), 4, 1): the FFN wgrad's B seed
                                       ("block", "fp4_e2m1"),
                                       ("tile", "fp4_e2m1"),
                                       ("tensor", "fp8_e4m3")])
-@pytest.mark.parametrize("shape", [(130, 200), (1, 768), (300, 8)])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
 def test_quantize_rows_sr_stats(cuda, shape, mode, fmt, trans, emit_trans,
                                 dtype):
     """SR panels bitwise and the stats vector against the plain version,

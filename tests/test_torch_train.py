@@ -147,7 +147,8 @@ def test_pallas_qmm_transposed_matches_jax(case, dtype):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 128, 16), (2, 256, 64)])
+@pytest.mark.parametrize("shape", [(4, 128, 16), (2, 256, 64), (2, 128, 32),
+                                   (1, 128, 128)])
 def test_flash_attention_fwd_matches_jax(shape, dtype):
     """The kernel's forward (plain version here) against the reference
     kernel in interpret mode.  f32: rtol/atol 1e-5 (summation order of
