@@ -49,8 +49,9 @@ code 1):
    ``torch.profiler`` trace.
 4. train   — trains gpt2-125m at full width and depth (seeded init,
    ``SyntheticLM``, global batch 8 x 1024, 8 steps, paper_fp4, linear and
-   attention impl "pallas"; the §3.3 switch to bf16 at step 7) through
-   ``Trainer``.  Prints per-step loss and plan, the step-time p50 over
+   attention impl "pallas", ``remat=False``: every activation kept; the
+   §3.3 switch to bf16 at step 7) through ``Trainer``, with a checkpoint
+   every 4 steps.  Prints per-step loss and plan, the step-time p50 over
    the steps after the first, tokens/s, peak memory and each kernel's
    launches per step (transposed and tensor-core launches apart), then a
    ``train_profile`` line splitting one paper_fp4 step by kernel.  Gates:
@@ -61,7 +62,12 @@ code 1):
    0 — every fwd, dgrad and wgrad matmul and every flash call of layers 0
    and 11 again on the CPU on the card's own inputs, quantized operands
    bitwise and outputs within OP_BOUND — and a control (layer 0's wq
-   dgrad replayed with trans_b off) that must miss it.
+   dgrad replayed with trans_b off) that must miss it.  A
+   ``train_resume`` line: a second ``Trainer`` resumes from the step-4
+   checkpoint and runs steps 4-7 across the switch; gate: its per-step
+   losses, grad norms and plans and its final parameters and AdamW
+   moments equal the uninterrupted run's bit for bit (save and restore
+   times printed).
 5. train_telemetry — the instrumented training step: gpt2-125m at full
    width and depth (seeded init, ``SyntheticLM``, 8 x 1024 tokens, 4
    steps), ``fine_grained_fp4`` (its FFN wgrad gradient operand rounds
@@ -81,13 +87,28 @@ code 1):
    control (layer 0's SR wgrad replayed with salt 5 for 4) that must miss.
    Two ``train_telemetry_profile`` lines split one step of the recipe
    without and with telemetry by kernel.
-6. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
+6. train_large — trains llama-1b at full published width and depth (48
+   layers, d 1280, 20 heads of 64, d_ff 3392, vocab 32000, rope, swiglu,
+   rmsnorm, untied head; seeded init), ``SyntheticLM`` (seed 0), global
+   batch 4 x 2048, paper_fp4 under the ``first_last_k`` plan (k = 2:
+   layers 0, 1, 46, 47 on the protected FP8 row), both impls "pallas",
+   ``remat=True`` / "full", AdamW, 7 steps with the §3.3 switch on the
+   last.  Prints per-step loss and plan, step p50 after the first,
+   tokens/s, peak memory per step and launches per kernel per step
+   (recompute launches apart), then a ``train_large_profile`` line.
+   Gates: finite losses, step 5 below step 0; every ``qmm_stream``,
+   ``tiled_mm`` and ``flash_attention`` launch on the tensor-core route,
+   each also in a recompute; each step's plan (read from the plan the
+   step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
+   switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
+   phase 4, with its control.
+7. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
    ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
    tiles and fp8 rows, each output bitwise against the plain version.
-7. the launch counts of each path's run (every kernel of a path must
+8. the launch counts of each path's run (every kernel of a path must
    have run in it) and the ``{"kernels": [...]}`` line (launches from the
-   train path, ``quantize_blockwise``'s from phase 6, times at the
-   training shapes); the card line; the ok line last.
+   llama-1b train path, ``quantize_blockwise``'s from phase 7, times at
+   the gpt2-125m training shapes); the card line; the ok line last.
 
 Phase 2 has a third line, ``telemetry_kernels``, at the training shapes:
 stochastic rounding in ``quantize_rows`` (token and block, both trans
@@ -97,15 +118,17 @@ quantize_rows + tiled_mm; SR unbiasedness on the card (the mean over 64
 seeds within the bounds of ``tests/test_rounding.py``); the stats
 epilogue of both kernels against the plain versions (lanes 0-2 and 5-7
 bitwise, 3-4 within STATS_RTOL) and stream stats bitwise equal to
-two-pass stats; ``quantize_blockwise`` tile and per-row bitwise at 8192 x
-768 and a ragged shape; each mode's time beside its mode-off time, its
-plain time and its bound.
+two-pass stats; ``quantize_blockwise`` tile and per-row, f32 and bf16,
+bitwise at 8192 x 768, llama-1b's ragged 1280 x 3392 and 1000 x 300;
+each mode's time beside its mode-off time, its plain time and its bound
+(``quantize_blockwise``: its time, plain time and bound, and the blocks
+of its tile launch at each shape from a profiler trace).
 
-The serving phase keeps the full depth: the whole run, build included,
-takes about three minutes on one H100 80GB HBM3 (700 W), under a fifth of
-the 1200 s it is allowed.  Exits non-zero without a result when there is
-no CUDA device or when the port is not beside this script.
+Every phase keeps the full depth of its model.  Exits non-zero without
+a result when there is no CUDA device or when the port is not beside
+this script.
 """
+import dataclasses
 import json
 import os
 import re
@@ -147,6 +170,13 @@ TF_TOKENS = 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 REPLAY_LAYERS = (0, 11)
+# The train phase saves at step 4; a second Trainer resumes there.
+RESUME_AT = 4
+# The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
+# (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
+# first_last_k with k = 2; op replay of a protected and a middle layer.
+LARGE_BATCH, LARGE_SEQ, LARGE_STEPS, LARGE_K = 4, 2048, 7, 2
+LARGE_REPLAY_LAYERS = (0, 24)
 # The stats epilogue against its plain version: lanes 0-2 and 5-7 (counts
 # and scale extrema) bitwise, lanes 3-4 (sums of squares) within this
 # relative bound (both fold in one canonical order, so they are expected
@@ -782,27 +812,46 @@ def phase_telemetry_kernels(torch, card):
             < 0.01):
         raise AssertionError(f"SR is biased on the card: {sr_mean}")
 
-    # quantize_blockwise (_q_kernel's port): tiles and rows, at the
-    # training shape and a ragged one
-    for shape in ((t, d), (1000, 300)):
-        xb = rand(*shape, scale=2)
-        nb = xb.numel()
-        for per_row in (False, True):
-            y = qb.quantize_blockwise(xb, "fp4_e2m1", per_row=per_row)
-            bitwise(y, qb.quantize_blockwise_plain(xb, "fp4_e2m1",
-                                                   per_row=per_row),
-                    f"quantize_blockwise {shape} per_row={per_row}")
-            if shape == (t, d):
-                b_ms, b_by = _bound(4 * nb, 8 * nb, H100_F32_FLOPS)
+    # quantize_blockwise (_q_kernel's port): tiles and rows, f32 and bf16,
+    # at the training shape, llama-1b's ragged w_gate and a ragged shape
+    for shape in ((t, d), (1280, 3392), (1000, 300)):
+        for dt in (torch.bfloat16, torch.float32):
+            xb = (torch.randn(*shape, generator=gen, device="cuda")
+                  * 2).to(dt)
+            nb = xb.numel()
+            for per_row in (False, True):
+                kw = dict(fmt_name="fp4_e2m1", per_row=per_row)
+                y = qb.quantize_blockwise(xb, **kw)
+                ref = qb.quantize_blockwise_plain(xb, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(y.view(torch.int16 if dt == torch.bfloat16
+                                          else torch.int32),
+                                   ref.view(torch.int16 if dt ==
+                                            torch.bfloat16 else torch.int32)):
+                    raise AssertionError(f"quantize_blockwise {shape} {dt} "
+                                         f"per_row={per_row} not bitwise")
+                if shape == (1000, 300):
+                    continue
+                # each element read once and written once; ~8 ops each
+                b_ms, b_by = _bound(2 * nb * xb.element_size(), 8 * nb,
+                                    H100_F32_FLOPS)
                 rows.append({
                     "name": "quantize_blockwise",
                     "mode": "per_row" if per_row else "tile",
-                    "shape": list(shape), "max_abs_err": 0.0,
-                    "ms": timer.ms(lambda: qb.quantize_blockwise(
-                        xb, "fp4_e2m1", per_row=per_row)),
-                    "plain_ms": timer.ms(lambda: qb.quantize_blockwise_plain(
-                        xb, "fp4_e2m1", per_row=per_row), iters=5),
+                    "shape": list(shape), "dtype": str(dt).split(".")[1],
+                    "max_abs_err": 0.0,
+                    "ms": timer.ms(lambda: qb.quantize_blockwise(xb, **kw),
+                                   iters=50),
+                    "plain_ms": timer.ms(
+                        lambda: qb.quantize_blockwise_plain(xb, **kw),
+                        iters=5),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                if dt == torch.bfloat16 and not per_row:
+                    # one trace a shape (a per-row launch has the same
+                    # grid); kept few: every profiler session raises the
+                    # host cost of later launches (the decode p50)
+                    rows[-1]["blocks"] = kernel_blocks(
+                        torch, lambda: qb.quantize_blockwise(xb, **kw))
     torch.cuda.synchronize()
     emit({"phase": "telemetry_kernels", "card": card, "dtype": "bfloat16",
           "tokens": t, "ok": True, "stats_rtol": STATS_RTOL,
@@ -1085,22 +1134,29 @@ def phase_slice(torch, card):
 
 class TrainRecorder:
     """While entered, records step 0's quantized matmul roles (fwd, dgrad,
-    wgrad) and flash attention calls of the layers in REPLAY_LAYERS: the
+    wgrad) and flash attention calls of the layers in ``layers``: the
     card's inputs (cloned) and outputs, for ``replay_train_ops``.
 
-    Roles are told apart by their trans flags; a call's layer comes from
-    the order of the forward (gpt2: wq, wk, wv, wo, w_up, w_down per
-    layer, one flash call per layer) and, in the backward, from the
-    tensors the forward saw: dgrad reads the forward's weight, wgrad its
-    input."""
+    Roles are told apart by their trans flags; a forward call's layer is
+    the stack's layer scope (``core.routing``) and its name its place in
+    the layer (``names``: gpt2's wq, wk, wv, wo, w_up, w_down; swiglu adds
+    w_gate before w_up); in the backward, dgrad reads the forward's
+    weight and wgrad its input, found by their storage.  Under remat a
+    layer's forward runs again in the backward (``kernels.build``'s
+    recompute count): those calls are not recorded, but their inputs are
+    the ones the wgrad reads."""
 
-    NAMES = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+    GPT2 = ("wq", "wk", "wv", "wo", "w_up", "w_down")
+    SWIGLU = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+    def __init__(self, names=GPT2, layers=REPLAY_LAYERS):
+        self.names, self.layers = names, layers
 
     def __enter__(self):
         from repro_torch.core import qlinear as ql
         from repro_torch.kernels import ops
         self.records, self.n_fwd, self.n_flash = [], 0, 0
-        self._w, self._x = {}, {}
+        self._w, self._x, self._seen = {}, {}, {}
         self._saved = [(ql, "_role", ql._role),
                        (ops, "flash_attention_fwd", ops.flash_attention_fwd)]
         ql._role = self._role(ql._role)
@@ -1111,8 +1167,17 @@ class TrainRecorder:
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
 
+    @staticmethod
+    def _where():
+        """(layer index or None, whether this is a recompute)."""
+        from repro_torch.core import routing
+        from repro_torch.kernels.build import recomputing_now
+        label = routing.current_layer()
+        return (None if label is None else int(label[1:]),
+                recomputing_now())
+
     def _keep(self, layer, role, fn, args, kw, y):
-        if layer in REPLAY_LAYERS:
+        if layer in self.layers:
             self.records.append({
                 "layer": layer, "role": role, "fn": fn, "kw": kw,
                 "args": [a.detach().clone() if hasattr(a, "detach") else a
@@ -1130,11 +1195,16 @@ class TrainRecorder:
                 layer = self._x[a.data_ptr()]
                 role = f"wgrad {tuple(b.shape)}"
             else:
-                layer, j = divmod(self.n_fwd, len(self.NAMES))
-                self.n_fwd += 1
-                self._w[b.data_ptr()] = (layer, self.NAMES[j])
+                layer, again = self._where()
+                j = self._seen.get((layer, again), 0)
+                self._seen[(layer, again)] = j + 1
+                name = self.names[j] if j < len(self.names) else f"mm{j}"
+                self._w[b.data_ptr()] = (layer, name)
                 self._x[a.data_ptr()] = layer
-                role = f"fwd {self.NAMES[j]}"
+                if again:
+                    return y
+                self.n_fwd += 1
+                role = f"fwd {name}"
             self._keep(layer, role, fn, (impl, a, b, spec_a, spec_b),
                        dict(trans_a=trans_a, trans_b=trans_b, **kw), y)
             return y
@@ -1143,9 +1213,11 @@ class TrainRecorder:
     def _flash(self, fn):
         def call(q, k, v, *, causal=True):
             y = fn(q, k, v, causal=causal)
-            self._keep(self.n_flash, "flash", fn, (q, k, v),
-                       dict(causal=causal), y)
-            self.n_flash += 1
+            layer, again = self._where()
+            if not again:
+                self._keep(layer, "flash", fn, (q, k, v),
+                           dict(causal=causal), y)
+                self.n_flash += 1
             return y
         return call
 
@@ -1282,28 +1354,35 @@ def phase_train(torch, card):
 
     kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
                flash_attention.KERNEL)
+    # every activation kept, as in the phases before remat was ported
     cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
-                                          attention_impl="pallas")
+                                          attention_impl="pallas",
+                                          remat=False)
+    ckpt_dir = tempfile.TemporaryDirectory()
     tcfg = TrainConfig(recipe="paper_fp4", total_steps=TRAIN_STEPS,
                        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
-                       log_every=0)
-    trainer = Trainer(build_model(cfg), tcfg,
-                      SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
-                                  seed=0))
+                       log_every=0, checkpoint_every=RESUME_AT,
+                       checkpoint_dir=ckpt_dir.name)
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    trainer = Trainer(build_model(cfg), tcfg, pipeline)
     state = trainer.init_state(seed=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.reset()
-    per_step = []
+    per_step, save_s = [], []
     for step in range(TRAIN_STEPS):
         before = {k.name: (k.launches, k.trans_launches, k.tc_launches)
                   for k in kernels}
+        t0 = time.perf_counter()
         if step == 0:
             with TrainRecorder() as rec:
                 state = trainer.train(state, num_steps=1)
         else:
             state = trainer.train(state, num_steps=1)
+        if (step + 1) % RESUME_AT == 0:   # the step's periodic save
+            save_s.append(time.perf_counter() - t0
+                          - trainer.history[-1]["dt"])
         per_step.append({k.name: [k.launches - before[k.name][0],
                                   k.trans_launches - before[k.name][1],
                                   k.tc_launches - before[k.name][2]]
@@ -1374,10 +1453,64 @@ def phase_train(torch, card):
                         "control_wq_dgrad_without_trans_b": control}})
     if failures:
         raise AssertionError("train phase: " + "; ".join(failures))
+    train_resume(torch, card, cfg, tcfg, pipeline, trainer, state, save_s,
+                 ckpt_dir)
     fn = trainer._step_fn(trainer.plan)
     profile_train_step(torch, fn, state, trainer._batch(trainer.pipeline, 0),
                        card)
     return launches, p50 * 1e3
+
+
+def train_resume(torch, card, cfg, tcfg, pipeline, trainer, state, save_s,
+                 ckpt_dir):
+    """A second ``Trainer`` resumes the train phase's run from its step
+    RESUME_AT checkpoint (moved into a directory of its own, so it is the
+    newest there) and runs the remaining steps across the §3.3 switch.
+    Gate: its per-step losses, grad norms and plans equal the
+    uninterrupted run's, and its final parameters and AdamW moments equal
+    them bit for bit."""
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    name = f"step_{RESUME_AT:08d}"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.replace(os.path.join(ckpt_dir.name, name),
+                   os.path.join(tmp, name))
+        ckpt_dir.cleanup()
+        nbytes = sum(os.path.getsize(os.path.join(tmp, name, f))
+                     for f in os.listdir(os.path.join(tmp, name)))
+        second = Trainer(build_model(cfg), dataclasses.replace(
+            tcfg, checkpoint_dir=tmp), pipeline)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = second.resume()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed = second.train(resumed)
+    keys = ("loss", "grad_norm", "recipe")
+    got = [[r[k] for k in keys] for r in second.history]
+    want = [[r[k] for k in keys] for r in trainer.history[RESUME_AT:]]
+
+    def bits(t):
+        return t.view(torch.int32)
+    leaves = (tree_leaves(resumed.params) + tree_leaves(resumed.opt_state.mu)
+              + tree_leaves(resumed.opt_state.nu),
+              tree_leaves(state.params) + tree_leaves(state.opt_state.mu)
+              + tree_leaves(state.opt_state.nu))
+    differing = sum(not torch.equal(bits(a), bits(b))
+                    for a, b in zip(*leaves))
+    emit({"phase": "train_resume", "card": card, "model": cfg.name,
+          "resumed_at": RESUME_AT, "steps": len(second.history),
+          "checkpoint_bytes": nbytes, "save_s": save_s,
+          "restore_s": restore_s,
+          "rows_resumed": got, "rows_uninterrupted": want,
+          "rows_equal": got == want, "tensors": len(leaves[0]),
+          "tensors_differing": differing,
+          "final_step": resumed.step})
+    if got != want or differing or resumed.step != state.step:
+        raise AssertionError(f"resume: rows equal {got == want}, "
+                             f"{differing} tensors differ, step "
+                             f"{resumed.step} vs {state.step}")
 
 
 def telemetry_schema(n_layers):
@@ -1420,7 +1553,8 @@ def phase_train_telemetry(torch, card, paper_p50_ms):
     kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
                flash_attention.KERNEL)
     cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
-                                          attention_impl="pallas")
+                                          attention_impl="pallas",
+                                          remat=False)
     pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     base = dict(recipe="fine_grained_fp4", total_steps=TEL_SCHEDULE,
                 global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=0,
@@ -1562,6 +1696,144 @@ def phase_train_telemetry(torch, card, paper_p50_ms):
     return launches
 
 
+def phase_train_large(torch, card):
+    """Train llama-1b at full published width and depth (see the module
+    docstring): remat, first_last_k, 4 x 2048 tokens.  Gate the run;
+    return the path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("llama-1b").replace(linear_impl="pallas",
+                                         attention_impl="pallas",
+                                         remat=True, remat_policy="full")
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=LARGE_STEPS,
+                       global_batch=LARGE_BATCH, seq_len=LARGE_SEQ,
+                       log_every=0, plan_preset="first_last_k",
+                       plan_k=LARGE_K)
+    pipeline = SyntheticLM(cfg.vocab_size, LARGE_SEQ, LARGE_BATCH, seed=0)
+    trainer = Trainer(build_model(cfg), tcfg, pipeline)
+    used = []                       # the plan each step ran
+    step_fn = trainer._step_fn
+
+    def recorded_step_fn(plan, telemetry=None):
+        used.append(plan)
+        return step_fn(plan, telemetry)
+    trainer._step_fn = recorded_step_fn
+    t0 = time.perf_counter()
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for kern in kernels:
+        kern.reset()
+    per_step, peaks = [], []
+    for step in range(LARGE_STEPS):
+        before = {k.name: k.counts() for k in kernels}
+        torch.cuda.reset_peak_memory_stats()
+        if step == 0:
+            with TrainRecorder(TrainRecorder.SWIGLU,
+                               LARGE_REPLAY_LAYERS) as rec:
+                state = trainer.train(state, num_steps=1)
+            for r in rec.records:   # off the card before the next step
+                r["args"] = [a.cpu() if hasattr(a, "cpu") else a
+                             for a in r["args"]]
+        else:
+            state = trainer.train(state, num_steps=1)
+        peaks.append(int(torch.cuda.max_memory_allocated()))
+        per_step.append({k.name: {c: v - before[k.name][c]
+                                  for c, v in k.counts().items()
+                                  if c in ("launches", "trans", "tc",
+                                           "recompute")}
+                         for k in kernels})
+    counts = {k.name: k.counts() for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    dts = [r["dt"] for r in hist]
+    p50 = float(np.median(dts[1:]))
+    tokens = LARGE_BATCH * LARGE_SEQ
+    switch = trainer.schedule.switch_step
+    failures = []
+    if rec.n_fwd != 7 * cfg.n_layers or rec.n_flash != cfg.n_layers:
+        failures.append(f"recorded {rec.n_fwd} forward matmuls and "
+                        f"{rec.n_flash} flash calls in step 0")
+    replay, control = replay_train_ops(torch, rec.records)
+    del rec
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    protected = {0, 1, cfg.n_layers - 2, cfg.n_layers - 1}
+    formats = [[p.layers[i].ffn_linear.fwd_x.fmt for i in
+                range(cfg.n_layers)] for p in used]
+    want_fmts = [[("fp8_e4m3" if i in protected else "fp4_e2m1")
+                  if step < switch else "bf16" for i in range(cfg.n_layers)]
+                 for step in range(LARGE_STEPS)]
+    attn_fmts = {p.layers[i].attn_linear.fwd_x.fmt for p in used[:switch]
+                 for i in range(cfg.n_layers)}
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss: {losses}")
+    elif not losses[switch - 1] < losses[0]:
+        failures.append(f"loss did not fall: step 0 {losses[0]}, step "
+                        f"{switch - 1} {losses[switch - 1]}")
+    if switch != LARGE_STEPS - 1 or formats != want_fmts or \
+            attn_fmts != {"fp8_e4m3"}:
+        failures.append(f"switch step {switch}; per-layer FFN forward "
+                        f"formats {[sorted(set(f)) for f in formats]}, "
+                        f"attention {attn_fmts}")
+    if min(launches.values()) <= 0 or \
+            min(counts[k]["recompute"] for k in launches) <= 0:
+        failures.append(f"a kernel of the path never ran, or never in a "
+                        f"recompute: {counts}")
+    if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
+        failures.append(f"a GEMM or flash launch left the tensor-core "
+                        f"route: {counts}")
+    if not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if control is None or not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    emit({"phase": "train_large", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+          "vocab_size": cfg.vocab_size,
+          "params": sum(p.numel() for p in tree_leaves(state.params)),
+          "global_batch": LARGE_BATCH, "seq_len": LARGE_SEQ,
+          "steps": LARGE_STEPS, "recipe": "paper_fp4",
+          "plan_preset": f"first_last_k (k={LARGE_K})",
+          "remat": cfg.remat_policy, "switch_step": switch,
+          "losses": losses, "plans": [r["recipe"] for r in hist],
+          "protected_layers": sorted(protected),
+          "init_s": init_s, "step_ms": [dt * 1e3 for dt in dts],
+          "step_p50_ms_after_first": p50 * 1e3,
+          "tokens_per_s": tokens / p50,
+          "max_memory_allocated_per_step": peaks,
+          "max_memory_allocated": max(peaks[1:]),
+          "launches_per_step": per_step, "counts": counts,
+          "op_replay": {"calls": len(replay),
+                        "layers": list(LARGE_REPLAY_LAYERS),
+                        "rel_l2_max": worst, "bound": bound,
+                        "quantized_differing": q_bad,
+                        "rel_l2_max_by_role": {
+                            k: max(r["rel_l2"] for r in replay
+                                   if r["role"].split()[0] == k)
+                            for k in ("fwd", "dgrad", "wgrad", "flash")},
+                        "control_wq_dgrad_without_trans_b": control}})
+    if failures:
+        raise AssertionError("train_large phase: " + "; ".join(failures))
+    profile_train_step(torch, step_fn(trainer.plan), state,
+                       trainer._batch(pipeline, 0), card,
+                       phase="train_large_profile",
+                       plan=trainer.plan.name)
+    return launches
+
+
 def phase_blockwise(torch, card):
     """``kernels.ops.quantize_blockwise`` over every 2-D weight of a seeded
     gpt2-125m (bf16): fp4 (128 x 128) tiles and fp8 (1 x 128) rows, each
@@ -1625,16 +1897,20 @@ def main() -> int:
     serve_launches = phase_slice(torch, card)
     train_launches, paper_p50_ms = phase_train(torch, card)
     tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
+    torch.cuda.empty_cache()
+    large_launches = phase_train_large(torch, card)
     block_launches = phase_blockwise(torch, card)
     emit({"launches": {"serve": serve_launches, "train": train_launches,
                        "train_telemetry": tel_launches,
+                       "train_large": large_launches,
                        "blockwise": block_launches},
           "seconds": time.perf_counter() - t0})
 
-    # One record per kernel: launches from the path that runs it (the
-    # train path; quantize_blockwise's own entry point), the call that the
-    # row stands for (its first forward use at the training shapes).
-    launches = {**train_launches, **block_launches}
+    # One record per kernel: launches from the path that runs it (this
+    # slice's llama-1b train path; quantize_blockwise's own entry point),
+    # the call that the row stands for (its first forward use at the
+    # gpt2-125m training shapes).
+    launches = {**large_launches, **block_launches}
     main_role = {"qmm_stream": "fwd w_up", "quantize_rows": "fwd wq lhs",
                  "tiled_mm": "fwd wq", "flash_attention": "fwd",
                  "quantize_blockwise": "tile"}

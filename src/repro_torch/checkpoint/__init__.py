@@ -1,0 +1,7 @@
+"""Atomic, retained, optionally asynchronous checkpoints (counterpart of
+``repro.checkpoint``)."""
+from repro_torch.checkpoint.manager import (CheckpointManager, load_manifest,
+                                            load_pytree, save_pytree)
+
+__all__ = ["CheckpointManager", "save_pytree", "load_pytree",
+           "load_manifest"]

@@ -82,13 +82,15 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Field-for-field the reference ``TrainConfig``.  The port's
-    ``Trainer`` runs one device with AdamW, the uniform plan, the §3.3
-    switch, quantization telemetry (``telemetry``, ``telemetry_every``,
-    ``telemetry_jsonl``) and the step timer (``profiler_warmup``); it
-    raises ``NotImplementedError`` for every field of a feature it does
-    not have yet (the controller, fp8 gradient compression, meshes,
-    checkpoints, cost calibration, other plan presets) rather than
-    ignore it."""
+    ``Trainer`` runs one device with AdamW or Adafactor, the plan presets
+    (``plan_preset``, ``plan_k``, ``plan_frac``), the §3.3 switch,
+    checkpoints and resume (``checkpoint_every``, ``checkpoint_dir``,
+    ``keep_checkpoints``, ``async_checkpoint``), quantization telemetry
+    (``telemetry``, ``telemetry_every``, ``telemetry_jsonl``) and the step
+    timer (``profiler_warmup``); it raises ``NotImplementedError`` for
+    every field of a feature it does not have yet (the controller, fp8
+    gradient compression, meshes, cost calibration) rather than ignore
+    it."""
 
     recipe: str = "paper_fp4"
     total_steps: int = 200
@@ -125,7 +127,8 @@ class TrainConfig:
     cost_calibration: str = ""
 
 
-ARCHS = ["gpt2-125m", "llama-125m", "tiny"]
+ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "llama-125m", "llama-1b",
+         "tiny"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,12 +1,16 @@
-"""Carry a parameter tree across from the JAX reference.
+"""Carry a training state across between the JAX reference and the port.
 
 ``params_from_jax(tree, cfg)`` takes the reference's tree as nested dicts
 / lists of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns
 the port's tree of CPU tensors with the same key paths.  Both stack
 layouts load: ``stack.layers`` (unrolled) and ``stack.groups``
 (scan-stacked, leading layers axis).  Weights come across dense; the port
-packs them itself with ``quantize_weights_for_serving``.  Only numpy is
-read here, never jax.
+packs them itself with ``quantize_weights_for_serving``.
+``opt_state_from_jax`` does the same for the optimizer state (the
+reference's ``AdamWState`` / ``AdafactorState`` NamedTuple).  Checkpoint
+files need neither: the port's ``checkpoint`` reads and writes the
+reference's layout and keys directly, both ways.
+Only numpy is read here, never jax.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import build_model
+from repro_torch.optim.adafactor import AdafactorState
+from repro_torch.optim.adamw import AdamWState
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax"]
 
 
 def _tensor(a) -> torch.Tensor:
@@ -55,3 +61,28 @@ def params_from_jax(tree, cfg: ModelConfig):
     cfg = dataclasses.replace(cfg, scan_layers=layout == "groups")
     specs = build_model(cfg, "cpu").param_specs()
     return _convert(tree, specs, "")
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v) for v in tree]
+    return _tensor(tree)
+
+
+def opt_state_from_jax(state, cfg: ModelConfig):
+    """The port's optimizer state (CPU tensors) from the reference's
+    (numpy leaves): AdamW's moments checked against the parameter specs
+    as ``params_from_jax`` checks the weights; Adafactor's factors taken
+    as they are."""
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    count = int(np.asarray(fields["count"]))
+    if set(fields) == {"count", "mu", "nu"}:
+        return AdamWState(count, params_from_jax(fields["mu"], cfg),
+                          params_from_jax(fields["nu"], cfg))
+    if set(fields) == {"count", "vr", "vc"}:
+        return AdafactorState(count, _tensors(fields["vr"]),
+                              _tensors(fields["vc"]))
+    raise ValueError(f"unknown optimizer state fields {sorted(fields)}")
+

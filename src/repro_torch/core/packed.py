@@ -79,6 +79,11 @@ class PackedTensor:
         return (self.payload.numel() * self.payload.element_size()
                 + self.scale.numel() * self.scale.element_size())
 
+    @property
+    def bits_per_param(self) -> float:
+        """Storage bits per logical element, scales included."""
+        return 8.0 * self.nbytes / max(self.size, 1)
+
     def __getitem__(self, i: int) -> "PackedTensor":
         """The ``i``-th matrix of a stacked (layers, K, N) panel."""
         return PackedTensor(self.payload[i], self.scale[i], self.fmt,

@@ -71,6 +71,17 @@ class QuantSpec:
             s += ":sr"
         return s
 
+    def with_fmt(self, fmt: str,
+                 stochastic: Optional[bool] = None) -> "QuantSpec":
+        """Same scaling spec (granularity / block / pow2), another storage
+        format, as the reference's (``PrecisionPlan.demote``);
+        ``stochastic`` overrides the rounding mode (None keeps it)."""
+        if fmt not in F.FORMATS:
+            raise ValueError(f"unknown format {fmt!r}")
+        sr = self.stochastic if stochastic is None else stochastic
+        out = dataclasses.replace(self, fmt=fmt, stochastic=sr)
+        return self if out == self else out
+
     @classmethod
     def from_str(cls, s: str) -> "QuantSpec":
         head, *flags = s.split(":")

@@ -10,6 +10,7 @@ loaded when this module is imported: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,7 +22,7 @@ from typing import Dict, Tuple
 
 __all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
            "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
-           "stream_ptr", "stats_buffers"]
+           "stream_ptr", "stats_buffers", "recomputing", "recomputing_now"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -32,6 +33,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# > 0 while a rematerialized forward runs (``recomputing``); a global,
+# not a thread-local: autograd runs a CUDA backward on its own thread
+_RECOMPUTE = [0]
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Count the launches inside as a recompute (``recompute_launches``):
+    ``models.stack`` wraps the re-run of a checkpointed layer in it."""
+    _RECOMPUTE[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE[0] -= 1
+
+
+def recomputing_now() -> bool:
+    """Whether a rematerialized forward is running (``recomputing``)."""
+    return _RECOMPUTE[0] > 0
 
 
 def _nvcc() -> str:
@@ -132,11 +152,13 @@ class CudaKernel:
     def reset(self) -> None:
         self.launches = self.trans_launches = 0
         self.sr_launches = self.stats_launches = self.tc_launches = 0
+        self.recompute_launches = 0
 
     def counts(self) -> Dict[str, int]:
         return {"launches": self.launches, "trans": self.trans_launches,
                 "sr": self.sr_launches, "stats": self.stats_launches,
-                "tc": self.tc_launches}
+                "tc": self.tc_launches,
+                "recompute": self.recompute_launches}
 
     def _bind(self, suffix: str, argtypes):
         fn = getattr(load(self.name), f"{self.name}_{suffix}")
@@ -166,6 +188,7 @@ class CudaKernel:
         self.sr_launches += kernels * sr
         self.stats_launches += kernels * stats
         self.tc_launches += kernels * tc
+        self.recompute_launches += kernels * recomputing_now()
 
 
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

@@ -29,6 +29,7 @@ vector to the telemetry stats.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -40,10 +41,31 @@ from repro_torch.kernels.tiled_mm import tiled_mm
 
 __all__ = ["QUANT_MODES", "PIPELINES", "STATS_WIDTH", "stream_supported",
            "resolve_pipeline", "quantize_panels", "fused_qmm",
-           "finalize_quant_stats"]
+           "finalize_quant_stats", "default_pipeline", "use_pipeline"]
 
 QUANT_MODES = ("pass", "block", "tile", "token", "tensor")
 PIPELINES = ("stream", "two_pass")
+
+
+# A stack, so nested ``use_pipeline`` contexts unwind correctly.
+_pipeline_stack = ["stream"]
+
+
+def default_pipeline() -> str:
+    """The pipeline ``fused_qmm`` runs when none is passed."""
+    return _pipeline_stack[-1]
+
+
+@contextlib.contextmanager
+def use_pipeline(name: str):
+    """Override the default pipeline inside (re-entrant)."""
+    if name not in PIPELINES:
+        raise ValueError(f"unknown pipeline {name!r}")
+    _pipeline_stack.append(name)
+    try:
+        yield
+    finally:
+        _pipeline_stack.pop()
 
 
 def stream_supported(a_mode: str, b_mode: str) -> bool:
@@ -55,8 +77,9 @@ def stream_supported(a_mode: str, b_mode: str) -> bool:
 def resolve_pipeline(pipeline: Optional[str], a_mode: str,
                      b_mode: str) -> str:
     """The pipeline ``fused_qmm`` runs: the explicit choice (default
-    ``stream``), demoted to ``two_pass`` for a pair that cannot stream."""
-    pipeline = pipeline or "stream"
+    ``default_pipeline()``), demoted to ``two_pass`` for a pair that cannot
+    stream."""
+    pipeline = pipeline or default_pipeline()
     if pipeline not in PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}")
     if pipeline == "stream" and not stream_supported(a_mode, b_mode):

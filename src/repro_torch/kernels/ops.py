@@ -1,7 +1,7 @@
 """Public kernel entry points (counterpart of ``repro.kernels.ops``):
-``pallas_qmm`` (the quantized matmul), ``quantize_blockwise`` (the
-standalone QDQ) and ``flash_attention`` (the differentiable attention
-core).
+``pallas_qmm`` (the quantized matmul), ``fp4_matmul`` (its historical
+forward-only form), ``quantize_blockwise`` (the standalone QDQ) and
+``flash_attention`` (the differentiable attention core).
 
 The reference pads every operand to multiples of 128 and slices the
 result back.  The port's kernels mask the ragged edges instead, which
@@ -22,7 +22,21 @@ from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fp4_matmul import fused_qmm
 from repro_torch.kernels.rounding import fold_seed
 
-__all__ = ["pallas_qmm", "quantize_blockwise", "flash_attention"]
+__all__ = ["pallas_qmm", "fp4_matmul", "quantize_blockwise",
+           "flash_attention"]
+
+
+def fp4_matmul(x: torch.Tensor, w: torch.Tensor, *,
+               x_fmt: str = "fp4_e2m1", w_fmt: str = "fp4_e2m1",
+               block: int = 128) -> torch.Tensor:
+    """``Q_block(x) @ Q_tile(w)`` (the paper's FFN forward matmul), any
+    shapes (the kernels mask the ragged edges, which equals the
+    reference's padding sliced back); group edge 128 only."""
+    if block != 128:
+        raise NotImplementedError(f"the kernels' group edge is 128, not "
+                                  f"{block}")
+    return fused_qmm(x, w, a_mode="block", b_mode="tile", a_fmt=x_fmt,
+                     b_fmt=w_fmt)
 
 
 def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,

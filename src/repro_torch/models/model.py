@@ -9,6 +9,7 @@ without it.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -143,19 +144,49 @@ class Model:
         masks a position.  Returns (loss, metrics) with the reference's
         metric names (``loss``, ``tokens``, ``z_loss`` when set,
         ``total_loss``, and the per-layer ``tel/l{i:02d}/...`` stats when
-        a telemetry collector is installed)."""
-        if self.cfg.loss_chunk:
-            raise NotImplementedError(
-                "loss_chunk > 0 (the chunked, rematerialized head) is not "
-                "ported")
+        a telemetry collector is installed).
+
+        With ``cfg.loss_chunk > 0`` the head matmul and the xent run
+        seq-chunked, each chunk rematerialized (``stack.remat``'s
+        checkpoint, whatever ``cfg.remat`` says, as the reference's
+        ``jax.checkpoint``), so the (B, S, vocab) logits never exist at
+        once; telemetry is off inside a chunk, as in the reference."""
+        cfg = self.cfg
         aux: Dict[str, torch.Tensor] = {}
-        logits = self._logits(params, batch["tokens"], plan, aux)
-        nll, z2, n = self._xent_terms(logits, batch["targets"])
+        targets = batch["targets"]
+        if not cfg.loss_chunk:
+            logits = self._logits(params, batch["tokens"], plan, aux)
+            nll, z2, n = self._xent_terms(logits, targets)
+        else:
+            params, plan, x = self._body(params, batch["tokens"], plan, aux)
+            h = apply_norm(params["final_norm"], x, cfg.norm)
+            w = (params["embed"].T if cfg.tie_embeddings
+                 else params["head"])
+            c, s = cfg.loss_chunk, h.shape[1]
+            if s % c:
+                raise ValueError(f"seq {s} does not split into loss "
+                                 f"chunks of {c}")
+            chunk_cfg = dataclasses.replace(cfg, remat=True,
+                                            remat_policy="full")
+            nll = z2 = n = None
+            for j in range(s // c):
+                t_c = targets[:, j * c:(j + 1) * c]
+
+                def terms(h_c, aux_ok, t_c=t_c):
+                    with telemetry.suppressed():
+                        logits = linear(h_c, w, plan.head_linear, cfg)
+                    return torch.stack(self._xent_terms(logits, t_c)[:2])
+
+                d = stack_lib.remat(terms, h[:, j * c:(j + 1) * c],
+                                    chunk_cfg)
+                d_n = (t_c >= 0).sum()
+                nll, z2, n = ((d[0], d[1], d_n) if nll is None else
+                              (nll + d[0], z2 + d[1], n + d_n))
         denom = torch.clamp(n, min=1)
         loss = nll / denom
         metrics = {"loss": loss, "tokens": denom}
-        if self.cfg.z_loss:
-            zl = self.cfg.z_loss * z2 / denom
+        if cfg.z_loss:
+            zl = cfg.z_loss * z2 / denom
             loss = loss + zl
             metrics["z_loss"] = zl
         metrics.update(aux)

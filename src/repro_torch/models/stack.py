@@ -11,16 +11,30 @@ With telemetry on, each layer runs in a collection frame
 (``telemetry.collect.layer_frame``) and its sublayers in module scopes
 (``attn``, ``ffn``); the frame's stats come out as ``tel/l{i:02d}/...``
 in the ``aux`` dict the caller passes.
+
+Remat (``ModelConfig.remat``, the counterpart of the reference's
+``_checkpoint``): under ``remat_policy="full"`` a training forward keeps
+only each layer's input and re-runs the layer in the backward
+(``torch.utils.checkpoint``, non-reentrant).  The re-run computes the
+same numbers with the same kernels; its kernel launches count apart
+(``kernels.build.recomputing``) and its telemetry taps run under a
+throwaway collector (``telemetry.collect.replaying``), so no stat is
+recorded twice.  ``"dots"`` (keep the matmul outputs) needs a
+selective-checkpoint policy that sees the quantized matmuls, and they
+are ctypes launches inside autograd Functions that no such policy sees:
+it raises.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import routing
 from repro_torch.core.recipe import LayerRecipe, PrecisionPlan
+from repro_torch.kernels.build import recomputing
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.nn.layers import apply_norm
@@ -28,7 +42,7 @@ from repro_torch.nn.params import ParamSpec, map_specs
 from repro_torch.telemetry import collect as telemetry
 
 __all__ = ["norm_specs", "stack_param_specs", "layer_params", "run_stack",
-           "init_stack_cache"]
+           "init_stack_cache", "remat"]
 
 
 def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -100,6 +114,32 @@ def _run_layer(params, cfg: ModelConfig, row: LayerRecipe, x, *,
     return x
 
 
+def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``fn(x, aux_ok)`` under ``cfg``'s remat policy: called once with
+    ``aux_ok=True`` (the forward), and, when checkpointed, again in the
+    backward with ``aux_ok=False``, its launches counted as recompute and
+    its taps replaying the forward's telemetry state."""
+    if not cfg.remat or cfg.remat_policy == "none" or \
+            not torch.is_grad_enabled():
+        return fn(x, True)
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' keeps the matmul outputs: no selective-"
+            "checkpoint policy sees the port's quantized matmul kernels")
+    if cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    tel = telemetry.snapshot()
+    calls = []
+
+    def run(x_):
+        if not calls:
+            calls.append(1)
+            return fn(x_, True)
+        with recomputing(), telemetry.replaying(tel):
+            return fn(x_, False)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
               x: torch.Tensor, *, positions: torch.Tensor,
               cache: Optional[Dict[str, List]] = None,
@@ -112,8 +152,12 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
         raise ValueError(f"plan has {plan.n_layers} layers, model "
                          f"{cfg.n_layers}")
     for i in range(cfg.n_layers):
-        x = _run_layer(layer_params(params, i), cfg, plan.layers[i], x,
-                       positions=positions,
-                       cache=None if cache is None else cache["layers"][i],
-                       cache_len=cache_len, layer_idx=i, aux=aux)
+        def layer(x_, aux_ok, i=i):
+            return _run_layer(
+                layer_params(params, i), cfg, plan.layers[i], x_,
+                positions=positions,
+                cache=None if cache is None else cache["layers"][i],
+                cache_len=cache_len, layer_idx=i,
+                aux=aux if aux_ok else None)
+        x = layer(x, True) if cache is not None else remat(layer, x, cfg)
     return x

@@ -45,6 +45,7 @@ from repro_torch.core.quantize import (QuantSpec, _blocked_view,
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["TelemetryCollector", "collecting", "active", "suppressed",
+           "snapshot", "replaying",
            "module_scope", "layer_frame", "tap_matmul", "grad_tap",
            "make_probes", "probe_metrics", "grad_norm_metrics",
            "operand_stats", "cell_error_signals", "PROBE_CLASSES",
@@ -148,6 +149,36 @@ def suppressed():
         yield
     finally:
         _TLS.suppress -= 1
+
+
+def snapshot():
+    """The active collector's probes, scopes and layer stack as they are
+    now (None with telemetry off), for :func:`replaying`."""
+    col = active()
+    if col is None:
+        return None
+    return col.probes, list(col._scopes), list(col._layers)
+
+
+@contextlib.contextmanager
+def replaying(state):
+    """Run a rematerialized forward (``torch.utils.checkpoint``'s
+    recompute in the backward) under a throwaway collector that holds the
+    ``snapshot`` taken in the original forward: the taps compute what they
+    computed there, so the recompute saves the same tensors, but their
+    stats go nowhere and no frame or probe row is written twice.  With
+    ``state`` None the taps are off."""
+    prev = (getattr(_TLS, "collector", None), getattr(_TLS, "suppress", 0))
+    shadow = None
+    if state is not None:
+        shadow = TelemetryCollector()
+        shadow.reset(state[0])
+        shadow._scopes, shadow._layers = list(state[1]), list(state[2])
+    _TLS.collector, _TLS.suppress = shadow, int(state is None)
+    try:
+        yield
+    finally:
+        _TLS.collector, _TLS.suppress = prev
 
 
 @contextlib.contextmanager

@@ -1,10 +1,12 @@
 """Training loop with the paper's two-stage schedule, on one device
 (counterpart of ``repro.train.trainer``).
 
-The trainer resolves ``TrainConfig.recipe`` into the uniform
-``PrecisionPlan``, runs it for stage 1 and switches to the target plan
-(``TrainConfig.target_recipe``, default bf16) at
-``schedule.switch_step`` (§3.3), keeping one step function per plan.
+The trainer resolves ``TrainConfig.recipe`` into a ``PrecisionPlan``
+(``TrainConfig.plan_preset``: ``uniform``, ``first_last_k`` with
+``plan_k``, or ``ramp`` with ``plan_frac``), runs it for stage 1 and
+switches to the target plan (``TrainConfig.target_recipe``, default
+bf16) at ``schedule.switch_step`` (§3.3), keeping one step function per
+plan.
 Each step is timed on the host clock up to a device synchronization, fed
 to a ``StepTimer`` (``step_time_summary()``) and appended to ``history``
 as the reference's row (its metrics, ``step``, ``recipe``, ``dt``,
@@ -14,13 +16,23 @@ the row), the others the plain one; with ``telemetry_jsonl`` every row
 and every straggler event goes to a JSONL log through the asynchronous
 writer, complete when ``train()`` returns.
 
+Checkpoints (``checkpoint_every`` > 0 with a ``checkpoint_dir``):
+params, optimizer state and the reference's ``comp_state`` (a zero
+scalar: no gradient compression) every ``checkpoint_every`` steps, in
+the reference's file layout (``checkpoint.CheckpointManager``, newest
+``keep_checkpoints`` kept, written in the background under
+``async_checkpoint``).  ``train()`` with no state starts from
+``resume()``, which restores the newest complete checkpoint, the port's
+or the reference's; the plan is re-derived from the restored step, so a
+run resumed across the §3.3 switch continues on the right plan and, the
+batches being a function of the step, bit for bit.
+
 Features of the reference's trainer that the port does not have yet —
-the adaptive controller, fp8 gradient compression, meshes, checkpoints
-and resume, cost calibration, the depth-graded plan presets — raise
-``NotImplementedError`` when their ``TrainConfig`` field is set.
-``ModelConfig.remat`` and ``scan_layers`` change no numbers: the port
-loops over layers and keeps every activation (gpt2-125m at batch
-8 x 1024 fits the card many times over).
+the adaptive controller, fp8 gradient compression, meshes and cost
+calibration — raise ``NotImplementedError`` when their ``TrainConfig``
+field is set.  ``ModelConfig.remat`` is honoured in ``models.stack``;
+``scan_layers`` changes no numbers (the port loops over layers either
+way).
 """
 from __future__ import annotations
 
@@ -31,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.cost_model import ModelDims
 from repro_torch.core.recipe import RECIPES, PrecisionPlan
@@ -52,9 +65,7 @@ _UNPORTED = {
     "controller": "the adaptive precision controller",
     "grad_compression": "fp8 gradient compression",
     "mesh_shape": "mesh-native training",
-    "checkpoint_every": "checkpointing",
     "cost_calibration": "measured cost calibration",
-    "plan_preset": "depth-graded plan presets",
 }
 
 
@@ -111,7 +122,7 @@ class Trainer:
         self.eval_pipeline = eval_pipeline
         self.recipe = RECIPES[tcfg.recipe]
         n_layers = model.cfg.n_layers
-        self.plan = PrecisionPlan.uniform(self.recipe, n_layers)
+        self.plan = self._build_plan(n_layers)
         self.schedule = TargetPrecisionSchedule(
             self.plan, tcfg.total_steps,
             target=PrecisionPlan.uniform(RECIPES[tcfg.target_recipe],
@@ -119,6 +130,11 @@ class Trainer:
         self._steps: Dict[tuple, Callable] = {}
         self.monitor = StepTimeMonitor()
         self.history: List[Dict[str, Any]] = []
+        self.ckpt: Optional[CheckpointManager] = None
+        if tcfg.checkpoint_every and tcfg.checkpoint_dir:
+            self.ckpt = CheckpointManager(tcfg.checkpoint_dir,
+                                          keep=tcfg.keep_checkpoints,
+                                          async_save=tcfg.async_checkpoint)
         # layer-resolved flops for the MFU of step_time_summary()
         self.dims = ModelDims.from_config(model.cfg, seq_len=tcfg.seq_len)
         self.timer = StepTimer(warmup=tcfg.profiler_warmup)
@@ -127,6 +143,20 @@ class Trainer:
         self.writer: Optional[AsyncJsonlWriter] = (
             AsyncJsonlWriter(tcfg.telemetry_jsonl)
             if tcfg.telemetry_jsonl else None)
+
+    def _build_plan(self, n_layers: int) -> PrecisionPlan:
+        """``TrainConfig.recipe`` / ``plan_preset`` as a plan (the
+        reference's ``_build_plan``)."""
+        preset = self.tcfg.plan_preset
+        if preset == "uniform":
+            return PrecisionPlan.uniform(self.recipe, n_layers)
+        if preset == "first_last_k":
+            return PrecisionPlan.first_last_k(self.recipe, n_layers,
+                                              k=self.tcfg.plan_k)
+        if preset == "ramp":
+            return PrecisionPlan.ramp(self.recipe, n_layers,
+                                      frac=self.tcfg.plan_frac)
+        raise ValueError(f"unknown plan_preset {preset!r}")
 
     def init_state(self, seed: Optional[int] = None,
                    params=None) -> TrainState:
@@ -142,6 +172,36 @@ class Trainer:
                 .clone(), params)
         opt = make_optimizer(self.model, self.tcfg)
         return TrainState(params, opt.init(params), 0)
+
+    def resume(self) -> Optional[TrainState]:
+        """The newest complete checkpoint as a state on the model's device
+        (None if there is none); its step picks the plan, as in the
+        reference."""
+        if self.ckpt is None or self.ckpt.latest_step() is None:
+            return None
+        meta = torch.device("meta")
+        params = tree_map(lambda s: torch.empty(s.shape, device=meta),
+                          self.model.param_specs())
+        like = {"params": params,
+                "opt_state": make_optimizer(self.model,
+                                            self.tcfg).init(params),
+                "comp_state": torch.zeros((), device=meta)}
+        restored, extra = self.ckpt.restore(like, device=self.model.device)
+        return TrainState(restored["params"], restored["opt_state"],
+                          int(extra["step"]))
+
+    def save(self, state: TrainState) -> None:
+        """Checkpoint ``state`` (no-op without a checkpoint directory); the
+        active plan's table rides along in the manifest, as in the
+        reference, for forensics: ``resume`` re-derives it from the
+        step."""
+        if self.ckpt is None:
+            return
+        tree = {"params": state.params, "opt_state": state.opt_state,
+                "comp_state": torch.zeros((), dtype=torch.float32)}
+        extra = {"recipe": self.recipe.name,
+                 "plan": self.schedule.plan_at(state.step).to_dict()}
+        self.ckpt.save(state.step, tree, extra=extra)
 
     def _step_fn(self, plan: PrecisionPlan,
                  telemetry: Optional[bool] = None) -> Callable:
@@ -162,7 +222,7 @@ class Trainer:
     def train(self, state: Optional[TrainState] = None,
               num_steps: Optional[int] = None,
               log: Optional[Callable[[str], None]] = None) -> TrainState:
-        state = state or self.init_state()
+        state = state or self.resume() or self.init_state()
         total = self.tcfg.total_steps
         end = min(total, state.step + (num_steps or total))
         log = log or (lambda s: None)
@@ -195,6 +255,11 @@ class Trainer:
             state = TrainState(params, opt_state, step + 1)
             with phase_span("host"):
                 self._record(step, plan, metrics, dt, straggler, log)
+                if (self.ckpt is not None and self.tcfg.checkpoint_every
+                        and (step + 1) % self.tcfg.checkpoint_every == 0):
+                    self.save(state)
+        if self.ckpt is not None:
+            self.ckpt.wait()
         if self.writer is not None:
             self.writer.flush()   # the log is complete once train() returns
         return state

@@ -501,3 +501,139 @@ def test_qlinear_sr_stats_grads_card_vs_cpu(cuda):
         _assert_gemm_close(a, b.cuda())
     for a, b in zip(out[0][3], out[1][3]):
         _assert_stats(a, b)
+
+
+# -- quantize_blockwise's one-pass kernel; llama-1b's training shapes ----
+
+def _blockwise_check(x, fmt, per_row):
+    y = qb.quantize_blockwise(x, fmt, per_row=per_row)
+    ref = qb.quantize_blockwise_plain(x, fmt, per_row=per_row)
+    torch.cuda.synchronize()
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("fmt", ["fp4_e2m1", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 300), (300, 1), (129, 130),
+                                   (1280, 3392), (8192, 768)])
+def test_quantize_blockwise_shapes(cuda, shape, fmt, per_row, dtype):
+    """Aligned, ragged (llama-1b's w_gate, 1280 x 3392: a 64-column last
+    tile), 1-row and 1-column shapes, bitwise against the plain version;
+    a row length that is no multiple of a 16-byte chunk takes the scalar
+    accesses."""
+    _blockwise_check(_rand(shape, dtype, 50), fmt, per_row)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+def test_quantize_blockwise_unaligned_start(cuda, per_row, dtype):
+    """A contiguous operand whose first element is not 16-byte aligned
+    (a view one element into its storage) takes the scalar accesses."""
+    flat = _rand((257 * 256 + 1,), dtype, 51)
+    _blockwise_check(flat[1:].view(257, 256), "fp4_e2m1", per_row)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("fmt", ["fp4_e2m1", "fp8_e4m3", "fp8_e5m2"])
+@pytest.mark.parametrize("kind", ["zero", "subnormal_scale", "ties"])
+def test_quantize_blockwise_worst_cases(cuda, kind, fmt, per_row, dtype):
+    """Tiles where the kernel's division (reciprocal + two FMA remainder
+    steps) must equal the IEEE one bit for bit: all-zero tiles (the
+    eps-floored scale), tiles of tiny values (the scale near the eps
+    floor; subnormal inputs in f32), and values within a few ulp of every
+    midpoint of the grid at a scale with a full mantissa, where a quotient
+    one ulp off would round the other way."""
+    from repro_torch.core.formats import FORMATS, format_values_host
+    g = torch.Generator(device="cuda").manual_seed(52)
+    rows, cols = 256, 384
+    if kind == "zero":
+        x = torch.zeros(rows, cols, device="cuda")
+        x[128:, 128:] = torch.randn(128, 256, generator=g, device="cuda")
+    elif kind == "subnormal_scale":
+        tiny = 1e-40 if dtype == torch.float32 else 1e-38
+        x = torch.randn(rows, cols, generator=g, device="cuda") * tiny
+    else:
+        fmt_ = FORMATS[fmt]
+        grid = torch.tensor(format_values_host(fmt_), device="cuda")
+        mids = (grid[1:] + grid[:-1]) / 2
+        amax = (1.0 + torch.rand(rows // 128, 1, generator=g,
+                                 device="cuda") * 7).repeat_interleave(128, 0)
+        pick = torch.randint(0, len(mids), (rows, cols), generator=g,
+                             device="cuda")
+        x = amax / fmt_.max_value * mids[pick]
+        ulp = torch.randint(-2, 3, (rows, cols), generator=g, device="cuda")
+        x = torch.where(ulp > 0, torch.nextafter(x, x * 2), x)
+        x = torch.where(ulp < 0, torch.nextafter(x, x * 0), x)
+        sign = torch.randint(0, 2, (rows, cols), generator=g,
+                             device="cuda") * 2 - 1
+        x = x * sign
+        x[:, ::128] = amax        # every row segment and tile holds amax
+    _blockwise_check(x.to(dtype).contiguous(), fmt, per_row)
+
+
+# llama-1b's FFN at 8192 tokens (d 1280, d_ff 3392 = 26 x 128 + 64: a
+# short last group on the tensor-core route as N, K and M), under
+# paper_fp4's roles: forward fp4 block x tile, dgrad pass x pass (the
+# weight read transposed), wgrad fp8 block x block (the input read
+# transposed, K = 8192).
+LLAMA_FFN = (("w_gate", 1280, 3392), ("w_down", 3392, 1280))
+
+
+@pytest.mark.parametrize("role", ["fwd", "dgrad", "wgrad"])
+@pytest.mark.parametrize("name,d_in,d_out", LLAMA_FFN)
+def test_qmm_stream_llama_ffn_shapes(cuda, name, d_in, d_out, role):
+    t = 8192
+    if role == "fwd":          # x (t, d_in) @ w (d_in, d_out)
+        a, b = _rand((t, d_in), torch.bfloat16, 53), \
+            _rand((d_in, d_out), torch.bfloat16, 54) * 0.05
+        kw = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+                  b_fmt="fp4_e2m1")
+    elif role == "dgrad":      # g (t, d_out) @ w^T, w stored (d_in, d_out)
+        a, b = _rand((t, d_out), torch.bfloat16, 55) * 0.01, \
+            _rand((d_in, d_out), torch.bfloat16, 54) * 0.05
+        kw = dict(a_mode="pass", b_mode="pass", a_fmt="bf16", b_fmt="bf16",
+                  trans_b=True)
+    else:                      # x^T @ g, x stored (t, d_in)
+        a, b = _rand((t, d_in), torch.bfloat16, 53), \
+            _rand((t, d_out), torch.bfloat16, 55) * 0.01
+        kw = dict(a_mode="block", b_mode="block", a_fmt="fp8_e4m3",
+                  b_fmt="fp8_e4m3", trans_a=True)
+    tc = qs.KERNEL.tc_launches
+    y = qs.qmm_stream(a, b, **kw)
+    assert qs.KERNEL.tc_launches == tc + 1
+    _assert_gemm_close(y, qs.qmm_stream_plain(a, b, **kw))
+    two = fm.fused_qmm(a, b, pipeline="two_pass", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(two))
+
+
+@pytest.mark.parametrize("role", ["fwd", "dgrad", "wgrad"])
+def test_tiled_mm_llama_attention_shapes(cuda, role):
+    """The attention linears' matmul pass at llama-1b's 8192 x 1280 x
+    1280, in the step's three layouts."""
+    t, d = 8192, 1280
+    x, w = _rand((t, d), torch.bfloat16, 56), \
+        _rand((d, d), torch.bfloat16, 57) * 0.05
+    a, b, kw = {"fwd": (x, w, {}),
+                "dgrad": (x, w, dict(trans_b=True)),
+                "wgrad": (x, x, dict(trans_a=True))}[role]
+    tc = tm.KERNEL.tc_launches
+    y = tm.tiled_mm(a, b, **kw)
+    assert tm.KERNEL.tc_launches == tc + 1
+    _assert_gemm_close(y, tm.tiled_mm_plain(a, b, **kw))
+
+
+def test_flash_attention_llama_shape(cuda):
+    """llama-1b's attention at 4 x 2048 tokens: (80, 2048, 64), causal,
+    bf16 on the tensor-core route."""
+    q, k, v = (_rand((80, 2048, 64), torch.bfloat16, seed)
+               for seed in (58, 59, 60))
+    tc = fa.KERNEL.tc_launches
+    o = fa.flash_attention_fwd(q, k, v)
+    assert fa.KERNEL.tc_launches == tc + 1
+    ref = fa.flash_attention_fwd_plain(q, k, v)
+    torch.testing.assert_close(o.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=1e-5)

@@ -46,6 +46,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.optim import adamw, clip_by_global_norm  # noqa: E402
 from repro_torch.optim import warmup_cosine  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 j_flash = importlib.import_module("repro.kernels.flash_attention")
@@ -340,16 +341,216 @@ def test_trainer_matches_jax(recipe):
 def test_trainer_refuses_unported_features():
     """Every TrainConfig field of a feature the port has not got raises
     instead of being ignored (telemetry, its JSONL log and the step
-    timer's warm-up are ported: test_torch_telemetry)."""
+    timer's warm-up are ported: test_torch_telemetry; checkpoints, the
+    plan presets, remat, ``loss_chunk`` and adafactor: the tests below
+    and test_torch_checkpoint).  ``remat_policy="dots"`` raises: no
+    selective-checkpoint policy sees the port's matmul kernels."""
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
     for over in (dict(controller=object()),
                  dict(grad_compression="fp8"), dict(mesh_shape=(1, 1)),
-                 dict(checkpoint_every=5), dict(cost_calibration="x.json"),
-                 dict(plan_preset="ramp")):
+                 dict(cost_calibration="x.json")):
         with pytest.raises(NotImplementedError):
             Trainer(model, TrainConfig(**over), pipe)
+    with pytest.raises(ValueError):
+        Trainer(model, TrainConfig(plan_preset="nope"), pipe)
+    dots = t_build(cfg.replace(dtype="float32", remat_policy="dots"), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch(0).items()}
+    params = dots.init(0)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
     with pytest.raises(NotImplementedError):
-        t_build(cfg.replace(loss_chunk=64), "cpu").loss(
-            {}, {"tokens": None, "targets": None}, t_recipe.RECIPES["bf16"])
+        dots.loss(params, batch, t_recipe.RECIPES["bf16"])
+
+
+# ---------------------------------------------------------------------------
+# The rest of training: remat, loss_chunk, adafactor, data, API gaps
+# ---------------------------------------------------------------------------
+
+def _tiny(**over):
+    kw = dict(dtype="float32", linear_impl="pallas",
+              attention_impl="pallas", **over)
+    return (importlib.import_module("repro.configs.tiny").CONFIG.replace(
+        **kw), importlib.import_module("repro_torch.configs.tiny").CONFIG
+        .replace(**kw))
+
+
+def _loss_and_grads(model, params, batch, plan):
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = model.loss(params, batch, plan)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss.detach(), metrics, grads
+
+
+@pytest.mark.parametrize("recipe", ["paper_fp4", "fine_grained_fp4"])
+def test_remat_changes_no_numbers(recipe):
+    """Per-layer remat (``remat_policy="full"``) against ``remat=False``
+    on ``tiny`` (f32, the kernels' plain versions): loss and every
+    gradient bitwise equal; "none" is remat off."""
+    _, cfg = _tiny()
+    pipe = SyntheticLM(cfg.vocab_size, 128, 2, seed=1)
+    batch = {k: torch.from_numpy(v) for k, v in pipe.batch(0).items()}
+    params = t_build(cfg, "cpu").init(5)
+    outs = [_loss_and_grads(t_build(cfg.replace(**over), "cpu"), params,
+                            batch, t_recipe.RECIPES[recipe])
+            for over in (dict(remat=True), dict(remat=False),
+                         dict(remat=True, remat_policy="none"))]
+    for loss, _, grads in outs[1:]:
+        assert loss.numpy().tobytes() == outs[0][0].numpy().tobytes()
+        for a, b in zip(grads, outs[0][2]):
+            assert a.numpy().tobytes() == b.numpy().tobytes()
+
+
+def test_remat_telemetry_rows_equal():
+    """Instrumented fine_grained_fp4 ``Trainer`` steps with remat on and
+    off: every telemetry stat of the rows bitwise equal (the recompute
+    runs its taps under a throwaway collector), 4 / 3 taps a layer (the
+    attention's four linears, swiglu's three; none doubled), and the
+    losses equal."""
+    _, cfg = _tiny()
+    rows = []
+    for remat in (True, False):
+        c = cfg.replace(remat=remat)
+        tr = Trainer(t_build(c, "cpu"), TrainConfig(
+            recipe="fine_grained_fp4", total_steps=8, global_batch=2,
+            seq_len=128, telemetry=True, log_every=0),
+            SyntheticLM(c.vocab_size, 128, 2, seed=0))
+        tr.train(tr.init_state(seed=0), num_steps=2)
+        rows.append(tr.history)
+    for on, off in zip(*rows):
+        keys = sorted(k for k in off if k.startswith("tel/") or k in
+                      ("loss", "grad_norm"))
+        assert len(keys) > 100 and sorted(k for k in on if k in keys) == keys
+        assert [on[k] for k in keys] == [off[k] for k in keys]
+        for i in range(cfg.n_layers):
+            assert on[f"tel/bwd/l{i:02d}/attn/taps"] == 4.0
+            assert on[f"tel/bwd/l{i:02d}/ffn/taps"] == 3.0
+
+
+def test_loss_chunk_matches_jax_and_unchunked():
+    """``loss_chunk`` = 32 over S = 128 (four rematerialized head + xent
+    chunks): the loss within rtol 1e-5 of the reference's chunked loss
+    from the same parameters; against the port's unchunked loss the loss
+    within rtol 1e-6 and every gradient within rtol 1e-5 / atol 1e-7 (the
+    chunk sums add in another order); S not a multiple of the chunk
+    raises."""
+    jcfg, cfg = _tiny(loss_chunk=32, scan_layers=False)
+    jmodel = j_build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(2), jnp.float32)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    b = JSynthetic(cfg.vocab_size, 128, 2, seed=3).batch(0)
+    b["targets"][0, :7] = -1                 # masked positions
+    jl = jmodel.loss(jparams, {k: jnp.asarray(v) for k, v in b.items()},
+                     j_recipe.RECIPES["paper_fp4"])[0]
+    batch = {k: torch.from_numpy(v) for k, v in b.items()}
+    plan = t_recipe.RECIPES["paper_fp4"]
+    lc, mc, gc = _loss_and_grads(t_build(cfg, "cpu"), params, batch, plan)
+    lu, mu, gu = _loss_and_grads(t_build(cfg.replace(loss_chunk=0), "cpu"),
+                                 params, batch, plan)
+    np.testing.assert_allclose(float(lc), float(jl), rtol=1e-5)
+    np.testing.assert_allclose(float(lc), float(lu), rtol=1e-6)
+    assert float(mc["tokens"]) == float(mu["tokens"]) == 2 * 128 - 7
+    for a, g in zip(gc, gu):
+        np.testing.assert_allclose(a.numpy(), g.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+    with pytest.raises(ValueError):
+        t_build(cfg.replace(loss_chunk=48), "cpu").loss(params, batch, plan)
+
+
+def test_adafactor_matches_jax():
+    """Three Adafactor updates (a matrix, a stacked (layers, K, N) leaf
+    and a vector; weight decay on) against the reference's, through
+    ``get_optimizer`` with the trainer's arguments: params and factors
+    within rtol 1e-5 / atol 1e-7."""
+    from repro.optim import get_optimizer as j_get
+    from repro_torch.optim import get_optimizer as t_get
+    kw = dict(weight_decay=0.1, beta1=0.9, beta2=0.95, eps=1e-8)
+    jopt, topt = j_get("adafactor", **kw), t_get("adafactor", **kw)
+    rng = np.random.default_rng(16)
+    shapes = {"w": (8, 6), "stack": (3, 4, 5), "b": (6,)}
+    p = {k: rng.standard_normal(s).astype(np.float32)
+         for k, s in shapes.items()}
+    pj = {k: jnp.asarray(v) for k, v in p.items()}
+    pt = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    sj, st = jopt.init(pj), topt.init(pt)
+    for i, lr in enumerate((1e-2, 5e-3, 2e-3)):
+        g = {k: (rng.standard_normal(s) * (i + 1)).astype(np.float32)
+             for k, s in shapes.items()}
+        pj, sj = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, sj,
+                             pj, jnp.float32(lr))
+        pt, st = topt.update({k: torch.from_numpy(v) for k, v in g.items()},
+                             st, pt, lr)
+    assert st.count == int(sj.count) == 3
+    for k in shapes:
+        for a, b in ((pt[k], pj[k]), (st.vr[k], sj.vr[k]),
+                     (st.vc[k], sj.vc[k])):
+            assert tuple(a.shape) == tuple(b.shape)
+            np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5,
+                                       atol=1e-7)
+
+
+def test_byte_corpus_and_make_pipeline_bitwise():
+    from repro.data.pipeline import ByteCorpus as JBytes
+    from repro.data.pipeline import make_pipeline as j_make
+    from repro_torch.data import ByteCorpus, make_pipeline
+    pairs = [(JBytes(64, 4, seed=2), ByteCorpus(64, 4, seed=2)),
+             (JBytes(32, 2, text="abc" * 40), ByteCorpus(32, 2,
+                                                         text="abc" * 40))]
+    pairs += [(j_make(k, 300, 48, 2, seed=5), make_pipeline(k, 300, 48, 2,
+                                                           seed=5))
+              for k in ("synthetic", "bytes")]
+    for j, t in pairs:
+        assert type(t).__name__ == type(j).__name__
+        for step in (0, 3, 10_000_000):
+            for host in (0, 1):
+                bj, bt = j.batch(step, host, 2), t.batch(step, host, 2)
+                for key in ("tokens", "targets"):
+                    assert bj[key].dtype == bt[key].dtype == np.int32
+                    assert np.array_equal(bj[key], bt[key])
+    with pytest.raises(ValueError):
+        make_pipeline("files", 300, 48, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fp4_matmul_and_pipelines_match_jax(dtype):
+    """``kernels.ops.fp4_matmul`` (block x tile fp4, ragged 130 x 200 x
+    96) against the reference's within the GEMM bar; ``use_pipeline``
+    sets ``default_pipeline`` as the reference's does (nested, unwound),
+    and ``fused_qmm`` under it equals the explicit pipeline bitwise."""
+    rng = np.random.default_rng(17)
+    x = (rng.standard_normal((130, 200)) * 2).astype(np.float32)
+    w = (rng.standard_normal((200, 96)) * 0.05).astype(np.float32)
+    (xj, xt), (wj, wt) = _both(x, dtype), _both(w, dtype)
+    _assert_gemm_close(j_ops.fp4_matmul(xj, wj, x_fmt="fp4_e2m1",
+                                        w_fmt="fp8_e4m3"),
+                       t_ops.fp4_matmul(xt, wt, x_fmt="fp4_e2m1",
+                                        w_fmt="fp8_e4m3"), dtype)
+    assert t_fm.default_pipeline() == j_fm.default_pipeline() == "stream"
+    with t_fm.use_pipeline("two_pass"), j_fm.use_pipeline("two_pass"):
+        assert t_fm.default_pipeline() == j_fm.default_pipeline()
+        with t_fm.use_pipeline("stream"), j_fm.use_pipeline("stream"):
+            assert t_fm.default_pipeline() == j_fm.default_pipeline()
+        y = t_fm.fused_qmm(xt, wt)
+        assert t_fm.default_pipeline() == "two_pass"
+    assert t_fm.default_pipeline() == "stream"
+    _assert_bitwise(y, t_fm.fused_qmm(xt, wt, pipeline="two_pass"))
+    with pytest.raises(ValueError):
+        with t_fm.use_pipeline("nope"):
+            pass
+
+
+def test_bits_per_param_matches_jax():
+    from repro.core.packed import pack_tensor as j_pack
+    from repro_torch.core.packed import pack_tensor as t_pack
+    w = np.random.default_rng(18).standard_normal((200, 96)).astype(
+        np.float32)
+    for spec in ("fp4_e2m1@tile128", "fp8_e4m3@tile128", "fp4_e2m1@tile64"):
+        jp = j_pack(jnp.asarray(w), JSpec.from_str(spec))
+        tp = t_pack(torch.from_numpy(w), TSpec.from_str(spec))
+        assert tp.nbytes == jp.nbytes
+        assert tp.bits_per_param == jp.bits_per_param, spec
