@@ -87,7 +87,51 @@ code 1):
    control (layer 0's SR wgrad replayed with salt 5 for 4) that must miss.
    Two ``train_telemetry_profile`` lines split one step of the recipe
    without and with telemetry by kernel.
-6. train_large — trains llama-1b at full published width and depth (48
+6. speed_factors — the card's cost calibration (the reference's
+   ``measure_speed_factors``): every distinct operand-spec pair of the
+   fwd, dgrad and wgrad matmuls of bf16, fp8, paper_fp4 and
+   fine_grained_fp4 (keyed by ``cost_model._cal_key``), timed through the
+   route the trainer takes under ``linear_impl="pallas"`` at the FFN
+   forward shape 8192 x 768 x 3072 (bf16, nn layout, L2 flushed) and
+   divided into ``torch.matmul``'s time at that shape.  Prints each
+   pair's time, factor, route and paper factor, and the paper and the
+   calibrated cost of gpt2-125m's uniform paper_fp4, first_last_k and
+   bf16 plans; writes the ``speed_factors.v1`` JSON to a temporary
+   directory.  Gates: every factor finite and > 0, the JSON read back to
+   the same table.
+7. train_adaptive — gpt2-125m at full width and depth (seeded init,
+   ``SyntheticLM``, 8 x 1024 tokens, paper_fp4, both impls "pallas",
+   ``remat=False``, telemetry every step with a JSONL log) for 12 steps
+   (the §3.3 switch at 11) under the adaptive controller (plan search
+   every 2 steps, at most 3 edits, priced by phase 6's JSON through
+   ``TrainConfig.cost_calibration``; spike factor 2, replay 2 steps, LR
+   backoff 0.5 recovering over 4 steps), a checkpoint every 3 steps.
+   After step 6 a rollback is injected as the reference's tests inject
+   it: the restore goes back to step 6, steps 6-7 replay at bf16 with
+   the LR halved, steps 8-10 run the searcher-edited FP4 plan, step 11
+   bf16.  Each step runs under ``routing.capture()``.  Prints per step
+   the loss, plan, lr, controller events, the census's FFN route per
+   layer, launches per kernel and the controller's host time; the
+   searcher's edits and frontier with paper and calibrated cost; restore
+   seconds, step p50, peak memory.  Gates: each step ran the plan the
+   controller chose and its census (fwd, dgrad and wgrad events for all
+   12 layers; fwd ``dot`` events for a bf16 plan) has the plan's spec
+   strings, kernel modes and ``resolve_pipeline`` for every event; at
+   least one FFN promote, the promoted cell's forward on the fp8
+   two-pass route (quantize_rows + tiled_mm) in every later quantized
+   step, qmm_stream launched less and tiled_mm more there than in step
+   0; every frontier point's cost equal to ``plan_cost`` recomputed, the
+   frontier monotone; the restored params and AdamW moments equal a host
+   copy of the step-6 checkpoint bit for bit; steps 6-7 on bf16, step
+   6's lr the scheduled f32 LR times f32(0.5) and the later ones the
+   reference's recovery rule; every GEMM and flash launch on the
+   tensor-core route; an op replay of step 8 (a promoted layer and an
+   FP4 layer, control: the FP4 layer's wq dgrad without trans_b); a
+   fresh ``Trainer`` resumed from the step-9 checkpoint equals steps
+   9-11 bit for bit (rows, final params and moments, controller state).
+   A ``train_adaptive_profile`` line splits one step of the
+   searcher-edited plan, telemetry on, by kernel.
+8. train_large — trains llama-1b at full published width and depth (48
    layers, d 1280, 20 heads of 64, d_ff 3392, vocab 32000, rope, swiglu,
    rmsnorm, untied head; seeded init), ``SyntheticLM`` (seed 0), global
    batch 4 x 2048, paper_fp4 under the ``first_last_k`` plan (k = 2:
@@ -102,13 +146,14 @@ code 1):
    step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
    switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
    phase 4, with its control.
-7. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
+9. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
    ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
    tiles and fp8 rows, each output bitwise against the plain version.
-8. the launch counts of each path's run (every kernel of a path must
+10. the launch counts of each path's run (every kernel of a path must
    have run in it) and the ``{"kernels": [...]}`` line (launches from the
-   llama-1b train path, ``quantize_blockwise``'s from phase 7, times at
-   the gpt2-125m training shapes); the card line; the ok line last.
+   adaptive train path of phase 7, ``quantize_blockwise``'s from phase 9,
+   every path's in ``launches_by_path``; times at the gpt2-125m training
+   shapes); the card line; the ok line last.
 
 Phase 2 has a third line, ``telemetry_kernels``, at the training shapes:
 stochastic rounding in ``quantize_rows`` (token and block, both trans
@@ -185,6 +230,19 @@ STATS_RTOL = 1e-6
 # The train_telemetry phase: 4 instrumented steps of an 8-step schedule
 # (the switch to bf16 comes after them).
 TEL_STEPS, TEL_SCHEDULE = 4, 8
+# The speed_factors phase: the recipes whose operand-spec pairs it times
+# (the reference's measure_speed_factors set), at the FFN forward shape.
+SPEED_RECIPES = ("bf16", "fp8", "paper_fp4", "fine_grained_fp4")
+SPEED_SHAPE = (TRAIN_TOKENS, 768, 3072)
+# The train_adaptive phase: 12 steps (round(12 x 0.925) = 11: the §3.3
+# switch on the last), a checkpoint every 3; after step 6 a rollback is
+# injected, which restores step 6 and replays steps 6-7 at bf16 with the
+# LR halved; a second Trainer resumes from the step-9 checkpoint.
+ADAPT_STEPS, ADAPT_CKPT, ADAPT_RESTORE, ADAPT_RESUME_AT = 12, 3, 6, 9
+ADAPT_CONTROLLER = dict(plan_search=True, plan_search_every=2,
+                        plan_search_max_edits=3, spike_factor=2.0,
+                        replay_steps=2, lr_backoff=0.5, lr_recovery_steps=4)
+ADAPT_REPLAY_STEP = 8     # the op replay's step: the searcher-edited plan
 
 
 def card_line() -> str:
@@ -418,25 +476,31 @@ QUANTIZE_ROWS_KERNELS = ("quantize_rows_kernel", "quantize_tok_kernel",
                          "tensor_amax_kernel")
 
 
-def kernel_blocks(torch, fn):
+def kernel_blocks(torch, fn, attempts: int = 3):
     """The blocks of each kernel one call of ``fn`` launches, from the
-    grid that a ``torch.profiler`` trace records: {kernel: x * y * z}."""
+    grid that a ``torch.profiler`` trace records: {kernel: x * y * z}.
+    A trace now and then comes back with no kernel record at all (no
+    measurement, not a wrong one): it is taken again, up to
+    ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as fh:
-            events = json.load(fh).get("traceEvents", [])
     blocks = {}
-    for ev in events:
-        grid = ev.get("args", {}).get("grid")
-        name = re.search(r"(\w+_kernel)", ev.get("name", ""))
-        if ev.get("cat") == "kernel" and grid and name:
-            blocks[name.group(1)] = int(np.prod(grid))
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh).get("traceEvents", [])
+        for ev in events:
+            grid = ev.get("args", {}).get("grid")
+            name = re.search(r"(\w+_kernel)", ev.get("name", ""))
+            if ev.get("cat") == "kernel" and grid and name:
+                blocks[name.group(1)] = int(np.prod(grid))
+        if blocks:
+            break
     return blocks
 
 
@@ -1205,6 +1269,8 @@ class TrainRecorder:
                     return y
                 self.n_fwd += 1
                 role = f"fwd {name}"
+            # a replay records no routing event (census: the card run's)
+            kw = {k: v for k, v in kw.items() if k != "census"}
             self._keep(layer, role, fn, (impl, a, b, spec_a, spec_b),
                        dict(trans_a=trans_a, trans_b=trans_b, **kw), y)
             return y
@@ -1231,13 +1297,13 @@ def _clone(y):
 
 
 def replay_train_ops(torch, records, control_role="dgrad wq",
-                     control_kw=None):
+                     control_kw=None, control_layer=0):
     """Each recorded card call again on the CPU (the plain versions) on
     the card's inputs.  Returns per-record (layer, role, relative L2 of
     the output, quantized operand elements that differ, for a call with
-    the stats epilogue its stats checks) and the control: layer 0's
-    ``control_role`` replayed with ``control_kw`` (default: trans_b off,
-    from a paper_fp4 step's wq dgrad)."""
+    the stats epilogue its stats checks) and the control: layer
+    ``control_layer``'s ``control_role`` replayed with ``control_kw``
+    (default: trans_b off, from a paper_fp4 step's wq dgrad)."""
     from repro_torch.core.qlinear import ZERO_KEY, kernel_quant_mode
     from repro_torch.kernels import quantize_rows as qr
     from repro_torch.kernels.rounding import fold_seed
@@ -1282,7 +1348,7 @@ def replay_train_ops(torch, records, control_role="dgrad wq",
                 torch, s_, sr_, f"layer {r['layer']} {r['role']}")
                 for s_, sr_ in zip(stats, stats_ref)]
         out.append(row)
-        if r["layer"] == 0 and r["role"] == control_role:
+        if r["layer"] == control_layer and r["role"] == control_role:
             bad = r["fn"](*args, **{**r["kw"], **(
                 control_kw or dict(trans_a=False, trans_b=False))})
             control = rel(y, bad[0] if isinstance(bad, tuple) else bad)
@@ -1696,6 +1762,480 @@ def phase_train_telemetry(torch, card, paper_p50_ms):
     return launches
 
 
+def phase_speed_factors(torch, card, out_dir):
+    """The card's ``CostCalibration`` (the reference's
+    ``measure_speed_factors`` on the port's own kernels): every distinct
+    (fwd_x, fwd_w), (dgrad_g, dgrad_w) and (wgrad_x, wgrad_g) operand-spec
+    pair of SPEED_RECIPES, keyed by ``cost_model._cal_key``, timed through
+    the route the trainer takes under ``linear_impl="pallas"``
+    (``core.qlinear._role``) at the FFN forward shape in bf16 and the nn
+    layout, L2 flushed, against ``torch.matmul`` at the same shape.
+    Writes the ``speed_factors.v1`` JSON to ``out_dir``; gate: every
+    factor finite and > 0, the JSON read back to the same table.  Prints
+    the paper and the calibrated cost of gpt2-125m's uniform paper_fp4,
+    first_last_k and bf16 plans.  Returns the JSON's path."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import qlinear as ql
+    from repro_torch.core.cost_model import (CostCalibration, ModelDims,
+                                             _cal_key, calibrate, plan_cost,
+                                             schedule_cost, speed_factor)
+    from repro_torch.core.recipe import RECIPES, PrecisionPlan
+    from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
+    from repro_torch.kernels.fp4_matmul import resolve_pipeline
+    m, k, n = SPEED_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = (torch.randn(m, k, generator=gen, device="cuda") * 2).to(
+        torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    pairs = {}
+    for name in SPEED_RECIPES:
+        r = RECIPES[name]
+        for mm in (r.attn_linear, r.ffn_linear, r.head_linear):
+            for sa, sb in ((mm.fwd_x, mm.fwd_w), (mm.dgrad_g, mm.dgrad_w),
+                           (mm.wgrad_x, mm.wgrad_g)):
+                pairs.setdefault((_cal_key(sa), _cal_key(sb)), (sa, sb))
+    timer = Timer(torch)
+    matmul_ms = timer.ms(lambda: torch.matmul(x, w))
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
+    table, rows = {}, []
+    for (ka, kb), (sa, sb) in sorted(pairs.items()):
+        def call(sa=sa, sb=sb):
+            return ql._role("pallas", x, w, sa, sb, salt=4)
+        before = [kern.launches for kern in kernels]
+        call()
+        torch.cuda.synchronize()
+        route = "+".join(kern.name for kern, b in zip(kernels, before)
+                         if kern.launches > b)
+        ms = timer.ms(call)
+        table[(ka, kb)] = matmul_ms / ms
+        rows.append({"pair": f"{ka}|{kb}", "specs": [sa.to_str(),
+                                                    sb.to_str()],
+                     "route": route, "pipeline": resolve_pipeline(
+                         None, ql.kernel_quant_mode(sa),
+                         ql.kernel_quant_mode(sb)),
+                     "ms": ms, "factor": table[(ka, kb)],
+                     "paper_factor": speed_factor(sa, sb)})
+    cal = calibrate(table, source=f"chip_smoke speed_factors {m}x{k}x{n} "
+                                  f"bf16 ({card})")
+    path = os.path.join(out_dir, "speed_factors.json")
+    cal.to_json(path)
+    back = CostCalibration.from_json(path)
+    cfg = get_config("gpt2-125m")
+    dims = ModelDims.from_config(cfg, seq_len=TRAIN_SEQ)
+    plans = [PrecisionPlan.uniform(RECIPES["paper_fp4"], cfg.n_layers),
+             PrecisionPlan.first_last_k(RECIPES["paper_fp4"], cfg.n_layers,
+                                        k=LARGE_K),
+             PrecisionPlan.uniform(RECIPES["bf16"], cfg.n_layers)]
+    costs = {p.name: {
+        "paper": plan_cost(p, dims), "calibrated": plan_cost(p, dims, cal),
+        "schedule_paper": schedule_cost(p, dims, total_steps=ADAPT_STEPS),
+        "schedule_calibrated": schedule_cost(p, dims,
+                                             total_steps=ADAPT_STEPS,
+                                             calibration=cal)}
+        for p in plans}
+    emit({"phase": "speed_factors", "card": card, "shape": [m, k, n],
+          "dtype": "bfloat16", "matmul_ms": matmul_ms, "pairs": rows,
+          "plan_costs_gpt2_125m": costs, "json": path})
+    bad = {p: f for p, f in table.items()
+           if not (np.isfinite(f) and f > 0)}
+    if bad or dict(back.table) != dict(cal.table) or len(table) != len(
+            pairs):
+        raise AssertionError(f"speed factors: non-finite or <= 0 {bad}; "
+                             f"JSON round trip equal "
+                             f"{dict(back.table) == dict(cal.table)}")
+    return path
+
+
+def _plan_mm(plan, layer, cls):
+    """The MatmulRecipe of a census event's cell (``"L<i>"`` / None and
+    attn | ffn | head) in ``plan``."""
+    if cls == "head":
+        return plan.head_linear
+    row = plan.layers[int(layer[1:])]
+    return row.attn_linear if cls == "attn" else row.ffn_linear
+
+
+ROLE_SPECS = {"fwd": ("fwd_x", "fwd_w"), "dgrad": ("dgrad_g", "dgrad_w"),
+              "wgrad": ("wgrad_x", "wgrad_g")}
+
+
+def census_failures(cells, plan, n_layers):
+    """What is wrong with one step's routing census against the plan the
+    step ran: specs, kernel modes and pipeline per event; fwd, dgrad and
+    wgrad events of every layer and class (fwd ``dot`` events for a
+    passthrough plan)."""
+    from repro_torch.core.qlinear import kernel_quant_mode
+    from repro_torch.kernels.fp4_matmul import resolve_pipeline
+    bad = []
+    for ev in cells:
+        mm = _plan_mm(plan, ev.layer, ev.cls)
+        sa, sb = (getattr(mm, r) for r in ROLE_SPECS[ev.role])
+        want = [sa.to_str(), sb.to_str()]
+        if [ev.spec_a, ev.spec_b] != want:
+            bad.append(f"{ev.layer}/{ev.cls}/{ev.role} specs "
+                       f"{[ev.spec_a, ev.spec_b]} != plan {want}")
+        if ev.route == "pallas":
+            modes = (kernel_quant_mode(sa), kernel_quant_mode(sb))
+            if (ev.mode_a, ev.mode_b) != modes or ev.pipeline != \
+                    resolve_pipeline(None, *modes):
+                bad.append(f"{ev.layer}/{ev.cls}/{ev.role} modes "
+                           f"{ev.mode_a, ev.mode_b} pipeline {ev.pipeline}")
+        elif ev.route != "dot":
+            bad.append(f"{ev.layer}/{ev.cls}/{ev.role} route {ev.route}")
+    have = {(ev.layer, ev.cls, ev.role) for ev in cells}
+    roles = ("fwd",) if plan.is_passthrough else ("fwd", "dgrad", "wgrad")
+    missing = {(f"L{i}", c, r) for i in range(n_layers)
+               for c in ("attn", "ffn") for r in roles} - have
+    if missing:
+        bad.append(f"no event for {sorted(missing)[:6]} "
+                   f"({len(missing)} cells)")
+    return bad
+
+
+def _ffn_routes(cells):
+    """The FFN forward's route per layer: ``pallas/<pipeline>`` or
+    ``dot``."""
+    out = {}
+    for ev in cells:
+        if ev.cls == "ffn" and ev.role == "fwd":
+            out[int(ev.layer[1:])] = (ev.route if ev.route != "pallas"
+                                      else f"pallas/{ev.pipeline}")
+    return [out.get(i) for i in range(len(out))]
+
+
+def phase_train_adaptive(torch, card, cal_path):
+    """Train gpt2-125m at full width and depth under the adaptive
+    controller with plan search priced by the card's speed factors, an
+    injected rollback and a resume (see the module docstring); gate the
+    run; return the path's launch counts."""
+    from repro_torch.configs import ControllerSettings, get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import routing
+    from repro_torch.core.cost_model import plan_cost
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
+                                          attention_impl="pallas",
+                                          remat=False)
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    ckpt_dir, log_dir = tempfile.TemporaryDirectory(), \
+        tempfile.TemporaryDirectory()
+    tcfg = TrainConfig(
+        recipe="paper_fp4", total_steps=ADAPT_STEPS,
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=0,
+        telemetry=True, telemetry_every=1,
+        telemetry_jsonl=os.path.join(log_dir.name, "adaptive.jsonl"),
+        checkpoint_every=ADAPT_CKPT, checkpoint_dir=ckpt_dir.name,
+        cost_calibration=cal_path, profiler_warmup=1,
+        controller=ControllerSettings(**ADAPT_CONTROLLER))
+    trainer = Trainer(build_model(cfg), tcfg, pipeline)
+    ctrl = trainer.controller
+
+    def leaves(st):
+        return (tree_leaves(st.params) + tree_leaves(st.opt_state.mu)
+                + tree_leaves(st.opt_state.nu))
+
+    host_copy, used, ctl_s = {}, [], [0.0]
+    save, step_fn = trainer.save, trainer._step_fn
+    observe, apply_events = ctrl.observe, trainer._apply_controller_events
+
+    def save_with_copy(st):       # a host copy of the step-6 checkpoint
+        if st.step == ADAPT_RESTORE and st.step not in host_copy:
+            host_copy[st.step] = [t.detach().to("cpu", copy=True)
+                                  for t in leaves(st)]
+        save(st)
+
+    def recorded_step_fn(plan, telemetry=None):    # the plan a step ran
+        used.append(plan)
+        return step_fn(plan, telemetry)
+
+    def timed(fn):                # the controller's host time
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ctl_s[0] += time.perf_counter() - t0
+        return call
+    trainer.save, trainer._step_fn = save_with_copy, recorded_step_fn
+    ctrl.observe = timed(observe)
+    trainer._apply_controller_events = timed(apply_events)
+
+    state = trainer.init_state(seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.reset()
+    steps, rec, rec_layers, restore = [], None, (), None
+    while state.step < ADAPT_STEPS:
+        step = state.step
+        expect = ctrl.active_plan(step)
+        before = {kern.name: kern.counts() for kern in kernels}
+        n_events, ctl_s[0] = len(ctrl.events), 0.0
+        with routing.capture() as log:
+            if step == ADAPT_REPLAY_STEP and rec is None:
+                promoted = sorted({int(e["cell"][1:3]) for e in ctrl.events
+                                   if e["event"] == "plan_search"
+                                   and e["op"] == "promote"
+                                   and e["cell"].endswith("/ffn")})
+                fp4 = next((i for i in range(cfg.n_layers)
+                            if i not in promoted), 0)
+                rec_layers = (promoted[0] if promoted else 0, fp4)
+                with TrainRecorder(layers=rec_layers) as rec:
+                    state = trainer.train(state, num_steps=1)
+            else:
+                state = trainer.train(state, num_steps=1)
+        row = trainer.history[-1]
+        steps.append({
+            "step": step, "row": row, "plan": used[-1], "expect": expect,
+            "cells": log.cells(), "raw_events": len(log.events),
+            "events": ctrl.events[n_events:], "controller_s": ctl_s[0],
+            "launches": {kern.name: {c: v - before[kern.name][c]
+                                     for c, v in kern.counts().items()
+                                     if c in ("launches", "tc")}
+                         for kern in kernels}})
+        if restore is None and state.step == ADAPT_RESTORE + 1:
+            # the injected loss spike, as the reference's tests inject it
+            ev = {"event": "rollback", "step": step, "loss": 99.0,
+                  "loss_ema": row["loss"]}
+            ctrl.rollbacks = 1
+            ctrl._observe_lr([ev])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = apply_events(state, [ev], lambda s: None)
+            torch.cuda.synchronize()
+            restore = {"seconds": time.perf_counter() - t0,
+                       "to_step": state.step,
+                       "tensors_differing": sum(
+                           not torch.equal(a.cpu().view(torch.int32),
+                                           b.view(torch.int32))
+                           for a, b in zip(leaves(state), host_copy.get(
+                               ADAPT_RESTORE, []))),
+                       "tensors": len(host_copy.get(ADAPT_RESTORE, [])),
+                       "lr_scale": ctrl.lr_scale,
+                       "replay_until": ctrl.replay_until}
+    counts = {kern.name: kern.counts() for kern in kernels}
+    launches = {kern.name: kern.launches for kern in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    summary = trainer.step_time_summary()
+    trainer.ckpt.wait()
+    trainer.save, trainer._step_fn = save, step_fn
+    ctrl.observe, trainer._apply_controller_events = observe, apply_events
+
+    failures = []
+    hist = [s["row"] for s in steps]
+    plans = [s["plan"].name for s in steps]
+    want_steps = list(range(ADAPT_RESTORE + 1)) + list(
+        range(ADAPT_RESTORE, ADAPT_STEPS))
+    if [r["step"] for r in hist] != want_steps:
+        failures.append(f"steps run {[r['step'] for r in hist]}")
+    if not all(np.isfinite([r["loss"] for r in hist])):
+        failures.append(f"non-finite loss: {[r['loss'] for r in hist]}")
+    for s in steps:
+        if s["plan"] != s["expect"] or s["row"]["recipe"] != \
+                s["plan"].name:
+            failures.append(f"step {s['step']} ran {s['plan'].name}, the "
+                            f"controller chose {s['expect'].name}")
+        bad = census_failures(s["cells"], s["plan"], cfg.n_layers)
+        if bad:
+            failures.append(f"step {s['step']} census: {bad[:3]}")
+    # the search: FFN promotes (the edits the final state keeps), each
+    # promoted cell's forward on the fp8 two-pass route in every
+    # quantized step run after its edit; frontier costs recomputed and a
+    # monotone frontier
+    promoted = [cell for op, cell in ctrl.searcher.edits
+                if op == "promote" and cell.endswith("/ffn")]
+    if not promoted:
+        failures.append(f"no FFN promote: {ctrl.searcher.edits}")
+    for cell in promoted:
+        at = max(j for j, s in enumerate(steps) for e in s["events"]
+                 if e["event"] == "plan_search" and e["cell"] == cell)
+        for s in steps[at + 1:]:
+            if s["plan"].is_passthrough:
+                continue
+            fwd = [ev for ev in s["cells"] if ev.layer == f"L{int(cell[1:3])}"
+                   and ev.cls == "ffn" and ev.role == "fwd"]
+            if not fwd or any(not ev.spec_a.startswith("fp8_e4m3@token")
+                              or ev.pipeline != "two_pass" for ev in fwd):
+                failures.append(f"step {s['step']}: promoted {cell} "
+                                f"forward ran {[ev.to_dict() for ev in fwd]}")
+    # the kernels agree: a step with promoted FFN cells launches qmm_stream
+    # less and tiled_mm more than step 0 (all FFN cells FP4)
+    base = {k: steps[0]["launches"][k]["launches"]
+            for k in ("qmm_stream", "tiled_mm")}
+    for s in steps:
+        n_prom = sum(row.ffn_linear.fwd_x.fmt == "fp8_e4m3"
+                     for row in s["plan"].layers)
+        got = {k: s["launches"][k]["launches"] for k in base}
+        if n_prom and not s["plan"].is_passthrough and not (
+                got["qmm_stream"] < base["qmm_stream"]
+                and got["tiled_mm"] > base["tiled_mm"]):
+            failures.append(f"step {s['step']} ({n_prom} FFN cells on FP8) "
+                            f"launched {got}, step 0 {base}")
+    frontier = []
+    for p in ctrl.searcher.frontier:
+        plan = ctrl._demoted_plan(ctrl.searcher._apply_edits(
+            trainer.schedule.plan, p["edits"]))
+        frontier.append({**p, "paper_cost": plan_cost(plan, trainer.dims),
+                         "recomputed": plan_cost(plan, trainer.dims,
+                                                 trainer.calibration),
+                         "name_ok": plan.name == p["plan"]})
+    if any(f["recomputed"] != f["cost"] or not f["name_ok"]
+           for f in frontier):
+        failures.append(f"frontier costs: {frontier}")
+    fc = [f["cost"] for f in frontier]
+    fe = [f["error"] for f in frontier]
+    if fc != sorted(fc) or any(a <= b for a, b in zip(fe, fe[1:])):
+        failures.append(f"frontier not monotone: {list(zip(fc, fe))}")
+    # the rollback: restore, bf16 replay, LR halved then recovering
+    lr_fn = warmup_cosine(tcfg.learning_rate, tcfg.total_steps,
+                          tcfg.warmup_frac, tcfg.min_lr_frac)
+    rate = (1.0 / ADAPT_CONTROLLER["lr_backoff"]) ** (
+        1.0 / max(ADAPT_CONTROLLER["lr_recovery_steps"], 1))
+    replay = steps[ADAPT_RESTORE + 1:]
+    scale, lr_rows = ADAPT_CONTROLLER["lr_backoff"], []
+    for s in replay:
+        want_lr = float(lr_fn(s["step"]) * torch.tensor(
+            scale, dtype=torch.float32))
+        lr_rows.append({"step": s["step"], "lr": s["row"]["lr"],
+                        "scale": scale, "want": want_lr})
+        if s["row"]["lr"] != want_lr:
+            failures.append(f"step {s['step']} lr {s['row']['lr']} != "
+                            f"scheduled x f32({scale}) = {want_lr}")
+        scale = min(1.0, scale * rate)
+    if replay and replay[0]["row"]["lr"] != float(lr_fn(ADAPT_RESTORE)) * 0.5:
+        failures.append("step 6's replay lr is not half the scheduled lr")
+    if restore is None or restore["to_step"] != ADAPT_RESTORE or \
+            restore["tensors_differing"] or not restore["tensors"]:
+        failures.append(f"restore: {restore}")
+    if [s["plan"].name for s in replay[:2]] != ["bf16", "bf16"] or \
+            replay[-1]["plan"].name != "bf16" or any(
+                s["plan"].is_passthrough for s in replay[2:-1]):
+        failures.append(f"plans after the rollback: "
+                        f"{[s['plan'].name for s in replay]}")
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never ran: {launches}")
+    if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
+        failures.append(f"a GEMM or flash launch left the tensor-core "
+                        f"route: {counts}")
+    # the op replay of the searcher-edited step, with its control
+    if rec is None or rec.n_fwd != 6 * cfg.n_layers or \
+            rec.n_flash != cfg.n_layers:
+        failures.append("op recorder: " + ("no step recorded" if rec is None
+                        else f"{rec.n_fwd} forward matmuls, {rec.n_flash} "
+                        "flash calls"))
+        replay_ops, control = [], None
+    else:
+        replay_ops, control = replay_train_ops(
+            torch, rec.records, control_layer=rec_layers[1])
+    del rec
+    worst = max((r["rel_l2"] for r in replay_ops), default=None)
+    q_bad = sum(r["quantized_differing"] for r in replay_ops)
+    bound = OP_BOUND["bfloat16"]
+    if worst is None or not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if control is None or not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+
+    # the resume: a fresh Trainer from the step-9 checkpoint
+    name = f"step_{ADAPT_RESUME_AT:08d}"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.replace(os.path.join(ckpt_dir.name, name),
+                   os.path.join(tmp, name))
+        ckpt_dir.cleanup()
+        second = Trainer(build_model(cfg), dataclasses.replace(
+            tcfg, checkpoint_dir=tmp, telemetry_jsonl=os.path.join(
+                log_dir.name, "resumed.jsonl")), pipeline)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = second.resume()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed = second.train(resumed)
+        second.close()
+    trainer.close()
+    log_dir.cleanup()
+    keys = ("loss", "grad_norm", "recipe", "lr")
+    got = [[r[k] for k in keys] for r in second.history]
+    want = [[r[k] for k in keys] for r in hist[-(ADAPT_STEPS
+                                                 - ADAPT_RESUME_AT):]]
+    differing = sum(not torch.equal(a.view(torch.int32),
+                                    b.view(torch.int32))
+                    for a, b in zip(leaves(resumed), leaves(state)))
+    ctl_equal = second.controller.state_dict() == ctrl.state_dict()
+    if got != want or differing or not ctl_equal:
+        failures.append(f"resume from step {ADAPT_RESUME_AT}: rows equal "
+                        f"{got == want}, {differing} tensors differ, "
+                        f"controller state equal {ctl_equal}")
+    all_counts = {kern.name: kern.counts() for kern in kernels}
+    if any(all_counts[k]["tc"] != all_counts[k]["launches"]
+           for k in TC_SOURCES):
+        failures.append(f"a launch of the resumed steps left the "
+                        f"tensor-core route: {all_counts}")
+    dts = [r["dt"] for r in hist]
+    emit({"phase": "train_adaptive", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab_size": cfg.vocab_size, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "total_steps": ADAPT_STEPS,
+          "recipe": "paper_fp4", "controller": ADAPT_CONTROLLER,
+          "switch_step": trainer.schedule.switch_step,
+          "steps": [{"step": s["step"], "loss": s["row"]["loss"],
+                     "plan": s["plan"].name, "lr": s["row"]["lr"],
+                     "dt_ms": s["row"]["dt"] * 1e3,
+                     "events": [{k: v for k, v in e.items()
+                                 if k in ("event", "op", "cell", "cost",
+                                          "error", "lr_scale")}
+                                for e in s["events"]],
+                     "ffn_route": _ffn_routes(s["cells"]),
+                     "census_cells": len(s["cells"]),
+                     "census_raw_events": s["raw_events"],
+                     "launches": {k: v["launches"]
+                                  for k, v in s["launches"].items()},
+                     "controller_ms": s["controller_s"] * 1e3}
+                    for s in steps],
+          "search_edits": ctrl.searcher.edits,
+          "frontier": [{k: f[k] for k in ("step", "plan", "cost",
+                                          "paper_cost", "error")}
+                       for f in frontier],
+          "restore": restore, "lr_after_rollback": lr_rows,
+          "step_p50_ms": summary.get("p50_ms"),
+          "step_p50_ms_after_first": float(np.median(dts[1:])) * 1e3,
+          "tokens_per_s": summary.get("tokens_per_sec"),
+          "controller_ms_per_step": [s["controller_s"] * 1e3
+                                     for s in steps],
+          "max_memory_allocated": int(peak),
+          "counts": counts, "launches": launches,
+          "op_replay": {"step": ADAPT_REPLAY_STEP,
+                        "layers": list(rec_layers),
+                        "calls": len(replay_ops), "rel_l2_max": worst,
+                        "bound": bound, "quantized_differing": q_bad,
+                        "control_wq_dgrad_without_trans_b": control},
+          "resume": {"from_step": ADAPT_RESUME_AT, "restore_s": resume_s,
+                     "rows_resumed": got, "rows_uninterrupted": want,
+                     "tensors_differing": differing,
+                     "controller_state_equal": ctl_equal}})
+    if failures:
+        raise AssertionError("train_adaptive phase: "
+                             + "; ".join(failures[:12]))
+    edited = next(s["plan"] for s in steps
+                  if s["step"] == ADAPT_REPLAY_STEP)
+    profile_train_step(torch, trainer._step_fn(edited, True), state,
+                       trainer._batch(pipeline, 0), card,
+                       phase="train_adaptive_profile",
+                       plan=edited.name + " with telemetry")
+    return launches
+
+
 def phase_train_large(torch, card):
     """Train llama-1b at full published width and depth (see the module
     docstring): remat, first_last_k, 4 x 2048 tokens.  Gate the run;
@@ -1898,19 +2438,24 @@ def main() -> int:
     train_launches, paper_p50_ms = phase_train(torch, card)
     tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as cal_dir:
+        cal_path = phase_speed_factors(torch, card, cal_dir)
+        adaptive_launches = phase_train_adaptive(torch, card, cal_path)
+    torch.cuda.empty_cache()
     large_launches = phase_train_large(torch, card)
     block_launches = phase_blockwise(torch, card)
-    emit({"launches": {"serve": serve_launches, "train": train_launches,
-                       "train_telemetry": tel_launches,
-                       "train_large": large_launches,
-                       "blockwise": block_launches},
-          "seconds": time.perf_counter() - t0})
+    by_path = {"serve": serve_launches, "train": train_launches,
+               "train_telemetry": tel_launches,
+               "train_adaptive": adaptive_launches,
+               "train_large": large_launches, "blockwise": block_launches}
+    emit({"launches": by_path, "seconds": time.perf_counter() - t0})
 
     # One record per kernel: launches from the path that runs it (this
-    # slice's llama-1b train path; quantize_blockwise's own entry point),
-    # the call that the row stands for (its first forward use at the
-    # gpt2-125m training shapes).
-    launches = {**large_launches, **block_launches}
+    # slice's adaptive gpt2-125m train path; quantize_blockwise's own
+    # entry point; every path's in "launches_by_path"), the call that the
+    # row stands for (its first forward use at the gpt2-125m training
+    # shapes).
+    launches = {**adaptive_launches, **block_launches}
     main_role = {"qmm_stream": "fwd w_up", "quantize_rows": "fwd wq lhs",
                  "tiled_mm": "fwd wq", "flash_attention": "fwd",
                  "quantize_blockwise": "tile"}
@@ -1929,6 +2474,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source.format(name),
             "replaces": replaces[name], "launches": launches[name],
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in by_path.items() if name in counts},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -6,7 +6,8 @@ import dataclasses
 import importlib
 from typing import List, Optional, Tuple
 
-__all__ = ["ModelConfig", "LayerSpec", "TrainConfig", "get_config"]
+__all__ = ["ModelConfig", "LayerSpec", "ControllerSettings",
+           "TrainConfig", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,17 +81,72 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ControllerSettings:
+    """Adaptive-precision controller thresholds (telemetry.controller).
+
+    All decision rules are opt-in: a threshold of 0.0 disables that rule, so
+    the default ``ControllerSettings()`` reproduces the static §3.3 schedule.
+    """
+
+    # Dynamic target-precision switch: switch to the stage-2 recipe when the
+    # EMA of the forward quant relative error crosses this value (OR at the
+    # schedule's fixed fraction, whichever comes first).  0 = fraction only.
+    switch_error_threshold: float = 0.0
+    error_ema_decay: float = 0.9
+    # Per-(layer, class) demotion: sustained overflow (clip rate) above the
+    # threshold for ``demote_patience`` consecutive steps promotes that one
+    # plan cell to FP8 (a ``PrecisionPlan.promote`` transform — one noisy
+    # layer no longer demotes the whole class).  0 = disabled.
+    demote_overflow_threshold: float = 0.0
+    demote_patience: int = 8
+    # Loss-spike rollback: loss > spike_factor * EMA(loss) triggers a restore
+    # of the last checkpoint + ``replay_steps`` steps at the target (high)
+    # precision before FP4 resumes.  0 = disabled.
+    spike_factor: float = 0.0
+    loss_ema_decay: float = 0.9
+    spike_warmup: int = 20       # steps of EMA warmup before spikes arm
+    replay_steps: int = 5
+    max_rollbacks: int = 2
+    # Controller-driven LR backoff: each rollback multiplies the LR scale by
+    # ``lr_backoff`` (e.g. 0.5); the scale then recovers geometrically to
+    # 1.0 over ~``lr_recovery_steps`` clean steps.  The scale is a traced
+    # scalar input of the step graph (no recompile) and persists in the
+    # controller's checkpoint state.  0 = disabled.
+    lr_backoff: float = 0.0
+    lr_recovery_steps: int = 50
+    # Telemetry-driven plan search (telemetry.controller.PlanSearcher):
+    # every ``plan_search_every`` steps the searcher finalizes a measured
+    # (cost, quant-error) frontier point for the running plan and applies
+    # one greedy edit — promote the worst-error (layer, class) cell to FP8,
+    # or, when the cost budget is exhausted, demote the healthiest cell's
+    # wgrad roles to FP4 (``PrecisionPlan.demote``, the asymmetric
+    # role-subset transform; dgrad is never demoted).  Search runs in
+    # stage 1 only and its state (per-cell error EMAs, applied edits,
+    # frontier) persists in the controller checkpoint state, so resume is
+    # bit-exact.  Requires ``TrainConfig.telemetry``.
+    plan_search: bool = False
+    plan_search_every: int = 10       # steps between search moves
+    plan_search_cost_budget: float = 0.0   # max plan_cost (1.0 = BF16
+    #                                        baseline); 0 = unbounded
+    plan_search_max_edits: int = 8    # total edits before the search stops
+    plan_search_demote_threshold: float = 0.0  # demote cells whose error
+    #                                    EMA is below this; 0 = never demote
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Field-for-field the reference ``TrainConfig``.  The port's
     ``Trainer`` runs one device with AdamW or Adafactor, the plan presets
     (``plan_preset``, ``plan_k``, ``plan_frac``), the §3.3 switch,
     checkpoints and resume (``checkpoint_every``, ``checkpoint_dir``,
     ``keep_checkpoints``, ``async_checkpoint``), quantization telemetry
-    (``telemetry``, ``telemetry_every``, ``telemetry_jsonl``) and the step
-    timer (``profiler_warmup``); it raises ``NotImplementedError`` for
-    every field of a feature it does not have yet (the controller, fp8
-    gradient compression, meshes, cost calibration) rather than ignore
-    it."""
+    (``telemetry``, ``telemetry_every``, ``telemetry_jsonl``), the step
+    timer (``profiler_warmup``), the adaptive precision controller
+    (``controller``, a ``ControllerSettings``) and its measured cost
+    calibration (``cost_calibration``, a ``speed_factors.v1`` JSON path);
+    it raises ``NotImplementedError`` for the fields of the features it
+    does not have yet (fp8 gradient compression, meshes) rather than
+    ignore them."""
 
     recipe: str = "paper_fp4"
     total_steps: int = 200
@@ -119,7 +175,7 @@ class TrainConfig:
     telemetry_every: int = 1
     telemetry_jsonl: str = ""
     target_recipe: str = "bf16"      # stage-2 recipe of the §3.3 schedule
-    controller: Optional[object] = None
+    controller: Optional[ControllerSettings] = None  # adaptive controller
     plan_preset: str = "uniform"
     plan_k: int = 2
     plan_frac: float = 0.5

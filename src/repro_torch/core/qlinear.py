@@ -37,6 +37,15 @@ Telemetry (``telemetry.collect``): with a collector installed, each
 quantized linear records its forward-side operand stats (under
 ``"pallas"`` the fwd_x / fwd_w slots come from the kernels' stats
 epilogue, ``pallas_qmatmul_stats``) and wraps its output in ``grad_tap``.
+
+Routing census (``core.routing``): with a log installed, each matmul role
+records its route where the reference's does (``dot`` for a passthrough
+recipe, ``packed_dot`` for a passthrough serving activation, ``qdq`` /
+``qdq_fallback`` in ``dot_qdq``, ``pallas`` in ``kernels.ops.pallas_qmm``).
+``_QMatmul`` keeps the forward's log and (layer, class) cell in its
+context and records its backward roles into that log: autograd runs a
+CUDA backward on its own thread, out of the forward's thread-local
+scopes.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.quantize import BF16_SPEC, QuantSpec, qdq
 from repro_torch.core.recipe import MatmulRecipe
@@ -69,12 +79,30 @@ def _generator(spec: QuantSpec, salt: int, which: int, device):
     return g
 
 
+def _census():
+    """``(log, (layer, class))`` of the routing census installed here, or
+    None (the common case: one check)."""
+    log = routing.active()
+    if log is None:
+        return None
+    return log, (routing.current_layer(), routing.current_class())
+
+
 def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             spec_b: QuantSpec, *, trans_a: bool = False,
-            trans_b: bool = False, salt: int = 0) -> torch.Tensor:
+            trans_b: bool = False, salt: int = 0,
+            role: Optional[str] = None, route: str = "qdq",
+            reasons=(), census=None) -> torch.Tensor:
     """QDQ both operands of ``A' @ B'`` (``A' = a.T`` under ``trans_a``,
     same for B'; reduction axes 1 and 0), then the matmul in the input
-    dtype; ``salt`` seeds a stochastic spec's noise."""
+    dtype; ``salt`` seeds a stochastic spec's noise.  With a ``census``
+    (``_census()``) and a ``role`` the call records one ``route`` event
+    (``qdq``, or ``qdq_fallback`` with its ``reasons``)."""
+    if census is not None and role is not None:
+        routing.record(role, route, spec_a.to_str(), spec_b.to_str(),
+                       reasons=reasons, sr_a=spec_a.stochastic,
+                       sr_b=spec_b.stochastic, cell=census[1],
+                       log=census[0])
     return torch.matmul(
         qdq(a.T if trans_a else a, spec_a, 1,
             generator=_generator(spec_a, salt, 0, a.device)),
@@ -113,19 +141,25 @@ def kernel_quant_mode(spec: QuantSpec) -> Optional[str]:
 def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, trans_a: bool = False,
                trans_b: bool = False, salt: int = 0,
-               pipeline: Optional[str] = None, collect_stats: bool = False):
+               pipeline: Optional[str] = None, collect_stats: bool = False,
+               role: Optional[str] = None, census=None):
     """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
     operands read in their stored layout; with ``collect_stats`` returns
     ``(y, (stats_a, stats_b))``.  A spec they cannot realize raises on a
-    CUDA tensor and takes ``dot_qdq`` on a CPU tensor (no stats)."""
+    CUDA tensor and takes ``dot_qdq`` on a CPU tensor (no stats; the
+    census records it as ``qdq_fallback``)."""
     mode_a, mode_b = kernel_quant_mode(spec_a), kernel_quant_mode(spec_b)
     if mode_a is None or mode_b is None:
+        reasons = tuple(f"{operand}: {why}" for operand, spec in
+                        (("lhs", spec_a), ("rhs", spec_b))
+                        for why in (kernel_unsupported_reason(spec),)
+                        if why is not None)
         if a.device.type == "cpu":
             y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                        trans_b=trans_b, salt=salt)
+                        trans_b=trans_b, salt=salt, role=role,
+                        route="qdq_fallback", reasons=reasons,
+                        census=census)
             return (y, (None, None)) if collect_stats else y
-        reasons = [r for r in (kernel_unsupported_reason(spec_a),
-                               kernel_unsupported_reason(spec_b)) if r]
         raise NotImplementedError(
             f"the CUDA kernels cannot run {spec_a.to_str()} x "
             f"{spec_b.to_str()}: {'; '.join(reasons)}")
@@ -133,7 +167,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     return pallas_qmm(a, b, spec_a, spec_b, mode_a=mode_a, mode_b=mode_b,
                       trans_a=trans_a, trans_b=trans_b, key_data=ZERO_KEY,
                       salt=salt, pipeline=pipeline,
-                      collect_stats=collect_stats)
+                      collect_stats=collect_stats, role=role, census=census)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -153,13 +187,19 @@ def packed_linear(x: torch.Tensor, w: PackedTensor, recipe: MatmulRecipe,
     w_dq = w.dequantize().to(x.dtype)
     spec_x = recipe.fwd_x
     x2d = x.reshape(-1, k)
+    census = _census()
     if spec_x.is_passthrough:
+        if census is not None:
+            routing.record("fwd", "packed_dot", spec_x.to_str(),
+                           recipe.fwd_w.to_str())
         y = torch.matmul(x2d, w_dq)
     elif impl == "qdq":
-        y = dot_qdq(x2d, w_dq, spec_x, BF16_SPEC)
+        y = dot_qdq(x2d, w_dq, spec_x, BF16_SPEC, role="fwd",
+                    census=census)
     else:
         y = _dot_fused(x2d.contiguous(), w_dq.contiguous(), spec_x,
-                       BF16_SPEC, pipeline=pipeline)
+                       BF16_SPEC, pipeline=pipeline, role="fwd",
+                       census=census)
     y = y.reshape(*x.shape[:-1], w_dq.shape[-1])
     if bias is not None:
         y = y + bias
@@ -168,29 +208,33 @@ def packed_linear(x: torch.Tensor, w: PackedTensor, recipe: MatmulRecipe,
 
 def _role(impl: str, a, b, spec_a: QuantSpec, spec_b: QuantSpec, *,
           trans_a: bool = False, trans_b: bool = False, salt: int = 0,
-          collect_stats: bool = False):
+          collect_stats: bool = False, role: Optional[str] = None,
+          census=None):
     """One matmul role under ``impl`` (stored operands, trans flags; the
-    SR salt of the role); stats only under the fused impls."""
+    SR salt of the role); stats only under the fused impls.  ``role``
+    (fwd | dgrad | wgrad) and ``census`` feed the routing census."""
     if impl == "qdq":
         return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                       trans_b=trans_b, salt=salt)
+                       trans_b=trans_b, salt=salt, role=role, census=census)
     return _dot_fused(a, b, spec_a, spec_b, trans_a=trans_a,
                       trans_b=trans_b, salt=salt, pipeline=_check_impl(impl),
-                      collect_stats=collect_stats)
+                      collect_stats=collect_stats, role=role, census=census)
 
 
 class _QMatmul(torch.autograd.Function):
     """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE).  With
     ``collect_stats`` the forward also returns its quantized operands'
-    stats vectors (no gradient; None for a pass operand)."""
+    stats vectors (no gradient; None for a pass operand).  The forward
+    keeps the routing census of its thread and cell for the backward."""
 
     @staticmethod
     def forward(ctx, x, w, recipe: MatmulRecipe, impl: str,
                 collect_stats: bool):
         ctx.save_for_backward(x, w)
-        ctx.recipe, ctx.impl = recipe, impl
+        ctx.recipe, ctx.impl, ctx.census = recipe, impl, _census()
         out = _role(impl, x, w, recipe.fwd_x, recipe.fwd_w, salt=0,
-                    collect_stats=collect_stats)
+                    collect_stats=collect_stats, role="fwd",
+                    census=ctx.census)
         if not collect_stats:
             return out
         y, stats = out
@@ -205,11 +249,11 @@ class _QMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
             dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w, trans_b=True,
-                       salt=2).to(x.dtype)
+                       salt=2, role="dgrad", census=ctx.census).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
             dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g, trans_a=True,
-                       salt=4).to(w.dtype)
+                       salt=4, role="wgrad", census=ctx.census).to(w.dtype)
         return dx, dw, None, None, None
 
 
@@ -252,6 +296,9 @@ def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
     if recipe.is_passthrough:
+        if routing.active() is not None:
+            routing.record("fwd", "dot", recipe.fwd_x.to_str(),
+                           recipe.fwd_w.to_str())
         y = torch.matmul(x2d, w)
     else:
         # Telemetry taps (no-ops without a collector).  Under "pallas" the

@@ -1,21 +1,44 @@
-"""Layer and plan-class attribution scopes (the scope stack of
+"""Routing census and the layer / plan-class scopes (counterpart of
 ``repro.core.routing``).
+
+Every matmul role of the model goes through one of a small set of
+routes: the fused kernels (``pallas``, the reference's name for them;
+here the CUDA kernels), the QDQ simulation (``qdq``), a QDQ fallback from
+a fused impl that cannot realize a spec (``qdq_fallback``, only on CPU
+tensors: on the card the port raises instead), a plain matmul for a
+passthrough recipe (``dot``) and the serving panel matmul
+(``packed_dot``).  ``capture()`` installs a :class:`RoutingLog`; while it
+is active, ``core.qlinear`` and ``kernels.ops`` append one
+:class:`RouteEvent` per matmul-role routing decision, tagged with the
+layer label (``"L3"``: the port loops over layers, so labels are always
+the reference's unrolled form) and the plan class.
 
 ``models.stack`` opens a ``layer_scope`` per layer and
 ``telemetry.collect.module_scope`` a ``class_scope`` per sublayer, so
-code inside can ask which (layer, plan class) it runs for
-(``current_cell``).  The reference's route census on top of these scopes
-(``RoutingLog``, ``capture``, ``record``) belongs to the qlint auditor and
-is not ported yet.
+code inside can ask which (layer, plan class) it runs for.  The scopes
+and the log are thread-local, and a CUDA backward runs on autograd's own
+thread: ``qlinear``'s autograd Function keeps the log and the cell of its
+forward (``active`` / ``current_cell``) and records its backward roles
+into that log (``record(..., log=...)``), as the reference threads the
+cell through its custom VJP.  A rematerialized forward re-installs the
+log of the original forward (``replaying``).  Raw event counts repeat
+(the recompute records again); consumers dedupe by
+:meth:`RouteEvent.cell`, which :meth:`RoutingLog.cells` does.
+
+An inactive census costs one ``is None`` check per matmul and never
+touches a tensor.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import threading
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-__all__ = ["layer_scope", "class_scope", "plan_class_for_module",
-           "current_layer", "current_class", "current_cell"]
+__all__ = ["RouteEvent", "RoutingLog", "capture", "active", "record",
+           "replaying", "layer_scope", "class_scope",
+           "plan_class_for_module", "current_layer", "current_class",
+           "current_cell"]
 
 # Telemetry module scopes -> plan class: attention and cross-attention use
 # the plan's attn_linear cell, ssm / ffn / moe its ffn_linear, the LM head
@@ -32,6 +55,75 @@ def plan_class_for_module(module: str) -> Optional[str]:
     return _MODULE_TO_CLASS.get(module)
 
 
+@dataclasses.dataclass(frozen=True)
+class RouteEvent:
+    """One matmul-role routing decision.
+
+    ``layer`` is ``"L<i>"`` (None outside the stack, e.g. the lm-head),
+    ``cls`` the plan class, ``role`` fwd | dgrad | wgrad.  ``route``:
+    ``pallas`` (the fused kernels; ``mode_a`` / ``mode_b`` / ``pipeline``
+    say how each operand is quantized in-kernel), ``qdq``,
+    ``qdq_fallback`` (``reasons``: one structured string per
+    unrealizable operand), ``dot`` or ``packed_dot``.  ``sr_a`` /
+    ``sr_b``: stochastic rounding actually armed for that operand (the
+    spec says ``:sr`` and key material reached the call).
+    """
+    layer: Optional[str]
+    cls: Optional[str]
+    role: str                      # fwd | dgrad | wgrad
+    route: str
+    spec_a: str
+    spec_b: str
+    mode_a: Optional[str] = None
+    mode_b: Optional[str] = None
+    pipeline: Optional[str] = None
+    sr_a: bool = False
+    sr_b: bool = False
+    reasons: Tuple[str, ...] = ()
+
+    def cell(self) -> Tuple:
+        """Dedupe identity: independent of call order and repeats."""
+        return (self.layer, self.cls, self.role, self.route,
+                self.spec_a, self.spec_b, self.mode_a, self.mode_b,
+                self.pipeline, self.sr_a, self.sr_b, self.reasons)
+
+    def to_dict(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["reasons"] = list(self.reasons)
+        return d
+
+
+class RoutingLog:
+    """Accumulates :class:`RouteEvent`s for one captured run."""
+
+    def __init__(self) -> None:
+        self.events: List[RouteEvent] = []
+
+    def add(self, ev: RouteEvent) -> None:
+        self.events.append(ev)
+
+    def cells(self) -> List[RouteEvent]:
+        """Events deduped by :meth:`RouteEvent.cell`, in first-seen order:
+        the stable census (a recompute re-emits identical events)."""
+        seen = {}
+        for ev in self.events:
+            seen.setdefault(ev.cell(), ev)
+        return list(seen.values())
+
+    def fallbacks(self) -> List[RouteEvent]:
+        return [ev for ev in self.cells() if ev.route == "qdq_fallback"]
+
+    def to_dict(self) -> Dict:
+        return {"cells": [ev.to_dict() for ev in self.cells()],
+                "n_raw_events": len(self.events)}
+
+
+def active() -> Optional[RoutingLog]:
+    """The installed RoutingLog of this thread, or None (the common
+    case)."""
+    return getattr(_STATE, "log", None)
+
+
 def current_layer() -> Optional[str]:
     return getattr(_STATE, "layer", None)
 
@@ -40,8 +132,12 @@ def current_class() -> Optional[str]:
     return getattr(_STATE, "cls", None)
 
 
-def current_cell() -> Tuple[Optional[str], Optional[str]]:
-    """The (layer label, plan class) at this point of the forward."""
+def current_cell() -> Optional[Tuple[Optional[str], Optional[str]]]:
+    """The (layer, class) attribution here, or None when no census is
+    running.  Captured by ``qlinear`` in the forward, in scope, for the
+    events its backward records."""
+    if active() is None:
+        return None
     return (current_layer(), current_class())
 
 
@@ -55,6 +151,22 @@ def _scoped(attr: str, value):
         setattr(_STATE, attr, prev)
 
 
+@contextlib.contextmanager
+def capture():
+    """Install a fresh RoutingLog (yielded) for the code inside."""
+    log = RoutingLog()
+    with _scoped("log", log):
+        yield log
+
+
+def replaying(log: Optional[RoutingLog]):
+    """Re-install ``log`` (``active()`` of an original forward) for its
+    rematerialization, which autograd may run on another thread."""
+    if log is None:
+        return contextlib.nullcontext()
+    return _scoped("log", log)
+
+
 def layer_scope(label: Optional[str]):
     """Static layer label (``"L3"``) for the code inside."""
     if label is None:
@@ -65,3 +177,25 @@ def layer_scope(label: Optional[str]):
 def class_scope(module: str):
     """Plan-class attribution from a telemetry module scope name."""
     return _scoped("cls", plan_class_for_module(module) or current_class())
+
+
+def record(role: str, route: str, spec_a, spec_b, *,
+           mode_a: Optional[str] = None, mode_b: Optional[str] = None,
+           pipeline: Optional[str] = None,
+           sr_a: bool = False, sr_b: bool = False,
+           reasons: Tuple[str, ...] = (),
+           cell: Optional[Tuple[Optional[str], Optional[str]]] = None,
+           log: Optional[RoutingLog] = None) -> None:
+    """Append a routing decision to ``log`` (default: this thread's
+    installed log; no-op when there is none).  ``cell`` overrides the
+    ambient (layer, class) attribution: required for events of a
+    backward, which runs out of the forward's scopes."""
+    log = log if log is not None else active()
+    if log is None:
+        return
+    layer, cls = cell if cell is not None else (current_layer(),
+                                                current_class())
+    log.add(RouteEvent(
+        layer=layer, cls=cls, role=role, route=route,
+        spec_a=str(spec_a), spec_b=str(spec_b), mode_a=mode_a, mode_b=mode_b,
+        pipeline=pipeline, sr_a=sr_a, sr_b=sr_b, reasons=tuple(reasons)))

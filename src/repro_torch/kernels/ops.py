@@ -16,10 +16,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.kernels.fp4_matmul import fused_qmm
+from repro_torch.kernels.fp4_matmul import fused_qmm, resolve_pipeline
 from repro_torch.kernels.rounding import fold_seed
 
 __all__ = ["pallas_qmm", "fp4_matmul", "quantize_blockwise",
@@ -44,7 +45,8 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                trans_a: bool = False, trans_b: bool = False,
                key_data=None, salt: int = 0,
                pipeline: Optional[str] = None,
-               collect_stats: bool = False):
+               collect_stats: bool = False,
+               role: Optional[str] = None, census=None):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
     name is the reference's; here it runs the CUDA kernels.
@@ -53,9 +55,21 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     ``key_data`` (raw uint32[2] key material) and ``salt`` (0 fwd, 2
     dgrad, 4 wgrad), operand index 0 for A and 1 for B.  With
     ``collect_stats`` returns ``(y, (stats_a, stats_b))``, raw stats
-    vectors (``fp4_matmul.finalize_quant_stats`` reduces them)."""
+    vectors (``fp4_matmul.finalize_quant_stats`` reduces them).
+
+    ``census`` (``(log, (layer, class))`` from ``core.qlinear``) records
+    the call as a ``pallas`` route event of ``role`` in that log, with
+    the modes, the pipeline it resolves to and the SR it arms."""
     a_sr = spec_a.stochastic and mode_a != "pass"
     b_sr = spec_b.stochastic and mode_b != "pass"
+    if census is not None:
+        routing.record(
+            role or "?", "pallas", spec_a.to_str(), spec_b.to_str(),
+            mode_a=mode_a, mode_b=mode_b,
+            pipeline=resolve_pipeline(pipeline, mode_a, mode_b),
+            sr_a=a_sr and key_data is not None,
+            sr_b=b_sr and key_data is not None, cell=census[1],
+            log=census[0])
     if (a_sr or b_sr) and key_data is None:
         raise ValueError("a stochastic spec needs key_data")
     return fused_qmm(

@@ -14,6 +14,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -78,9 +79,13 @@ class Model:
     # -- embedding / head ------------------------------------------------
 
     def _embed(self, params, tokens, positions):
-        x = params["embed"][tokens].to(self.dtype)
+        # F.embedding, not indexing: its CPU backward sums each row's
+        # gradients in one fixed order, where indexing's (index_put_ with
+        # accumulate) adds them in parallel in any order, so two runs of
+        # the same step would differ in the embedding's last bits
+        x = F.embedding(tokens, params["embed"]).to(self.dtype)
         if self.cfg.pos_emb == "learned":
-            pe = params["pos_embed"][positions].to(self.dtype)
+            pe = F.embedding(positions, params["pos_embed"]).to(self.dtype)
             x = x + (pe if positions.dim() == tokens.dim() else pe[None])
         return x
 

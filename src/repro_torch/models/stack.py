@@ -117,8 +117,9 @@ def _run_layer(params, cfg: ModelConfig, row: LayerRecipe, x, *,
 def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``fn(x, aux_ok)`` under ``cfg``'s remat policy: called once with
     ``aux_ok=True`` (the forward), and, when checkpointed, again in the
-    backward with ``aux_ok=False``, its launches counted as recompute and
-    its taps replaying the forward's telemetry state."""
+    backward with ``aux_ok=False``, its launches counted as recompute, its
+    taps replaying the forward's telemetry state and its matmuls recording
+    into the forward's routing census."""
     if not cfg.remat or cfg.remat_policy == "none" or \
             not torch.is_grad_enabled():
         return fn(x, True)
@@ -128,14 +129,15 @@ def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             "checkpoint policy sees the port's quantized matmul kernels")
     if cfg.remat_policy != "full":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
-    tel = telemetry.snapshot()
+    tel, census = telemetry.snapshot(), routing.active()
     calls = []
 
     def run(x_):
         if not calls:
             calls.append(1)
             return fn(x_, True)
-        with recomputing(), telemetry.replaying(tel):
+        with recomputing(), telemetry.replaying(tel), \
+                routing.replaying(census):
             return fn(x_, False)
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 

@@ -1,4 +1,7 @@
 """Quantization telemetry (counterpart of ``repro.telemetry``):
-``collect`` (the taps, probes and metrics), ``writer`` (the JSONL log)
-and ``profiler`` (step timing, phase spans, MFU).  The adaptive
-precision controller is not ported yet."""
+``collect`` (the taps, probes and metrics), ``writer`` (the JSONL log),
+``profiler`` (step timing, phase spans, MFU) and ``controller`` (the
+adaptive precision controller and plan searcher that act on the rows)."""
+from repro_torch.telemetry.controller import PlanSearcher, PrecisionController
+
+__all__ = ["PlanSearcher", "PrecisionController"]

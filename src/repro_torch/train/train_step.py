@@ -77,7 +77,8 @@ def _grads(model: Model, plan, params, batch, collector=None):
 
 def make_train_step(model: Model, tcfg: TrainConfig, plan):
     """Returns ``train_step(params, opt_state, batch, step, lr_scale=1.0)
-    -> (params, opt_state, metrics)``.  ``batch`` holds int32 tensors on
+    -> (params, opt_state, metrics)``; the scheduled LR times ``lr_scale``
+    (the controller's backoff), both f32.  ``batch`` holds int32 tensors on
     the model's device; ``params`` (f32 masters) and ``opt_state`` are
     updated in place and returned.  Metrics: ``loss``, ``tokens``,
     ``total_loss`` (and ``z_loss`` when set), ``grad_norm``, ``lr``, as
@@ -130,7 +131,9 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan):
         if collector is not None:
             metrics.update(telemetry.grad_norm_metrics(grads))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
-        lr = lr_fn(step) * lr_scale
+        # the scale enters in f32, as the reference's traced scalar: a
+        # backed-off LR equals the reference's bit for bit
+        lr = lr_fn(step) * torch.tensor(lr_scale, dtype=torch.float32)
         with phase_span("optim"):
             params, opt_state = opt.update(grads, opt_state, params, lr)
         metrics = dict(metrics)

@@ -27,12 +27,24 @@ or the reference's; the plan is re-derived from the restored step, so a
 run resumed across the §3.3 switch continues on the right plan and, the
 batches being a function of the step, bit for bit.
 
+Adaptive precision (``TrainConfig.controller``, a ``ControllerSettings``):
+the telemetry-driven ``PrecisionController`` picks each step's plan
+(``_active_plan``: dynamic early switch, per-(layer, class) demotion and,
+with ``plan_search``, the greedy cost-vs-quant-error searcher priced on
+the model's ``ModelDims``, by the measured speed factors of
+``TrainConfig.cost_calibration`` when set), scales the step's LR
+(``lr_scale``, backed off on a rollback) and can ask for a loss-spike
+rollback: restore the newest checkpoint and replay at the target
+precision (``_apply_controller_events``).  Its state rides in the
+checkpoint's ``extra["controller"]``, the reference's keys, so a resume
+re-derives the plan across a demotion, a search edit or a replay window
+too.
+
 Features of the reference's trainer that the port does not have yet —
-the adaptive controller, fp8 gradient compression, meshes and cost
-calibration — raise ``NotImplementedError`` when their ``TrainConfig``
-field is set.  ``ModelConfig.remat`` is honoured in ``models.stack``;
-``scan_layers`` changes no numbers (the port loops over layers either
-way).
+fp8 gradient compression and meshes — raise ``NotImplementedError`` when
+their ``TrainConfig`` field is set.  ``ModelConfig.remat`` is honoured
+in ``models.stack``; ``scan_layers`` changes no numbers (the port loops
+over layers either way).
 """
 from __future__ import annotations
 
@@ -45,10 +57,11 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
-from repro_torch.core.cost_model import ModelDims
+from repro_torch.core.cost_model import CostCalibration, ModelDims
 from repro_torch.core.recipe import RECIPES, PrecisionPlan
 from repro_torch.core.schedule import TargetPrecisionSchedule
 from repro_torch.models.model import Model
+from repro_torch.telemetry.controller import PrecisionController
 from repro_torch.telemetry.profiler import (StepTimer, device_peak_flops,
                                             phase_span, train_step_flops)
 from repro_torch.telemetry.writer import AsyncJsonlWriter
@@ -62,10 +75,8 @@ _DEFAULTS = TrainConfig()
 # field -> the reference feature it turns on, for the fields the port
 # refuses when they differ from their default
 _UNPORTED = {
-    "controller": "the adaptive precision controller",
     "grad_compression": "fp8 gradient compression",
     "mesh_shape": "mesh-native training",
-    "cost_calibration": "measured cost calibration",
 }
 
 
@@ -135,8 +146,18 @@ class Trainer:
             self.ckpt = CheckpointManager(tcfg.checkpoint_dir,
                                           keep=tcfg.keep_checkpoints,
                                           async_save=tcfg.async_checkpoint)
-        # layer-resolved flops for the MFU of step_time_summary()
+        # layer-resolved flops: the plan searcher's pricing and the MFU of
+        # step_time_summary()
         self.dims = ModelDims.from_config(model.cfg, seq_len=tcfg.seq_len)
+        # measured speed factors (a speed_factors.v1 JSON); None keeps the
+        # paper's theoretical factors
+        self.calibration: Optional[CostCalibration] = (
+            CostCalibration.from_json(tcfg.cost_calibration)
+            if tcfg.cost_calibration else None)
+        self.controller: Optional[PrecisionController] = (
+            PrecisionController(self.schedule, tcfg.controller,
+                                dims=self.dims, calibration=self.calibration)
+            if tcfg.controller is not None else None)
         self.timer = StepTimer(warmup=tcfg.profiler_warmup)
         # rows and events go through a bounded queue to a writer thread,
         # so disk latency never lands in a step
@@ -175,8 +196,9 @@ class Trainer:
 
     def resume(self) -> Optional[TrainState]:
         """The newest complete checkpoint as a state on the model's device
-        (None if there is none); its step picks the plan, as in the
-        reference."""
+        (None if there is none), in fresh tensors; its step and the
+        controller state it carries (loaded into ``self.controller``) pick
+        the plan, as in the reference."""
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return None
         meta = torch.device("meta")
@@ -187,20 +209,24 @@ class Trainer:
                                             self.tcfg).init(params),
                 "comp_state": torch.zeros((), device=meta)}
         restored, extra = self.ckpt.restore(like, device=self.model.device)
+        if self.controller is not None and "controller" in extra:
+            self.controller.load_state(extra["controller"])
         return TrainState(restored["params"], restored["opt_state"],
                           int(extra["step"]))
 
     def save(self, state: TrainState) -> None:
-        """Checkpoint ``state`` (no-op without a checkpoint directory); the
-        active plan's table rides along in the manifest, as in the
-        reference, for forensics: ``resume`` re-derives it from the
-        step."""
+        """Checkpoint ``state`` (no-op without a checkpoint directory) with
+        the controller's state; the active plan's table rides along in the
+        manifest, as in the reference, for forensics: ``resume``
+        re-derives it from the step and the controller state."""
         if self.ckpt is None:
             return
         tree = {"params": state.params, "opt_state": state.opt_state,
                 "comp_state": torch.zeros((), dtype=torch.float32)}
         extra = {"recipe": self.recipe.name,
-                 "plan": self.schedule.plan_at(state.step).to_dict()}
+                 "plan": self._active_plan(state.step).to_dict()}
+        if self.controller is not None:
+            extra["controller"] = self.controller.state_dict()
         self.ckpt.save(state.step, tree, extra=extra)
 
     def _step_fn(self, plan: PrecisionPlan,
@@ -229,8 +255,9 @@ class Trainer:
         dev = self.model.device
         while state.step < end:
             step = state.step
-            plan = self.schedule.plan_at(step)
-            if self.schedule.is_switch_boundary(step):
+            plan = self._active_plan(step)
+            if self.controller is None and self.schedule.is_switch_boundary(
+                    step):
                 log(f"[schedule] step {step}: switching to target precision "
                     f"({self.schedule.target_plan.name})")
             # telemetry sampling: every N-th step runs the instrumented
@@ -241,20 +268,30 @@ class Trainer:
             fn = self._step_fn(plan, telemetry=tel_on)
             with phase_span("data"):
                 batch = self._batch(self.pipeline, step)
+            lr_scale = (self.controller.lr_scale
+                        if self.controller is not None else 1.0)
             # the measured step ends in a device sync, so dt is the device
             # step time and not only the host's dispatch
             with phase_span("step"):
                 _sync(dev)
                 t0 = time.perf_counter()
                 params, opt_state, metrics = fn(state.params,
-                                                state.opt_state, batch, step)
+                                                state.opt_state, batch, step,
+                                                lr_scale)
                 _sync(dev)
                 dt = time.perf_counter() - t0
             self.timer.record(dt)
             straggler = self.monitor.record(step, dt)
             state = TrainState(params, opt_state, step + 1)
             with phase_span("host"):
-                self._record(step, plan, metrics, dt, straggler, log)
+                row = self._record(step, plan, metrics, dt, straggler, log)
+                # the controller first: a rollback must restore a checkpoint
+                # from before the spiked update, so the boundary save comes
+                # after the row was judged (or after the restore, keeping
+                # the armed replay window)
+                if self.controller is not None:
+                    state = self._apply_controller_events(
+                        state, self.controller.observe(step, row), log)
                 if (self.ckpt is not None and self.tcfg.checkpoint_every
                         and (step + 1) % self.tcfg.checkpoint_every == 0):
                     self.save(state)
@@ -264,9 +301,10 @@ class Trainer:
             self.writer.flush()   # the log is complete once train() returns
         return state
 
-    def _record(self, step, plan, metrics, dt, straggler, log) -> None:
+    def _record(self, step, plan, metrics, dt, straggler,
+                log) -> Dict[str, Any]:
         """The step's history row (its metrics read in one device-to-host
-        copy), the JSONL rows and the log lines."""
+        copy; returned), the JSONL rows and the log lines."""
         dev = self.model.device
         tensors = [n for n, v in metrics.items()
                    if isinstance(v, torch.Tensor)]
@@ -293,6 +331,66 @@ class Trainer:
             log(f"step {step:5d} loss {row['loss']:.4f} "
                 f"gnorm {row['grad_norm']:.3f} lr {row['lr']:.2e} "
                 f"[{plan.name}] {dt * 1000:.0f}ms")
+        return row
+
+    def _active_plan(self, step: int) -> PrecisionPlan:
+        """The plan ``step`` runs: the controller's choice, else the §3.3
+        schedule's."""
+        if self.controller is not None:
+            return self.controller.active_plan(step)
+        return self.schedule.plan_at(step)
+
+    def _apply_controller_events(self, state: TrainState, events,
+                                 log: Callable[[str], None]) -> TrainState:
+        """Act on the controller's events (each also goes to the JSONL
+        log).  switch / demote / search edits only change what
+        ``_active_plan`` picks next; a rollback restores the newest
+        checkpoint and arms the replay window at the target precision,
+        keeping the attempt count and the LR backoff the controller has
+        just applied across the state ``resume`` reloads."""
+        ctrl = self.controller
+        for ev in events:
+            if self.writer is not None:
+                self.writer.write(ev)
+            if ev["event"] == "switch":
+                log(f"[controller] step {ev['step']}: quant-error EMA "
+                    f"{ev['error_ema']:.4f} crossed threshold -> early "
+                    f"switch to {ev['to']}")
+            elif ev["event"] == "demote":
+                log(f"[controller] step {ev['step']}: sustained overflow "
+                    f"({ev['overflow']:.4f}) -> demoting "
+                    f"{ev['cell']} to FP8")
+            elif ev["event"] == "frontier_point":
+                log(f"[controller] step {ev['step']}: frontier point "
+                    f"cost {ev['cost']:.3f} / quant-err {ev['error']:.4f} "
+                    f"({ev['plan']})")
+            elif ev["event"] == "plan_search":
+                log(f"[controller] step {ev['step']}: plan search "
+                    f"{ev['op']} {ev['cell']} -> cost {ev['cost']:.3f}")
+            elif ev["event"] == "plan_search_done":
+                log(f"[controller] step {ev['step']}: plan search done "
+                    f"({ev['edits']} edits, "
+                    f"{ev['frontier_size']}-point frontier)")
+            elif ev["event"] == "rollback":
+                attempts, backed_off = ctrl.rollbacks, ctrl.lr_scale
+                restored = self.resume()
+                if restored is None:
+                    log(f"[controller] step {ev['step']}: loss spike "
+                        f"({ev['loss']:.3f} vs ema {ev['loss_ema']:.3f}) "
+                        "but no checkpoint to roll back to")
+                    continue
+                ctrl.rollbacks = max(ctrl.rollbacks, attempts)
+                ctrl.lr_scale = min(ctrl.lr_scale, backed_off)
+                ctrl.begin_replay(restored.step)
+                log(f"[controller] step {ev['step']}: loss spike "
+                    f"({ev['loss']:.3f} vs ema {ev['loss_ema']:.3f}) -> "
+                    f"rollback to step {restored.step}, replaying "
+                    f"{ctrl.cfg.replay_steps} steps at "
+                    f"{self.schedule.target_plan.name}"
+                    + (f", lr_scale {ctrl.lr_scale:.3f}"
+                       if ctrl.cfg.lr_backoff > 0 else ""))
+                state = restored
+        return state
 
     def close(self) -> None:
         """Close the JSONL writer (its rows are on disk after ``train``

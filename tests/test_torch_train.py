@@ -343,14 +343,13 @@ def test_trainer_refuses_unported_features():
     instead of being ignored (telemetry, its JSONL log and the step
     timer's warm-up are ported: test_torch_telemetry; checkpoints, the
     plan presets, remat, ``loss_chunk`` and adafactor: the tests below
-    and test_torch_checkpoint).  ``remat_policy="dots"`` raises: no
+    and test_torch_checkpoint; the controller and its cost calibration:
+    test_torch_controller).  ``remat_policy="dots"`` raises: no
     selective-checkpoint policy sees the port's matmul kernels."""
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
-    for over in (dict(controller=object()),
-                 dict(grad_compression="fp8"), dict(mesh_shape=(1, 1)),
-                 dict(cost_calibration="x.json")):
+    for over in (dict(grad_compression="fp8"), dict(mesh_shape=(1, 1))):
         with pytest.raises(NotImplementedError):
             Trainer(model, TrainConfig(**over), pipe)
     with pytest.raises(ValueError):
@@ -554,3 +553,29 @@ def test_bits_per_param_matches_jax():
         tp = t_pack(torch.from_numpy(w), TSpec.from_str(spec))
         assert tp.nbytes == jp.nbytes
         assert tp.bits_per_param == jp.bits_per_param, spec
+
+
+@pytest.mark.parametrize("arch", ["tiny", "gpt2_125m"])
+def test_embedding_gradient_is_repeatable(arch):
+    """One step's embedding gradients (``tiny``: an untied embedding;
+    gpt2: a tied one and learned positions), four times over: bitwise
+    equal, so CPU training repeats bit for bit.  The lookup is
+    ``F.embedding``, whose CPU backward sums a row's gradients in one
+    order; an indexing lookup's backward (``index_put_`` with accumulate)
+    adds them from several threads in any order."""
+    cfg = importlib.import_module(f"repro_torch.configs.{arch}").REDUCED \
+        .replace(dtype="float32")
+    model = t_build(cfg, "cpu")
+    params = model.init(0)
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, 64, 8, seed=0).batch(0).items()}
+    names = [n for n in ("embed", "pos_embed") if n in params]
+    grads = []
+    for _ in range(4):
+        leaves = {n: params[n].detach().clone().requires_grad_(True)
+                  for n in names}
+        loss, _ = model.loss({**params, **leaves}, batch,
+                             t_recipe.RECIPES["bf16"])
+        grads.append(torch.autograd.grad(loss, list(leaves.values())))
+    for g in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(g, grads[0]))
