@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase slice | --phase serve_swa]
 
-Phases, each printing one line (a failed phase raises: no ok line, exit
+With ``--phase`` it runs the build and that serving phase alone and
+prints no ok line.  Phases, each printing one line (a failed phase raises: no ok line, exit
 code 1):
 
 1. build   — nvcc builds the five CUDA kernels of
@@ -38,15 +39,49 @@ code 1):
    the first 17 and the first 128 rows bit for bit.
 3. slice   — serves gpt2-125m at full width (12 layers, d 768, d_ff 3072,
    vocab 50257; seeded init) through the packed-FP4 ``ContinuousBatcher``
-   (fp8 KV, paper_fp4, linear_impl "pallas"): 8 slots, max_len 1024, 16
-   requests with prompt lengths drawn with seed 0 in [16, 512] and 64 new
-   tokens each.  Checks 2 requests token-exact against the sequential
-   ``generate``, and one request's teacher-forced forward on the card
+   (fp8 KV, paper_fp4, linear_impl "pallas", ``jit=True``: every stage a
+   captured CUDA graph): 8 slots, max_len 1024, 16 requests with prompt
+   lengths drawn with seed 0 in [16, 512] and 64 new tokens each, after
+   an untimed warm-up that captures each stage and each prompt bucket.
+   Prints the captures and replays per stage (gate: the timed run
+   captures nothing) and launches per kernel under replay (gate: every
+   GEMM kernel launched).  The eager engine (``jit=False``) serves the
+   first 4 requests again: its tokens must equal the captured engine's,
+   and its decode p50 is printed beside the captured one.  Checks 2
+   requests token-exact against the sequential ``generate`` (captured),
+   and one request's teacher-forced forward on the card
    against the same port on the CPU, in f32 and bf16: every linear and
    attention call replayed on the CPU on the card's inputs, and the bf16
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
+3b. serve_swa — serves h2o-danube-3-4b at full width and depth (24
+   layers, d 3840, 32 heads and 8 KV heads of 120, d_ff 10240, vocab
+   32000, sliding window 4096; seeded init drawn on the card) through
+   the packed-FP4
+   ``ContinuousBatcher`` (fp8 KV, paper_fp4, linear_impl "pallas",
+   captured insert and decode step, exact-length eager prefill): 4
+   slots, max_len 8192 (a ring of 4096 positions a layer), 8 requests
+   with prompt lengths drawn with seed 0 in [3840, 4096] and 384 new
+   tokens each, so every request decodes past the window.  Prints the
+   decode p50, each exact-length prefill, tokens/s, peak memory, packed
+   bytes a parameter, the KV cache's bytes at max_len 4096 and 8192
+   (gate: equal, and equal to the cache the engine holds) and launches
+   per kernel.  Gates: every request served in full; request 0 token-
+   exact against the sequential ``generate``; a kernel replay: every
+   ``quantize_rows``, ``tiled_mm`` and ``qmm_stream`` call of layers 0
+   and 23 in one exact-length prefill (M = request 0's prompt) and one
+   batched decode step (M = 4) of an eager engine, again through the
+   plain versions on the card on the same inputs (quantize passes
+   bitwise, products within OP_BOUND: K 3840 and 10240, the ragged N =
+   960 of wk / wv, both routes), beside a control that must miss (layer
+   0's first FFN product with its activation unquantized); the ring
+   check: request 0's tokens teacher-forced past the window through an
+   f32 engine
+   (bf16 recipe, packed weights, bf16 KV) within RING_BOUND of the
+   windowed no-cache forward, and the forward with no window (the
+   control) beyond it.  A ``serve_swa_profile`` line splits 5 batched
+   decode steps by kernel.
 4. train   — trains gpt2-125m at full width and depth (seeded init,
    ``SyntheticLM``, global batch 8 x 1024, 8 steps, paper_fp4, linear and
    attention impl "pallas", ``remat=False``: every activation kept; the
@@ -149,8 +184,8 @@ code 1):
 9. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
    ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
    tiles and fp8 rows, each output bitwise against the plain version.
-10. the launch counts of each path's run (every kernel of a path must
-   have run in it) and the ``{"kernels": [...]}`` line (launches from the
+10. the launch counts of each path's run, ``serve_swa``'s among them
+   (every kernel of a path must have run in it) and the ``{"kernels": [...]}`` line (launches from the
    adaptive train path of phase 7, ``quantize_blockwise``'s from phase 9,
    every path's in ``launches_by_path``; times at the gpt2-125m training
    shapes); the card line; the ok line last.
@@ -174,6 +209,7 @@ a result when there is no CUDA device or when the port is not beside
 this script.
 """
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -243,6 +279,33 @@ ADAPT_CONTROLLER = dict(plan_search=True, plan_search_every=2,
                         plan_search_max_edits=3, spike_factor=2.0,
                         replay_steps=2, lr_backoff=0.5, lr_recovery_steps=4)
 ADAPT_REPLAY_STEP = 8     # the op replay's step: the searcher-edited plan
+# The slice phase: the eager engine (jit=False) serves the first
+# SLICE_EAGER requests again beside the captured one.
+SLICE_EAGER = 4
+# The serve_swa phase: h2o-danube-3-4b at full width and depth, 4 slots
+# over a cache of max_len 8192 (a ring of 4096 positions a layer), 8
+# requests of 3840-4096 prompt tokens and 384 new tokens each: every one
+# decodes past the window.
+SWA_SLOTS, SWA_MAX_LEN, SWA_REQUESTS, SWA_NEW = 4, 8192, 8, 384
+SWA_PROMPT = (3840, 4096)
+# The ring check: request 0's tokens teacher-forced through an f32 engine
+# (bf16 recipe, packed weights, bf16 KV) past the window against the
+# windowed no-cache forward, relative L2 of the logits over every decoded
+# position.  The bf16 KV rounding is the only difference on the engine's
+# side (a CPU rehearsal at d 960, 24 layers, window 1024: 3.6e-3); the
+# control, the forward with no window, sees up to 9% more keys (the same
+# rehearsal: 0.126).
+RING_BOUND = 0.03
+# The serve_swa kernel replay: every GEMM-kernel call of these layers in
+# one exact-length prefill (request 0's prompt) and one batched decode
+# step (M = 4) of an eager engine, again through the plain versions on
+# the card on the same inputs (quantize_rows bitwise, the products within
+# OP_BOUND); the control, layer 0's first FFN product with its
+# activation left unquantized, must miss it.  Each layer runs 4
+# quantize_rows + 4 tiled_mm (wq, wk, wv, wo: fp8 token rows) and 3
+# qmm_stream (w_gate, w_up, w_down: fp4 blocks) a stage.
+SWA_REPLAY_LAYERS = (0, 23)
+SWA_CALLS_PER_LAYER = {"quantize_rows": 4, "tiled_mm": 4, "qmm_stream": 3}
 
 
 def card_line() -> str:
@@ -926,7 +989,8 @@ def phase_telemetry_kernels(torch, card):
     return rows
 
 
-def profile_decode(torch, engine, card, steps: int = 5) -> None:
+def profile_decode(torch, engine, card, steps: int = 5,
+                   phase: str = "profile") -> None:
     """Split of the batched decode step from a ``torch.profiler`` trace of
     ``steps`` steps: device time per step by kernel group, and the
     device's busy share (summed device time over the window's wall time).
@@ -960,7 +1024,7 @@ def profile_decode(torch, engine, card, steps: int = 5) -> None:
         by_group[group] = by_group.get(group, 0.0) + ms
         by_name[ev.key[:80]] = ms
     busy = sum(by_group.values()) if by_group else None
-    emit({"phase": "profile", "card": card, "steps": steps,
+    emit({"phase": phase, "card": card, "steps": steps,
           "wall_ms_per_step": wall_ms,
           "device_ms_per_step": busy if busy else "not measured",
           "device_busy_share": busy / wall_ms if busy else "not measured",
@@ -1085,12 +1149,88 @@ def teacher_forced(torch, cfg, params, recipe, toks):
     return tf
 
 
+def timed_stages(torch, engine, prefill_ms, step_ms):
+    """Wrap ``engine``'s prefill (per bucket, to a device sync) and
+    decode step (host clock; the step ends in a device -> host copy) in
+    timers; returns a function that unwraps them."""
+    orig_prefill, orig_step = engine.prefill, engine.generate_step
+
+    def timed_prefill(prompt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_prefill(prompt)
+        torch.cuda.synchronize()
+        prefill_ms.setdefault(engine.bucket(len(prompt)), []).append(
+            (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = orig_step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.prefill, engine.generate_step = timed_prefill, timed_step
+
+    def restore():
+        engine.prefill, engine.generate_step = orig_prefill, orig_step
+    return restore
+
+
+def stage_counts(engine):
+    """Captures and replays of each of the engine's stages (an eager
+    stage, a plain method, has none)."""
+    return {name: {"captures": getattr(st, "captures", 0),
+                   "replays": getattr(st, "replays", 0)}
+            for name, st in engine.stages.items()}
+
+
+def serve_run(torch, batcher, prompts, new_tokens, kernels):
+    """Serve ``prompts`` through ``batcher`` with every counter of
+    ``kernels`` set to 0 first; returns (tokens by request, launches by
+    kernel, prefill ms by bucket, decode-step ms, wall s, peak bytes).
+    Raises unless every request got ``new_tokens`` tokens and every
+    kernel launched."""
+    prefill_ms, step_ms = {}, []
+    restore = timed_stages(torch, batcher.engine, prefill_ms, step_ms)
+    ids = [batcher.submit(p, new_tokens) for p in prompts]
+    for kern in kernels:
+        kern.reset()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    restore()
+    if any(len(out.get(i, ())) != new_tokens for i in ids):
+        raise AssertionError("batcher did not serve every request in full")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    return [out[i] for i in ids], launches, prefill_ms, step_ms, wall, peak
+
+
+def check_sequential(torch, engine, prompt, tokens, what):
+    """``tokens`` (the engine's) against the sequential ``generate``
+    (captured stages), token for token."""
+    from repro_torch.train.serve import generate
+    ref = generate(engine.model, engine.params, torch.from_numpy(prompt)[None],
+                   max_new_tokens=len(tokens), recipe=engine.recipe)
+    ref = ref[0, len(prompt):].tolist()
+    if tokens != ref:
+        first = next(i for i, (a, b) in enumerate(zip(tokens, ref))
+                     if a != b)
+        raise AssertionError(f"{what}: engine != sequential generate from "
+                             f"token {first}")
+
+
 def phase_slice(torch, card):
     from repro_torch.configs import get_config
     from repro_torch.core.recipe import RECIPES
     from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
     from repro_torch.models import build_model
-    from repro_torch.train.serve import generate
     from repro_torch.train.serving_runtime import (
         ContinuousBatcher, quantize_weights_for_serving,
         serving_memory_report)
@@ -1106,81 +1246,66 @@ def phase_slice(torch, card):
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
                for n in lengths]
     new_tokens = 64
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
 
-    batcher = ContinuousBatcher(model, params, n_slots=8, max_len=1024,
-                                recipe=recipe, kv_format="fp8_e4m3")
+    def make(jit):
+        return ContinuousBatcher(model, params, n_slots=8, max_len=1024,
+                                 recipe=recipe, kv_format="fp8_e4m3",
+                                 jit=jit)
+
+    # Warm-up, not timed: one request per prompt bucket of the run, so
+    # the captured engine captures each stage (and each bucket's prefill)
+    # here and the timed run only replays.
+    batcher = make(jit=True)
     engine = batcher.engine
-    # Warm-up request (cuBLAS handles, allocator), not counted.
-    warm = ContinuousBatcher(model, params, n_slots=8, max_len=1024,
-                             recipe=recipe, kv_format="fp8_e4m3")
-    warm.submit(prompts[0][:16], 4)
-    warm.run()
-    del warm
-
-    prefill_ms, step_ms = {}, []
-    orig_prefill, orig_step = engine.prefill, engine.generate_step
-
-    def timed_prefill(prompt):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig_prefill(prompt)
-        torch.cuda.synchronize()
-        prefill_ms.setdefault(engine.bucket(len(prompt)), []).append(
-            (time.perf_counter() - t0) * 1e3)
-        return out
-
-    def timed_step():
-        t0 = time.perf_counter()
-        out = orig_step()           # ends in a device -> host copy
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    engine.prefill, engine.generate_step = timed_prefill, timed_step
-    ids = [batcher.submit(p, new_tokens) for p in prompts]
-    for kern in (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL):
-        kern.reset()
-    torch.cuda.reset_peak_memory_stats()
+    buckets = sorted({engine.bucket(len(p)) for p in prompts})
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = batcher.run()
+    for n in buckets:
+        batcher.submit(np.arange(n) % cfg.vocab_size, 2)
+    batcher.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in
-                (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)}
-    peak = torch.cuda.max_memory_allocated()
-    engine.prefill, engine.generate_step = orig_prefill, orig_step
-    if sorted(out) != sorted(ids) or any(len(out[i]) != new_tokens
-                                         for i in ids):
-        raise AssertionError("batcher did not serve every request in full")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    capture_s = time.perf_counter() - t0
+    warm_counts = stage_counts(engine)
+    out, launches, prefill_ms, step_ms, wall, peak = serve_run(
+        torch, batcher, prompts, new_tokens, kernels)
+    counts = stage_counts(engine)
+    run_counts = {name: {k: n - warm_counts[name][k] for k, n in c.items()}
+                  for name, c in counts.items()}
+    if any(c["captures"] for c in run_counts.values()):
+        raise AssertionError(f"the timed run captured: {run_counts}")
+
+    # The eager engine (jit=False) on the first SLICE_EAGER requests:
+    # the same tokens, its decode p50 beside the captured one's.
+    eager = make(jit=False)
+    eager.submit(prompts[0][:16], 2)
+    eager.run()
+    eager_out, eager_launches, eager_prefill_ms, eager_step_ms, _, _ = \
+        serve_run(torch, eager, prompts[:SLICE_EAGER], new_tokens, kernels)
+    if eager_out != out[:SLICE_EAGER]:
+        raise AssertionError("captured engine != eager engine")
+    del eager
 
     # Engine vs the sequential reference, token-exact, for 2 requests.
-    for rid in ids[:2]:
-        ref = generate(engine.model, engine.params,
-                       torch.from_numpy(prompts[rid])[None],
-                       max_new_tokens=new_tokens, recipe=recipe)
-        ref = ref[0, len(prompts[rid]):].tolist()
-        if out[rid] != ref:
-            first = next(i for i, (a, b) in enumerate(zip(out[rid], ref))
-                         if a != b)
-            raise AssertionError(f"request {rid}: engine != sequential "
-                                 f"generate from token {first}")
+    for i in range(2):
+        check_sequential(torch, engine, prompts[i], out[i], f"request {i}")
 
     profile_decode(torch, engine, card)
 
     # Teacher-forced logits of request 0 (its prompt and generated
     # tokens, first TF_TOKENS), card vs CPU with the same packed weights;
     # the CPU runs the kernels' plain versions.
-    seq = np.concatenate([prompts[0], np.asarray(out[ids[0]])])
+    seq = np.concatenate([prompts[0], np.asarray(out[0])])
     tf = teacher_forced(torch, cfg, params, recipe,
                         torch.from_numpy(seq[:TF_TOKENS])[None])
 
-    n_gen = sum(len(v) for v in out.values())
+    n_gen = sum(len(v) for v in out)
     emit({"phase": "slice", "card": card, "model": cfg.name,
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "requests": len(ids), "new_tokens": new_tokens,
+          "requests": len(prompts), "new_tokens": new_tokens,
           "prompt_lengths": [int(n) for n in lengths],
+          "jit": True, "capture_warmup_s": capture_s,
+          "stages_warmup": warm_counts, "stages_run": run_counts,
           "prefill_ms_by_bucket": {
               str(b): float(np.median(v)) for b, v in
               sorted(prefill_ms.items())},
@@ -1188,11 +1313,324 @@ def phase_slice(torch, card):
               str(b): len(v) for b, v in sorted(prefill_ms.items())},
           "decode_step_p50_ms": float(np.median(step_ms)),
           "decode_steps": len(step_ms),
+          "eager": {"requests": SLICE_EAGER,
+                    "decode_step_p50_ms": float(np.median(eager_step_ms)),
+                    "decode_steps": len(eager_step_ms),
+                    "prefill_ms_by_bucket": {
+                        str(b): float(np.median(v)) for b, v in
+                        sorted(eager_prefill_ms.items())},
+                    "launches": eager_launches,
+                    "tokens_vs_captured": "equal"},
+          "launches": launches,
           "tokens_per_s": n_gen / wall, "wall_s": wall,
           "max_memory_allocated": int(peak),
           "packed_bytes_per_param": mem["bytes_per_packed_param"],
           "engine_vs_sequential": "token-exact (2 requests)",
           "teacher_forced_card_vs_cpu": tf})
+    return launches
+
+
+def kv_cache_bytes(cfg, n_slots, max_len):
+    """Bytes of the engine's per-slot KV cache (every layer, lengths
+    included) from the cache spec, allocating nothing."""
+    import torch
+    from repro_torch.models.attention import attn_cache_spec
+    spec = attn_cache_spec(cfg, n_slots, max_len, torch.bfloat16,
+                           per_slot=True)
+    per_layer = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
+                    .element_size() for shape, dt in spec.values())
+    return cfg.n_layers * per_layer + 4 * n_slots
+
+
+def ring_check(torch, cfg, params, seq):
+    """Request 0's tokens teacher-forced through an f32 engine (bf16
+    recipe, packed weights, bf16 KV): the first ring's worth prefilled,
+    every later token decoded one step at a time, past the window.  Its
+    logits against the windowed no-cache forward on the same tokens
+    (RING_BOUND), and the control, the forward with no window, which
+    must miss it."""
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import DecodeEngine
+    recipe = RECIPES["bf16"]
+    c32 = cfg.replace(dtype="float32")
+    ring = cfg.sliding_window
+    engine = DecodeEngine(build_model(c32), params, n_slots=1,
+                          max_len=SWA_MAX_LEN, recipe=recipe)
+    tok, c1 = engine.prefill(seq[:ring])
+    engine.insert(c1, int(seq[ring]), 0)
+    got = []
+    t0 = time.perf_counter()
+    for p in range(ring, len(seq)):
+        engine.last_tok[0] = seq[p]
+        engine.generate_step()
+        # A copy: the logits are the step graph's output buffer.
+        got.append(engine.last_logits[0, 0].to(torch.float32, copy=True))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    got = torch.stack(got)
+    del engine
+    toks = torch.from_numpy(seq)[None].cuda()
+
+    def forward(c):
+        with torch.no_grad():
+            return build_model(c).forward(params, toks, recipe)[
+                0, ring:].float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    fwd = forward(c32)
+    err = rel(got, fwd)
+    ctrl = rel(forward(c32.replace(sliding_window=0)), fwd)
+    out = {"dtype": "float32", "recipe": "bf16", "kv": "bfloat16",
+           "prefilled": ring, "decoded_past_window": len(seq) - ring,
+           "decode_s": decode_s, "rel_l2": err, "bound": RING_BOUND,
+           "control_no_window_rel_l2": ctrl,
+           "argmax_agreement": float(
+               (got.argmax(-1) == fwd.argmax(-1)).float().mean())}
+    if not err <= RING_BOUND < ctrl:
+        raise AssertionError(f"ring check: {out}")
+    return out
+
+
+class KernelRecorder:
+    """While entered, records every call of the three GEMM kernels'
+    wrappers, as ``kernels.fp4_matmul`` makes them, in the layers
+    ``layers`` (the stack's layer scope, ``core.routing``): a copy of the
+    card's inputs and output, the plain version and the route the launch
+    took (by the kernel's tensor-core counter), for ``replay_plain``."""
+
+    def __init__(self, layers):
+        self.layers = layers
+
+    def __enter__(self):
+        from repro_torch.kernels import fp4_matmul
+        from repro_torch.kernels import qmm_stream as qs
+        from repro_torch.kernels import quantize_rows as qr
+        from repro_torch.kernels import tiled_mm as tm
+        self.calls = []
+        plain = {"quantize_rows": (qr.KERNEL, qr.quantize_rows_plain),
+                 "tiled_mm": (tm.KERNEL, tm.tiled_mm_plain),
+                 "qmm_stream": (qs.KERNEL, qs.qmm_stream_plain)}
+        self._saved = [(fp4_matmul, name, getattr(fp4_matmul, name))
+                       for name in plain]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._wrap(name, fn, *plain[name]))
+        return self
+
+    def _wrap(self, name, fn, kern, plain):
+        from repro_torch.core import routing
+
+        def call(*args, **kw):
+            tc = kern.tc_launches
+            y = fn(*args, **kw)
+            label = routing.current_layer()
+            if label is not None and int(label[1:]) in self.layers:
+                self.calls.append({
+                    "name": name, "layer": int(label[1:]), "plain": plain,
+                    "args": [a.clone() for a in args], "kw": dict(kw),
+                    "out": y.clone(),
+                    "route": ("tensor_core" if kern.tc_launches > tc
+                              else "fma")})
+            return y
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def replay_plain(torch, calls, stage):
+    """Each recorded call again through its plain version on the card on
+    the same inputs: rows of (stage, layer, kernel, shape, route, bitwise
+    for a quantize pass, rel L2 for a product), and the control: the
+    first ``qmm_stream`` call with its activation left unquantized.
+    Raises on a stochastic call: serving rounds to nearest."""
+    rows, control = [], None
+
+    def rel(y, ref):
+        y, ref = y.double(), ref.double()
+        return float((y - ref).norm() / max(float(ref.norm()), 1e-30))
+    for c in calls:
+        kw = dict(c["kw"])
+        if any(kw.pop(k, False) for k in ("sr", "a_sr", "b_sr")):
+            raise AssertionError(f"{stage}: a stochastic {c['name']} call")
+        a, y = c["args"][0], c["out"]
+        ref = c["plain"](*c["args"], **kw)
+        row = {"stage": stage, "layer": c["layer"], "kernel": c["name"],
+               "route": c["route"]}
+        if c["name"] == "quantize_rows":
+            row["shape"] = list(a.shape)
+            row["bitwise"] = torch.equal(y.view(torch.int16),
+                                         ref.view(torch.int16))
+        else:
+            row["shape"] = [a.shape[0], a.shape[1], c["args"][1].shape[1]]
+            row["rel_l2"] = rel(y, ref)
+            row["max_abs_err"] = float((y.float() - ref.float()).abs().max())
+            if c["name"] == "qmm_stream" and control is None:
+                control = rel(y, c["plain"](*c["args"],
+                                            **{**kw, "a_mode": "pass"}))
+        rows.append(row)
+    return rows, control
+
+
+def swa_kernel_replay(torch, cfg, params, recipe, prompt):
+    """The GEMM kernels at serve_swa's own shapes against their plain
+    versions: one exact-length prefill of ``prompt`` and one batched
+    decode step of an eager engine (``SWA_SLOTS`` slots, so M = 4),
+    recorded in ``SWA_REPLAY_LAYERS`` and replayed (``replay_plain``).
+    Raises on a miss, a missing call or a control within the bound."""
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import DecodeEngine
+    engine = DecodeEngine(build_model(cfg), params, n_slots=SWA_SLOTS,
+                          max_len=SWA_MAX_LEN, recipe=recipe,
+                          kv_format="fp8_e4m3", jit=False)
+    with KernelRecorder(SWA_REPLAY_LAYERS) as pre:
+        tok, c1 = engine.prefill(prompt)
+    engine.insert(c1, tok, 0)
+    with KernelRecorder(SWA_REPLAY_LAYERS) as dec:
+        engine.generate_step()
+    del engine, c1
+    bound = OP_BOUND["bfloat16"]
+    failures = []
+    rows, controls = [], []
+    for stage, rec in (("prefill", pre), ("decode", dec)):
+        for layer in SWA_REPLAY_LAYERS:
+            got = {n: sum(c["layer"] == layer and c["name"] == n
+                          for c in rec.calls) for n in SWA_CALLS_PER_LAYER}
+            if got != SWA_CALLS_PER_LAYER:
+                failures.append(f"{stage} layer {layer} calls {got}")
+        r, ctrl = replay_plain(torch, rec.calls, stage)
+        rows += r
+        controls.append(ctrl)
+        del rec.calls
+    worst = max((r["rel_l2"] for r in rows if "rel_l2" in r), default=None)
+    not_bitwise = [r for r in rows if r.get("bitwise") is False]
+    shapes = {(r["kernel"], tuple(r["shape"])) for r in rows}
+    want = {"ragged N 960": any(k == "tiled_mm" and s[2] == 960
+                                for k, s in shapes),
+            "K 10240": any(k == "qmm_stream" and s[1] == 10240
+                           for k, s in shapes),
+            "M 4": any(s[0] == SWA_SLOTS for _, s in shapes),
+            "M prompt": any(s[0] == len(prompt) for _, s in shapes)}
+    if worst is None or not worst <= bound:
+        failures.append(f"worst product rel L2 {worst} (bound {bound})")
+    if not_bitwise:
+        failures.append(f"{len(not_bitwise)} quantize_rows calls not "
+                        "bitwise")
+    if not all(want.values()):
+        failures.append(f"shapes not covered: {want}")
+    if any(c is None or not c > bound for c in controls):
+        failures.append(f"a control did not miss the bound: {controls}")
+    by_shape = {}
+    for r in rows:
+        key = f"{r['stage']} {r['kernel']} {r['shape']} {r['route']}"
+        by_shape[key] = max(by_shape.get(key, 0.0), r.get("rel_l2", 0.0))
+    out = {"layers": list(SWA_REPLAY_LAYERS), "calls": len(rows),
+           "rel_l2_max": worst, "bound": bound,
+           "quantized_not_bitwise": len(not_bitwise),
+           "rel_l2_max_by_call": by_shape,
+           "control_ffn_activation_unquantized": dict(
+               zip(("prefill", "decode"), controls))}
+    if failures:
+        raise AssertionError(f"serve_swa kernel replay: {failures}; {out}")
+    return out
+
+
+def phase_serve_swa(torch, card):
+    """h2o-danube-3-4b at full width and depth through the packed-FP4
+    ``ContinuousBatcher`` with its ring-window caches (module docstring,
+    phase 3b)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import (
+        ContinuousBatcher, quantize_weights_for_serving,
+        serving_memory_report)
+
+    cfg = get_config("h2o-danube-3-4b").replace(linear_impl="pallas")
+    recipe = RECIPES["paper_fp4"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = quantize_weights_for_serving(
+        model, model.init(seed=0, on_device=True), "fp4_e2m1")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    mem = serving_memory_report(params)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(SWA_PROMPT[0], SWA_PROMPT[1] + 1,
+                           size=SWA_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in lengths]
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
+    batcher = ContinuousBatcher(model, params, n_slots=SWA_SLOTS,
+                                max_len=SWA_MAX_LEN, recipe=recipe,
+                                kv_format="fp8_e4m3")
+    engine = batcher.engine
+    ring = engine.cache["stack"]["layers"][0]["self"]["pos"].shape[-1]
+    kv_bytes = {str(n): kv_cache_bytes(engine.model.cfg, SWA_SLOTS, n)
+                for n in (cfg.sliding_window, SWA_MAX_LEN)}
+    held = sum(t.numel() * t.element_size()
+               for layer in engine.cache["stack"]["layers"]
+               for t in layer["self"].values()) + \
+        engine.cache["length"].numel() * 4
+    if ring != cfg.sliding_window or len(set(kv_bytes.values())) != 1 \
+            or held != kv_bytes[str(SWA_MAX_LEN)]:
+        raise AssertionError(f"ring {ring}, KV bytes {kv_bytes}, held "
+                             f"{held}")
+    # Warm-up, not timed: captures insert and the batched step.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batcher.submit(prompts[0][:16], 2)
+    batcher.run()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    warm_counts = stage_counts(engine)
+    out, launches, prefill_ms, step_ms, wall, peak = serve_run(
+        torch, batcher, prompts, SWA_NEW, kernels)
+    counts = stage_counts(engine)
+    past = [int(n) + SWA_NEW - 1 > cfg.sliding_window for n in lengths]
+    if not all(past):
+        raise AssertionError(f"a request stays inside the window: {past}")
+    t0 = time.perf_counter()
+    check_sequential(torch, engine, prompts[0], out[0], "request 0")
+    sequential_s = time.perf_counter() - t0
+    profile_decode(torch, engine, card, phase="serve_swa_profile")
+    del batcher, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay = swa_kernel_replay(torch, cfg, params, recipe, prompts[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = np.concatenate([prompts[0], np.asarray(out[0])])
+    ring_out = ring_check(torch, cfg, params, seq)
+    n_gen = sum(len(v) for v in out)
+    prefill = [v for vs in prefill_ms.values() for v in vs]
+    emit({"phase": "serve_swa", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "sliding_window": cfg.sliding_window, "slots": SWA_SLOTS,
+          "max_len": SWA_MAX_LEN, "ring_positions": ring,
+          "requests": len(prompts), "new_tokens": SWA_NEW,
+          "prompt_lengths": [int(n) for n in lengths],
+          "init_and_pack_s": init_s, "capture_warmup_s": capture_s,
+          "stages": counts,
+          "prefill_exact_length_ms": {
+              str(n): float(np.median(v)) for n, v in
+              sorted(prefill_ms.items())},
+          "prefill_ms_median": float(np.median(prefill)),
+          "decode_step_p50_ms": float(np.median(step_ms)),
+          "decode_steps": len(step_ms),
+          "tokens_per_s": n_gen / wall, "wall_s": wall,
+          "max_memory_allocated": int(peak),
+          "packed_bytes_per_param": mem["bytes_per_packed_param"],
+          "packed_params": mem["packed_params"],
+          "kv_cache_bytes_by_max_len": kv_bytes,
+          "launches": launches,
+          "every_request_past_window": True,
+          "engine_vs_sequential": "token-exact (request 0)",
+          "sequential_s": sequential_s, "kernel_replay": replay,
+          "ring_check": ring_out})
     return launches
 
 
@@ -2412,6 +2850,16 @@ def phase_blockwise(torch, card):
 
 
 def main() -> int:
+    # ``--phase slice`` / ``--phase serve_swa``: the build and that one
+    # serving phase alone (an A/B of one path across checkouts); no
+    # launches, kernels or ok line.
+    solo = {"slice": phase_slice, "serve_swa": phase_serve_swa}
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--phase"
+                 or args[1] not in solo):
+        print(f"usage: chip_smoke.py [--phase {{{','.join(solo)}}}]",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -2431,10 +2879,17 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_line()
     phase_build(card)
+    if args:
+        solo[args[1]](torch, card)
+        print(f"card: {card}", flush=True)
+        return 0
     phase_kernels(torch, card)
     rows = phase_train_kernels(torch, card)
     tel_rows = phase_telemetry_kernels(torch, card)
     serve_launches = phase_slice(torch, card)
+    torch.cuda.empty_cache()
+    swa_launches = phase_serve_swa(torch, card)
+    torch.cuda.empty_cache()
     train_launches, paper_p50_ms = phase_train(torch, card)
     tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
     torch.cuda.empty_cache()
@@ -2444,7 +2899,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     large_launches = phase_train_large(torch, card)
     block_launches = phase_blockwise(torch, card)
-    by_path = {"serve": serve_launches, "train": train_launches,
+    by_path = {"serve": serve_launches, "serve_swa": swa_launches,
+               "train": train_launches,
                "train_telemetry": tel_launches,
                "train_adaptive": adaptive_launches,
                "train_large": large_launches, "blockwise": block_launches}

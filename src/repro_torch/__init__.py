@@ -11,9 +11,11 @@ hand-written CUDA kernels under ``kernels/csrc``.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no CUDA device and no explicit CPU request they raise.
 """
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "constant"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -25,3 +27,14 @@ def resolve_device(device=None) -> torch.device:
             "repro_torch entry points run on CUDA by default and no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, dtype: torch.dtype, device: torch.device
+             ) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and shared: callers must not write to it.  A
+    CUDA graph cannot capture the host-to-device copy that makes a tensor
+    from Python numbers, so the serving path takes its constants from here
+    (the warm-up before a capture makes them)."""
+    return torch.tensor(values, dtype=dtype, device=device)

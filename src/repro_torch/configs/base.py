@@ -183,8 +183,8 @@ class TrainConfig:
     cost_calibration: str = ""
 
 
-ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "llama-125m", "llama-1b",
-         "tiny"]
+ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "h2o-danube-3-4b",
+         "llama-125m", "llama-1b", "tiny"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -18,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import constant
 from repro_torch.core import formats as F
 from repro_torch.core.quantize import (QuantSpec, _blocked_view,
                                        compute_scale, scale_from_amax)
@@ -33,7 +34,7 @@ def _grid_list(fmt: str) -> Tuple[float, ...]:
 
 def _grid(fmt: str, dtype, device) -> torch.Tensor:
     """Sorted non-negative value grid of ``fmt`` (exact in bf16/f32)."""
-    return torch.tensor(_grid_list(fmt), dtype=dtype, device=device)
+    return constant(_grid_list(fmt), dtype, torch.device(device))
 
 
 def _sign_bit(fmt: str) -> int:
@@ -43,6 +44,31 @@ def _sign_bit(fmt: str) -> int:
 def _pack2(fmt: str) -> bool:
     """Two codes per byte (4-bit formats only)."""
     return F.FORMATS[fmt].bits <= 4
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_table(fmt: str) -> Tuple[Tuple[float, ...], ...]:
+    """The values each of the 256 bytes decodes to: its code's grid value
+    with the code's sign (-0.0 for a negative zero); two values, low
+    nibble first, for a 4-bit format."""
+    grid, sb = _grid_list(fmt), _sign_bit(fmt)
+
+    def value(code):
+        v = grid[code & (sb - 1)]
+        return -v if code & sb else v
+    if _pack2(fmt):
+        return tuple((value(b & 0x0F), value(b >> 4)) for b in range(256))
+    return tuple((value(b),) if b & (sb - 1) < len(grid) else (0.0,)
+                 for b in range(256))
+
+
+def _decode(codes: torch.Tensor, fmt: str, dtype) -> torch.Tensor:
+    """uint8 codes -> values in ``dtype``: one table lookup a byte (the
+    table is exact in bf16 and f32).  A 4-bit format's byte gives two
+    values along the last axis."""
+    table = constant(_byte_table(fmt), dtype, codes.device)
+    vals = torch.nn.functional.embedding(codes.to(torch.int32), table)
+    return vals.reshape(*codes.shape[:-1], -1)
 
 
 @dataclasses.dataclass
@@ -95,21 +121,13 @@ class PackedTensor:
 
     def dequantize(self, dtype=None) -> torch.Tensor:
         """Codes -> values, bitwise identical to ``qdq(w, spec, 1)``:
-        table gather, sign from the code's top bit (keeping QDQ's -0.0),
-        then the per-tile rescale in the same cast order as QDQ."""
+        each byte looks its value (two for a 4-bit format) up in the
+        format's code table (the grid value with the code's sign, QDQ's
+        -0.0 kept), then the per-tile rescale in the same cast order as
+        QDQ."""
         dt = dtype or self.ddtype
-        codes = self.payload
-        if _pack2(self.fmt):
-            lo = codes & 0x0F
-            hi = codes >> 4
-            codes = torch.stack([lo, hi], dim=-1).reshape(
-                *codes.shape[:-1], -1)
-        codes = codes[..., :self.n_cols]
-        sb = _sign_bit(self.fmt)
-        idx = (codes & (sb - 1)).long()
-        neg = (codes & sb) != 0
-        vals = _grid(self.fmt, dt, codes.device)[idx]
-        vals = torch.where(neg, -vals, vals)
+        vals = _decode(self.payload, self.fmt, dt)
+        vals = vals[..., :self.n_cols]
         lead = vals.shape[:-2]
         k, n = vals.shape[-2:]
         b = self.block
@@ -191,9 +209,4 @@ def kv_quantize(x: torch.Tensor, fmt: str
 def kv_dequantize(codes: torch.Tensor, scale: torch.Tensor, fmt: str,
                   dtype) -> torch.Tensor:
     """Inverse of ``kv_quantize`` into ``dtype``."""
-    sb = _sign_bit(fmt)
-    idx = (codes & (sb - 1)).long()
-    neg = (codes & sb) != 0
-    vals = _grid(fmt, dtype, codes.device)[idx]
-    vals = torch.where(neg, -vals, vals)
-    return vals * scale[..., None].to(dtype)
+    return _decode(codes, fmt, dtype) * scale[..., None].to(dtype)

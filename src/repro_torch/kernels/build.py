@@ -18,11 +18,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 __all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
            "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
-           "stream_ptr", "stats_buffers", "recomputing", "recomputing_now"]
+           "stream_ptr", "stats_buffers", "recomputing", "recomputing_now",
+           "KERNELS", "launch_counts", "add_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -33,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Every CudaKernel made (one per wrapper module), for launch_counts
+KERNELS: List["CudaKernel"] = []
 # > 0 while a rematerialized forward runs (``recomputing``); a global,
 # not a thread-local: autograd runs a CUDA backward on its own thread
 _RECOMPUTE = [0]
@@ -138,7 +141,11 @@ class CudaKernel:
     stochastically and ``stats_launches`` the part that collected the
     stats epilogue (its fold included) and ``tc_launches`` the part that
     ran on the tensor-core route (a GEMM kernel's bf16 calls with M > 16,
-    flash attention's bf16 calls: ``tensor_core``).  Wrappers do not call
+    flash attention's bf16 calls: ``tensor_core``).  A CUDA graph's
+    replay launches what its capture recorded without calling the entry
+    point: ``graphs.GraphedStage`` adds the capture's counts on every
+    replay (``add_launch_counts``) and takes them back from the capture,
+    which launched nothing.  Wrappers do not call
     the entry point for an empty output.  The entry point returns
     ``cudaGetLastError()``; a non-zero code raises.
     """
@@ -148,6 +155,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.reset()
         self._fn = self._route = None
+        KERNELS.append(self)
 
     def reset(self) -> None:
         self.launches = self.trans_launches = 0
@@ -159,6 +167,15 @@ class CudaKernel:
                 "sr": self.sr_launches, "stats": self.stats_launches,
                 "tc": self.tc_launches,
                 "recompute": self.recompute_launches}
+
+    def add(self, counts: Dict[str, int]) -> None:
+        """Add ``counts`` (the keys of ``counts()``) to this kernel's."""
+        self.launches += counts["launches"]
+        self.trans_launches += counts["trans"]
+        self.sr_launches += counts["sr"]
+        self.stats_launches += counts["stats"]
+        self.tc_launches += counts["tc"]
+        self.recompute_launches += counts["recompute"]
 
     def _bind(self, suffix: str, argtypes):
         fn = getattr(load(self.name), f"{self.name}_{suffix}")
@@ -189,6 +206,20 @@ class CudaKernel:
         self.stats_launches += kernels * stats
         self.tc_launches += kernels * tc
         self.recompute_launches += kernels * recomputing_now()
+
+
+def launch_counts() -> Dict[str, Dict[str, int]]:
+    """Every kernel's ``counts()``, by kernel name."""
+    return {k.name: k.counts() for k in KERNELS}
+
+
+def add_launch_counts(delta: Dict[str, Dict[str, int]], times: int = 1
+                      ) -> None:
+    """Add ``times`` x ``delta`` (by kernel name, as ``launch_counts``)."""
+    for k in KERNELS:
+        d = delta.get(k.name)
+        if d is not None and times:
+            k.add({key: n * times for key, n in d.items()})
 
 
 _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}

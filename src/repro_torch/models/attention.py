@@ -7,7 +7,9 @@ attention core without a cache takes the flash kernel under
 multiple of 128 (``kernels.ops.flash_attention``, the reference's route);
 otherwise, and over a cache, it is plain PyTorch, ported from the
 reference's chunked online softmax (the reference computes it in jnp
-too).  It is not SDPA: unwritten cache slots carry position -1 and are
+too).  Over a cache it runs one batch row at a time, so that a row's
+result does not depend on the batch's size (serving's engine against
+sequential generation).  It is not SDPA: unwritten cache slots carry position -1 and are
 masked by position, and the chunked f32 accumulation is the reference's
 numerics.
 """
@@ -18,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch import constant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.kernels.ops import flash_attention
@@ -78,7 +81,7 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
         k_pos = k_pos[:, None]            # (B, 1, Sk)
     k = _repeat_kv(k, h // kvh)
     v = _repeat_kv(v, h // kvh)
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype, device=q.device)
+    scale = constant(1.0 / math.sqrt(d), q.dtype, q.device)
     qf = (q * scale).transpose(1, 2).to(torch.float32)   # (B, H, Sq, D)
     kf = k.transpose(1, 2)
     vf = v.transpose(1, 2)
@@ -137,9 +140,17 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
     else:
         k_all, v_all, k_pos = _update_cache(cache, k, v, cache_len, window,
                                             cfg.kv_cache_format)
-        out = chunked_attention(q, k_all, v_all, positions, k_pos,
-                                causal=causal, window=window,
-                                chunk=cfg.attention_chunk)
+        # Row by row: cuBLAS picks its batched-GEMM algorithm by the batch
+        # count, so on the card a row of one batched call can differ in
+        # its last bits from the same row alone.  Per row, a slot of the
+        # batched engine computes what sequential generation computes,
+        # bit for bit.
+        def row(t, i):
+            return t[i:i + 1] if t.dim() == 2 else t
+        out = torch.cat([chunked_attention(
+            q[i:i + 1], k_all[i:i + 1], v_all[i:i + 1], row(positions, i),
+            row(k_pos, i), causal=causal, window=window,
+            chunk=cfg.attention_chunk) for i in range(b)])
     out = out.reshape(b, sq, cfg.n_heads * hd)
     return linear(out, params["wo"], recipe, cfg)
 

@@ -60,10 +60,13 @@ class Model:
                                       scale=1.0 / math.sqrt(d))
         return specs
 
-    def init(self, seed: int = 0, dtype=torch.float32):
+    def init(self, seed: int = 0, dtype=torch.float32,
+             on_device: bool = False):
         """Seeded init (truncated normal, fan-in scaled), f32 master
-        weights on the model's device."""
-        return init_params(self.param_specs(), seed, dtype, self.device)
+        weights on the model's device, drawn on the CPU (the same weights
+        on every device) or, with ``on_device``, on the model's device."""
+        return init_params(self.param_specs(), seed, dtype, self.device,
+                           on_device)
 
     def cast_params(self, params):
         """Floating tensors to the compute dtype; PackedTensor leaves pass
@@ -212,19 +215,58 @@ class Model:
                                   dtype=torch.int32, device=self.device),
         }
 
+    def reset_cache(self, cache) -> None:
+        """Empty ``cache`` in place, as ``init_cache`` made it: no key
+        at any position, length 0."""
+        for layer in cache["stack"]["layers"]:
+            for key, t in layer["self"].items():
+                if key == "pos":
+                    t.fill_(-1)
+                else:
+                    t.zero_()
+        cache["length"].zero_()
+
+    def check_ring_prefill(self, cache, n_tokens: int,
+                           cached: Optional[int] = None) -> None:
+        """Raise ``ValueError`` if a prefill of ``n_tokens`` into ``cache``
+        would evict keys its own queries need: under a sliding window the
+        cache is a ring, each call writes all its K/V before it attends,
+        so a call of more than one token is exact only while the cached
+        length plus its tokens fits in the ring (past that it overwrites
+        keys inside its first queries' windows).  A single-token call
+        never raises.  ``cached`` is the cached length where the caller
+        knows it; else it is read on the host (a windowed prefill is never
+        captured into a CUDA graph: each length would need its own)."""
+        if not self.cfg.sliding_window or n_tokens <= 1:
+            return
+        size = cache["stack"]["layers"][0]["self"]["pos"].shape[-1]
+        if cached is None:
+            cached = int(cache["length"].max())
+        if cached + n_tokens > size:
+            raise ValueError(
+                f"a windowed prefill of {n_tokens} tokens onto {cached} "
+                f"cached ones overflows the ring of {size} positions "
+                f"(sliding_window {self.cfg.sliding_window}): it would "
+                "evict keys that its own queries attend to; prefill at "
+                "most the ring size in one call, or decode the rest one "
+                "token at a time")
+
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache, plan, *,
-                true_length: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Any]:
+                true_length=None) -> Tuple[torch.Tensor, Any]:
         """Process a prompt into ``cache`` (updated in place); returns
-        (last-position logits (B, 1, V), cache).  With ``true_length`` the
-        prompt is right-padded: logits come from position
-        ``true_length - 1`` and the length advances by ``true_length``;
-        the padded tail's K/V sit at positions >= that length, masked for
-        every later query until decode overwrites them."""
+        (last-position logits (B, 1, V), cache).  With ``true_length`` (an
+        int, or a 0-d integer tensor: a CUDA graph's device input, as the
+        reference traces it) the prompt is right-padded: logits come from
+        position ``true_length - 1`` and the length advances by
+        ``true_length``; the padded tail's K/V sit at positions >= that
+        length, masked for every later query until decode overwrites them.
+        Both forms give the same bits.  A windowed cache refuses a call
+        that would overflow its ring (``check_ring_prefill``)."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         sq = tokens.shape[1]
+        self.check_ring_prefill(cache, sq)
         length = cache["length"]
         ar = torch.arange(sq, dtype=torch.int32, device=tokens.device)
         positions = (length[:, None] + ar[None] if length.dim()
@@ -235,17 +277,22 @@ class Model:
                                 cache_len=length)
         if true_length is None:
             x_last, advance = x[:, -1:], sq
+        elif isinstance(true_length, torch.Tensor):
+            advance = true_length.to(torch.int32)
+            x_last = x.index_select(1, (advance - 1).reshape(1).long())
         else:
             x_last, advance = x[:, true_length - 1:true_length], true_length
         logits = self._head(params, x_last, plan)
-        cache["length"] = length + advance
+        length.add_(advance)
         return logits, cache
 
     @torch.no_grad()
-    def decode_step(self, params, token: torch.Tensor, cache, plan
+    def decode_step(self, params, token: torch.Tensor, cache, plan, *,
+                    live: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, Any]:
         """One decode step: token (B, 1) -> logits (B, 1, V).  A per-slot
-        cache decodes every row at its own position."""
+        cache decodes every row at its own position; with ``live`` (B,)
+        bool, only the live rows' lengths advance."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         pos = cache["length"]
@@ -256,7 +303,7 @@ class Model:
                                 positions=positions, cache=cache["stack"],
                                 cache_len=pos)
         logits = self._head(params, x, plan)
-        cache["length"] = pos + 1
+        pos.add_(1 if live is None else live.to(pos.dtype))
         return logits, cache
 
 

@@ -8,6 +8,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import constant
 from repro_torch.core.qlinear import qlinear
 from repro_torch.core.recipe import MatmulRecipe
 
@@ -27,7 +28,7 @@ def gelu(x):
     ``x``'s dtype (so bf16 matches the reference bit for bit, where one
     fused rounding would not)."""
     def const(v):
-        return torch.tensor(v, dtype=x.dtype, device=x.device)
+        return constant(v, x.dtype, x.device)
     inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
@@ -72,7 +73,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     the reference does."""
     half = x.shape[-1] // 2
     freqs = 1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half))
-    freqs = torch.from_numpy(np.asarray(freqs, np.float32)).to(x.device)
+    freqs = constant(tuple(np.asarray(freqs, np.float32).tolist()),
+                     torch.float32, x.device)
     ang = positions.to(torch.float32)[..., None] * freqs
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]

@@ -1,6 +1,6 @@
 """The paper's larger dense configs in the port against the JAX
 reference, on the CPU: ``gpt2-335m``, ``gpt2-774m`` and ``llama-1b``
-(Table 4).  ``CONFIG`` and ``REDUCED`` equal the reference's field for
+(Table 4), and the sliding-window ``h2o-danube-3-4b``.  ``CONFIG`` and ``REDUCED`` equal the reference's field for
 field; at ``REDUCED`` size (2 layers, d 64, f32), from the same
 parameters and batch, the loss under ``paper_fp4`` within rtol 1e-5 (the
 quantizers see equal inputs before any summation-order difference can
@@ -25,7 +25,7 @@ from repro_torch.core.recipe import RECIPES as T_RECIPES  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-NEW = ("gpt2_335m", "gpt2_774m", "llama_1b")
+NEW = ("gpt2_335m", "gpt2_774m", "llama_1b", "h2o_danube_3_4b")
 
 
 def _modules(name):
