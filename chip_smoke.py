@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phase slice | --phase serve_swa]
+    python3 chip_smoke.py [--phase slice | serve_swa | moe_kernels |
+                           train_moe | serve_moe]
 
-With ``--phase`` it runs the build and that serving phase alone and
-prints no ok line.  Phases, each printing one line (a failed phase raises: no ok line, exit
+With ``--phase`` it runs the build and that phase alone and prints no ok
+line.  Phases, each printing one line (a failed phase raises: no ok line, exit
 code 1):
 
 1. build   — nvcc builds the five CUDA kernels of
@@ -55,10 +56,11 @@ code 1):
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
-3b. serve_swa — serves h2o-danube-3-4b at full width and depth (24
-   layers, d 3840, 32 heads and 8 KV heads of 120, d_ff 10240, vocab
-   32000, sliding window 4096; seeded init drawn on the card) through
-   the packed-FP4
+3b. serve_swa — serves h2o-danube-3-4b at full width and half its depth
+   (12 of its 24 layers, SWA_LAYERS: cut so that the whole run stays
+   near half its time limit with the MoE phases; d 3840, 32 heads and
+   8 KV heads of 120, d_ff 10240, vocab 32000, sliding window 4096;
+   seeded init drawn on the card) through the packed-FP4
    ``ContinuousBatcher`` (fp8 KV, paper_fp4, linear_impl "pallas",
    captured insert and decode step, exact-length eager prefill): 4
    slots, max_len 8192 (a ring of 4096 positions a layer), 8 requests
@@ -69,19 +71,19 @@ code 1):
    (gate: equal, and equal to the cache the engine holds) and launches
    per kernel.  Gates: every request served in full; request 0 token-
    exact against the sequential ``generate``; a kernel replay: every
-   ``quantize_rows``, ``tiled_mm`` and ``qmm_stream`` call of layers 0
-   and 23 in one exact-length prefill (M = request 0's prompt) and one
-   batched decode step (M = 4) of an eager engine, again through the
-   plain versions on the card on the same inputs (quantize passes
-   bitwise, products within OP_BOUND: K 3840 and 10240, the ragged N =
-   960 of wk / wv, both routes), beside a control that must miss (layer
-   0's first FFN product with its activation unquantized); the ring
-   check: request 0's tokens teacher-forced past the window through an
-   f32 engine
-   (bf16 recipe, packed weights, bf16 KV) within RING_BOUND of the
-   windowed no-cache forward, and the forward with no window (the
-   control) beyond it.  A ``serve_swa_profile`` line splits 5 batched
-   decode steps by kernel.
+   ``quantize_rows``, ``tiled_mm`` and ``qmm_stream`` call of the first
+   and the last layer in one exact-length prefill (M = request 0's
+   prompt) and one batched decode step (M = 4) of an eager engine,
+   again through the plain versions on the card on the same inputs
+   (quantize passes bitwise, products within OP_BOUND: K 3840 and
+   10240, the ragged N = 960 of wk / wv, both routes), beside a
+   control that must miss (layer 0's first FFN product with its
+   activation unquantized); the ring check: request 0's tokens
+   teacher-forced past the window through an f32 engine (bf16 recipe,
+   packed weights, bf16 KV) within RING_BOUND of the windowed no-cache
+   forward, and the forward with no window (the control) beyond it.
+   A ``serve_swa_profile`` line splits 5 batched decode steps by
+   kernel.
 4. train   — trains gpt2-125m at full width and depth (seeded init,
    ``SyntheticLM``, global batch 8 x 1024, 8 steps, paper_fp4, linear and
    attention impl "pallas", ``remat=False``: every activation kept; the
@@ -181,14 +183,67 @@ code 1):
    step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
    switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
    phase 4, with its control.
+8b. train_moe — trains olmoe-1b-7b at full published width and depth
+   (16 layers, d 2048, 16 heads of 128, 64 experts of d_ff 1024, top-8,
+   router groups of 1024, vocab 50304; 6,919,096,320 parameters drawn
+   on the card), ``SyntheticLM`` (seed 0), 4 x 2048 tokens, paper_fp4,
+   both impls "pallas", ``remat_policy="full"``, ``optimizer=
+   "adafactor"`` (AdamW's f32 moments would not fit beside 55 GB of f32
+   params and grads), ``scan_layers=False``, 6 steps.  Prints per-step
+   loss, the three MoE metrics, step p50 after the first, tokens/s, peak
+   memory per step and launches per kernel per step (batched and
+   recompute launches apart), then a ``train_moe_profile`` line.  Gates:
+   finite losses; the loss on step 0's batch lower after the run than
+   before; each step 12 batched ``qmm_stream`` launches a layer (fwd,
+   recompute, dgrad, wgrad of w_gate, w_up, w_down); every GEMM and
+   flash launch on the tensor-core route, each also in a recompute; the
+   MoE metrics in every row; an op replay of layer 0's nine expert calls
+   on the CPU (their first MOE_REPLAY_EXPERTS experts) within OP_BOUND,
+   and a control (the w_up forward with its activation unquantized) that
+   must miss it.
+8c. serve_moe — olmoe-1b-7b at full width and depth (weights drawn on
+   the card in bf16, experts packed to FP4 matrix by matrix, the f32
+   router dense) through the ``ContinuousBatcher``: fp8 KV, paper_fp4,
+   every stage captured, 8 slots, max_len 2048, 16 requests of 16-512
+   prompt tokens (requests 0 and 1 of 128 and 256: a bucket's length)
+   and 64 new tokens each, after an untimed warm-up per bucket.  Prints
+   decode p50 captured and eager, prefill ms per bucket, tokens/s, peak
+   memory, packed B/param, the KV cache's bytes and the batched
+   launches, then a ``serve_moe_profile`` line.  Gates: the timed run
+   captures nothing; the captured engine token-exact to the eager one on
+   4 requests and, on requests 0 and 1, to a one-slot engine of the same
+   max_len (no pad rows in their router groups, so bucketed routing
+   equals exact-length routing, and a decode step's expert products run
+   64 x 8 rows for 1 slot as for 8); every GEMM-kernel call of layer 0 in
+   an eager prefill (request 2) and one batched decode step replayed
+   through the plain versions on the card (quantize passes bitwise,
+   products within OP_BOUND, the expert calls among them), with a
+   control that must miss.
 9. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
    ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
    tiles and fp8 rows, each output bitwise against the plain version.
 10. the launch counts of each path's run, ``serve_swa``'s among them
-   (every kernel of a path must have run in it) and the ``{"kernels": [...]}`` line (launches from the
+   (every kernel of a path must have run in it), the seconds at the end
+   of each phase, and the ``{"kernels": [...]}`` line (launches from the
    adaptive train path of phase 7, ``quantize_blockwise``'s from phase 9,
-   every path's in ``launches_by_path``; times at the gpt2-125m training
-   shapes); the card line; the ok line last.
+   every path's in ``launches_by_path``, the MoE paths' batched ones in
+   ``batched_launches_by_path``; times at the gpt2-125m training shapes,
+   the expert shapes' in ``batched_rows``); the card line; the ok line
+   last.
+
+Phase 2 has a fourth line, ``moe_kernels``: the batched (expert)
+launches at olmoe-1b-7b's shapes, 64 experts, bf16: the expert forward
+of w_up (64 x 1280 x 2048 -> 1024) and w_down (64 x 1280 x 1024 ->
+2048), their dgrad (pass x pass, w read transposed) and wgrad (fp8
+blocks, x read transposed, K = 1280), the decode shape (64 x 8 rows, the
+FMA route), and the two-pass kernels batched (fp8 token rows).  Each
+batched call is one launch (counted as batched), within one bf16 ulp +
+1e-5 max|y| of the plain version (a loop over the experts), bitwise
+equal to the same kernel launched once per expert, its QDQ panels
+bitwise the plain version's and the stream kernel bitwise the two-pass
+pipeline.  Beside each: its time with L2 flushed, the plain version's,
+64 per-expert launches', ``torch.bmm``'s at the same shape, the bound
+(operations at 989 TFLOP/s) and its share of it.
 
 Phase 2 has a third line, ``telemetry_kernels``, at the training shapes:
 stochastic rounding in ``quantize_rows`` (token and block, both trans
@@ -204,7 +259,8 @@ each mode's time beside its mode-off time, its plain time and its bound
 (``quantize_blockwise``: its time, plain time and bound, and the blocks
 of its tile launch at each shape from a profiler trace).
 
-Every phase keeps the full depth of its model.  Exits non-zero without
+Every phase keeps the full depth of its model but ``serve_swa``, cut to
+half its depth (SWA_LAYERS).  Exits non-zero without
 a result when there is no CUDA device or when the port is not beside
 this script.
 """
@@ -282,10 +338,11 @@ ADAPT_REPLAY_STEP = 8     # the op replay's step: the searcher-edited plan
 # The slice phase: the eager engine (jit=False) serves the first
 # SLICE_EAGER requests again beside the captured one.
 SLICE_EAGER = 4
-# The serve_swa phase: h2o-danube-3-4b at full width and depth, 4 slots
-# over a cache of max_len 8192 (a ring of 4096 positions a layer), 8
-# requests of 3840-4096 prompt tokens and 384 new tokens each: every one
-# decodes past the window.
+# The serve_swa phase: h2o-danube-3-4b at full width and SWA_LAYERS of
+# its 24 layers, 4 slots over a cache of max_len 8192 (a ring of 4096
+# positions a layer), 8 requests of 3840-4096 prompt tokens and 384 new
+# tokens each: every one decodes past the window.
+SWA_LAYERS = 12
 SWA_SLOTS, SWA_MAX_LEN, SWA_REQUESTS, SWA_NEW = 4, 8192, 8, 384
 SWA_PROMPT = (3840, 4096)
 # The ring check: request 0's tokens teacher-forced through an f32 engine
@@ -304,8 +361,26 @@ RING_BOUND = 0.03
 # activation left unquantized, must miss it.  Each layer runs 4
 # quantize_rows + 4 tiled_mm (wq, wk, wv, wo: fp8 token rows) and 3
 # qmm_stream (w_gate, w_up, w_down: fp4 blocks) a stage.
-SWA_REPLAY_LAYERS = (0, 23)
+SWA_REPLAY_LAYERS = (0, SWA_LAYERS - 1)
 SWA_CALLS_PER_LAYER = {"quantize_rows": 4, "tiled_mm": 4, "qmm_stream": 3}
+# olmoe-1b-7b's expert shapes: 64 experts, d 2048, d_ff 1024; a training
+# step of 4 x 2048 tokens in router groups of 1024 gives each expert
+# 8 groups x 160 slots (capacity ceil(1024 x 8 x 1.25 / 64)) = 1280 rows;
+# a decode step of 8 slots, 8 rows (capacity max(2, top_k)).
+MOE_EXPERTS, MOE_ROWS, MOE_D, MOE_FF = 64, 1280, 2048, 1024
+# The train_moe phase: olmoe-1b-7b at full width and depth, 4 x 2048
+# tokens, 6 steps, adafactor; the op replay of layer 0's expert calls on
+# the CPU takes the first MOE_REPLAY_EXPERTS experts of each batched call
+# (each expert's result is its own: a batched launch equals one launch per
+# expert bit for bit, which moe_kernels gates).
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 4, 2048, 6
+MOE_REPLAY_EXPERTS = 2
+# The serve_moe phase: 8 slots, max_len 2048, 16 requests of 16-512
+# prompt tokens and 64 new tokens; requests 0 and 1 have prompts of
+# MOE_EXACT_PROMPTS tokens, a bucket's own length (no pad row in the
+# router groups), for the check against the sequential generate.
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 8, 2048, 16, 64
+MOE_EXACT_PROMPTS = (128, 256)
 
 
 def card_line() -> str:
@@ -780,6 +855,165 @@ def phase_train_kernels(torch, card):
     emit({"phase": "train_kernels", "card": card, "dtype": "bfloat16",
           "tokens": t, "ok": True, "table": rows,
           "flash_precision_d128": precision})
+    return rows
+
+
+def phase_moe_kernels(torch, card):
+    """The batched (expert) launches of the GEMM kernels at olmoe-1b-7b's
+    shapes (module docstring, phase 2's ``moe_kernels`` line); return
+    per-call records."""
+    from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.kernels import tiled_mm as tm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    timer = Timer(torch)
+    rows = []
+    e, c, d, f = MOE_EXPERTS, MOE_ROWS, MOE_D, MOE_FF
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def same_bits(y, ref, what):
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"{what} not bitwise equal")
+
+    x, h = rand(e, c, d, scale=2), rand(e, c, f, scale=2)
+    g_d, g_f = rand(e, c, d, scale=0.01), rand(e, c, f, scale=0.01)
+    w_up, w_down = rand(e, d, f, scale=0.05), rand(e, f, d, scale=0.05)
+    xd, hd = rand(e, 8, d, scale=2), rand(e, 8, f, scale=2)
+    fp4 = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+               b_fmt="fp4_e2m1")
+    dgrad = dict(a_mode="pass", b_mode="pass", a_fmt="bf16", b_fmt="bf16",
+                 trans_b=True)
+    wgrad = dict(a_mode="block", b_mode="block", a_fmt="fp8_e4m3",
+                 b_fmt="fp8_e5m2", trans_a=True)
+    calls = [("fwd w_up", x, w_up, fp4), ("fwd w_down", h, w_down, fp4),
+             ("dgrad w_up", g_f, w_up, dgrad),
+             ("dgrad w_down", g_d, w_down, dgrad),
+             ("wgrad w_up", x, g_f, wgrad), ("wgrad w_down", h, g_d, wgrad),
+             ("decode w_up", xd, w_up, fp4),
+             ("decode w_down", hd, w_down, fp4)]
+    for role, a, b, kw in calls:
+        ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
+        before = qs.KERNEL.counts()
+        y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, b, **kw))
+        after = qs.KERNEL.counts()
+        if after["launches"] - before["launches"] != 1 or \
+                after["batched"] - before["batched"] != 1:
+            raise AssertionError(f"qmm_stream {role}: not one batched "
+                                 f"launch: {before} -> {after}")
+        ref = qs.qmm_stream_plain(a, b, **kw)
+        yf, rf = y.float(), ref.float()
+        err = (yf - rf).abs()
+        if not bool((err <= 2.0 ** -7 * rf.abs()
+                     + 1e-5 * rf.abs().max()).all()):
+            raise AssertionError(f"qmm_stream {role} out of tolerance: max "
+                                 f"err {err.max().item()}")
+        # the batched launch against the same kernel once per expert
+        one = torch.stack([qs.qmm_stream(a[i], b[i], **kw)
+                           for i in range(e)])
+        same_bits(y, one, f"qmm_stream {role} batched vs per expert")
+        # the QDQ panels (batched quantize pass) against the plain
+        # version, and the stream kernel against two-pass, per expert
+        aq = a if kw["a_mode"] == "pass" else qr.quantize_rows(
+            a, mode=kw["a_mode"], fmt_name=kw["a_fmt"], trans=ta,
+            emit_trans=ta)
+        bq = b if kw["b_mode"] == "pass" else qr.quantize_rows(
+            b, mode=kw["b_mode"], fmt_name=kw["b_fmt"], trans=not tb,
+            emit_trans=not tb)
+        for op, stored, q, mode, fmt, trans in (
+                ("A", a, aq, kw["a_mode"], kw["a_fmt"], ta),
+                ("B", b, bq, kw["b_mode"], kw["b_fmt"], not tb)):
+            if mode != "pass":
+                same_bits(q, qr.quantize_rows_plain(
+                    stored, mode=mode, fmt_name=fmt, trans=trans,
+                    emit_trans=trans), f"quantize_rows {role} {op}")
+        two = tm.tiled_mm(aq, bq, trans_a=ta, trans_b=tb)
+        same_bits(y, two, f"qmm_stream {role} vs quantize_rows + tiled_mm")
+        same_bits(y, fm.fused_qmm(a, b, pipeline="two_pass", **kw),
+                  f"qmm_stream {role} vs the two-pass pipeline")
+        ae = aq.transpose(1, 2) if ta else aq
+        be = bq.transpose(1, 2) if tb else bq
+        _, m, k = ae.shape
+        n = be.shape[2]
+        flops = 2 * e * m * n * k
+        b_ms, b_by = _bound(2 * e * (m * k + k * n + m * n), flops,
+                            H100_BF16_FLOPS)
+        ms = timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=5)
+        rows.append({
+            "name": "qmm_stream", "role": role, "shape": [e, m, k, n],
+            "trans": ta or tb, "batched": True,
+            "max_abs_err": err.max().item(), "ms": ms,
+            "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
+                                 iters=2),
+            "per_expert_launches_ms": timer.ms(
+                lambda: [qs.qmm_stream(a[i], b[i], **kw) for i in range(e)],
+                iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.bmm(ae, be), iters=5),
+            "route": route, "tflops": flops / (ms * 1e-3) / 1e12,
+            "bound_share": b_ms / ms})
+    # the two-pass kernels batched (the route of a promoted expert cell:
+    # fp8 tokens): quantize_rows and tiled_mm against their plain
+    # versions and against one launch per expert
+    for role, a, b in (("fwd w_up fp8 token", x, w_up),):
+        before = {k_.name: k_.counts()["batched"]
+                  for k_ in (qr.KERNEL, tm.KERNEL)}
+        aq = qr.quantize_rows(a, mode="token", fmt_name="fp8_e4m3")
+        bq = qr.quantize_rows(b, mode="token", fmt_name="fp8_e4m3",
+                              trans=True, emit_trans=True)
+        same_bits(aq, qr.quantize_rows_plain(a, mode="token",
+                                             fmt_name="fp8_e4m3"),
+                  f"quantize_rows {role} A")
+        same_bits(bq, torch.stack([qr.quantize_rows(
+            b[i], mode="token", fmt_name="fp8_e4m3", trans=True,
+            emit_trans=True) for i in range(e)]),
+            f"quantize_rows {role} B batched vs per expert")
+        y, route = routed(tm.KERNEL, lambda: tm.tiled_mm(aq, bq))
+        ref = tm.tiled_mm_plain(aq, bq)
+        err = (y.float() - ref.float()).abs()
+        if not bool((err <= 2.0 ** -7 * ref.float().abs()
+                     + 1e-5 * ref.float().abs().max()).all()):
+            raise AssertionError(f"tiled_mm {role} out of tolerance")
+        same_bits(y, torch.stack([tm.tiled_mm(aq[i], bq[i])
+                                  for i in range(e)]),
+                  f"tiled_mm {role} batched vs per expert")
+        if any(k_.counts()["batched"] <= before[k_.name]
+               for k_ in (qr.KERNEL, tm.KERNEL)):
+            raise AssertionError(f"{role}: a batched launch not counted")
+        _, m, k = aq.shape
+        n = bq.shape[2]
+        flops = 2 * e * m * n * k
+        b_ms, b_by = _bound(2 * e * (m * k + k * n + m * n), flops,
+                            H100_BF16_FLOPS)
+        ms = timer.ms(lambda: tm.tiled_mm(aq, bq), iters=5)
+        rows.append({
+            "name": "tiled_mm", "role": role, "shape": [e, m, k, n],
+            "trans": False, "batched": True,
+            "max_abs_err": err.max().item(), "ms": ms,
+            "plain_ms": timer.ms(lambda: tm.tiled_mm_plain(aq, bq),
+                                 iters=2),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.bmm(aq, bq), iters=5),
+            "route": route, "tflops": flops / (ms * 1e-3) / 1e12,
+            "bound_share": b_ms / ms})
+        n_el = a.numel()
+        q_ms, q_by = _bound(4 * n_el, 8 * n_el, H100_F32_FLOPS)
+        rows.append({
+            "name": "quantize_rows", "role": f"{role} A",
+            "shape": list(a.shape), "trans": False, "batched": True,
+            "max_abs_err": 0.0,
+            "ms": timer.ms(lambda: qr.quantize_rows(
+                a, mode="token", fmt_name="fp8_e4m3"), iters=5),
+            "plain_ms": timer.ms(lambda: qr.quantize_rows_plain(
+                a, mode="token", fmt_name="fp8_e4m3"), iters=2),
+            "bound_ms": q_ms, "bound_by": q_by, "library_ms": None})
+    torch.cuda.synchronize()
+    emit({"phase": "moe_kernels", "card": card, "dtype": "bfloat16",
+          "experts": e, "rows_per_expert": c, "ok": True, "table": rows})
     return rows
 
 
@@ -1463,8 +1697,8 @@ def replay_plain(torch, calls, stage):
             row["shape"] = list(a.shape)
             row["bitwise"] = torch.equal(y.view(torch.int16),
                                          ref.view(torch.int16))
-        else:
-            row["shape"] = [a.shape[0], a.shape[1], c["args"][1].shape[1]]
+        else:   # [M, K, N], or [E, M, K, N] for a batched call
+            row["shape"] = [*a.shape, c["args"][1].shape[-1]]
             row["rel_l2"] = rel(y, ref)
             row["max_abs_err"] = float((y.float() - ref.float()).abs().max())
             if c["name"] == "qmm_stream" and control is None:
@@ -1538,9 +1772,9 @@ def swa_kernel_replay(torch, cfg, params, recipe, prompt):
 
 
 def phase_serve_swa(torch, card):
-    """h2o-danube-3-4b at full width and depth through the packed-FP4
-    ``ContinuousBatcher`` with its ring-window caches (module docstring,
-    phase 3b)."""
+    """h2o-danube-3-4b at full width (``SWA_LAYERS`` layers) through the
+    packed-FP4 ``ContinuousBatcher`` with its ring-window caches (module
+    docstring, phase 3b)."""
     from repro_torch.configs import get_config
     from repro_torch.core.recipe import RECIPES
     from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
@@ -1549,7 +1783,8 @@ def phase_serve_swa(torch, card):
         ContinuousBatcher, quantize_weights_for_serving,
         serving_memory_report)
 
-    cfg = get_config("h2o-danube-3-4b").replace(linear_impl="pallas")
+    cfg = get_config("h2o-danube-3-4b").replace(linear_impl="pallas",
+                                                n_layers=SWA_LAYERS)
     recipe = RECIPES["paper_fp4"]
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -2812,6 +3047,349 @@ def phase_train_large(torch, card):
     return launches
 
 
+class MoeTrainRecorder(TrainRecorder):
+    """``TrainRecorder`` keeping only the batched (expert) calls, each cut
+    to its first ``experts`` experts when it is kept."""
+
+    def __init__(self, layers, experts):
+        super().__init__(TrainRecorder.SWIGLU, layers)
+        self.experts = experts
+
+    def _keep(self, layer, role, fn, args, kw, y):
+        if role == "flash" or \
+                not any(getattr(a, "dim", lambda: 0)() == 3 for a in args):
+            return
+        n = self.experts
+        cut = [a[:n] if getattr(a, "dim", lambda: 0)() == 3 else a
+               for a in args]
+        super()._keep(layer, role, fn, cut, kw, y[:n])
+
+
+def phase_train_moe(torch, card):
+    """Train olmoe-1b-7b at full width and depth (module docstring):
+    remat, adafactor, 4 x 2048 tokens, the experts' batched launches.
+    Gate the run; return the path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.quantize import BF16_SPEC
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import make_eval_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("olmoe-1b-7b").replace(
+        linear_impl="pallas", attention_impl="pallas", remat=True,
+        remat_policy="full", optimizer="adafactor", scan_layers=False)
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=MOE_STEPS,
+                       global_batch=MOE_BATCH, seq_len=MOE_SEQ, log_every=0)
+    pipeline = SyntheticLM(cfg.vocab_size, MOE_SEQ, MOE_BATCH, seed=0)
+    model = build_model(cfg)
+    trainer = Trainer(model, tcfg, pipeline)
+    t0 = time.perf_counter()
+    state = trainer.init_state(params=model.init(0, on_device=True))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    # the sanity check of learning: the loss on step 0's batch before and
+    # after the run (one batch to the next, SyntheticLM's losses differ
+    # more than 6 steps move them)
+    eval_step = make_eval_step(model, trainer.plan)
+    batch0 = trainer._batch(pipeline, 0)
+    eval_before = float(eval_step(state.params, batch0)["loss"])
+    for kern in kernels:
+        kern.reset()
+    per_step, peaks = [], []
+    for step in range(MOE_STEPS):
+        before = {k.name: k.counts() for k in kernels}
+        torch.cuda.reset_peak_memory_stats()
+        if step == 0:
+            with MoeTrainRecorder((0,), MOE_REPLAY_EXPERTS) as rec:
+                state = trainer.train(state, num_steps=1)
+            for r in rec.records:
+                r["args"] = [a.cpu() if hasattr(a, "cpu") else a
+                             for a in r["args"]]
+                r["out"] = r["out"].cpu()
+        else:
+            state = trainer.train(state, num_steps=1)
+        peaks.append(int(torch.cuda.max_memory_allocated()))
+        per_step.append({k.name: {c: v - before[k.name][c]
+                                  for c, v in k.counts().items()
+                                  if c in ("launches", "tc", "recompute",
+                                           "batched")}
+                         for k in kernels})
+    counts = {k.name: k.counts() for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
+    eval_after = float(eval_step(state.params, batch0)["loss"])
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    dts = [r["dt"] for r in hist]
+    p50 = float(np.median(dts[1:]))
+    tokens = MOE_BATCH * MOE_SEQ
+    failures = []
+    # per MoE layer a step: fwd, recompute, dgrad and wgrad of w_gate,
+    # w_up and w_down, each one batched launch
+    want_batched = 12 * cfg.n_layers
+    got_batched = [s_["qmm_stream"]["batched"] for s_ in per_step]
+    if any(n != want_batched for n in got_batched):
+        failures.append(f"batched qmm_stream launches a step {got_batched}, "
+                        f"not {want_batched}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss: {losses}")
+    elif not eval_after < eval_before:
+        failures.append(f"the loss on step 0's batch did not fall: "
+                        f"{eval_before} -> {eval_after}")
+    for key in ("moe_load_balance", "moe_router_z", "moe_frac_dropped"):
+        if not all(key in r and np.isfinite(r[key]) for r in hist):
+            failures.append(f"{key} missing or non-finite in a row")
+    if min(launches.values()) <= 0 or \
+            min(counts[k]["recompute"] for k in launches) <= 0:
+        failures.append(f"a kernel of the path never ran, or never in a "
+                        f"recompute: {counts}")
+    if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
+        failures.append(f"a GEMM or flash launch left the tensor-core "
+                        f"route: {counts}")
+    # layer 0's expert calls again on the CPU (the plain versions) on the
+    # card's inputs, and the control: the w_up forward with its
+    # activation left unquantized
+    names = ("w_gate", "w_up", "w_down")
+    got_roles = sorted(r["role"] for r in rec.records)
+    want_roles = sorted([f"fwd {n}" for n in names]
+                        + [f"dgrad {n}" for n in names]
+                        + ["wgrad"] * 3)
+    if [r_.split()[0] for r_ in got_roles] != \
+            [r_.split()[0] for r_ in want_roles]:
+        failures.append(f"recorded expert calls {got_roles}")
+    replay, _ = replay_train_ops(torch, rec.records, control_role=None)
+    ctrl_rec = next(r for r in rec.records if r["role"] == "fwd w_up")
+    impl, a, b, _, spec_b = ctrl_rec["args"]
+    ctrl = ctrl_rec["fn"](impl, a, b, BF16_SPEC, spec_b, **ctrl_rec["kw"])
+    y = ctrl_rec["out"].double()
+    control = float((y - ctrl.double()).norm() / y.norm())
+    del rec
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    if not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    emit({"phase": "train_moe", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "group_size": cfg.moe.group_size,
+          "vocab_size": cfg.vocab_size, "params": n_params,
+          "active_params": model.active_param_count(),
+          "global_batch": MOE_BATCH, "seq_len": MOE_SEQ,
+          "steps": MOE_STEPS, "recipe": "paper_fp4",
+          "optimizer": cfg.optimizer, "remat": cfg.remat_policy,
+          "losses": losses, "plans": [r["recipe"] for r in hist],
+          "batch0_loss_before_after": [eval_before, eval_after],
+          "moe_metrics": [{k: r[k] for k in ("moe_load_balance",
+                                             "moe_router_z",
+                                             "moe_frac_dropped")}
+                          for r in hist],
+          "init_s": init_s, "step_ms": [dt * 1e3 for dt in dts],
+          "step_p50_ms_after_first": p50 * 1e3,
+          "tokens_per_s": tokens / p50,
+          "max_memory_allocated_per_step": peaks,
+          "max_memory_allocated": max(peaks),
+          "launches_per_step": per_step, "counts": counts,
+          "op_replay": {"calls": len(replay), "layer": 0,
+                        "experts": MOE_REPLAY_EXPERTS,
+                        "rel_l2_max": worst, "bound": bound,
+                        "quantized_differing": q_bad,
+                        "rel_l2_by_role": {r["role"]: r["rel_l2"]
+                                           for r in replay},
+                        "control_w_up_activation_unquantized": control}})
+    if failures:
+        raise AssertionError("train_moe phase: " + "; ".join(failures))
+    profile_train_step(torch, trainer._step_fn(trainer.plan), state,
+                       trainer._batch(pipeline, 0), card,
+                       phase="train_moe_profile", plan=trainer.plan.name)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, {k.name: counts[k.name]["batched"] for k in kernels}
+
+
+def phase_serve_moe(torch, card):
+    """olmoe-1b-7b at full width and depth through the packed-FP4
+    ``ContinuousBatcher``, every stage captured (module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import (
+        ContinuousBatcher, DecodeEngine, quantize_weights_for_serving,
+        serving_memory_report)
+
+    cfg = get_config("olmoe-1b-7b").replace(linear_impl="pallas")
+    recipe = RECIPES["paper_fp4"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.cast_params(quantize_weights_for_serving(
+        model, model.init(seed=1, dtype=torch.bfloat16, on_device=True),
+        "fp4_e2m1"))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    mem = serving_memory_report(params)
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(16, 513, size=MOE_REQUESTS)]
+    lengths[:len(MOE_EXACT_PROMPTS)] = MOE_EXACT_PROMPTS
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
+
+    def make(jit):
+        return ContinuousBatcher(model, params, n_slots=MOE_SLOTS,
+                                 max_len=MOE_MAX_LEN, recipe=recipe,
+                                 kv_format="fp8_e4m3", jit=jit)
+
+    batcher = make(jit=True)
+    engine = batcher.engine
+    if any(engine.bucket(n) != n for n in MOE_EXACT_PROMPTS):
+        raise AssertionError("MOE_EXACT_PROMPTS are not bucket lengths")
+    buckets = sorted({engine.bucket(n) for n in lengths})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in buckets:
+        batcher.submit(np.arange(n) % cfg.vocab_size, 2)
+    batcher.run()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    warm_counts = stage_counts(engine)
+    out, launches, prefill_ms, step_ms, wall, peak = serve_run(
+        torch, batcher, prompts, MOE_NEW, kernels)
+    batched = {k.name: k.batched_launches for k in kernels}
+    counts = stage_counts(engine)
+    run_counts = {name: {k: n - warm_counts[name][k] for k, n in c.items()}
+                  for name, c in counts.items()}
+    failures = []
+    if any(c["captures"] for c in run_counts.values()):
+        failures.append(f"the timed run captured: {run_counts}")
+    if batched["qmm_stream"] <= 0:
+        failures.append(f"no batched expert launch in the run: {batched}")
+
+    eager = make(jit=False)
+    eager.submit(prompts[0][:16], 2)
+    eager.run()
+    eager_out, eager_launches, eager_prefill_ms, eager_step_ms, _, _ = \
+        serve_run(torch, eager, prompts[:SLICE_EAGER], MOE_NEW, kernels)
+    if eager_out != out[:SLICE_EAGER]:
+        failures.append("captured engine != eager engine")
+    del eager
+
+    # requests 0 and 1 again, one at a time, through a captured engine of
+    # one slot and the same max_len (the cached attention's bits depend
+    # on the cache's length, so ``generate``'s cache of prompt + new
+    # tokens is not the yardstick: see PERF.md, section 6)
+    t0 = time.perf_counter()
+    single = ContinuousBatcher(model, params, n_slots=1,
+                               max_len=MOE_MAX_LEN, recipe=recipe,
+                               kv_format="fp8_e4m3")
+    for i in range(len(MOE_EXACT_PROMPTS)):
+        rid = single.submit(prompts[i], MOE_NEW)
+        alone = single.run()[rid]
+        if alone != out[i]:
+            first = next(j for j, (a, b) in enumerate(zip(alone, out[i]))
+                         if a != b)
+            failures.append(f"request {i}: 8-slot engine != 1-slot engine "
+                            f"from token {first}")
+    sequential_s = time.perf_counter() - t0
+    del single
+    if failures:
+        raise AssertionError("serve_moe phase: " + "; ".join(failures))
+    del batcher, engine
+    gc.collect()
+
+    # the GEMM kernels at this phase's shapes against their plain versions:
+    # an eager engine's prefill of request 2 and one batched decode step,
+    # layer 0's calls recorded and replayed on the card
+    kengine = DecodeEngine(model, params, n_slots=MOE_SLOTS,
+                           max_len=MOE_MAX_LEN, recipe=recipe,
+                           kv_format="fp8_e4m3", jit=False)
+    with KernelRecorder((0,)) as pre:
+        tok, c1 = kengine.prefill(prompts[2])
+    kengine.insert(c1, tok, 0)
+    with KernelRecorder((0,)) as dec:
+        kengine.generate_step()
+    del kengine, c1
+    bound = OP_BOUND["bfloat16"]
+    rows, controls = [], []
+    for stage, rec in (("prefill", pre), ("decode", dec)):
+        r, ctrl = replay_plain(torch, rec.calls, stage)
+        rows += r
+        controls.append(ctrl)
+        del rec.calls
+    worst = max(r["rel_l2"] for r in rows if "rel_l2" in r)
+    not_bitwise = [r for r in rows if r.get("bitwise") is False]
+    expert_rows = [r for r in rows if len(r["shape"]) == 4]
+    if not worst <= bound or not_bitwise or not expert_rows or \
+            any(c is None or not c > bound for c in controls):
+        raise AssertionError(
+            f"serve_moe kernel replay: worst {worst} (bound {bound}), "
+            f"{len(not_bitwise)} quantize passes not bitwise, "
+            f"{len(expert_rows)} expert calls, controls {controls}")
+    profile_decode(torch, DecodeEngine(
+        model, params, n_slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+        recipe=recipe, kv_format="fp8_e4m3"), card,
+        phase="serve_moe_profile")
+    n_gen = sum(len(v) for v in out)
+    emit({"phase": "serve_moe", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "slots": MOE_SLOTS, "max_len": MOE_MAX_LEN,
+          "requests": len(prompts), "new_tokens": MOE_NEW,
+          "prompt_lengths": lengths, "jit": True, "pack_s": pack_s,
+          "capture_warmup_s": capture_s,
+          "stages_warmup": warm_counts, "stages_run": run_counts,
+          "prefill_ms_by_bucket": {
+              str(b): float(np.median(v)) for b, v in
+              sorted(prefill_ms.items())},
+          "prefill_count_by_bucket": {
+              str(b): len(v) for b, v in sorted(prefill_ms.items())},
+          "decode_step_p50_ms": float(np.median(step_ms)),
+          "decode_steps": len(step_ms),
+          "eager": {"requests": SLICE_EAGER,
+                    "decode_step_p50_ms": float(np.median(eager_step_ms)),
+                    "decode_steps": len(eager_step_ms),
+                    "prefill_ms_by_bucket": {
+                        str(b): float(np.median(v)) for b, v in
+                        sorted(eager_prefill_ms.items())},
+                    "launches": eager_launches,
+                    "tokens_vs_captured": "equal"},
+          "launches": launches, "batched_launches": batched,
+          "tokens_per_s": n_gen / wall, "wall_s": wall,
+          "max_memory_allocated": int(peak),
+          "packed_bytes_per_param": mem["bytes_per_packed_param"],
+          "packed_params": mem["packed_params"],
+          "total_param_bytes": mem["total_bytes"],
+          "kv_cache_bytes": kv_cache_bytes(cfg.replace(
+              kv_cache_format="fp8_e4m3"), MOE_SLOTS, MOE_MAX_LEN),
+          "engine_vs_one_slot_engine": f"token-exact (requests 0-1, "
+                                       f"prompts {list(MOE_EXACT_PROMPTS)})",
+          "sequential_s": sequential_s,
+          "kernel_replay": {"layer": 0, "calls": len(rows),
+                            "expert_calls": len(expert_rows),
+                            "rel_l2_max": worst, "bound": bound,
+                            "rel_l2_max_by_call": {
+                                f"{r['stage']} {r['kernel']} {r['shape']} "
+                                f"{r['route']}": r.get("rel_l2", 0.0)
+                                for r in rows},
+                            "control_ffn_activation_unquantized": dict(
+                                zip(("prefill", "decode"), controls))}})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, batched
+
+
 def phase_blockwise(torch, card):
     """``kernels.ops.quantize_blockwise`` over every 2-D weight of a seeded
     gpt2-125m (bf16): fp4 (128 x 128) tiles and fp8 (1 x 128) rows, each
@@ -2853,7 +3431,9 @@ def main() -> int:
     # ``--phase slice`` / ``--phase serve_swa``: the build and that one
     # serving phase alone (an A/B of one path across checkouts); no
     # launches, kernels or ok line.
-    solo = {"slice": phase_slice, "serve_swa": phase_serve_swa}
+    solo = {"slice": phase_slice, "serve_swa": phase_serve_swa,
+            "moe_kernels": phase_moe_kernels, "train_moe": phase_train_moe,
+            "serve_moe": phase_serve_moe}
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--phase"
                  or args[1] not in solo):
@@ -2883,28 +3463,45 @@ def main() -> int:
         solo[args[1]](torch, card)
         print(f"card: {card}", flush=True)
         return 0
+    seconds_at = {}   # seconds from the start when each phase ended
+
+    def lap(name):
+        torch.cuda.empty_cache()
+        seconds_at[name] = time.perf_counter() - t0
+    lap("build")
     phase_kernels(torch, card)
     rows = phase_train_kernels(torch, card)
     tel_rows = phase_telemetry_kernels(torch, card)
+    moe_rows = phase_moe_kernels(torch, card)
+    lap("kernels")
     serve_launches = phase_slice(torch, card)
-    torch.cuda.empty_cache()
+    lap("slice")
     swa_launches = phase_serve_swa(torch, card)
-    torch.cuda.empty_cache()
+    lap("serve_swa")
     train_launches, paper_p50_ms = phase_train(torch, card)
     tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
-    torch.cuda.empty_cache()
+    lap("train")
     with tempfile.TemporaryDirectory() as cal_dir:
         cal_path = phase_speed_factors(torch, card, cal_dir)
         adaptive_launches = phase_train_adaptive(torch, card, cal_path)
-    torch.cuda.empty_cache()
+    lap("train_adaptive")
     large_launches = phase_train_large(torch, card)
+    lap("train_large")
+    moe_train_launches, moe_train_batched = phase_train_moe(torch, card)
+    lap("train_moe")
+    moe_serve_launches, moe_serve_batched = phase_serve_moe(torch, card)
+    lap("serve_moe")
+    moe_batched = {"train": moe_train_batched, "serve": moe_serve_batched}
     block_launches = phase_blockwise(torch, card)
     by_path = {"serve": serve_launches, "serve_swa": swa_launches,
                "train": train_launches,
                "train_telemetry": tel_launches,
                "train_adaptive": adaptive_launches,
-               "train_large": large_launches, "blockwise": block_launches}
-    emit({"launches": by_path, "seconds": time.perf_counter() - t0})
+               "train_large": large_launches,
+               "train_moe": moe_train_launches,
+               "serve_moe": moe_serve_launches, "blockwise": block_launches}
+    emit({"launches": by_path, "seconds": time.perf_counter() - t0,
+          "seconds_at_end_of": seconds_at})
 
     # One record per kernel: launches from the path that runs it (this
     # slice's adaptive gpt2-125m train path; quantize_blockwise's own
@@ -2924,7 +3521,8 @@ def main() -> int:
     kernels = []
     for name in ("qmm_stream", "quantize_rows", "tiled_mm",
                  "flash_attention", "quantize_blockwise"):
-        mine = [r for r in rows + tel_rows if r["name"] == name]
+        mine = [r for r in rows + tel_rows + moe_rows
+                if r["name"] == name]
         rep = next(r for r in mine
                    if r.get("role", r.get("mode")) == main_role[name])
         kernels.append({
@@ -2932,6 +3530,16 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "launches_by_path": {path: counts[name] for path, counts
                                  in by_path.items() if name in counts},
+            "batched_launches_by_path": {
+                path: counts[name] for path, counts in (
+                    ("train_moe", moe_batched["train"]),
+                    ("serve_moe", moe_batched["serve"]))
+                if name in counts},
+            "batched_rows": [
+                {k: r[k] for k in ("role", "shape", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err")}
+                for r in moe_rows if r["name"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

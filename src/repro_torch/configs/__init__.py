@@ -1,6 +1,8 @@
-"""Configs of the port: the paper's dense models plus the test config.
+"""Configs of the port: the paper's dense models, the MoE models and the
+test config.
 Each module exposes ``CONFIG`` and ``REDUCED`` as in ``repro.configs``."""
 from repro_torch.configs.base import (ControllerSettings, LayerSpec,
-                                      ModelConfig, get_config)
+                                      ModelConfig, MoESettings, get_config)
 
-__all__ = ["ControllerSettings", "LayerSpec", "ModelConfig", "get_config"]
+__all__ = ["ControllerSettings", "LayerSpec", "ModelConfig", "MoESettings",
+           "get_config"]

@@ -1,13 +1,24 @@
-"""Model and training configuration dataclasses (the dense subset of
-``repro.configs.base``, same field names and defaults)."""
+"""Model and training configuration dataclasses (the dense and MoE
+subset of ``repro.configs.base``, same field names and defaults)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import List, Optional, Tuple
 
-__all__ = ["ModelConfig", "LayerSpec", "ControllerSettings",
+__all__ = ["ModelConfig", "MoESettings", "LayerSpec", "ControllerSettings",
            "TrainConfig", "get_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESettings:
+    num_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    group_size: int = 2048      # router group size (GShard-style)
+    every_k_layers: int = 1     # MoE FFN on layers with i % k == k-1
+    router_z_loss: float = 1e-3
+    load_balance_loss: float = 1e-2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,8 +31,8 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Field-for-field the reference ``ModelConfig``, so one config dict
-    round-trips between the packages.  The port runs the dense family;
-    ``moe``/``mamba`` stay ``None``.
+    round-trips between the packages.  The port runs the dense and the
+    MoE families (``moe``, a ``MoESettings``); ``mamba`` stays ``None``.
 
     ``linear_impl``: ``"qdq"`` (unfused QDQ simulation), ``"pallas"`` (the
     fused quantize+matmul kernels; in this package the hand-written CUDA
@@ -46,7 +57,7 @@ class ModelConfig:
     sliding_window: int = 0    # 0 = full attention
     tie_embeddings: bool = False
     qkv_bias: bool = False
-    moe: Optional[object] = None
+    moe: Optional[MoESettings] = None
     mamba: Optional[object] = None
     attn_layer_period: int = 0
     cross_attn_period: int = 0
@@ -71,10 +82,31 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def layer_specs(self) -> List[LayerSpec]:
-        if self.family != "dense":
+        """One spec a layer: attention everywhere, the FFN dense or (MoE
+        family) MoE on the layers with ``i % every_k_layers == k - 1``,
+        as the reference's.  Other families raise."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"repro_torch runs the dense family; got {self.family!r}")
-        return [LayerSpec() for _ in range(self.n_layers)]
+                f"repro_torch runs the dense and moe families; got "
+                f"{self.family!r}")
+        specs = []
+        for i in range(self.n_layers):
+            ffn = "dense"
+            if self.moe is not None:
+                k = self.moe.every_k_layers
+                ffn = "moe" if i % k == k - 1 else "dense"
+            specs.append(LayerSpec("attn", False, ffn))
+        return specs
+
+    def scan_period(self) -> int:
+        """Smallest repeating period of layer_specs (scan group size)."""
+        specs = self.layer_specs()
+        n = len(specs)
+        for p in range(1, n + 1):
+            if n % p == 0 and all(specs[i] == specs[i % p]
+                                  for i in range(n)):
+                return p
+        return n
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -184,7 +216,7 @@ class TrainConfig:
 
 
 ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "h2o-danube-3-4b",
-         "llama-125m", "llama-1b", "tiny"]
+         "llama-125m", "llama-1b", "mixtral-8x22b", "olmoe-1b-7b", "tiny"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -63,26 +63,34 @@ def params_from_jax(tree, cfg: ModelConfig):
     return _convert(tree, specs, "")
 
 
-def _tensors(tree):
-    if isinstance(tree, dict):
-        return {k: _tensors(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_tensors(v) for v in tree]
+def _tensors(tree, specs):
+    """``tree``'s leaves as tensors, its dicts in the key order of the
+    parameter ``specs`` (the optimizers walk state and parameters leaf by
+    leaf in one order; the reference's trees come with sorted keys)."""
+    if isinstance(specs, dict):
+        if not isinstance(tree, dict) or set(tree) != set(specs):
+            raise ValueError(f"keys {sorted(tree)} != {sorted(specs)}")
+        return {k: _tensors(tree[k], specs[k]) for k in specs}
+    if isinstance(specs, list):
+        return [_tensors(t, s) for t, s in zip(tree, specs)]
     return _tensor(tree)
 
 
 def opt_state_from_jax(state, cfg: ModelConfig):
     """The port's optimizer state (CPU tensors) from the reference's
     (numpy leaves): AdamW's moments checked against the parameter specs
-    as ``params_from_jax`` checks the weights; Adafactor's factors taken
-    as they are."""
+    as ``params_from_jax`` checks the weights; Adafactor's factors in
+    the parameters' key order, their shapes as they are."""
     fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
     count = int(np.asarray(fields["count"]))
     if set(fields) == {"count", "mu", "nu"}:
         return AdamWState(count, params_from_jax(fields["mu"], cfg),
                           params_from_jax(fields["nu"], cfg))
     if set(fields) == {"count", "vr", "vc"}:
-        return AdafactorState(count, _tensors(fields["vr"]),
-                              _tensors(fields["vc"]))
+        layout = "groups" if "groups" in fields["vr"]["stack"] else "layers"
+        specs = build_model(dataclasses.replace(
+            cfg, scan_layers=layout == "groups"), "cpu").param_specs()
+        return AdafactorState(count, _tensors(fields["vr"], specs),
+                              _tensors(fields["vc"], specs))
     raise ValueError(f"unknown optimizer state fields {sorted(fields)}")
 

@@ -222,18 +222,23 @@ class ModelDims:
     @classmethod
     def from_config(cls, cfg, seq_len: Optional[int] = None,
                     include_head: bool = True) -> "ModelDims":
-        """Resolve a (dense) ``configs.base.ModelConfig`` into per-layer
-        dims: each attention layer prices QKV+O and the SDPA matmuls, its
-        dense FFN the FFN-class flops, and the lm-head matmul lands in
+        """Resolve a (dense or MoE) ``configs.base.ModelConfig`` into
+        per-layer dims: each attention layer prices QKV+O and the SDPA
+        matmuls, its dense FFN the FFN-class flops, a MoE FFN those flops
+        scaled by the router top-k, and the lm-head matmul lands in
         ``head_flops`` (the reference's walk over ``cfg.layer_specs()``,
-        whose MoE, SSM and cross-attention branches wait for those
+        whose SSM and cross-attention branches wait for those
         families)."""
         dm = cfg.d_model
-        f = block_flops(BlockDims(
+        block = BlockDims(
             d_model=dm, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
             n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
             seq_len=seq_len or cfg.max_seq_len,
-            n_ff_matmuls=3 if cfg.activation == "swiglu" else 2))
+            n_ff_matmuls=3 if cfg.activation == "swiglu" else 2)
+        f = block_flops(block)
+        fm = (block_flops(dataclasses.replace(block,
+                                              moe_top_k=cfg.moe.top_k))
+              if cfg.moe is not None else None)
         rows = []
         for spec in cfg.layer_specs():
             attn = sdpa = ffn = 0.0
@@ -241,6 +246,8 @@ class ModelDims:
                 attn, sdpa = f["attn_linear"], f["attn_sdpa"]
             if spec.ffn == "dense":
                 ffn += f["ffn"]
+            elif spec.ffn == "moe":
+                ffn += fm["ffn"]
             rows.append(LayerDims(attn, sdpa, ffn))
         head = 2.0 * dm * cfg.vocab_size if include_head else 0.0
         return cls(tuple(rows), head)

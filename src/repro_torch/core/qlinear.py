@@ -20,6 +20,15 @@ config's ``linear_impl``:
   on a CUDA tensor: the card path launches its kernels or fails.  On a
   CPU tensor that matmul takes ``dot_qdq``, the reference's fallback.
 
+``qmatmul`` also takes 3-D operands, (E, C, K) x (E, K, N): the MoE
+experts' batched matmul, the counterpart of the reference's ``jax.vmap``
+over its matmul.  Each role then runs the E products in one call (one
+batched kernel launch under the fused impls, a loop over the experts'
+QDQ products under ``"qdq"``), each expert quantized on its own and
+every expert drawing the same SR noise (the reference vmaps one key),
+and records one census event, as the reference's vmap traces its matmul
+once.
+
 A ``PackedTensor`` weight takes ``packed_linear``: the quantize-once panel
 is expanded (bitwise equal to the training QDQ) and fed to the matmul as a
 pass-mode operand, so only the activations are quantized per call; it is
@@ -97,12 +106,17 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     same for B'; reduction axes 1 and 0), then the matmul in the input
     dtype; ``salt`` seeds a stochastic spec's noise.  With a ``census``
     (``_census()``) and a ``role`` the call records one ``route`` event
-    (``qdq``, or ``qdq_fallback`` with its ``reasons``)."""
+    (``qdq``, or ``qdq_fallback`` with its ``reasons``).  3-D operands
+    pair by pair, every pair with the same noise."""
     if census is not None and role is not None:
         routing.record(role, route, spec_a.to_str(), spec_b.to_str(),
                        reasons=reasons, sr_a=spec_a.stochastic,
                        sr_b=spec_b.stochastic, cell=census[1],
                        log=census[0])
+    if a.dim() == 3:
+        return torch.stack([dot_qdq(x, y, spec_a, spec_b, trans_a=trans_a,
+                                    trans_b=trans_b, salt=salt)
+                            for x, y in zip(a, b)])
     return torch.matmul(
         qdq(a.T if trans_a else a, spec_a, 1,
             generator=_generator(spec_a, salt, 0, a.device)),
@@ -260,7 +274,8 @@ class _QMatmul(torch.autograd.Function):
 def qmatmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe, *,
             impl: str = "qdq") -> torch.Tensor:
     """``y = Q(x2d) @ Q(w)`` for a (M, K) x (K, N) pair, differentiable
-    (the reference's ``qmatmul`` / ``pallas_qmatmul`` custom_vjp)."""
+    (the reference's ``qmatmul`` / ``pallas_qmatmul`` custom_vjp), or a
+    batch of E pairs, (E, M, K) x (E, K, N) -> (E, M, N)."""
     _check_impl(impl)
     return _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe, impl,
                           False)

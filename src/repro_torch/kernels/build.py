@@ -22,8 +22,9 @@ from typing import Dict, List, Tuple
 
 __all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
            "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
-           "stream_ptr", "stats_buffers", "recomputing", "recomputing_now",
-           "KERNELS", "launch_counts", "add_launch_counts"]
+           "stream_ptr", "stats_buffers", "batch_of", "recomputing",
+           "recomputing_now", "KERNELS", "launch_counts",
+           "add_launch_counts"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -141,7 +142,9 @@ class CudaKernel:
     stochastically and ``stats_launches`` the part that collected the
     stats epilogue (its fold included) and ``tc_launches`` the part that
     ran on the tensor-core route (a GEMM kernel's bf16 calls with M > 16,
-    flash attention's bf16 calls: ``tensor_core``).  A CUDA graph's
+    flash attention's bf16 calls: ``tensor_core``) and
+    ``batched_launches`` the part that ran a batch of operand pairs in
+    one launch (``batched``: the MoE experts).  A CUDA graph's
     replay launches what its capture recorded without calling the entry
     point: ``graphs.GraphedStage`` adds the capture's counts on every
     replay (``add_launch_counts``) and takes them back from the capture,
@@ -160,13 +163,14 @@ class CudaKernel:
     def reset(self) -> None:
         self.launches = self.trans_launches = 0
         self.sr_launches = self.stats_launches = self.tc_launches = 0
-        self.recompute_launches = 0
+        self.recompute_launches = self.batched_launches = 0
 
     def counts(self) -> Dict[str, int]:
         return {"launches": self.launches, "trans": self.trans_launches,
                 "sr": self.sr_launches, "stats": self.stats_launches,
                 "tc": self.tc_launches,
-                "recompute": self.recompute_launches}
+                "recompute": self.recompute_launches,
+                "batched": self.batched_launches}
 
     def add(self, counts: Dict[str, int]) -> None:
         """Add ``counts`` (the keys of ``counts()``) to this kernel's."""
@@ -176,6 +180,7 @@ class CudaKernel:
         self.stats_launches += counts["stats"]
         self.tc_launches += counts["tc"]
         self.recompute_launches += counts["recompute"]
+        self.batched_launches += counts["batched"]
 
     def _bind(self, suffix: str, argtypes):
         fn = getattr(load(self.name), f"{self.name}_{suffix}")
@@ -194,7 +199,7 @@ class CudaKernel:
 
     def launch(self, *args, kernels: int = 1, trans: bool = False,
                sr: bool = False, stats: bool = False,
-               tc: bool = False) -> None:
+               tc: bool = False, batched: bool = False) -> None:
         if self._fn is None:
             self._fn = self._bind("launch", self.argtypes)
         err = self._fn(*args)
@@ -206,6 +211,7 @@ class CudaKernel:
         self.stats_launches += kernels * stats
         self.tc_launches += kernels * tc
         self.recompute_launches += kernels * recomputing_now()
+        self.batched_launches += kernels * batched
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:
@@ -227,8 +233,9 @@ _DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
 
 def cuda_operands(*ts):
     """Check the operands of a launch (CUDA, one device, float32 or
-    bfloat16, 2-D, row-major contiguous) and return the kernels' dtype
-    code.  Raises on anything a kernel does not take."""
+    bfloat16, row-major contiguous, all 2-D or all 3-D with one batch
+    size: a batched launch) and return the kernels' dtype code.  Raises
+    on anything a kernel does not take."""
     dev, dt = ts[0].device, ts[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, not {dev}")
@@ -236,9 +243,11 @@ def cuda_operands(*ts):
         if t.device != dev or t.dtype != dt:
             raise ValueError("operands must share one device and dtype; got "
                              f"{[(x.device, x.dtype) for x in ts]}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError("kernels take 2-D row-major contiguous "
-                             f"operands; got shape {tuple(t.shape)}")
+        if t.dim() not in (2, 3) or t.dim() != ts[0].dim() or \
+                t.shape[:-2] != ts[0].shape[:-2] or not t.is_contiguous():
+            raise ValueError("kernels take 2-D (or 3-D, one batch size) "
+                             "row-major contiguous operands; got shapes "
+                             f"{[tuple(x.shape) for x in ts]}")
     code = _DTYPE_CODES.get(str(dt))
     if code is None:
         raise TypeError(f"kernels take float32 or bfloat16, not {dt}")
@@ -247,9 +256,10 @@ def cuda_operands(*ts):
 
 def effective_dims(a, b, trans_a: bool, trans_b: bool):
     """(M, K, N) of ``A' @ B'`` with ``A' = a.T`` under ``trans_a`` (same
-    for B'); raises if the inner dims differ."""
-    m, k = (a.shape[1], a.shape[0]) if trans_a else a.shape
-    kb, n = (b.shape[1], b.shape[0]) if trans_b else b.shape
+    for B'), of one pair of a batch for 3-D operands (the last two dims);
+    raises if the inner dims differ."""
+    m, k = a.shape[-2:][::-1] if trans_a else a.shape[-2:]
+    kb, n = b.shape[-2:][::-1] if trans_b else b.shape[-2:]
     if k != kb:
         raise ValueError(f"inner dims differ: {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} (trans_a={trans_a}, "
@@ -266,6 +276,12 @@ def stats_buffers(rows: int, cols: int, device):
     ks, rb = -(-cols // 128), -(-rows // 128)
     return tuple(torch.empty(n, dtype=torch.float32, device=device)
                  for n in (rows * ks * 8, rb * ks * 8, 8))
+
+
+def batch_of(t) -> int:
+    """The batch size of a launch's operand: its leading dim when 3-D,
+    else 1."""
+    return t.shape[0] if t.dim() == 3 else 1
 
 
 def stream_ptr(t) -> int:

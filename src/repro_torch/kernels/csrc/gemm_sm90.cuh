@@ -79,6 +79,16 @@ inline Operand make_operand(const void* p, int rows, int cols) {
                  cols % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0};
 }
 
+// Point a block of a batched launch at its own pair (blockIdx.z): the
+// pairs of a batch are stored back to back, a.rows x a.cols, b.rows x
+// b.cols and an M x N output each.  Returns the output's offset.
+__device__ __forceinline__ long to_pair(Operand& a, Operand& b, int M,
+                                        int N) {
+  a.p += blockIdx.z * (long)a.rows * a.cols;
+  b.p += blockIdx.z * (long)b.rows * b.cols;
+  return blockIdx.z * (long)M * N;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -58,6 +58,17 @@
 // m_real / k_real do.  Each quant row is QDQ'd by one warp, so the
 // epilogue's row partial is that warp's own reduction, the same as
 // quantize_rows'.
+//
+// Batched launches (the MoE experts: the reference runs this kernel under
+// jax.vmap, which adds the expert axis to its grid): batch operand pairs
+// stored back to back, one launch with blockIdx.z as the pair.  A block
+// offsets its base pointers to its pair and runs the unbatched code, so
+// every pair equals the same kernel launched on that pair alone, bit for
+// bit: a tile group's amax and a block group's never reach into another
+// pair, and the SR noise is keyed by the in-pair coordinates, so every
+// pair draws the same noise, as the vmapped TPU kernel does (its program
+// ids are the unbatched grid's).  A batched launch has no stats epilogue
+// (the reference's batched telemetry taps recompute their stats).
 #include "codec.cuh"
 #include "gemm_sm90.cuh"
 
@@ -173,6 +184,9 @@ __global__ void __launch_bounds__(kThreads, 5)
   const int n_ks = (K + kBK - 1) / kBK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  a += blockIdx.z * (long)M * K;  // this block's pair of a batch
+  b += blockIdx.z * (long)K * N;
+  c += blockIdx.z * (long)M * N;
   // each quantized element's stats fold once (see the header)
   const bool stats_a = oa.part && n0 == 0;
   const bool stats_b = ob.part && m0 == 0;
@@ -231,8 +245,8 @@ __global__ void __launch_bounds__(kThreads, 5)
 
 template <typename T, int BM, int BN, bool TA, bool TB>
 void run(const void* a, const void* b, void* c, int M, int N, int K,
-         const Operand& oa, const Operand& ob, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+         int batch, const Operand& oa, const Operand& ob, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   auto* ap = static_cast<const T*>(a);
   auto* bp = static_cast<const T*>(b);
   if (oa.sr.on || ob.sr.on || oa.part || ob.part)
@@ -249,16 +263,16 @@ void run(const void* a, const void* b, void* c, int M, int N, int K,
 // stats (run), keeping their code out of the round-to-nearest kernel.
 template <typename T, int BM, int BN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           const Operand& oa, const Operand& ob, int ta, int tb,
+           int batch, const Operand& oa, const Operand& ob, int ta, int tb,
            cudaStream_t s) {
   if (ta && tb)
-    run<T, BM, BN, true, true>(a, b, c, M, N, K, oa, ob, s);
+    run<T, BM, BN, true, true>(a, b, c, M, N, K, batch, oa, ob, s);
   else if (ta)
-    run<T, BM, BN, true, false>(a, b, c, M, N, K, oa, ob, s);
+    run<T, BM, BN, true, false>(a, b, c, M, N, K, batch, oa, ob, s);
   else if (tb)
-    run<T, BM, BN, false, true>(a, b, c, M, N, K, oa, ob, s);
+    run<T, BM, BN, false, true>(a, b, c, M, N, K, batch, oa, ob, s);
   else
-    run<T, BM, BN, false, false>(a, b, c, M, N, K, oa, ob, s);
+    run<T, BM, BN, false, false>(a, b, c, M, N, K, batch, oa, ob, s);
   return (int)cudaGetLastError();
 }
 
@@ -305,6 +319,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                          Operand oa, Operand ob) {
   extern __shared__ uint8_t smem[];
   const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  c += sm90::to_pair(a, b, M, N);
   const int n_ks = (K + kBK - 1) / kBK;
   // each quantized element's stats fold once (see the header)
   const bool stats_a = oa.part && n0 == 0;
@@ -322,13 +337,13 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
 template <bool kAKMaj, bool kBKMaj, bool kExtra>
 int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
-           int N, int K, const Operand& oa, const Operand& ob,
+           int N, int K, int batch, const Operand& oa, const Operand& ob,
            cudaStream_t s) {
   auto* kern = qmm_stream_tc_kernel<kAKMaj, kBKMaj, kExtra>;
   const cudaError_t attr = sm90::allow_smem(kern);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
-                  (M + sm90::kTile - 1) / sm90::kTile);
+                  (M + sm90::kTile - 1) / sm90::kTile, batch);
   kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
       a, b, static_cast<__nv_bfloat16*>(c), M, N, K, oa, ob);
   return (int)cudaGetLastError();
@@ -336,15 +351,17 @@ int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
 
 template <bool kExtra>
 int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
-              const Operand& oa, const Operand& ob, int ta, int tb,
-              cudaStream_t s) {
+              int batch, const Operand& oa, const Operand& ob, int ta,
+              int tb, cudaStream_t s) {
   const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
   const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
   if (ta && tb)
-    return run_tc<false, true, kExtra>(A, B, c, M, N, K, oa, ob, s);
-  if (ta) return run_tc<false, false, kExtra>(A, B, c, M, N, K, oa, ob, s);
-  if (tb) return run_tc<true, true, kExtra>(A, B, c, M, N, K, oa, ob, s);
-  return run_tc<true, false, kExtra>(A, B, c, M, N, K, oa, ob, s);
+    return run_tc<false, true, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
+  if (ta)
+    return run_tc<false, false, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
+  if (tb)
+    return run_tc<true, true, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
+  return run_tc<true, false, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
 }
 
 }  // namespace
@@ -353,8 +370,10 @@ extern "C" int qmm_stream_route(int dtype, int M) {
   return sm90::tensor_core_route(dtype, M);
 }
 
-// M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
-// float32, 1 = bfloat16.  a_mode / b_mode: codec::kPass, kBlock or kTile.
+// M, N, K are the effective (A' M x K, B' K x N) sizes of one pair;
+// batch pairs are stored back to back (1: an unbatched call; a batched
+// call takes no stats).  dtype: 0 = float32, 1 = bfloat16.  a_mode /
+// b_mode: codec::kPass, kBlock or kTile.
 // a_sr / a_seed (b_*): stochastic rounding of the operand.  a_stats
 // (b_stats): null, or three f32 device pointers (row partials (M, n_ks,
 // 8), slab partials (ceil(M / 128), n_ks, 8), the (8,) result) for the
@@ -364,7 +383,8 @@ extern "C" int qmm_stream_route(int dtype, int M) {
 // the FMA kernels stay under the 48 KB static limit (f32 32x32 tiles,
 // 34 KB with the pad; 16x32 for M <= 16).
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
-                                 int M, int N, int K, int dtype, int a_mode,
+                                 int M, int N, int K, int batch, int dtype,
+                                 int a_mode,
                                  int b_mode, float a_qmax, int a_emin,
                                  int a_mbits, int a_pow2, float b_qmax,
                                  int b_emin, int b_mbits, int b_pow2,
@@ -381,24 +401,25 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
       b_mode < codec::kPass || b_mode > codec::kTile ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || batch > 65535 ||
+      (batch > 1 && (a_stats || b_stats)))
     return (int)cudaErrorInvalidValue;
-  if (M <= 0 || N <= 0) return 0;
+  if (M <= 0 || N <= 0 || batch <= 0) return 0;
   const bool extra = a_sr || b_sr || a_stats || b_stats;
   int err;
   if (sm90::tensor_core_route(dtype, M))
-    err = extra ? launch_tc<true>(a, b, c, M, N, K, oa, ob, trans_a,
+    err = extra ? launch_tc<true>(a, b, c, M, N, K, batch, oa, ob, trans_a,
                                   trans_b, s)
-                : launch_tc<false>(a, b, c, M, N, K, oa, ob, trans_a,
+                : launch_tc<false>(a, b, c, M, N, K, batch, oa, ob, trans_a,
                                    trans_b, s);
   else if (dtype == 0)
-    err = M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
-                                          trans_b, s)
-                  : launch<float, 32, 32>(a, b, c, M, N, K, oa, ob, trans_a,
-                                          trans_b, s);
+    err = M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, batch, oa, ob,
+                                          trans_a, trans_b, s)
+                  : launch<float, 32, 32>(a, b, c, M, N, K, batch, oa, ob,
+                                          trans_a, trans_b, s);
   else
-    err = launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, oa, ob, trans_a,
-                                        trans_b, s);
+    err = launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, batch, oa, ob,
+                                        trans_a, trans_b, s);
   if (err || (!a_stats && !b_stats)) return err;
   const int n_ks = (K + kBK - 1) / kBK;
   codec::StatsJobs jobs{};

@@ -53,6 +53,16 @@
 // 8192 x 768 bf16 moves 25.2 MB, 7.5 us at 3.35 TB/s.  A QDQ costs ~50
 // instructions (two IEEE divisions), so the CUDA cores need about as long
 // as the bytes at these shapes.
+//
+// Batched launches (the MoE experts' operands, quantized as the reference's
+// jax.vmap quantizes them): batch operands of rows x cols stored back to
+// back, every kernel of the launch with blockIdx.z as the operand.  A
+// block offsets its pointers to its operand (and the cross-block amax
+// buffers to its operand's slots), so a tensor group is one operand, a
+// token or block group never leaves its operand, the SR noise is keyed by
+// the in-operand coordinates, and every operand's result equals the same
+// launch on that operand alone, bit for bit.  A batched launch has no
+// stats epilogue.
 #include "codec.cuh"
 
 namespace {
@@ -103,6 +113,8 @@ __global__ void __launch_bounds__(kThreads)
                          codec::Sr sr, float* __restrict__ part, int n_ks) {
   const int r0 = blockIdx.x * group_rows, c0 = blockIdx.y * group_cols;
   const int r1 = min(r0 + group_rows, rows), c1 = min(c0 + group_cols, cols);
+  x += blockIdx.z * (long)rows * cols;  // this block's operand of a batch
+  y += blockIdx.z * (long)rows * cols;
   const float amax =
       trans ? codec::region_amax(x, rows, c0, c1, r0, r1)  // axes swapped
             : codec::region_amax(x, cols, r0, r1, c0, c1);
@@ -153,6 +165,9 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= rows) return;  // whole warps leave; no block barrier follows
+  x += blockIdx.z * (long)rows * cols;
+  y += blockIdx.z * (long)rows * cols;
+  if (tensor_amax) tensor_amax += blockIdx.z;
   const P* xr = reinterpret_cast<const P*>(x + (long)r * cols);
   const int nv = cols / V;
   P cache[kCache];
@@ -236,6 +251,8 @@ __global__ void __launch_bounds__(kThreads)
                     unsigned int* __restrict__ row_amax) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = blockIdx.x * 32 + lane, c0 = blockIdx.y * codec::kGroup;
+  x += blockIdx.z * (long)rows * cols;
+  row_amax += blockIdx.z * (long)rows;
   T xv[kChunkRows];
 #pragma unroll
   for (int i = 0; i < kChunkRows; ++i)
@@ -262,6 +279,9 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int strip0 = blockIdx.x * 32, r = strip0 + lane;
   const int c0 = blockIdx.y * codec::kGroup;
+  x += blockIdx.z * (long)rows * cols;
+  y += blockIdx.z * (long)rows * cols;
+  if (amax_in) amax_in += blockIdx.z * (long)(per_row ? rows : 1);
   T xv[kChunkRows];
 #pragma unroll
   for (int i = 0; i < kChunkRows; ++i)
@@ -311,6 +331,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tensor_amax_kernel(const T* __restrict__ x, long n,
                        unsigned int* __restrict__ out) {
+  x += blockIdx.z * n;
+  out += blockIdx.z;
   float m = 0.f;
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long)gridDim.x * blockDim.x)
@@ -320,19 +342,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int V>
-void launch_tok(const T* x, T* y, int rows, int cols, const codec::Fmt& f,
-                int emit_trans, const unsigned int* tensor_amax,
-                const codec::Sr& sr, float* part, int n_ks, cudaStream_t s) {
+void launch_tok(const T* x, T* y, int rows, int cols, int batch,
+                const codec::Fmt& f, int emit_trans,
+                const unsigned int* tensor_amax, const codec::Sr& sr,
+                float* part, int n_ks, cudaStream_t s) {
   auto* kern = (sr.on || part) ? quantize_tok_kernel<T, V, true>
                                : quantize_tok_kernel<T, V, false>;
-  kern<<<(rows + kWarps - 1) / kWarps, kThreads, 0, s>>>(
+  kern<<<dim3((rows + kWarps - 1) / kWarps, 1, batch), kThreads, 0, s>>>(
       x, y, rows, cols, f, emit_trans, tensor_amax, sr, part, n_ks);
 }
 
 template <typename T>
-int launch(const void* xv, void* yv, int rows, int cols, int mode,
-           codec::Fmt f, int trans, int emit_trans, unsigned int* scratch,
-           codec::Sr sr, float* part, cudaStream_t s) {
+int launch(const void* xv, void* yv, int rows, int cols, int batch,
+           int mode, codec::Fmt f, int trans, int emit_trans,
+           unsigned int* scratch, codec::Sr sr, float* part,
+           cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   const int n_ks = (cols + codec::kGroup - 1) / codec::kGroup;
@@ -343,20 +367,21 @@ int launch(const void* xv, void* yv, int rows, int cols, int mode,
   if (mode == codec::kTensor) {  // whole-tensor amax into scratch[0]
     const long n = (long)rows * cols;
     const long want = (n + kThreads - 1) / kThreads;
-    tensor_amax_kernel<T><<<want < 1024 ? (int)want : 1024, kThreads, 0, s>>>(
-        x, n, scratch);
+    tensor_amax_kernel<T>
+        <<<dim3(want < 1024 ? (int)want : 1024, 1, batch), kThreads, 0, s>>>(
+            x, n, scratch);
   }
   if (mode == codec::kTile || (mode == codec::kBlock && !trans)) {
     const int gr = mode == codec::kTile ? codec::kGroup : 1;
     const dim3 grid((rows + gr - 1) / gr,
-                    (cols + codec::kGroup - 1) / codec::kGroup);
+                    (cols + codec::kGroup - 1) / codec::kGroup, batch);
     auto* kern = extra ? quantize_rows_kernel<T, true>
                        : quantize_rows_kernel<T, false>;
     kern<<<grid, gr * codec::kGroup >= kThreads ? kThreads : 128, 0, s>>>(
         x, y, rows, cols, gr, codec::kGroup, f, trans, emit_trans, sr, part,
         n_ks);
   } else if (trans) {  // block, token, tensor: read transposed
-    const dim3 grid((rows + 31) / 32, n_ks);
+    const dim3 grid((rows + 31) / 32, n_ks, batch);
     if (mode == codec::kToken)
       col_amax_kernel<T><<<grid, kThreads, 0, s>>>(x, rows, cols, scratch);
     auto* kern = extra ? quantize_cols_kernel<T, true>
@@ -370,11 +395,11 @@ int launch(const void* xv, void* yv, int rows, int cols, int mode,
     const unsigned int* amax = mode == codec::kTensor ? scratch : nullptr;
     if (cols % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(y) % 16 == 0)
-      launch_tok<T, V>(x, y, rows, cols, f, emit_trans, amax, sr, part,
-                       n_ks, s);
+      launch_tok<T, V>(x, y, rows, cols, batch, f, emit_trans, amax, sr,
+                       part, n_ks, s);
     else
-      launch_tok<T, 1>(x, y, rows, cols, f, emit_trans, amax, sr, part,
-                       n_ks, s);
+      launch_tok<T, 1>(x, y, rows, cols, batch, f, emit_trans, amax, sr,
+                       part, n_ks, s);
   }
   return (int)cudaGetLastError();
 }
@@ -387,16 +412,18 @@ inline bool cross_block_amax(int mode, int trans) {
 
 }  // namespace
 
-// rows x cols is the quant orientation; x is stored (cols, rows) under
-// trans, y is written (cols, rows) under emit_trans.  dtype: 0 = float32,
-// 1 = bfloat16.  mode: codec::Mode (not kPass).  scratch: zeroed uint32s
-// on the device, one for tensor mode and one per quant row for a
-// transposed token launch (null otherwise).  sr / seed: stochastic
+// rows x cols is the quant orientation of one operand; batch operands are
+// stored back to back (1: an unbatched call; a batched call takes no
+// stats).  x is stored (cols, rows) under trans, y is written (cols, rows)
+// under emit_trans.  dtype: 0 = float32, 1 = bfloat16.  mode: codec::Mode
+// (not kPass).  scratch: zeroed uint32s on the device, one per operand for
+// tensor mode and one per quant row of each operand for a transposed token
+// launch (null otherwise).  sr / seed: stochastic
 // rounding.  stats: null, or (row partials (rows, ceil(cols / 128), 8),
 // slab partials (ceil(rows / 128), ceil(cols / 128), 8), the (8,) result)
 // as three f32 device pointers, for the stats epilogue and its fold.
 extern "C" int quantize_rows_launch(const void* x, void* y, int rows,
-                                    int cols, int dtype, int mode,
+                                    int cols, int batch, int dtype, int mode,
                                     float qmax, int emin, int mbits,
                                     int pow2, int trans, int emit_trans,
                                     void* scratch, int sr, unsigned int seed,
@@ -407,15 +434,16 @@ extern "C" int quantize_rows_launch(const void* x, void* y, int rows,
   auto* sc = static_cast<unsigned int*>(scratch);
   auto* p = static_cast<float*>(part);
   auto s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || cols <= 0) return 0;
+  if (batch > 65535 || (batch > 1 && p)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || cols <= 0 || batch <= 0) return 0;
   if (cross_block_amax(mode, trans) && !sc)
     return (int)cudaErrorInvalidValue;
   int err;
   if (dtype == 0)
-    err = launch<float>(x, y, rows, cols, mode, f, trans, emit_trans, sc, r,
-                        p, s);
+    err = launch<float>(x, y, rows, cols, batch, mode, f, trans, emit_trans,
+                        sc, r, p, s);
   else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, y, rows, cols, mode, f, trans,
+    err = launch<__nv_bfloat16>(x, y, rows, cols, batch, mode, f, trans,
                                 emit_trans, sc, r, p, s);
   else
     return (int)cudaErrorInvalidValue;

@@ -34,6 +34,14 @@
 //   one column so transposing writes do not collide on banks.  Decode is
 //   bytes-bound on the K x N weight panel (768 x 768 bf16, 1.2 MB: 0.35 us
 //   at 3.35 TB/s).
+//
+// Batched launches (the MoE experts, the counterpart of the reference's
+// jax.vmap over pallas_call): batch operand pairs stored back to back,
+// A (batch, M, K) or (batch, K, M), B (batch, K, N) or (batch, N, K), C
+// (batch, M, N), one launch with blockIdx.z as the pair.  A block offsets
+// its three base pointers to its pair and runs the unbatched code, so
+// every pair's result equals the same kernel launched on that pair alone,
+// bit for bit.
 #include "codec.cuh"
 #include "gemm_sm90.cuh"
 
@@ -51,6 +59,9 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float Bs[kBK][BN + 1];
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  a += blockIdx.z * (long)M * K;  // this block's pair of a batch
+  b += blockIdx.z * (long)K * N;
+  c += blockIdx.z * (long)M * N;
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -117,8 +128,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int BM, int BN, bool TA, bool TB>
-void run(const T* a, const T* b, T* c, int M, int N, int K, cudaStream_t s) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+void run(const T* a, const T* b, T* c, int M, int N, int K, int batch,
+         cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
   tiled_mm_kernel<T, BM, BN, TA, TB><<<grid, kThreads, 0, s>>>(a, b, c, M, N,
                                                                K);
 }
@@ -127,19 +139,19 @@ void run(const T* a, const T* b, T* c, int M, int N, int K, cudaStream_t s) {
 // arithmetic at run time: at decode shapes (M = 8) a thread does as few
 // FMAs a K step as it does loads.
 template <typename T, int BM, int BN>
-void run(const T* a, const T* b, T* c, int M, int N, int K, int ta, int tb,
-         cudaStream_t s) {
-  if (ta && tb) run<T, BM, BN, true, true>(a, b, c, M, N, K, s);
-  else if (ta) run<T, BM, BN, true, false>(a, b, c, M, N, K, s);
-  else if (tb) run<T, BM, BN, false, true>(a, b, c, M, N, K, s);
-  else run<T, BM, BN, false, false>(a, b, c, M, N, K, s);
+void run(const T* a, const T* b, T* c, int M, int N, int K, int batch,
+         int ta, int tb, cudaStream_t s) {
+  if (ta && tb) run<T, BM, BN, true, true>(a, b, c, M, N, K, batch, s);
+  else if (ta) run<T, BM, BN, true, false>(a, b, c, M, N, K, batch, s);
+  else if (tb) run<T, BM, BN, false, true>(a, b, c, M, N, K, batch, s);
+  else run<T, BM, BN, false, false>(a, b, c, M, N, K, batch, s);
 }
 
 template <typename T, int BM, int BN>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
-           int ta, int tb, cudaStream_t s) {
+           int batch, int ta, int tb, cudaStream_t s) {
   run<T, BM, BN>(static_cast<const T*>(a), static_cast<const T*>(b),
-                 static_cast<T*>(c), M, N, K, ta, tb, s);
+                 static_cast<T*>(c), M, N, K, batch, ta, tb, s);
   return (int)cudaGetLastError();
 }
 
@@ -151,6 +163,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                        __nv_bfloat16* __restrict__ c, int M, int N, int K) {
   extern __shared__ uint8_t smem[];
   const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  c += sm90::to_pair(a, b, M, N);
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -161,25 +174,25 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 
 template <bool kAKMaj, bool kBKMaj>
 int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
-           int N, int K, cudaStream_t s) {
+           int N, int K, int batch, cudaStream_t s) {
   auto* kern = tiled_mm_tc_kernel<kAKMaj, kBKMaj>;
   const cudaError_t attr = sm90::allow_smem(kern);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
-                  (M + sm90::kTile - 1) / sm90::kTile);
+                  (M + sm90::kTile - 1) / sm90::kTile, batch);
   kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
       a, b, static_cast<__nv_bfloat16*>(c), M, N, K);
   return (int)cudaGetLastError();
 }
 
 int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
-              int ta, int tb, cudaStream_t s) {
+              int batch, int ta, int tb, cudaStream_t s) {
   const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
   const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
-  if (ta && tb) return run_tc<false, true>(A, B, c, M, N, K, s);
-  if (ta) return run_tc<false, false>(A, B, c, M, N, K, s);
-  if (tb) return run_tc<true, true>(A, B, c, M, N, K, s);
-  return run_tc<true, false>(A, B, c, M, N, K, s);
+  if (ta && tb) return run_tc<false, true>(A, B, c, M, N, K, batch, s);
+  if (ta) return run_tc<false, false>(A, B, c, M, N, K, batch, s);
+  if (tb) return run_tc<true, true>(A, B, c, M, N, K, batch, s);
+  return run_tc<true, false>(A, B, c, M, N, K, batch, s);
 }
 
 }  // namespace
@@ -188,21 +201,23 @@ extern "C" int tiled_mm_route(int dtype, int M) {
   return sm90::tensor_core_route(dtype, M);
 }
 
-// M, N, K are the effective (A' M x K, B' K x N) sizes.  dtype: 0 =
+// M, N, K are the effective (A' M x K, B' K x N) sizes of one pair;
+// batch pairs are stored back to back (1: an unbatched call).  dtype: 0 =
 // float32, 1 = bfloat16.  The route is tiled_mm_route(dtype, M).
 extern "C" int tiled_mm_launch(const void* a, const void* b, void* c, int M,
-                               int N, int K, int dtype, int trans_a,
-                               int trans_b, void* stream) {
+                               int N, int K, int batch, int dtype,
+                               int trans_a, int trans_b, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (M <= 0 || N <= 0) return 0;
+  if ((dtype != 0 && dtype != 1) || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || batch <= 0) return 0;
   if (sm90::tensor_core_route(dtype, M))
-    return launch_tc(a, b, c, M, N, K, trans_a, trans_b, s);
+    return launch_tc(a, b, c, M, N, K, batch, trans_a, trans_b, s);
   if (dtype == 0)
-    return M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, trans_a,
+    return M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, batch, trans_a,
                                            trans_b, s)
-                   : launch<float, 64, 64>(a, b, c, M, N, K, trans_a,
+                   : launch<float, 64, 64>(a, b, c, M, N, K, batch, trans_a,
                                            trans_b, s);
-  return launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, trans_a, trans_b,
-                                       s);
+  return launch<__nv_bfloat16, 16, 32>(a, b, c, M, N, K, batch, trans_a,
+                                       trans_b, s);
 }

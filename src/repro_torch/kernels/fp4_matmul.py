@@ -135,7 +135,9 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
 
     Effective shapes A' (M, K), B' (K, N), any sizes: the kernels mask the
     ragged edges, which equals the reference's zero padding to multiples
-    of 128 sliced back.  Per-operand modes ``pass | block | tile | token |
+    of 128 sliced back.  3-D operands (E, ., .) run E products, each as
+    it would run alone, in one batched launch a kernel (the reference's
+    ``jax.vmap`` over its kernels; no stats).  Per-operand modes ``pass | block | tile | token |
     tensor``; groups of 128 along K.  ``a_sr`` / ``b_sr`` need their
     seeds; with ``collect_stats`` returns ``(y, (stats_a, stats_b))``.
     """

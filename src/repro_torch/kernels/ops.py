@@ -49,7 +49,9 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                role: Optional[str] = None, census=None):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
-    name is the reference's; here it runs the CUDA kernels.
+    name is the reference's; here it runs the CUDA kernels.  3-D
+    operands are a batch of pairs (the MoE experts), one census event
+    and one batched launch a kernel.
 
     Stochastic specs draw their noise from seeds folded out of
     ``key_data`` (raw uint32[2] key material) and ``salt`` (0 fwd, 2

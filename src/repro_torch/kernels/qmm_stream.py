@@ -14,7 +14,9 @@ quant orientation ((M, K) for A, (N, K) for B).  ``collect_stats`` adds
 the stats epilogue of each quantized operand.  bf16 calls with M > 16
 run on the tensor cores, f32 and M <= 16 on CUDA-core FMA loops (the
 library's rule, ``KERNEL.tensor_core``; ``tiled_mm`` follows the same
-one).  ``qmm_stream_plain`` is the plain version.
+one).  3-D operands (E, ., .) run E products in one batched launch (the
+MoE experts, each pair as it would run alone, every pair with the same
+SR noise; no stats).  ``qmm_stream_plain`` is the plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import (CudaKernel, cuda_operands,
+from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
                                        effective_dims, stats_buffers,
                                        stream_ptr)
 from repro_torch.kernels.quantize_rows import (MODE_CODES, fmt_args,
@@ -36,7 +38,7 @@ STREAM_MODES = ("pass", "block", "tile")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNEL = CudaKernel("qmm_stream",
-                    [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _F, _I, _I, _I, _F, _I, _I, _I, _I, _I,
                      _I, _U, _I, _U, _P, _P, _P])
 
@@ -49,7 +51,14 @@ def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     """Plain PyTorch version: unfused QDQ of both operands (SR noise of
     ``seed_a`` / ``seed_b`` when given), then an f32-accumulated product;
     with ``collect_stats`` also the stats vectors (None for a pass
-    operand)."""
+    operand).  3-D operands pair by pair (no stats)."""
+    if a.dim() == 3:
+        if collect_stats:
+            raise ValueError("a batched product has no stats")
+        return torch.stack([qmm_stream_plain(
+            x, y, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt, b_fmt=b_fmt,
+            a_pow2=a_pow2, b_pow2=b_pow2, trans_a=trans_a, trans_b=trans_b,
+            seed_a=seed_a, seed_b=seed_b) for x, y in zip(a, b)])
     ae = a.T if trans_a else a
     bq_orient = b if trans_b else b.T          # B in quant orientation
     (m, k), n = ae.shape, bq_orient.shape[0]
@@ -82,6 +91,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     a_sr, b_sr = a_sr and a_mode != "pass", b_sr and b_mode != "pass"
     if (a_sr and seed_a is None) or (b_sr and seed_b is None):
         raise ValueError("stochastic rounding needs a seed")
+    if collect_stats and a.dim() == 3:
+        raise ValueError("a batched product has no stats")
     seed_a, seed_b = (seed_a if a_sr else None), (seed_b if b_sr else None)
     if a.device.type == "cpu":
         return qmm_stream_plain(a, b, a_mode=a_mode, b_mode=b_mode,
@@ -91,7 +102,7 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                                 seed_b=seed_b, collect_stats=collect_stats)
     dtype = cuda_operands(a, b)
     m, k, n = effective_dims(a, b, trans_a, trans_b)
-    c = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    c = torch.empty((*a.shape[:-2], m, n), dtype=a.dtype, device=a.device)
     stats = [stats_buffers(rows, k, a.device)
              if collect_stats and mode != "pass" else None
              for mode, rows in ((a_mode, m), (b_mode, n))]
@@ -103,7 +114,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     n_stats = sum(s is not None for s in stats)
     with torch.cuda.device(a.device):
         KERNEL.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                      dtype, MODE_CODES[a_mode], MODE_CODES[b_mode],
+                      batch_of(a), dtype, MODE_CODES[a_mode],
+                      MODE_CODES[b_mode],
                       *fmt_args(a_mode, a_fmt, a_pow2),
                       *fmt_args(b_mode, b_fmt, b_pow2), int(trans_a),
                       int(trans_b), int(a_sr), seed_arg(seed_a), int(b_sr),
@@ -111,7 +123,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                       kernels=1 + 2 * (n_stats > 0),
                       trans=trans_a or trans_b,
                       sr=a_sr or b_sr, stats=n_stats > 0,
-                      tc=KERNEL.tensor_core(dtype, m))
+                      tc=KERNEL.tensor_core(dtype, m),
+                      batched=a.dim() == 3)
     if not collect_stats:
         return c
     return c, tuple(None if s is None else s[-1] for s in stats)

@@ -45,6 +45,9 @@ def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",
     if block != _BLOCK:
         raise NotImplementedError(f"the kernel's group edge is {_BLOCK}, "
                                   f"not {block}")
+    if x.dim() != 2:
+        raise ValueError(f"quantize_blockwise takes a 2-D array, not "
+                         f"{tuple(x.shape)}")
     dtype = cuda_operands(x)
     y = torch.empty_like(x)
     if y.numel() == 0:

@@ -9,7 +9,9 @@ stochastic rounding with the counter-hash noise of ``seed``.  Under
 ``trans`` the stored operand is the transpose of the quant orientation and
 is read in place; under ``emit_trans`` the result is written transposed.
 ``collect_stats`` adds the stats epilogue's (8,) f32 vector
-(``fp4_matmul.finalize_quant_stats`` reduces it).  The plain version
+(``fp4_matmul.finalize_quant_stats`` reduces it).  A 3-D operand (E,
+., .) quantizes E operands in one batched launch, each as it would be
+alone (the MoE experts; no stats).  The plain version
 ``quantize_rows_plain`` computes the same bits with PyTorch ops; the
 wrapper takes it only for a tensor on the CPU.
 """
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.core.formats import FORMATS
 from repro_torch.core.quantize import QuantSpec
-from repro_torch.kernels.build import (CudaKernel, cuda_operands,
+from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
                                        stats_buffers, stream_ptr)
 from repro_torch.kernels.ref import qdq_grid_ref, quant_stats_ref
 from repro_torch.kernels.rounding import hash_uniform
@@ -45,8 +47,8 @@ def fmt_args(mode: str, fmt_name: str, pow2: bool):
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNEL = CudaKernel("quantize_rows",
-                    [_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P,
-                     _I, _U, _P, _P, _P, _P])
+                    [_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I,
+                     _P, _I, _U, _P, _P, _P, _P])
 
 
 def mode_spec(mode: str, fmt_name: str, pow2: bool) -> QuantSpec:
@@ -69,7 +71,14 @@ def quantize_rows_plain(x: torch.Tensor, *, mode: str, fmt_name: str,
                         emit_trans: bool = False, seed=None,
                         collect_stats: bool = False):
     """Plain PyTorch version of the kernel (same bits, stats included);
-    ``seed`` None rounds to nearest."""
+    ``seed`` None rounds to nearest; a 3-D operand operand by operand
+    (no stats), each with the same noise."""
+    if x.dim() == 3:
+        if collect_stats:
+            raise ValueError("a batched quantize pass has no stats")
+        return torch.stack([quantize_rows_plain(
+            t, mode=mode, fmt_name=fmt_name, pow2=pow2, trans=trans,
+            emit_trans=emit_trans, seed=seed) for t in x])
     spec = mode_spec(mode, fmt_name, pow2)
     xe = x.T if trans else x
     q = qdq_grid_ref(xe, spec, 1, sr_noise(*xe.shape, seed, x.device))
@@ -97,6 +106,8 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
         raise ValueError(f"unknown quantize mode {mode!r}")
     if sr and seed is None:
         raise ValueError("stochastic rounding needs a seed")
+    if collect_stats and x.dim() == 3:
+        raise ValueError("a batched quantize pass has no stats")
     args = fmt_args(mode, fmt_name, pow2)
     seed = seed if sr else None
     if x.device.type == "cpu":
@@ -105,8 +116,10 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
                                    emit_trans=emit_trans, seed=seed,
                                    collect_stats=collect_stats)
     dtype = cuda_operands(x)
-    rows, cols = (x.shape[1], x.shape[0]) if trans else x.shape
-    y = torch.empty((cols, rows) if emit_trans else (rows, cols),
+    batch = batch_of(x)
+    rows, cols = x.shape[-2:][::-1] if trans else x.shape[-2:]
+    y = torch.empty((*x.shape[:-2], *((cols, rows) if emit_trans
+                                      else (rows, cols))),
                     dtype=x.dtype, device=x.device)
     stats = stats_buffers(rows, cols, x.device) if collect_stats else None
     if y.numel() == 0:
@@ -115,20 +128,20 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     # column under trans) is reduced by a kernel of its own into zeroed
     # uint32s: one, or one per quant row
     cross_block = mode == "tensor" or (mode == "token" and trans)
-    scratch = (torch.zeros(rows if mode == "token" else 1,
+    scratch = (torch.zeros(batch * (rows if mode == "token" else 1),
                            dtype=torch.int32, device=x.device)
                if cross_block else None)
     ptrs = [None] * 3 if stats is None else [t.data_ptr() for t in stats]
     with torch.cuda.device(x.device):
         # that amax and the stats fold (two) are kernels of their own
         # beside the QDQ
-        KERNEL.launch(x.data_ptr(), y.data_ptr(), rows, cols, dtype,
+        KERNEL.launch(x.data_ptr(), y.data_ptr(), rows, cols, batch, dtype,
                       MODE_CODES[mode], *args, int(trans), int(emit_trans),
                       None if scratch is None else scratch.data_ptr(),
                       int(sr), seed_arg(seed), *ptrs, stream_ptr(x),
                       kernels=1 + cross_block + 2 * collect_stats,
                       trans=trans or emit_trans, sr=sr,
-                      stats=collect_stats)
+                      stats=collect_stats, batched=x.dim() == 3)
     return (y, stats[-1]) if collect_stats else y
 
 

@@ -1,5 +1,5 @@
-"""Model API for the dense family: init, loss, forward, prefill,
-decode_step (counterpart of ``repro.models.model``).
+"""Model API for the dense and MoE families: init, loss, forward,
+prefill, decode_step (counterpart of ``repro.models.model``).
 
 Parameters are a nested dict mirroring the reference's tree; precision
 enters through the ``plan`` argument (a ``PrecisionPlan``, or a
@@ -22,18 +22,23 @@ from repro_torch.core.packed import PackedTensor
 from repro_torch.core.recipe import PrecisionPlan, as_plan
 from repro_torch.models import stack as stack_lib
 from repro_torch.nn.layers import apply_norm, linear
-from repro_torch.nn.params import ParamSpec, init_params
+from repro_torch.nn.params import (ParamSpec, init_params, param_count,
+                                   spec_leaves)
 from repro_torch.telemetry import collect as telemetry
 from repro_torch.tree import tree_map
 
 __all__ = ["Model", "build_model", "tree_map"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# Leaves whose spec pins their dtype (f32): no cast to the compute dtype
+_KEEP_DTYPE = {"router"}
+# Aux losses that the loss adds (the reference's ``router_loss`` terms)
+_LOSS_AUX = ("moe_load_balance", "moe_router_z")
 
 
 class Model:
-    """Dense decoder LM on one device (``cuda`` unless ``device`` says
-    otherwise)."""
+    """Decoder LM (dense or MoE FFNs) on one device (``cuda`` unless
+    ``device`` says otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -68,16 +73,38 @@ class Model:
         return init_params(self.param_specs(), seed, dtype, self.device,
                            on_device)
 
+    def param_count(self) -> int:
+        return param_count(self.param_specs())
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of num_experts of every
+        expert leaf), as the reference counts them."""
+        cfg = self.cfg
+        total = self.param_count()
+        if cfg.moe is None:
+            return total
+        expert = sum(math.prod(s.shape)
+                     for s in spec_leaves(self.param_specs())
+                     if "experts" in s.axes)
+        inactive = expert * (1.0 - cfg.moe.top_k / cfg.moe.num_experts)
+        return int(total - inactive)
+
     def cast_params(self, params):
-        """Floating tensors to the compute dtype; PackedTensor leaves pass
-        through (they expand at their matmul).  A tensor already in the
-        compute dtype is returned as is, so casting once up front makes
-        later calls free."""
-        def cast(p):
-            if isinstance(p, PackedTensor) or not p.is_floating_point():
-                return p
-            return p.to(self.dtype)
-        return tree_map(cast, params)
+        """Floating tensors to the compute dtype, except the leaves whose
+        spec pins an f32 dtype (the MoE router), as the reference casts;
+        PackedTensor leaves pass through (they expand at their matmul).  A
+        tensor already in its dtype is returned as is, so casting once up
+        front makes later calls free."""
+        def cast(tree, name=None):
+            if isinstance(tree, dict):
+                return {k: cast(v, k) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [cast(v, name) for v in tree]
+            if isinstance(tree, PackedTensor) or \
+                    not tree.is_floating_point() or name in _KEEP_DTYPE:
+                return tree
+            return tree.to(self.dtype)
+        return cast(params)
 
     # -- embedding / head ------------------------------------------------
 
@@ -152,7 +179,9 @@ class Model:
         masks a position.  Returns (loss, metrics) with the reference's
         metric names (``loss``, ``tokens``, ``z_loss`` when set,
         ``total_loss``, and the per-layer ``tel/l{i:02d}/...`` stats when
-        a telemetry collector is installed).
+        a telemetry collector is installed).  A MoE model adds its summed
+        ``moe_load_balance`` and ``moe_router_z`` to the loss and reports
+        them and ``moe_frac_dropped``, as the reference does.
 
         With ``cfg.loss_chunk > 0`` the head matmul and the xent run
         seq-chunked, each chunk rematerialized (``stack.remat``'s
@@ -197,7 +226,10 @@ class Model:
             zl = cfg.z_loss * z2 / denom
             loss = loss + zl
             metrics["z_loss"] = zl
-        metrics.update(aux)
+        for k, v in aux.items():
+            metrics[k] = v
+            if k in _LOSS_AUX:
+                loss = loss + v
         metrics["total_loss"] = loss
         return loss, metrics
 

@@ -1,11 +1,16 @@
-"""The decoder-layer stack, dense family (counterpart of
+"""The decoder-layer stack, dense and MoE families (counterpart of
 ``repro.models.stack``).
 
-A Python loop over layers.  Parameters load in either of the reference's
-layouts: ``{"layers": [per-layer dicts]}`` (unrolled) or
-``{"groups": {"l00": dict of tensors with a leading layers axis}}``
-(scan-stacked; the dense family repeats with period 1).  Caches are one
-dict per layer, updated in place.
+A Python loop over layers, each an attention sublayer and a dense or MoE
+FFN (``ModelConfig.layer_specs``).  Parameters load in either of the
+reference's layouts: ``{"layers": [per-layer dicts]}`` (unrolled) or
+``{"groups": {"l00": ..., "l01": ...}}`` (scan-stacked: one entry per
+position of the specs' repeating period, each a dict of tensors with a
+leading groups axis; a uniform stack has period 1).  Caches are one dict
+per layer, updated in place.  A MoE layer's aux losses
+(``moe_load_balance``, ``moe_router_z``, ``moe_frac_dropped``) are summed
+over the layers into the ``aux`` dict the caller passes, as the
+reference sums them.
 
 With telemetry on, each layer runs in a collection frame
 (``telemetry.collect.layer_frame``) and its sublayers in module scopes
@@ -31,18 +36,22 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import routing
 from repro_torch.core.recipe import LayerRecipe, PrecisionPlan
 from repro_torch.kernels.build import recomputing
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.nn.layers import apply_norm
 from repro_torch.nn.params import ParamSpec, map_specs
 from repro_torch.telemetry import collect as telemetry
 
 __all__ = ["norm_specs", "stack_param_specs", "layer_params", "run_stack",
-           "init_stack_cache", "remat"]
+           "init_stack_cache", "remat", "MOE_AUX"]
+
+# A MoE layer's aux losses, in the order a layer returns them
+MOE_AUX = ("moe_load_balance", "moe_router_z", "moe_frac_dropped")
 
 
 def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -52,24 +61,31 @@ def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return d
 
 
-def _layer_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
+    ffn = (moe_lib.moe_param_specs(cfg) if spec.ffn == "moe"
+           else mlp_lib.mlp_param_specs(cfg))
     return {"mixer_norm": norm_specs(cfg),
             "mixer": attn_lib.attn_param_specs(cfg),
             "ffn_norm": norm_specs(cfg),
-            "ffn": mlp_lib.mlp_param_specs(cfg)}
+            "ffn": ffn}
 
 
 def stack_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """``{"groups": ...}`` when ``cfg.scan_layers`` (as the reference
-    builds it), else ``{"layers": [...]}``."""
-    cfg.layer_specs()  # rejects non-dense families
+    builds it: one stacked entry per position of the period), else
+    ``{"layers": [...]}``."""
+    specs = cfg.layer_specs()  # rejects the families not ported
     if not cfg.scan_layers:
-        return {"layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)]}
+        return {"layers": [_layer_specs(cfg, s) for s in specs]}
+    period = cfg.scan_period()
+    n_groups = len(specs) // period
 
     def bump(s: ParamSpec) -> ParamSpec:
-        return ParamSpec((cfg.n_layers,) + s.shape, ("layers",) + s.axes,
+        return ParamSpec((n_groups,) + s.shape, ("layers",) + s.axes,
                          s.init, s.scale, s.dtype)
-    return {"groups": {"l00": map_specs(bump, _layer_specs(cfg))}}
+    return {"groups": {f"l{i:02d}": map_specs(bump,
+                                              _layer_specs(cfg, specs[i]))
+                       for i in range(period)}}
 
 
 def _index(tree, i: int):
@@ -82,7 +98,9 @@ def layer_params(stack_params, i: int):
     """Layer ``i``'s parameters in either layout."""
     if "layers" in stack_params:
         return stack_params["layers"][i]
-    return _index(stack_params["groups"]["l00"], i)
+    groups = stack_params["groups"]
+    period = len(groups)
+    return _index(groups[f"l{i % period:02d}"], i // period)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -93,9 +111,12 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
         for _ in range(cfg.n_layers)]}
 
 
-def _run_layer(params, cfg: ModelConfig, row: LayerRecipe, x, *,
-               positions, cache, cache_len, layer_idx: int,
+def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
+               x, *, positions, cache, cache_len, layer_idx: int,
                aux: Optional[Dict[str, torch.Tensor]]):
+    """``(x, *moe_terms)``: the layer's output, then a MoE layer's aux
+    losses in ``MOE_AUX`` order (nothing for a dense layer)."""
+    terms = ()
     with routing.layer_scope(f"L{layer_idx}"), \
             telemetry.layer_frame(layer_idx) as tel_frame:
         h = apply_norm(params["mixer_norm"], x, cfg.norm)
@@ -106,12 +127,19 @@ def _run_layer(params, cfg: ModelConfig, row: LayerRecipe, x, *,
                 cache=None if cache is None else cache["self"],
                 cache_len=cache_len)
         h = apply_norm(params["ffn_norm"], x, cfg.norm)
-        with telemetry.module_scope("ffn"):
-            x = x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
+        if spec.ffn == "moe":
+            with telemetry.module_scope("moe"):
+                out, moe_aux = moe_lib.moe(params["ffn"], cfg, h,
+                                           row.ffn_linear)
+            x = x + out
+            terms = tuple(moe_aux[k] for k in MOE_AUX)
+        else:
+            with telemetry.module_scope("ffn"):
+                x = x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
     if tel_frame is not None and aux is not None:
         for k, v in tel_frame.stats.items():
             aux[f"tel/l{layer_idx:02d}/{k}"] = v
-    return x
+    return (x, *terms)
 
 
 def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -119,7 +147,9 @@ def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``aux_ok=True`` (the forward), and, when checkpointed, again in the
     backward with ``aux_ok=False``, its launches counted as recompute, its
     taps replaying the forward's telemetry state and its matmuls recording
-    into the forward's routing census."""
+    into the forward's routing census.  ``fn`` returns a tensor or a
+    tuple of tensors (a MoE layer's output and aux losses: the recompute
+    routes the same tokens to the same experts, the inputs being equal)."""
     if not cfg.remat or cfg.remat_policy == "none" or \
             not torch.is_grad_enabled():
         return fn(x, True)
@@ -149,17 +179,26 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
               aux: Optional[Dict[str, torch.Tensor]] = None
               ) -> torch.Tensor:
     """All layers, each under its plan row; caches update in place;
-    per-layer telemetry stats go into ``aux`` when given."""
+    per-layer telemetry stats and the MoE aux losses (summed over the
+    layers, in layer order) go into ``aux`` when given."""
     if plan.n_layers != cfg.n_layers:
         raise ValueError(f"plan has {plan.n_layers} layers, model "
                          f"{cfg.n_layers}")
+    specs = cfg.layer_specs()
+    moe_total: Dict[str, torch.Tensor] = {}
     for i in range(cfg.n_layers):
         def layer(x_, aux_ok, i=i):
             return _run_layer(
-                layer_params(params, i), cfg, plan.layers[i], x_,
+                layer_params(params, i), cfg, specs[i], plan.layers[i], x_,
                 positions=positions,
                 cache=None if cache is None else cache["layers"][i],
                 cache_len=cache_len, layer_idx=i,
                 aux=aux if aux_ok else None)
-        x = layer(x, True) if cache is not None else remat(layer, x, cfg)
+        out = layer(x, True) if cache is not None else remat(layer, x, cfg)
+        x = out[0]
+        for key, v in zip(MOE_AUX, out[1:]):
+            moe_total[key] = v if key not in moe_total else \
+                moe_total[key] + v
+    if aux is not None:
+        aux.update(moe_total)
     return x

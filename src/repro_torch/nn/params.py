@@ -10,7 +10,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-__all__ = ["ParamSpec", "init_params", "map_specs"]
+__all__ = ["ParamSpec", "init_params", "map_specs", "spec_leaves",
+           "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +38,19 @@ def map_specs(fn, tree):
     if isinstance(tree, dict):
         return {k: map_specs(fn, v) for k, v in tree.items()}
     return [map_specs(fn, v) for v in tree]
+
+
+def spec_leaves(tree) -> list:
+    """The ParamSpec leaves of a tree, in tree order."""
+    if isinstance(tree, ParamSpec):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [s for v in items for s in spec_leaves(v)]
+
+
+def param_count(specs) -> int:
+    """Total parameter count of a ParamSpec tree."""
+    return sum(math.prod(s.shape) for s in spec_leaves(specs))
 
 
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype

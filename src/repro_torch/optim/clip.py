@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves
 
 __all__ = ["global_norm", "clip_by_global_norm"]
 
@@ -15,10 +15,26 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_leaves(tree)))
 
 
+@torch.no_grad()
 def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm)."""
+    """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm).  The
+    leaves are scaled in place and the same tree is returned: no second
+    copy of the gradients is alive at once.  An f32 leaf's ``mul_`` is the
+    reference's ``(g.astype(f32) * scale).astype(g.dtype)`` bit for bit;
+    a leaf of a narrower dtype is scaled in f32 and rounded back, as
+    there."""
     norm = global_norm(tree)
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp(norm, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    tree), norm
+    done = set()
+    for g in tree_leaves(tree):
+        # autograd may hand two leaves one gradient tensor: scale it once
+        key = (g.data_ptr(), g.shape, g.dtype)
+        if key in done:
+            continue
+        done.add(key)
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            g.copy_(g.to(torch.float32) * scale)
+    return tree, norm

@@ -46,7 +46,8 @@ from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["TelemetryCollector", "collecting", "active", "suppressed",
            "snapshot", "replaying",
-           "module_scope", "layer_frame", "tap_matmul", "grad_tap",
+           "module_scope", "layer_frame", "tap_matmul",
+           "tap_matmul_batched", "grad_tap",
            "make_probes", "probe_metrics", "grad_norm_metrics",
            "operand_stats", "cell_error_signals", "PROBE_CLASSES",
            "GRAD_STATS", "PROBE_SIZE", "SCOPE_CLASS"]
@@ -279,7 +280,9 @@ def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
     into the current frame; no-op without a collector.  ``fused_fwd``
     carries the fwd_x / fwd_w stats that the kernels' epilogue already
     produced (full operand, no subsampling); those slots skip the
-    re-computation here."""
+    re-computation here.  3-D operands, (E, C, K) x (E, K, N), are a
+    batched (per-expert) matmul: each slot's stats are computed per
+    expert and averaged, as the reference's ``tap_matmul_batched``."""
     col = active()
     if col is None:
         return
@@ -292,10 +295,19 @@ def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
         if not _statable(spec):
             continue
         pre = fused_fwd.get(slot) if fused_fwd else None
-        stats = pre if pre is not None else operand_stats(
-            ops[op_i], spec, axis)
+        if pre is not None:
+            stats = pre
+        elif ops[op_i].dim() == 3:
+            per_e = [operand_stats(a, spec, axis) for a in ops[op_i]]
+            stats = {k: torch.stack([s_[k] for s_ in per_e]).mean()
+                     for k in per_e[0]}
+        else:
+            stats = operand_stats(ops[op_i], spec, axis)
         for stat, v in stats.items():
             fr.stats[f"{scope}/mm{j}/{slot}/{stat}"] = v
+
+
+tap_matmul_batched = tap_matmul   # the reference's name for 3-D operands
 
 
 # ---------------------------------------------------------------------------

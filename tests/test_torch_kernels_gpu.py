@@ -21,7 +21,11 @@ the same Functions on the CPU.  Stochastic rounding: QDQ panels bitwise
 (the noise is the counter hash of each element's coordinates).  Stats
 vectors: lanes 0-2 and 5-7 (counts, scale extrema) bitwise, lanes 3-4
 (sums of squares) within rtol 1e-6 of the plain version, and bitwise
-between the two pipelines.  ``quantize_blockwise`` bitwise.
+between the two pipelines.  ``quantize_blockwise`` bitwise.  Batched
+launches (3-D operands, the MoE experts): bitwise equal to one launch
+per pair and to the plain version pair by pair (GEMMs within the GEMM
+bar); an olmoe-1b-7b MoE decode step of 4 slots bitwise equal to 1-slot
+steps.
 """
 import pytest
 import torch
@@ -637,3 +641,132 @@ def test_flash_attention_llama_shape(cuda):
     ref = fa.flash_attention_fwd_plain(q, k, v)
     torch.testing.assert_close(o.float(), ref.float(), rtol=2.0 ** -7,
                                atol=1e-5)
+
+
+# -- batched launches (the MoE experts) ---------------------------------
+
+# (E, M, K, N): the FMA route (M <= 16, a decode step's 8 rows an expert)
+# and the tensor-core route, ragged and aligned.
+BATCH_SHAPES = ((3, 8, 256, 320), (3, 130, 200, 96), (2, 257, 384, 256))
+
+
+def _stored_batch(e, shape, trans, dtype, seed, scale=1.0):
+    return torch.stack([_stored(shape, trans, dtype, seed + i, scale)
+                        for i in range(e)]).contiguous()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("a_mode,b_mode,sr", [("block", "tile", False),
+                                              ("pass", "pass", False),
+                                              ("block", "block", True),
+                                              ("tile", "pass", True)])
+@pytest.mark.parametrize("e,m,k,n", BATCH_SHAPES)
+def test_qmm_stream_batched(cuda, e, m, k, n, a_mode, b_mode, sr, trans_a,
+                            trans_b, dtype):
+    """One batched stream launch over E pairs: bitwise the same kernel
+    launched once per pair, within the GEMM bar of the plain version
+    (pair by pair, every pair with the same SR noise) and bitwise the
+    batched two-pass pipeline; one launch, counted as batched."""
+    a = _stored_batch(e, (m, k), trans_a, dtype, 60)
+    b = _stored_batch(e, (k, n), trans_b, dtype, 70, 0.05)
+    kw = dict(a_mode=a_mode, b_mode=b_mode, a_fmt="fp4_e2m1",
+              b_fmt="fp8_e4m3", trans_a=trans_a, trans_b=trans_b)
+    seeds = dict(a_sr=sr, b_sr=sr, seed_a=SEED, seed_b=7) if sr else {}
+    before = qs.KERNEL.counts()
+    y = qs.qmm_stream(a, b, **seeds, **kw)
+    after = qs.KERNEL.counts()
+    assert y.shape == (e, m, n)
+    assert after["launches"] == before["launches"] + 1
+    assert after["batched"] == before["batched"] + 1
+    one = torch.stack([qs.qmm_stream(x, w, **seeds, **kw)
+                       for x, w in zip(a, b)])
+    plain_seeds = dict(seed_a=SEED, seed_b=7) if sr else {}
+    ref = qs.qmm_stream_plain(a, b, **plain_seeds, **kw)
+    two = fm.fused_qmm(a, b, pipeline="two_pass", **seeds, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(one))
+    assert torch.equal(_bits(y), _bits(two))
+    _assert_gemm_close(y, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans_a,trans_b", TRANS)
+@pytest.mark.parametrize("e,m,k,n", BATCH_SHAPES)
+def test_tiled_mm_batched(cuda, e, m, k, n, trans_a, trans_b, dtype):
+    """A batched tiled_mm launch bitwise equals one launch per pair and
+    is within the GEMM bar of the plain version."""
+    a = _stored_batch(e, (m, k), trans_a, dtype, 80)
+    b = _stored_batch(e, (k, n), trans_b, dtype, 90, 0.05)
+    kw = dict(trans_a=trans_a, trans_b=trans_b)
+    y = tm.tiled_mm(a, b, **kw)
+    one = torch.stack([tm.tiled_mm(x, w, **kw) for x, w in zip(a, b)])
+    ref = tm.tiled_mm_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(one))
+    _assert_gemm_close(y, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trans,emit_trans", [(False, False), (False, True),
+                                              (True, False), (True, True)])
+@pytest.mark.parametrize("mode,fmt", [("token", "fp8_e5m2"),
+                                      ("block", "fp4_e2m1"),
+                                      ("tile", "fp4_e2m1"),
+                                      ("tensor", "fp8_e4m3")])
+@pytest.mark.parametrize("sr", [False, True])
+@pytest.mark.parametrize("shape", ((130, 200), (300, 1100)))
+def test_quantize_rows_batched(cuda, shape, sr, mode, fmt, trans,
+                               emit_trans, dtype):
+    """A batched quantize pass (one tensor / token amax per operand)
+    bitwise equals one launch per operand and the plain version."""
+    x = _stored_batch(3, shape, trans, dtype, 100)
+    x[1] *= 8         # operands of different ranges: amaxes stay apart
+    kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=emit_trans)
+    y = qr.quantize_rows(x, sr=sr, seed=SEED, **kw)
+    one = torch.stack([qr.quantize_rows(t, sr=sr, seed=SEED, **kw)
+                       for t in x])
+    ref = qr.quantize_rows_plain(x, seed=SEED if sr else None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(one))
+    assert torch.equal(_bits(y), _bits(ref))
+
+
+def test_moe_decode_step_is_batch_invariant(cuda):
+    """A decode step of olmoe-1b-7b's MoE layer at full width (64
+    experts, top-8, packed fp4 experts, paper_fp4, "pallas"): each row of
+    a 4-slot step equals the same row decoded in a 1-slot step, bit for
+    bit (the expert products run E x 8 rows either way; the router's
+    rows are padded to one shape; the combine is a gather and a weighted
+    sum in a fixed order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import \
+        quantize_weights_for_serving
+    cfg = get_config("olmoe-1b-7b").replace(n_layers=1, vocab_size=512,
+                                            linear_impl="pallas")
+    model = build_model(cfg)
+    params = model.cast_params(quantize_weights_for_serving(
+        model, model.init(seed=1, dtype=torch.bfloat16, on_device=True),
+        "fp4_e2m1"))
+    recipe = RECIPES["paper_fp4"]
+    before = qs.KERNEL.counts()["batched"]
+    prompts = torch.randint(0, 512, (4, 40), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3))
+    ones = []
+    for i in range(4):
+        c = model.init_cache(1, 64)
+        model.prefill(params, prompts[i:i + 1], c, recipe)
+        ones.append(c)
+    four = model.init_cache(4, 64)
+    model.prefill(params, prompts, four, recipe)
+    tok = prompts[:, -1:]
+    for _ in range(3):
+        l4, four = model.decode_step(params, tok, four, recipe)
+        for i in range(4):
+            l1, ones[i] = model.decode_step(params, tok[i:i + 1], ones[i],
+                                            recipe)
+            assert torch.equal(l4[i], l1[0])
+        tok = torch.argmax(l4[:, -1].float(), -1)[:, None]
+    assert qs.KERNEL.counts()["batched"] > before
