@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--phase slice | serve_swa | moe_kernels |
-                           train_moe | serve_moe]
+                           train_moe | serve_moe | ssm_kernels |
+                           train_ssm | serve_ssm | hybrid]
 
 With ``--phase`` it runs the build and that phase alone and prints no ok
 line.  Phases, each printing one line (a failed phase raises: no ok line, exit
@@ -211,7 +212,10 @@ code 1):
    memory, packed B/param, the KV cache's bytes and the batched
    launches, then a ``serve_moe_profile`` line.  Gates: the timed run
    captures nothing; the captured engine token-exact to the eager one on
-   4 requests and, on requests 0 and 1, to a one-slot engine of the same
+   4 requests and, on requests 0 and 1, to the sequential ``generate``
+   (its cache of prompt + 64 positions gives the cached attention the
+   bits of the engine's 2048: chunks of ``attention_chunk`` keys
+   whatever the cache's length) and to a one-slot engine of the same
    max_len (no pad rows in their router groups, so bucketed routing
    equals exact-length routing, and a decode step's expert products run
    64 x 8 rows for 1 slot as for 8); every GEMM-kernel call of layer 0 in
@@ -219,17 +223,79 @@ code 1):
    through the plain versions on the card (quantize passes bitwise,
    products within OP_BOUND, the expert calls among them), with a
    control that must miss.
+8d. train_ssm — trains mamba2-780m at full published width and depth
+   (48 mamba layers, d 1536, d_inner 3072, 48 heads of 64, d_state 128,
+   chunk 256, vocab 50280, tied embeddings; 780,148,992 parameters drawn
+   on the card), ``SyntheticLM`` (seed 0), 4 x 2048 tokens, paper_fp4
+   (every projection FFN-class: FP4 forward, FP8 wgrad), linear_impl
+   "pallas", remat "full", AdamW, 6 steps.  Prints per-step loss and
+   gradient norm, step p50 after the first, tokens/s, peak memory, the
+   launches per step, one layer's SSD forward and forward + backward ms
+   at the training shape, and the heads of step 0 whose chunk sum of dt
+   |A| passes 88 (where the reference's SSD gradient is NaN), then a
+   ``train_ssm_profile`` line with the ``ssd`` span named.  Gates: every
+   loss and gradient norm finite; the loss on step 0's batch lower after
+   the run; 24 ``qmm_stream`` launches a layer-step (6 projections x
+   forward, recompute, dgrad, wgrad), all on the tensor cores; layer 0's
+   18 projection calls replayed on the CPU within OP_BOUND, and a
+   control (in_x's forward with its activation unquantized) that must
+   miss it.
+8e. serve_ssm — mamba2-780m at full width and depth (bf16 weights drawn
+   on the card, the projections packed to FP4, the conv weights and f32
+   leaves dense) through the ``ContinuousBatcher``: paper_fp4, 8 slots,
+   max_len 1024, exact-length eager prefill, captured insert and decode
+   (the conv history and state updated in place), 16 requests of 16-512
+   prompt tokens x 64 new.  Prints decode p50 captured and eager, the
+   prefill ms, tokens/s, peak memory, packed B/param and the state
+   cache's bytes at max_len 1024 and 4096 (gate: equal, and equal to
+   the cache the engine holds), then a ``serve_ssm_profile`` line.
+   Gates: the timed run captures nothing; the captured engine token-
+   exact to the eager one on 4 requests and to the sequential
+   ``generate`` on requests 0 and 1; a kernel replay of layers 0 and
+   47's six projection calls in an eager prefill (request 2) and one
+   batched decode step (in_dt's N = 48 among them) through the plain
+   version on the card, within OP_BOUND, with a control that must miss.
+8f. hybrid — jamba-1.5-large-398b at ``REDUCED`` size (398 B parameters
+   need many cards): 8 layers, attention at layer 4 and mamba mixers
+   elsewhere, MoE FFNs on the odd layers.  A correctness check, not a
+   measurement: at d 64 its times say nothing of jamba's, and none is
+   printed.  One captured engine (packed fp4, fp8 KV, paper_fp4, 2
+   slots, max_len 256, 6 requests x 24 new) whose decode graph holds
+   attention KV, mamba state and MoE; gates: token-exact to the eager
+   engine and to ``generate`` (requests 0-1), expert launches batched,
+   and a kernel replay of layers 3 (mamba + MoE: 6 projections and 3
+   batched expert products) and 4 (attention: 4 two-pass linears, and
+   the dense FFN) in an eager prefill and one batched decode step
+   through the plain versions on the card, within OP_BOUND, with a
+   control that must miss.  Then 2 training steps (2 x 256 tokens,
+   paper_fp4, both impls "pallas"): finite losses and norms, every
+   kernel launched, and step 0's calls of layers 3 and 4 (fwd, dgrad,
+   wgrad, and layer 4's flash forward) replayed on the CPU within
+   OP_BOUND, with a control (layer 4's wq dgrad with its transposes off)
+   that must miss.
 9. blockwise — ``kernels.ops.quantize_blockwise`` (the standalone QDQ,
    ``_q_kernel``'s port) over every 2-D weight of a seeded gpt2-125m, fp4
    tiles and fp8 rows, each output bitwise against the plain version.
-10. the launch counts of each path's run, ``serve_swa``'s among them
+10. the launch counts of each path's run, ``serve_swa``'s and the SSM
+   paths' among them
    (every kernel of a path must have run in it), the seconds at the end
    of each phase, and the ``{"kernels": [...]}`` line (launches from the
    adaptive train path of phase 7, ``quantize_blockwise``'s from phase 9,
    every path's in ``launches_by_path``, the MoE paths' batched ones in
    ``batched_launches_by_path``; times at the gpt2-125m training shapes,
-   the expert shapes' in ``batched_rows``); the card line; the ok line
-   last.
+   the expert shapes' in ``batched_rows``, mamba2's in ``ssm_rows``); the
+   card line; the ok line last.
+
+Phase 2 has a fifth line, ``ssm_kernels``: ``qmm_stream`` at
+mamba2-780m's projection shapes, bf16, 8192 tokens: the forward (fp4
+block x tile), dgrad (pass x pass, w read transposed) and wgrad (fp8
+blocks, x read transposed, K = 8192) of in_x (N 3072), in_b (N 128),
+in_dt (N 48, below one 128-wide tile: its dgrad's K is 48) and out_proj
+(3072 -> 1536), and the packed decode shape (M = 8, FMA route) of in_x
+and in_dt.  Each within one bf16 ulp + 1e-5 max|y| of the plain version,
+its QDQ panels bitwise, the stream kernel bitwise the two-pass pipeline;
+its time, the plain version's, ``torch.matmul``'s, the bound and its
+share.
 
 Phase 2 has a fourth line, ``moe_kernels``: the batched (expert)
 launches at olmoe-1b-7b's shapes, 64 experts, bf16: the expert forward
@@ -381,6 +447,35 @@ MOE_REPLAY_EXPERTS = 2
 # router groups), for the check against the sequential generate.
 MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 8, 2048, 16, 64
 MOE_EXACT_PROMPTS = (128, 256)
+# mamba2-780m's projection shapes: d 1536 -> d_inner 3072 (in_z, in_x),
+# n_groups x d_state 128 (in_b, in_c), 48 heads (in_dt: N below one
+# 128-wide tile), and out_proj 3072 -> 1536.
+SSM_D, SSM_INNER, SSM_GN, SSM_HEADS = 1536, 3072, 128, 48
+# The train_ssm phase: mamba2-780m at full width and depth, 4 x 2048
+# tokens (chunk 256: 8 chunks a row), 6 steps, AdamW, remat.  The SSD's
+# reference NaN condition: a head whose chunk sum of dt * |A| passes 88
+# (exp overflows f32 above ~88.7).
+SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 2048, 6
+SSM_TOKENS = SSM_BATCH * SSM_SEQ
+SSM_EXP_OVERFLOW = 88.0
+SSM_PROJ = ("in_z", "in_x", "in_b", "in_c", "in_dt", "out_proj")
+# The serve_ssm phase: 8 slots, 16 requests of 16-512 prompt tokens and
+# 64 new tokens, exact-length prefill; the state cache's bytes at two
+# max_lens (constant in max_len); the kernel replay's layers.
+SSM_SLOTS, SSM_MAX_LEN, SSM_REQUESTS, SSM_NEW = 8, 1024, 16, 64
+SSM_REPLAY_LAYERS = (0, 47)
+# The hybrid phase: jamba-1.5-large-398b REDUCED (8 layers: attention at
+# layer 4, MoE on the odd ones), 2 slots (MoE capacity 2 an expert at
+# decode: no token dropped, and 1 and 2 slots run one expert shape), 6
+# requests x 24 new tokens; two training steps of 2 x 256 tokens.
+HYB_SLOTS, HYB_MAX_LEN, HYB_REQUESTS, HYB_NEW = 2, 256, 6, 24
+HYB_TRAIN_BATCH, HYB_TRAIN_SEQ = 2, 256
+# Its kernel replays' layers: 3 (mamba + MoE) and 4 (attention + dense
+# FFN), and each one's GEMM-kernel calls a serving stage.
+HYB_REPLAY_LAYERS = (3, 4)
+HYB_CALLS_PER_LAYER = {3: {"qmm_stream": 9},
+                       4: {"quantize_rows": 4, "tiled_mm": 4,
+                           "qmm_stream": 3}}
 
 
 def card_line() -> str:
@@ -1017,6 +1112,98 @@ def phase_moe_kernels(torch, card):
     return rows
 
 
+def phase_ssm_kernels(torch, card):
+    """``qmm_stream`` at mamba2-780m's projection shapes (module
+    docstring, phase 2's ``ssm_kernels`` line): the training step's
+    forward, dgrad and wgrad of in_x (N 3072), in_b (N 128), in_dt (N 48,
+    below one tile) and out_proj at 8192 tokens, and the packed decode
+    shape (M = 8) of in_x and in_dt.  Each against its plain version, its
+    QDQ panels bitwise, the stream kernel bitwise the two-pass pipeline;
+    return per-call records."""
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.kernels import tiled_mm as tm
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timer = Timer(torch)
+    rows = []
+    t, d, di = SSM_TOKENS, SSM_D, SSM_INNER
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16)
+
+    def same_bits(y, ref, what):
+        torch.cuda.synchronize()
+        if not torch.equal(y.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"{what} not bitwise equal")
+
+    fp4 = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+               b_fmt="fp4_e2m1")
+    dgrad = dict(a_mode="pass", b_mode="pass", a_fmt="bf16", b_fmt="bf16",
+                 trans_b=True)
+    wgrad = dict(a_mode="block", b_mode="block", a_fmt="fp8_e4m3",
+                 b_fmt="fp8_e5m2", trans_a=True)
+    # a packed weight is expanded and fed through as a pass operand
+    packed = dict(a_mode="block", b_mode="pass", a_fmt="fp4_e2m1",
+                  b_fmt="bf16")
+    x, h = rand(t, d, scale=2), rand(t, di, scale=2)
+    xd = rand(SSM_SLOTS, d, scale=2)
+    calls, weights = [], {}
+    for name, n in (("in_x", di), ("in_b", SSM_GN), ("in_dt", SSM_HEADS)):
+        w, g = rand(d, n, scale=0.05), rand(t, n, scale=0.01)
+        weights[name] = w
+        calls += [(f"fwd {name}", x, w, fp4), (f"dgrad {name}", g, w, dgrad),
+                  (f"wgrad {name}", x, g, wgrad)]
+    w_out, g_out = rand(di, d, scale=0.05), rand(t, d, scale=0.01)
+    calls += [("fwd out_proj", h, w_out, fp4),
+              ("dgrad out_proj", g_out, w_out, dgrad),
+              ("wgrad out_proj", h, g_out, wgrad)]
+    calls += [(f"decode {name}", xd, weights[name], packed)
+              for name in ("in_x", "in_dt")]
+    for role, a, b, kw in calls:
+        ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
+        y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, b, **kw))
+        ref = qs.qmm_stream_plain(a, b, **kw)
+        yf, rf = y.float(), ref.float()
+        err = (yf - rf).abs()
+        if not bool((err <= 2.0 ** -7 * rf.abs()
+                     + 1e-5 * rf.abs().max()).all()):
+            raise AssertionError(f"qmm_stream {role} out of tolerance: max "
+                                 f"err {err.max().item()}")
+        aq = a if kw["a_mode"] == "pass" else qr.quantize_rows(
+            a, mode=kw["a_mode"], fmt_name=kw["a_fmt"], trans=ta,
+            emit_trans=ta)
+        bq = b if kw["b_mode"] == "pass" else qr.quantize_rows(
+            b, mode=kw["b_mode"], fmt_name=kw["b_fmt"], trans=not tb,
+            emit_trans=not tb)
+        for op, stored, q, mode, fmt, trans in (
+                ("A", a, aq, kw["a_mode"], kw["a_fmt"], ta),
+                ("B", b, bq, kw["b_mode"], kw["b_fmt"], not tb)):
+            if mode != "pass":
+                same_bits(q, qr.quantize_rows_plain(
+                    stored, mode=mode, fmt_name=fmt, trans=trans,
+                    emit_trans=trans), f"quantize_rows {role} {op}")
+        same_bits(y, tm.tiled_mm(aq, bq, trans_a=ta, trans_b=tb),
+                  f"qmm_stream {role} vs quantize_rows + tiled_mm")
+        ae, be = (aq.T if ta else aq), (bq.T if tb else bq)
+        (m, k), n = ae.shape, be.shape[1]
+        b_ms, b_by = _bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
+                            H100_BF16_FLOPS)
+        ms = timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=5)
+        rows.append({
+            "name": "qmm_stream", "role": role, "shape": [m, k, n],
+            "trans": ta or tb, "max_abs_err": err.max().item(), "ms": ms,
+            "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
+                                 iters=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": timer.ms(lambda: torch.matmul(ae, be), iters=5),
+            **gemm_fields(route, m, k, n, ms, b_ms)})
+    torch.cuda.synchronize()
+    emit({"phase": "ssm_kernels", "card": card, "dtype": "bfloat16",
+          "tokens": t, "ok": True, "table": rows})
+    return rows
+
+
 def check_stats(torch, got, ref, what):
     """A stats vector against its plain version: lanes 0-2 and 5-7
     bitwise, 3-4 within STATS_RTOL.  Returns (worst relative difference of
@@ -1419,12 +1606,12 @@ def stage_counts(engine):
             for name, st in engine.stages.items()}
 
 
-def serve_run(torch, batcher, prompts, new_tokens, kernels):
+def serve_run(torch, batcher, prompts, new_tokens, kernels, idle=()):
     """Serve ``prompts`` through ``batcher`` with every counter of
     ``kernels`` set to 0 first; returns (tokens by request, launches by
     kernel, prefill ms by bucket, decode-step ms, wall s, peak bytes).
     Raises unless every request got ``new_tokens`` tokens and every
-    kernel launched."""
+    kernel launched but those named in ``idle`` (counted all the same)."""
     prefill_ms, step_ms = {}, []
     restore = timed_stages(torch, batcher.engine, prefill_ms, step_ms)
     ids = [batcher.submit(p, new_tokens) for p in prompts]
@@ -1441,7 +1628,7 @@ def serve_run(torch, batcher, prompts, new_tokens, kernels):
     restore()
     if any(len(out.get(i, ())) != new_tokens for i in ids):
         raise AssertionError("batcher did not serve every request in full")
-    if min(launches.values()) <= 0:
+    if any(n <= 0 for k, n in launches.items() if k not in idle):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     return [out[i] for i in ids], launches, prefill_ms, step_ms, wall, peak
 
@@ -1458,6 +1645,28 @@ def check_sequential(torch, engine, prompt, tokens, what):
                      if a != b)
         raise AssertionError(f"{what}: engine != sequential generate from "
                              f"token {first}")
+
+
+def engine_checks(torch, engine, prompts, out, make, n_eager, kernels,
+                  what, idle=()):
+    """The captured ``engine``'s tokens (``out``) against an eager
+    engine's (``make(jit=False)``, warmed up on one short request) on the
+    first ``n_eager`` requests, and against the sequential ``generate``
+    on requests 0 and 1.  Returns the eager run's (launches, prefill ms
+    by bucket, decode-step ms); raises on a miss."""
+    eager = make(jit=False)
+    eager.submit(prompts[0][:16], 2)
+    eager.run()
+    eager_out, eager_launches, eager_prefill_ms, eager_step_ms, _, _ = \
+        serve_run(torch, eager, prompts[:n_eager], len(out[0]), kernels,
+                  idle)
+    del eager
+    if eager_out != out[:n_eager]:
+        raise AssertionError(f"{what}: captured engine != eager engine")
+    for i in range(2):
+        check_sequential(torch, engine, prompts[i], out[i],
+                         f"{what} request {i}")
+    return eager_launches, eager_prefill_ms, eager_step_ms
 
 
 def phase_slice(torch, card):
@@ -1509,20 +1718,11 @@ def phase_slice(torch, card):
     if any(c["captures"] for c in run_counts.values()):
         raise AssertionError(f"the timed run captured: {run_counts}")
 
-    # The eager engine (jit=False) on the first SLICE_EAGER requests:
-    # the same tokens, its decode p50 beside the captured one's.
-    eager = make(jit=False)
-    eager.submit(prompts[0][:16], 2)
-    eager.run()
-    eager_out, eager_launches, eager_prefill_ms, eager_step_ms, _, _ = \
-        serve_run(torch, eager, prompts[:SLICE_EAGER], new_tokens, kernels)
-    if eager_out != out[:SLICE_EAGER]:
-        raise AssertionError("captured engine != eager engine")
-    del eager
-
-    # Engine vs the sequential reference, token-exact, for 2 requests.
-    for i in range(2):
-        check_sequential(torch, engine, prompts[i], out[i], f"request {i}")
+    # The eager engine (jit=False) on the first SLICE_EAGER requests: the
+    # same tokens, its decode p50 beside the captured one's; and the
+    # sequential generate on 2 requests, token-exact.
+    eager_launches, eager_prefill_ms, eager_step_ms = engine_checks(
+        torch, engine, prompts, out, make, SLICE_EAGER, kernels, "slice")
 
     profile_decode(torch, engine, card)
 
@@ -1564,16 +1764,28 @@ def phase_slice(torch, card):
     return launches
 
 
-def kv_cache_bytes(cfg, n_slots, max_len):
-    """Bytes of the engine's per-slot KV cache (every layer, lengths
-    included) from the cache spec, allocating nothing."""
+def serve_cache_bytes(cfg, n_slots, max_len):
+    """Bytes of the engine's per-slot serving cache (every layer of its
+    kind, lengths included) from the cache specs, allocating nothing: an
+    attention layer's K/V, a mamba layer's conv history and state."""
     import torch
     from repro_torch.models.attention import attn_cache_spec
-    spec = attn_cache_spec(cfg, n_slots, max_len, torch.bfloat16,
-                           per_slot=True)
-    per_layer = sum(int(np.prod(shape)) * torch.empty((), dtype=dt)
-                    .element_size() for shape, dt in spec.values())
-    return cfg.n_layers * per_layer + 4 * n_slots
+    from repro_torch.models.ssm import mamba_cache_spec
+    total = 4 * n_slots
+    for spec in cfg.layer_specs():
+        layer = (attn_cache_spec(cfg, n_slots, max_len, torch.bfloat16,
+                                 per_slot=True) if spec.mixer == "attn"
+                 else mamba_cache_spec(cfg, n_slots, torch.bfloat16))
+        total += sum(int(np.prod(shape)) * torch.empty(
+            (), dtype=dt).element_size() for shape, dt in layer.values())
+    return total
+
+
+def held_cache_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for layer in cache["stack"]["layers"]
+               for t in layer["self"].values()) + \
+        cache["length"].numel() * cache["length"].element_size()
 
 
 def ring_check(torch, cfg, params, seq):
@@ -1708,38 +1920,74 @@ def replay_plain(torch, calls, stage):
     return rows, control
 
 
-def swa_kernel_replay(torch, cfg, params, recipe, prompt):
-    """The GEMM kernels at serve_swa's own shapes against their plain
+def engine_replay(torch, engine, prompt, layers, what):
+    """The GEMM kernels at a serving path's own shapes against their plain
     versions: one exact-length prefill of ``prompt`` and one batched
-    decode step of an eager engine (``SWA_SLOTS`` slots, so M = 4),
-    recorded in ``SWA_REPLAY_LAYERS`` and replayed (``replay_plain``).
-    Raises on a miss, a missing call or a control within the bound."""
-    from repro_torch.models import build_model
-    from repro_torch.train.serving_runtime import DecodeEngine
-    engine = DecodeEngine(build_model(cfg), params, n_slots=SWA_SLOTS,
-                          max_len=SWA_MAX_LEN, recipe=recipe,
-                          kv_format="fp8_e4m3", jit=False)
-    with KernelRecorder(SWA_REPLAY_LAYERS) as pre:
+    decode step of the eager ``engine``, every call in ``layers``
+    recorded (``KernelRecorder``) and replayed on the card
+    (``replay_plain``).  Returns (rows, the summary for the phase's line);
+    raises on a product past OP_BOUND, a quantize pass that is not
+    bitwise, or a stage whose control does not miss the bound."""
+    with KernelRecorder(layers) as pre:
         tok, c1 = engine.prefill(prompt)
     engine.insert(c1, tok, 0)
-    with KernelRecorder(SWA_REPLAY_LAYERS) as dec:
+    with KernelRecorder(layers) as dec:
         engine.generate_step()
-    del engine, c1
+    del c1
     bound = OP_BOUND["bfloat16"]
-    failures = []
     rows, controls = [], []
     for stage, rec in (("prefill", pre), ("decode", dec)):
-        for layer in SWA_REPLAY_LAYERS:
-            got = {n: sum(c["layer"] == layer and c["name"] == n
-                          for c in rec.calls) for n in SWA_CALLS_PER_LAYER}
-            if got != SWA_CALLS_PER_LAYER:
-                failures.append(f"{stage} layer {layer} calls {got}")
         r, ctrl = replay_plain(torch, rec.calls, stage)
         rows += r
         controls.append(ctrl)
         del rec.calls
     worst = max((r["rel_l2"] for r in rows if "rel_l2" in r), default=None)
-    not_bitwise = [r for r in rows if r.get("bitwise") is False]
+    not_bitwise = sum(r.get("bitwise") is False for r in rows)
+    by_call = {}
+    for r in rows:
+        key = (f"{r['stage']} L{r['layer']} {r['kernel']} {r['shape']} "
+               f"{r['route']}")
+        by_call[key] = max(by_call.get(key, 0.0), r.get("rel_l2", 0.0))
+    out = {"layers": list(layers), "calls": len(rows),
+           "rel_l2_max": worst, "bound": bound,
+           "quantized_not_bitwise": not_bitwise,
+           "rel_l2_max_by_call": by_call,
+           "control_activation_unquantized": dict(
+               zip(("prefill", "decode"), controls))}
+    if worst is None or not worst <= bound or not_bitwise or \
+            any(c is None or not c > bound for c in controls):
+        raise AssertionError(f"{what} kernel replay: {out}")
+    return rows, out
+
+
+def calls_by_layer(rows, stage, layer):
+    """{kernel: calls} of one stage and layer of ``engine_replay``'s rows."""
+    got = {}
+    for r in rows:
+        if r["stage"] == stage and r["layer"] == layer:
+            got[r["kernel"]] = got.get(r["kernel"], 0) + 1
+    return got
+
+
+def swa_kernel_replay(torch, cfg, params, recipe, prompt):
+    """``engine_replay`` at serve_swa's own shapes: an eager engine of
+    ``SWA_SLOTS`` slots (so the decode's M = 4), layers
+    ``SWA_REPLAY_LAYERS``.  Raises on a miss, a missing call or a shape
+    not covered."""
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import DecodeEngine
+    engine = DecodeEngine(build_model(cfg), params, n_slots=SWA_SLOTS,
+                          max_len=SWA_MAX_LEN, recipe=recipe,
+                          kv_format="fp8_e4m3", jit=False)
+    rows, out = engine_replay(torch, engine, prompt, SWA_REPLAY_LAYERS,
+                              "serve_swa")
+    del engine
+    failures = []
+    for stage in ("prefill", "decode"):
+        for layer in SWA_REPLAY_LAYERS:
+            got = calls_by_layer(rows, stage, layer)
+            if got != SWA_CALLS_PER_LAYER:
+                failures.append(f"{stage} layer {layer} calls {got}")
     shapes = {(r["kernel"], tuple(r["shape"])) for r in rows}
     want = {"ragged N 960": any(k == "tiled_mm" and s[2] == 960
                                 for k, s in shapes),
@@ -1747,25 +1995,8 @@ def swa_kernel_replay(torch, cfg, params, recipe, prompt):
                            for k, s in shapes),
             "M 4": any(s[0] == SWA_SLOTS for _, s in shapes),
             "M prompt": any(s[0] == len(prompt) for _, s in shapes)}
-    if worst is None or not worst <= bound:
-        failures.append(f"worst product rel L2 {worst} (bound {bound})")
-    if not_bitwise:
-        failures.append(f"{len(not_bitwise)} quantize_rows calls not "
-                        "bitwise")
     if not all(want.values()):
         failures.append(f"shapes not covered: {want}")
-    if any(c is None or not c > bound for c in controls):
-        failures.append(f"a control did not miss the bound: {controls}")
-    by_shape = {}
-    for r in rows:
-        key = f"{r['stage']} {r['kernel']} {r['shape']} {r['route']}"
-        by_shape[key] = max(by_shape.get(key, 0.0), r.get("rel_l2", 0.0))
-    out = {"layers": list(SWA_REPLAY_LAYERS), "calls": len(rows),
-           "rel_l2_max": worst, "bound": bound,
-           "quantized_not_bitwise": len(not_bitwise),
-           "rel_l2_max_by_call": by_shape,
-           "control_ffn_activation_unquantized": dict(
-               zip(("prefill", "decode"), controls))}
     if failures:
         raise AssertionError(f"serve_swa kernel replay: {failures}; {out}")
     return out
@@ -1804,12 +2035,9 @@ def phase_serve_swa(torch, card):
                                 kv_format="fp8_e4m3")
     engine = batcher.engine
     ring = engine.cache["stack"]["layers"][0]["self"]["pos"].shape[-1]
-    kv_bytes = {str(n): kv_cache_bytes(engine.model.cfg, SWA_SLOTS, n)
+    kv_bytes = {str(n): serve_cache_bytes(engine.model.cfg, SWA_SLOTS, n)
                 for n in (cfg.sliding_window, SWA_MAX_LEN)}
-    held = sum(t.numel() * t.element_size()
-               for layer in engine.cache["stack"]["layers"]
-               for t in layer["self"].values()) + \
-        engine.cache["length"].numel() * 4
+    held = held_cache_bytes(engine.cache)
     if ring != cfg.sliding_window or len(set(kv_bytes.values())) != 1 \
             or held != kv_bytes[str(SWA_MAX_LEN)]:
         raise AssertionError(f"ring {ring}, KV bytes {kv_bytes}, held "
@@ -1877,7 +2105,8 @@ class TrainRecorder:
     Roles are told apart by their trans flags; a forward call's layer is
     the stack's layer scope (``core.routing``) and its name its place in
     the layer (``names``: gpt2's wq, wk, wv, wo, w_up, w_down; swiglu adds
-    w_gate before w_up); in the backward, dgrad reads the forward's
+    w_gate before w_up; or a dict of such tuples by layer); in the
+    backward, dgrad reads the forward's
     weight and wgrad its input, found by their storage.  Under remat a
     layer's forward runs again in the backward (``kernels.build``'s
     recompute count): those calls are not recorded, but their inputs are
@@ -1935,7 +2164,9 @@ class TrainRecorder:
                 layer, again = self._where()
                 j = self._seen.get((layer, again), 0)
                 self._seen[(layer, again)] = j + 1
-                name = self.names[j] if j < len(self.names) else f"mm{j}"
+                names = (self.names.get(layer, ())
+                         if isinstance(self.names, dict) else self.names)
+                name = names[j] if j < len(names) else f"mm{j}"
                 self._w[b.data_ptr()] = (layer, name)
                 self._x[a.data_ptr()] = layer
                 if again:
@@ -2034,10 +2265,12 @@ PHASE_SPANS = ("data", "step", "host", "fwd", "bwd", "optim")
 
 
 def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
-                       plan="paper_fp4") -> None:
+                       plan="paper_fp4", spans=()) -> None:
     """Split of one training step (of ``plan``) from a ``torch.profiler``
     trace: device time by kernel group and the device's busy share of the
-    step's wall time."""
+    step's wall time; for each ``record_function`` span named in
+    ``spans``, the device time of the kernels launched inside it (a
+    forward's and a recompute's: autograd runs the backward outside)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2058,7 +2291,9 @@ def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
     by_group, by_name = {}, {}
     n_launches = 0
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CPU or ev.key in PHASE_SPANS:
+        # spans are annotations (on the device timeline too), not work
+        if ev.device_type == DeviceType.CPU or ev.key in PHASE_SPANS or \
+                ev.key in spans:
             continue
         ms = ev.self_device_time_total / 1e3
         if ms <= 0:
@@ -2069,8 +2304,14 @@ def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
         by_name[ev.key[:80]] = ms
         n_launches += ev.count
     busy = sum(by_group.values()) if by_group else None
+    named = {}
+    for ev in prof.key_averages():
+        if ev.key in spans and ev.device_type == DeviceType.CPU:
+            ms = getattr(ev, "device_time_total", 0) / 1e3
+            named[ev.key] = {"calls": ev.count,
+                             "device_ms": ms if ms > 0 else "not measured"}
     emit({"phase": phase, "card": card, "plan": plan,
-          "device_ops": n_launches,
+          "device_ops": n_launches, "spans": named,
           "wall_ms": wall_ms,
           "device_ms": busy if busy else "not measured",
           "device_busy_share": busy / wall_ms if busy else "not measured",
@@ -3275,21 +3516,18 @@ def phase_serve_moe(torch, card):
         failures.append(f"the timed run captured: {run_counts}")
     if batched["qmm_stream"] <= 0:
         failures.append(f"no batched expert launch in the run: {batched}")
+    if failures:
+        raise AssertionError("serve_moe phase: " + "; ".join(failures))
 
-    eager = make(jit=False)
-    eager.submit(prompts[0][:16], 2)
-    eager.run()
-    eager_out, eager_launches, eager_prefill_ms, eager_step_ms, _, _ = \
-        serve_run(torch, eager, prompts[:SLICE_EAGER], MOE_NEW, kernels)
-    if eager_out != out[:SLICE_EAGER]:
-        failures.append("captured engine != eager engine")
-    del eager
-
-    # requests 0 and 1 again, one at a time, through a captured engine of
-    # one slot and the same max_len (the cached attention's bits depend
-    # on the cache's length, so ``generate``'s cache of prompt + new
-    # tokens is not the yardstick: see PERF.md, section 6)
+    # the eager engine on the first SLICE_EAGER requests; requests 0 and 1
+    # again through the sequential ``generate`` (a cache of prompt +
+    # MOE_NEW positions, allocated in whole attention chunks as the
+    # engine's 2048 are, so it gives their bits), and through a captured
+    # engine of one slot and the same max_len
     t0 = time.perf_counter()
+    eager_launches, eager_prefill_ms, eager_step_ms = engine_checks(
+        torch, engine, prompts, out, make, SLICE_EAGER, kernels,
+        "serve_moe")
     single = ContinuousBatcher(model, params, n_slots=1,
                                max_len=MOE_MAX_LEN, recipe=recipe,
                                kv_format="fp8_e4m3")
@@ -3311,31 +3549,14 @@ def phase_serve_moe(torch, card):
     # the GEMM kernels at this phase's shapes against their plain versions:
     # an eager engine's prefill of request 2 and one batched decode step,
     # layer 0's calls recorded and replayed on the card
-    kengine = DecodeEngine(model, params, n_slots=MOE_SLOTS,
-                           max_len=MOE_MAX_LEN, recipe=recipe,
-                           kv_format="fp8_e4m3", jit=False)
-    with KernelRecorder((0,)) as pre:
-        tok, c1 = kengine.prefill(prompts[2])
-    kengine.insert(c1, tok, 0)
-    with KernelRecorder((0,)) as dec:
-        kengine.generate_step()
-    del kengine, c1
-    bound = OP_BOUND["bfloat16"]
-    rows, controls = [], []
-    for stage, rec in (("prefill", pre), ("decode", dec)):
-        r, ctrl = replay_plain(torch, rec.calls, stage)
-        rows += r
-        controls.append(ctrl)
-        del rec.calls
-    worst = max(r["rel_l2"] for r in rows if "rel_l2" in r)
-    not_bitwise = [r for r in rows if r.get("bitwise") is False]
+    rows, replay = engine_replay(torch, DecodeEngine(
+        model, params, n_slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+        recipe=recipe, kv_format="fp8_e4m3", jit=False), prompts[2], (0,),
+        "serve_moe")
     expert_rows = [r for r in rows if len(r["shape"]) == 4]
-    if not worst <= bound or not_bitwise or not expert_rows or \
-            any(c is None or not c > bound for c in controls):
-        raise AssertionError(
-            f"serve_moe kernel replay: worst {worst} (bound {bound}), "
-            f"{len(not_bitwise)} quantize passes not bitwise, "
-            f"{len(expert_rows)} expert calls, controls {controls}")
+    if not expert_rows:
+        raise AssertionError(f"serve_moe kernel replay: no expert call; "
+                             f"{replay}")
     profile_decode(torch, DecodeEngine(
         model, params, n_slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
         recipe=recipe, kv_format="fp8_e4m3"), card,
@@ -3370,24 +3591,518 @@ def phase_serve_moe(torch, card):
           "packed_bytes_per_param": mem["bytes_per_packed_param"],
           "packed_params": mem["packed_params"],
           "total_param_bytes": mem["total_bytes"],
-          "kv_cache_bytes": kv_cache_bytes(cfg.replace(
+          "kv_cache_bytes": serve_cache_bytes(cfg.replace(
               kv_cache_format="fp8_e4m3"), MOE_SLOTS, MOE_MAX_LEN),
+          "engine_vs_sequential": f"token-exact (requests 0-1, "
+                                  f"prompts {list(MOE_EXACT_PROMPTS)})",
           "engine_vs_one_slot_engine": f"token-exact (requests 0-1, "
                                        f"prompts {list(MOE_EXACT_PROMPTS)})",
           "sequential_s": sequential_s,
-          "kernel_replay": {"layer": 0, "calls": len(rows),
-                            "expert_calls": len(expert_rows),
-                            "rel_l2_max": worst, "bound": bound,
-                            "rel_l2_max_by_call": {
-                                f"{r['stage']} {r['kernel']} {r['shape']} "
-                                f"{r['route']}": r.get("rel_l2", 0.0)
-                                for r in rows},
-                            "control_ffn_activation_unquantized": dict(
-                                zip(("prefill", "decode"), controls))}})
+          "kernel_replay": {**replay, "expert_calls": len(expert_rows)}})
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, batched
+
+
+class SsdWatch:
+    """While entered, wraps ``models.ssm.ssd_chunked``: for each call of
+    a forward (not a recompute), the heads whose largest chunk sum of
+    dt * |A| passes ``SSM_EXP_OVERFLOW`` (where the reference's SSD
+    gradient turns NaN), per layer, summed on the device."""
+
+    def __enter__(self):
+        from repro_torch.kernels.build import recomputing_now
+        from repro_torch.models import ssm
+        self.per_call = []
+        self._mod, self._fn = ssm, ssm.ssd_chunked
+        fn = self._fn
+
+        def call(x, dt, a, bmat, cmat, *, chunk, initial_state=None):
+            if not recomputing_now():
+                # detached: a remat recompute must save what the forward
+                # saved
+                b, s, h = dt.shape
+                sums = (dt.detach().float() * -a.detach().float()).reshape(
+                    b, s // chunk, chunk, h).sum(2)
+                self.per_call.append(
+                    (sums.amax(dim=(0, 1)) > SSM_EXP_OVERFLOW).sum())
+            return fn(x, dt, a, bmat, cmat, chunk=chunk,
+                      initial_state=initial_state)
+        ssm.ssd_chunked = call
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ssd_chunked = self._fn
+
+    def counts(self):
+        return [int(c) for c in self.per_call]
+
+
+def ssd_fwd_bwd_ms(torch, cfg, timer):
+    """Device ms of one layer's SSD at the training shape (the plain-torch
+    chunked SSD, f32 inside), forward alone and forward + backward."""
+    from repro_torch.models import ssm
+    st = cfg.mamba
+    h = st.expand * cfg.d_model // st.headdim
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x = rand(SSM_BATCH, SSM_SEQ, h, st.headdim).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(rand(SSM_BATCH, SSM_SEQ, h) - 3)
+    a = -torch.rand(h, generator=g, device="cuda") * 15 - 1
+    bm, cm = (rand(SSM_BATCH, SSM_SEQ, st.n_groups, st.d_state)
+              .to(torch.bfloat16) for _ in range(2))
+    leaves = [t.requires_grad_(True) for t in (x, dt, bm, cm)]
+
+    def fwd():
+        with torch.no_grad():
+            return ssm.ssd_chunked(x, dt, a, bm, cm, chunk=st.chunk)
+
+    def fwd_bwd():
+        y, s_ = ssm.ssd_chunked(x, dt, a, bm, cm, chunk=st.chunk)
+        torch.autograd.grad((y.float().sum(), s_.sum()), leaves)
+    return timer.ms(fwd, iters=5), timer.ms(fwd_bwd, iters=5)
+
+
+def phase_train_ssm(torch, card):
+    """Train mamba2-780m at full width and depth (module docstring):
+    4 x 2048 tokens, paper_fp4, remat, AdamW.  Gate the run; return the
+    path's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.quantize import BF16_SPEC
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import softplus
+    from repro_torch.train.train_step import make_eval_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    cfg = get_config("mamba2-780m").replace(
+        linear_impl="pallas", remat=True, remat_policy="full")
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=SSM_STEPS,
+                       global_batch=SSM_BATCH, seq_len=SSM_SEQ, log_every=0)
+    pipeline = SyntheticLM(cfg.vocab_size, SSM_SEQ, SSM_BATCH, seed=0)
+    model = build_model(cfg)
+    trainer = Trainer(model, tcfg, pipeline)
+    t0 = time.perf_counter()
+    state = trainer.init_state(params=model.init(0, on_device=True))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    # the heads (of every layer) past the NaN condition from the init
+    # alone: softplus(dt_bias) |A| over a whole chunk
+    groups = state.params["stack"]["groups"]["l00"]["mixer"]
+    est = softplus(groups["dt_bias"]) * torch.exp(groups["a_log"]) * \
+        (cfg.mamba.chunk - 1)
+    heads_est = int((est > SSM_EXP_OVERFLOW).sum())
+    eval_step = make_eval_step(model, trainer.plan)
+    batch0 = trainer._batch(pipeline, 0)
+    eval_before = float(eval_step(state.params, batch0)["loss"])
+    for kern in kernels:
+        kern.reset()
+    per_step, peaks = [], []
+    for step in range(SSM_STEPS):
+        before = {k.name: k.counts() for k in kernels}
+        torch.cuda.reset_peak_memory_stats()
+        if step == 0:
+            with TrainRecorder(SSM_PROJ, (0,)) as rec, SsdWatch() as watch:
+                state = trainer.train(state, num_steps=1)
+            for r in rec.records:
+                r["args"] = [a.cpu() if hasattr(a, "cpu") else a
+                             for a in r["args"]]
+                r["out"] = r["out"].cpu()
+        else:
+            state = trainer.train(state, num_steps=1)
+        peaks.append(int(torch.cuda.max_memory_allocated()))
+        per_step.append({k.name: {c: v - before[k.name][c]
+                                  for c, v in k.counts().items()
+                                  if c in ("launches", "tc", "recompute",
+                                           "trans")}
+                         for k in kernels})
+    counts = {k.name: k.counts() for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
+    eval_after = float(eval_step(state.params, batch0)["loss"])
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    norms = [r["grad_norm"] for r in hist]
+    dts = [r["dt"] for r in hist]
+    p50 = float(np.median(dts[1:]))
+    over = watch.counts()
+    failures = []
+    # a layer-step: 6 projections, each forward, recompute, dgrad, wgrad
+    want = 4 * len(SSM_PROJ) * cfg.n_layers
+    got = [s_["qmm_stream"]["launches"] for s_ in per_step]
+    if any(n != want for n in got):
+        failures.append(f"qmm_stream launches a step {got}, not {want}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))):
+        failures.append(f"non-finite loss or grad norm: {losses} {norms}")
+    elif not eval_after < eval_before:
+        failures.append(f"the loss on step 0's batch did not fall: "
+                        f"{eval_before} -> {eval_after}")
+    if launches["qmm_stream"] <= 0 or counts["qmm_stream"]["recompute"] <= 0:
+        failures.append(f"qmm_stream never ran, or never in a recompute: "
+                        f"{counts}")
+    if counts["qmm_stream"]["tc"] != counts["qmm_stream"]["launches"]:
+        failures.append(f"a qmm_stream launch left the tensor-core route: "
+                        f"{counts}")
+    if rec.n_fwd != len(SSM_PROJ) * cfg.n_layers or \
+            len(over) != cfg.n_layers:
+        failures.append(f"recorded {rec.n_fwd} forward matmuls, "
+                        f"{len(over)} SSD calls in step 0")
+    roles = sorted(r["role"].split()[0] for r in rec.records)
+    if roles != sorted(["fwd", "dgrad", "wgrad"] * len(SSM_PROJ)):
+        failures.append(f"recorded layer-0 calls {roles}")
+    # layer 0's projection calls again on the CPU (the plain versions) on
+    # the card's inputs, and the control: in_x's forward with its
+    # activation left unquantized
+    replay, _ = replay_train_ops(torch, rec.records, control_role=None)
+    ctrl_rec = next(r for r in rec.records if r["role"] == "fwd in_x")
+    impl, a, b, _, spec_b = ctrl_rec["args"]
+    ctrl = ctrl_rec["fn"](impl, a, b, BF16_SPEC, spec_b, **ctrl_rec["kw"])
+    y = ctrl_rec["out"].double()
+    control = float((y - ctrl.double()).norm() / y.norm())
+    del rec
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    if not worst <= bound or q_bad:
+        failures.append(f"op replay: worst rel L2 {worst} (bound {bound}), "
+                        f"{q_bad} quantized elements differ")
+    if not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    timer = Timer(torch)
+    ssd_fwd, ssd_fwd_bwd = ssd_fwd_bwd_ms(torch, cfg, timer)
+    del timer
+    emit({"phase": "train_ssm", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.mamba.expand * cfg.d_model,
+          "heads": cfg.mamba.expand * cfg.d_model // cfg.mamba.headdim,
+          "d_state": cfg.mamba.d_state, "chunk": cfg.mamba.chunk,
+          "vocab_size": cfg.vocab_size, "params": n_params,
+          "global_batch": SSM_BATCH, "seq_len": SSM_SEQ,
+          "steps": SSM_STEPS, "recipe": "paper_fp4",
+          "optimizer": cfg.optimizer, "remat": cfg.remat_policy,
+          "losses": losses, "grad_norms": norms,
+          "plans": [r["recipe"] for r in hist],
+          "batch0_loss_before_after": [eval_before, eval_after],
+          "heads_past_exp_overflow_step0": {
+              "total": sum(over), "of": int(est.numel()),
+              "by_layer": over, "threshold": SSM_EXP_OVERFLOW,
+              "from_init_softplus_dt_bias_A_x_255": heads_est},
+          "init_s": init_s, "step_ms": [dt * 1e3 for dt in dts],
+          "step_p50_ms_after_first": p50 * 1e3,
+          "tokens_per_s": SSM_TOKENS / p50,
+          "max_memory_allocated_per_step": peaks,
+          "max_memory_allocated": max(peaks),
+          "ssd_layer_ms": {"fwd": ssd_fwd, "fwd_bwd": ssd_fwd_bwd},
+          "launches_per_step": per_step, "counts": counts,
+          "op_replay": {"calls": len(replay), "layer": 0,
+                        "rel_l2_max": worst, "bound": bound,
+                        "quantized_differing": q_bad,
+                        "rel_l2_by_role": {r["role"]: r["rel_l2"]
+                                           for r in replay},
+                        "control_in_x_activation_unquantized": control}})
+    if failures:
+        raise AssertionError("train_ssm phase: " + "; ".join(failures))
+    profile_train_step(torch, trainer._step_fn(trainer.plan), state,
+                       trainer._batch(pipeline, 0), card,
+                       phase="train_ssm_profile", plan=trainer.plan.name,
+                       spans=("ssd",))
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_ssm(torch, card):
+    """mamba2-780m at full width and depth through the packed-FP4
+    ``ContinuousBatcher`` (module docstring): exact-length eager
+    prefill, captured insert and decode over the state cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.kernels import qmm_stream, quantize_rows, tiled_mm
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import (
+        ContinuousBatcher, DecodeEngine, quantize_weights_for_serving,
+        serving_memory_report)
+
+    cfg = get_config("mamba2-780m").replace(linear_impl="pallas")
+    recipe = RECIPES["paper_fp4"]
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.cast_params(quantize_weights_for_serving(
+        model, model.init(seed=1, dtype=torch.bfloat16, on_device=True),
+        "fp4_e2m1"))
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    mem = serving_memory_report(params)
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(16, 513, size=SSM_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    # every projection is FFN-class (qmm_stream); the two-pass kernels are
+    # counted too, and not required to launch
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
+    idle = ("quantize_rows", "tiled_mm")
+
+    def make(jit):
+        return ContinuousBatcher(model, params, n_slots=SSM_SLOTS,
+                                 max_len=SSM_MAX_LEN, recipe=recipe,
+                                 jit=jit)
+
+    batcher = make(jit=True)
+    engine = batcher.engine
+    if engine._can_bucket or engine.bucket(lengths[0]) != lengths[0]:
+        raise AssertionError("the SSM engine pads its prompts")
+    state_bytes = {str(n): serve_cache_bytes(cfg, SSM_SLOTS, n)
+                   for n in (SSM_MAX_LEN, 4 * SSM_MAX_LEN)}
+    held = held_cache_bytes(engine.cache)
+    if len(set(state_bytes.values())) != 1 or \
+            held != state_bytes[str(SSM_MAX_LEN)]:
+        raise AssertionError(f"state cache bytes {state_bytes}, held "
+                             f"{held}")
+    # Warm-up, not timed: captures insert and the batched step.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batcher.submit(prompts[0][:16], 2)
+    batcher.run()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    warm_counts = stage_counts(engine)
+    out, launches, prefill_ms, step_ms, wall, peak = serve_run(
+        torch, batcher, prompts, SSM_NEW, kernels, idle)
+    counts = stage_counts(engine)
+    run_counts = {name: {k: n - warm_counts[name][k] for k, n in c.items()}
+                  for name, c in counts.items()}
+    if any(c["captures"] for c in run_counts.values()) or \
+            not run_counts["generate"]["replays"]:
+        raise AssertionError(f"the timed run captured, or replayed no "
+                             f"step: {run_counts}")
+    t0 = time.perf_counter()
+    eager_launches, eager_prefill_ms, eager_step_ms = engine_checks(
+        torch, engine, prompts, out, make, SLICE_EAGER, kernels,
+        "serve_ssm", idle)
+    checks_s = time.perf_counter() - t0
+    profile_decode(torch, engine, card, phase="serve_ssm_profile")
+    del batcher, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # qmm_stream at this phase's shapes against its plain version: an
+    # eager engine's prefill of request 2 and one batched decode step,
+    # the first and the last layer's calls recorded and replayed
+    rows, replay = engine_replay(torch, DecodeEngine(
+        model, params, n_slots=SSM_SLOTS, max_len=SSM_MAX_LEN,
+        recipe=recipe, jit=False), prompts[2], SSM_REPLAY_LAYERS,
+        "serve_ssm")
+    got = {f"{stage} L{layer}": calls_by_layer(rows, stage, layer)
+           for stage in ("prefill", "decode") for layer in SSM_REPLAY_LAYERS}
+    narrow = [r for r in rows if r["shape"][2] == SSM_HEADS]
+    if any(c != {"qmm_stream": len(SSM_PROJ)} for c in got.values()) or \
+            len(narrow) != 2 * len(SSM_REPLAY_LAYERS):
+        raise AssertionError(f"serve_ssm kernel replay: calls {got}, "
+                             f"{len(narrow)} in_dt calls")
+    n_gen = sum(len(v) for v in out)
+    prefill = [v for vs in prefill_ms.values() for v in vs]
+    emit({"phase": "serve_ssm", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "slots": SSM_SLOTS, "max_len": SSM_MAX_LEN,
+          "requests": len(prompts), "new_tokens": SSM_NEW,
+          "prompt_lengths": lengths, "jit": True, "pack_s": pack_s,
+          "capture_warmup_s": capture_s,
+          "stages_warmup": warm_counts, "stages_run": run_counts,
+          "prefill_exact_length_ms_median": float(np.median(prefill)),
+          "prefill_exact_length_ms_min_max": [min(prefill), max(prefill)],
+          "decode_step_p50_ms": float(np.median(step_ms)),
+          "decode_steps": len(step_ms),
+          "eager": {"requests": SLICE_EAGER,
+                    "decode_step_p50_ms": float(np.median(eager_step_ms)),
+                    "decode_steps": len(eager_step_ms),
+                    "prefill_ms_median": float(np.median(
+                        [v for vs in eager_prefill_ms.values()
+                         for v in vs])),
+                    "launches": eager_launches,
+                    "tokens_vs_captured": "equal"},
+          "launches": launches, "tokens_per_s": n_gen / wall,
+          "wall_s": wall, "max_memory_allocated": int(peak),
+          "packed_bytes_per_param": mem["bytes_per_packed_param"],
+          "packed_params": mem["packed_params"],
+          "dense_params": mem["dense_params"],
+          "total_param_bytes": mem["total_bytes"],
+          "state_cache_bytes_by_max_len": state_bytes,
+          "engine_vs_sequential": "token-exact (requests 0-1)",
+          "checks_s": checks_s,
+          "kernel_replay": replay})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_train_replay(torch, rec):
+    """Step 0's calls of ``rec.layers`` (a ``TrainRecorder`` with names by
+    layer: fwd, dgrad and wgrad of each product, an attention layer's
+    flash forward) again on the CPU through the plain versions
+    (``replay_train_ops``), with the control: the attention layer's wq
+    dgrad with its transposes off.  Returns the summary for the phase's
+    line; raises on a missing call, a miss or a control within the
+    bound."""
+    failures = []
+    for layer in rec.layers:
+        n, attn = len(rec.names[layer]), "wq" in rec.names[layer]
+        roles = [r["role"].split()[0] for r in rec.records
+                 if r["layer"] == layer]
+        got = {k: roles.count(k) for k in ("fwd", "dgrad", "wgrad", "flash")}
+        want = {"fwd": n, "dgrad": n, "wgrad": n, "flash": int(attn)}
+        if got != want:
+            failures.append(f"layer {layer} calls {got}, not {want}")
+    replay, control = replay_train_ops(torch, rec.records, control_layer=next(
+        layer for layer in rec.layers if "wq" in rec.names[layer]))
+    worst = max(r["rel_l2"] for r in replay)
+    q_bad = sum(r["quantized_differing"] for r in replay)
+    bound = OP_BOUND["bfloat16"]
+    out = {"layers": list(rec.layers), "calls": len(replay),
+           "rel_l2_max": worst, "bound": bound,
+           "quantized_differing": q_bad,
+           "rel_l2_max_by_call": {},
+           "control_wq_dgrad_untransposed": control}
+    for r in replay:
+        key = f"L{r['layer']} {r['role']}"
+        out["rel_l2_max_by_call"][key] = max(
+            out["rel_l2_max_by_call"].get(key, 0.0), r["rel_l2"])
+    if not worst <= bound or q_bad:
+        failures.append(f"worst rel L2 {worst} (bound {bound}), {q_bad} "
+                        "quantized elements differ")
+    if control is None or not control > bound:
+        failures.append(f"the control did not miss the bound: {control}")
+    if failures:
+        raise AssertionError(f"hybrid train replay: {failures}; {out}")
+    return out
+
+
+def phase_hybrid(torch, card):
+    """jamba-1.5-large-398b ``REDUCED`` on the card (module docstring), a
+    correctness check: one captured engine whose decode step holds
+    attention KV, mamba state and MoE, held to the eager engine and to
+    ``generate``, and a kernel replay of layers 3 and 4; two training
+    steps, step 0's calls of those layers replayed on the CPU.  Returns
+    the path's launch counts (serving and training)."""
+    import importlib
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.models import build_model
+    from repro_torch.train.serving_runtime import (
+        ContinuousBatcher, DecodeEngine, quantize_weights_for_serving)
+    from repro_torch.train.trainer import Trainer
+
+    cfg = importlib.import_module(
+        "repro_torch.configs.jamba_1_5_large_398b").REDUCED.replace(
+        linear_impl="pallas", attention_impl="pallas")
+    specs = cfg.layer_specs()
+    recipe = RECIPES["paper_fp4"]
+    model = build_model(cfg)
+    params = model.cast_params(quantize_weights_for_serving(
+        model, model.init(seed=2), "fp4_e2m1"))
+    rng = np.random.default_rng(1)
+    lengths = [int(n) for n in rng.integers(16, 129, size=HYB_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in lengths]
+    gemm = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL)
+
+    def make(jit):
+        return ContinuousBatcher(model, params, n_slots=HYB_SLOTS,
+                                 max_len=HYB_MAX_LEN, recipe=recipe,
+                                 kv_format="fp8_e4m3", jit=jit)
+    batcher = make(jit=True)
+    engine = batcher.engine
+    kinds = sorted({tuple(sorted(layer["self"]))
+                    for layer in engine.cache["stack"]["layers"]})
+    batcher.submit(prompts[0][:16], 2)
+    batcher.run()
+    warm_counts = stage_counts(engine)
+    out, launches, _, _, _, _ = serve_run(torch, batcher, prompts, HYB_NEW,
+                                          gemm)
+    batched = qmm_stream.KERNEL.batched_launches
+    counts = stage_counts(engine)
+    run_counts = {name: {k: n - warm_counts[name][k] for k, n in c.items()}
+                  for name, c in counts.items()}
+    if any(c["captures"] for c in run_counts.values()) or \
+            not run_counts["generate"]["replays"] or batched <= 0:
+        raise AssertionError(f"hybrid: the timed run captured, replayed no "
+                             f"step or launched no expert batch: "
+                             f"{run_counts}, batched {batched}")
+    engine_checks(torch, engine, prompts, out, make, HYB_REQUESTS, gemm,
+                  "hybrid")
+    del batcher, engine
+    # the GEMM kernels at this path's shapes against their plain versions
+    rows, replay = engine_replay(torch, DecodeEngine(
+        model, params, n_slots=HYB_SLOTS, max_len=HYB_MAX_LEN,
+        recipe=recipe, kv_format="fp8_e4m3", jit=False), prompts[0],
+        HYB_REPLAY_LAYERS, "hybrid")
+    got = {f"{stage} L{layer}": calls_by_layer(rows, stage, layer)
+           for stage in ("prefill", "decode") for layer in HYB_REPLAY_LAYERS}
+    want = {f"{stage} L{layer}": calls
+            for stage in ("prefill", "decode")
+            for layer, calls in HYB_CALLS_PER_LAYER.items()}
+    # layer 3's w_gate, w_up and w_down, one batched call each a stage
+    expert_rows = [r for r in rows if len(r["shape"]) == 4]
+    if got != want or len(expert_rows) != 2 * 3:
+        raise AssertionError(f"hybrid kernel replay: calls {got}, "
+                             f"{len(expert_rows)} expert calls")
+    del params
+
+    train_kernels = gemm + (flash_attention.KERNEL,)
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=2,
+                       global_batch=HYB_TRAIN_BATCH, seq_len=HYB_TRAIN_SEQ,
+                       log_every=0)
+    trainer = Trainer(model, tcfg, SyntheticLM(
+        cfg.vocab_size, HYB_TRAIN_SEQ, HYB_TRAIN_BATCH, seed=0))
+    state = trainer.init_state(seed=0)
+    for kern in train_kernels:
+        kern.reset()
+    names = {3: SSM_PROJ + TrainRecorder.SWIGLU[4:],
+             4: TrainRecorder.SWIGLU}
+    with TrainRecorder(names, HYB_REPLAY_LAYERS) as rec:
+        state = trainer.train(state, num_steps=1)
+    state = trainer.train(state, num_steps=1)
+    train_launches = {k.name: k.launches for k in train_kernels}
+    losses = [r["loss"] for r in trainer.history]
+    norms = [r["grad_norm"] for r in trainer.history]
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))) or \
+            min(train_launches.values()) <= 0:
+        raise AssertionError(f"hybrid training: losses {losses}, grad "
+                             f"norms {norms}, launches {train_launches}")
+    train_replay = hybrid_train_replay(torch, rec)
+    del rec
+    emit({"phase": "hybrid", "card": card, "model": cfg.name,
+          "config": "REDUCED", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model,
+          "layers": [f"{s_.mixer}+{s_.ffn}" for s_ in specs],
+          "cache_kinds": [list(k) for k in kinds],
+          "slots": HYB_SLOTS, "max_len": HYB_MAX_LEN,
+          "requests": len(prompts), "new_tokens": HYB_NEW,
+          "prompt_lengths": lengths, "stages_run": run_counts,
+          "launches": launches, "batched_launches": batched,
+          "engine_vs_eager": f"token-exact ({HYB_REQUESTS} requests)",
+          "engine_vs_sequential": "token-exact (requests 0-1)",
+          "kernel_replay": {**replay, "expert_calls": len(expert_rows)},
+          "train": {"steps": 2, "tokens": HYB_TRAIN_BATCH * HYB_TRAIN_SEQ,
+                    "losses": losses, "grad_norms": norms,
+                    "launches": train_launches,
+                    "op_replay": train_replay}})
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + train_launches[k]
+            for k in train_launches}
 
 
 def phase_blockwise(torch, card):
@@ -3433,7 +4148,9 @@ def main() -> int:
     # launches, kernels or ok line.
     solo = {"slice": phase_slice, "serve_swa": phase_serve_swa,
             "moe_kernels": phase_moe_kernels, "train_moe": phase_train_moe,
-            "serve_moe": phase_serve_moe}
+            "serve_moe": phase_serve_moe, "ssm_kernels": phase_ssm_kernels,
+            "train_ssm": phase_train_ssm, "serve_ssm": phase_serve_ssm,
+            "hybrid": phase_hybrid}
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--phase"
                  or args[1] not in solo):
@@ -3473,6 +4190,7 @@ def main() -> int:
     rows = phase_train_kernels(torch, card)
     tel_rows = phase_telemetry_kernels(torch, card)
     moe_rows = phase_moe_kernels(torch, card)
+    ssm_rows = phase_ssm_kernels(torch, card)
     lap("kernels")
     serve_launches = phase_slice(torch, card)
     lap("slice")
@@ -3492,6 +4210,12 @@ def main() -> int:
     moe_serve_launches, moe_serve_batched = phase_serve_moe(torch, card)
     lap("serve_moe")
     moe_batched = {"train": moe_train_batched, "serve": moe_serve_batched}
+    ssm_train_launches = phase_train_ssm(torch, card)
+    lap("train_ssm")
+    ssm_serve_launches = phase_serve_ssm(torch, card)
+    lap("serve_ssm")
+    hybrid_launches = phase_hybrid(torch, card)
+    lap("hybrid")
     block_launches = phase_blockwise(torch, card)
     by_path = {"serve": serve_launches, "serve_swa": swa_launches,
                "train": train_launches,
@@ -3499,7 +4223,10 @@ def main() -> int:
                "train_adaptive": adaptive_launches,
                "train_large": large_launches,
                "train_moe": moe_train_launches,
-               "serve_moe": moe_serve_launches, "blockwise": block_launches}
+               "serve_moe": moe_serve_launches,
+               "train_ssm": ssm_train_launches,
+               "serve_ssm": ssm_serve_launches, "hybrid": hybrid_launches,
+               "blockwise": block_launches}
     emit({"launches": by_path, "seconds": time.perf_counter() - t0,
           "seconds_at_end_of": seconds_at})
 
@@ -3521,7 +4248,7 @@ def main() -> int:
     kernels = []
     for name in ("qmm_stream", "quantize_rows", "tiled_mm",
                  "flash_attention", "quantize_blockwise"):
-        mine = [r for r in rows + tel_rows + moe_rows
+        mine = [r for r in rows + tel_rows + moe_rows + ssm_rows
                 if r["name"] == name]
         rep = next(r for r in mine
                    if r.get("role", r.get("mode")) == main_role[name])
@@ -3540,6 +4267,11 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "max_abs_err")}
                 for r in moe_rows if r["name"] == name],
+            "ssm_rows": [
+                {k: r[k] for k in ("role", "shape", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err", "route")}
+                for r in ssm_rows if r["name"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

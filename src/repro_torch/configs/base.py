@@ -1,13 +1,14 @@
-"""Model and training configuration dataclasses (the dense and MoE
-subset of ``repro.configs.base``, same field names and defaults)."""
+"""Model and training configuration dataclasses (the dense, MoE, SSM and
+hybrid subset of ``repro.configs.base``, same field names and
+defaults)."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import List, Optional, Tuple
 
-__all__ = ["ModelConfig", "MoESettings", "LayerSpec", "ControllerSettings",
-           "TrainConfig", "get_config"]
+__all__ = ["ModelConfig", "MoESettings", "MambaSettings", "LayerSpec",
+           "ControllerSettings", "TrainConfig", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +23,16 @@ class MoESettings:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaSettings:
+    d_state: int = 128
+    d_conv: int = 4
+    headdim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str = "attn"        # 'attn' | 'mamba'
     cross: bool = False        # extra cross-attention sublayer
@@ -31,8 +42,9 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Field-for-field the reference ``ModelConfig``, so one config dict
-    round-trips between the packages.  The port runs the dense and the
-    MoE families (``moe``, a ``MoESettings``); ``mamba`` stays ``None``.
+    round-trips between the packages.  The port runs the dense, MoE
+    (``moe``, a ``MoESettings``), SSM and hybrid (``mamba``, a
+    ``MambaSettings``) families; vlm and audio raise.
 
     ``linear_impl``: ``"qdq"`` (unfused QDQ simulation), ``"pallas"`` (the
     fused quantize+matmul kernels; in this package the hand-written CUDA
@@ -58,8 +70,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     qkv_bias: bool = False
     moe: Optional[MoESettings] = None
-    mamba: Optional[object] = None
-    attn_layer_period: int = 0
+    mamba: Optional[MambaSettings] = None
+    attn_layer_period: int = 0   # hybrid: attention at i % p == p//2
     cross_attn_period: int = 0
     n_encoder_layers: int = 0
     n_frames: int = 1500
@@ -82,20 +94,29 @@ class ModelConfig:
         return self.head_dim or self.d_model // self.n_heads
 
     def layer_specs(self) -> List[LayerSpec]:
-        """One spec a layer: attention everywhere, the FFN dense or (MoE
-        family) MoE on the layers with ``i % every_k_layers == k - 1``,
-        as the reference's.  Other families raise."""
-        if self.family not in ("dense", "moe"):
+        """One spec a layer, as the reference's: an ssm stack is mamba
+        mixers with no FFN; otherwise attention, or (``attn_layer_period``
+        p, the hybrid) mamba except at ``i % p == p // 2``, and the FFN
+        dense or MoE on the layers with ``i % every_k_layers == k - 1``.
+        The vlm and audio families raise."""
+        if self.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch runs the dense and moe families; got "
-                f"{self.family!r}")
+                f"repro_torch runs the dense, moe, ssm and hybrid "
+                f"families; got {self.family!r}")
         specs = []
         for i in range(self.n_layers):
+            if self.family == "ssm":
+                specs.append(LayerSpec("mamba", False, "none"))
+                continue
+            mixer = "attn"
+            if self.attn_layer_period:
+                p = self.attn_layer_period
+                mixer = "attn" if i % p == p // 2 else "mamba"
             ffn = "dense"
             if self.moe is not None:
                 k = self.moe.every_k_layers
                 ffn = "moe" if i % k == k - 1 else "dense"
-            specs.append(LayerSpec("attn", False, ffn))
+            specs.append(LayerSpec(mixer, False, ffn))
         return specs
 
     def scan_period(self) -> int:
@@ -216,7 +237,8 @@ class TrainConfig:
 
 
 ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "h2o-danube-3-4b",
-         "llama-125m", "llama-1b", "mixtral-8x22b", "olmoe-1b-7b", "tiny"]
+         "jamba-1.5-large-398b", "llama-125m", "llama-1b", "mamba2-780m",
+         "mixtral-8x22b", "olmoe-1b-7b", "tiny"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -222,13 +222,14 @@ class ModelDims:
     @classmethod
     def from_config(cls, cfg, seq_len: Optional[int] = None,
                     include_head: bool = True) -> "ModelDims":
-        """Resolve a (dense or MoE) ``configs.base.ModelConfig`` into
-        per-layer dims: each attention layer prices QKV+O and the SDPA
-        matmuls, its dense FFN the FFN-class flops, a MoE FFN those flops
-        scaled by the router top-k, and the lm-head matmul lands in
-        ``head_flops`` (the reference's walk over ``cfg.layer_specs()``,
-        whose SSM and cross-attention branches wait for those
-        families)."""
+        """Resolve a ``configs.base.ModelConfig`` into per-layer dims:
+        each attention layer prices QKV+O and the SDPA matmuls, a mamba
+        mixer its in_z / in_x / out_proj projections as FFN-class flops
+        (``SCOPE_CLASS`` maps ssm -> ffn), a dense FFN the FFN-class
+        flops, a MoE FFN those flops scaled by the router top-k, and the
+        lm-head matmul lands in ``head_flops`` (the reference's walk over
+        ``cfg.layer_specs()``, whose cross-attention branch waits for
+        that family)."""
         dm = cfg.d_model
         block = BlockDims(
             d_model=dm, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
@@ -239,11 +240,18 @@ class ModelDims:
         fm = (block_flops(dataclasses.replace(block,
                                               moe_top_k=cfg.moe.top_k))
               if cfg.moe is not None else None)
+        ssm_proj = 0.0
+        if cfg.mamba is not None:
+            d_inner = cfg.mamba.expand * dm
+            # in_z + in_x (dm -> d_inner each) + out_proj (d_inner -> dm)
+            ssm_proj = 3 * 2 * dm * d_inner
         rows = []
         for spec in cfg.layer_specs():
             attn = sdpa = ffn = 0.0
             if spec.mixer == "attn":
                 attn, sdpa = f["attn_linear"], f["attn_sdpa"]
+            else:
+                ffn += ssm_proj
             if spec.ffn == "dense":
                 ffn += f["ffn"]
             elif spec.ffn == "moe":

@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny \\
         --requests 6 --weight-quant fp4_e2m1
 
+SSM archs serve too (``--arch mamba2-780m``: the engine prefills at the
+exact length and keeps a state cache of fixed size).
+
 Runs on ``--device cuda`` (the default; the engine's stages are CUDA
 graphs there) or ``--device cpu``.
 """

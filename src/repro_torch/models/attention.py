@@ -12,6 +12,18 @@ result does not depend on the batch's size (serving's engine against
 sequential generation).  It is not SDPA: unwritten cache slots carry position -1 and are
 masked by position, and the chunked f32 accumulation is the reference's
 numerics.
+
+A cache is allocated in whole chunks of ``attention_chunk`` positions
+(``attn_cache_spec``; a ring keeps its window's size), the extra slots
+unwritten (position -1), so over a cache the keys run in chunks of
+``attention_chunk`` whatever ``max_len`` is: an engine's ``max_len``
+cache and ``generate``'s prompt-plus-new-tokens cache give the same bits.
+A chunk holding no valid key for a row leaves the row's running max, sum
+and accumulator bit for bit as they were (its correction factor is
+exactly 1 and its probabilities exactly 0).  The reference allocates
+``max_len`` and takes ``min(chunk, cache length)``, whose last product's
+reduction length, and so its order on the card, follows the cache's
+length.
 """
 from __future__ import annotations
 
@@ -160,9 +172,13 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, max_len: int, dtype,
     """Cache layout of ONE attention layer, ``{name: (shape, dtype)}``:
     K/V (B, size, KVH, D) in ``dtype``, or uint8 codes plus (B, size, KVH)
     f32 scales under ``cfg.kv_cache_format``; ``pos`` (size,) or per-slot
-    (B, size)."""
-    size = (min(max_len, cfg.sliding_window) if cfg.sliding_window
-            else max_len)
+    (B, size).  ``size`` is ``max_len`` rounded up to whole chunks of
+    ``cfg.attention_chunk`` (module docstring), or under a sliding window
+    at most the window (a ring)."""
+    chunk = cfg.attention_chunk
+    size = -(-max_len // chunk) * chunk
+    if cfg.sliding_window:
+        size = min(size, cfg.sliding_window)
     shape = (batch, size, cfg.n_kv_heads, cfg.resolved_head_dim)
     spec = {"pos": ((batch, size) if per_slot else (size,), torch.int32)}
     if cfg.kv_cache_format:

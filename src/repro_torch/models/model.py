@@ -1,5 +1,5 @@
-"""Model API for the dense and MoE families: init, loss, forward,
-prefill, decode_step (counterpart of ``repro.models.model``).
+"""Model API for the dense, MoE, SSM and hybrid families: init, loss,
+forward, prefill, decode_step (counterpart of ``repro.models.model``).
 
 Parameters are a nested dict mirroring the reference's tree; precision
 enters through the ``plan`` argument (a ``PrecisionPlan``, or a
@@ -30,20 +30,39 @@ from repro_torch.tree import tree_map
 __all__ = ["Model", "build_model", "tree_map"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# Leaves whose spec pins their dtype (f32): no cast to the compute dtype
-_KEEP_DTYPE = {"router"}
 # Aux losses that the loss adds (the reference's ``router_loss`` terms)
 _LOSS_AUX = ("moe_load_balance", "moe_router_z")
 
 
+def _pinned_names(specs) -> frozenset:
+    """Names of the leaves whose spec pins a dtype (the MoE router,
+    mamba's ``dt_bias``, ``a_log`` and ``d_skip``: f32)."""
+    if isinstance(specs, dict):
+        return frozenset(k for k, v in specs.items()
+                         if isinstance(v, ParamSpec) and v.dtype is not None
+                         ).union(*(_pinned_names(v) for v in specs.values()
+                                   if not isinstance(v, ParamSpec)))
+    if isinstance(specs, list):
+        return frozenset().union(*(_pinned_names(v) for v in specs))
+    return frozenset()
+
+
 class Model:
-    """Decoder LM (dense or MoE FFNs) on one device (``cuda`` unless
-    ``device`` says otherwise)."""
+    """Decoder LM (attention or mamba mixers, dense or MoE FFNs or none)
+    on one device (``cuda`` unless ``device`` says otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
+        # Leaves that keep their spec's dtype in ``cast_params``
+        self._keep_dtype = _pinned_names(self.param_specs())
+        specs = cfg.layer_specs()
+        # A prefill that must run at the prompt's exact length: a ring
+        # window's pad would overwrite ring slots, an SSM's state would
+        # take in the pad tokens
+        self.exact_prefill = bool(cfg.sliding_window) or any(
+            s.mixer != "attn" for s in specs)
 
     # -- parameters ----------------------------------------------------
 
@@ -91,7 +110,8 @@ class Model:
 
     def cast_params(self, params):
         """Floating tensors to the compute dtype, except the leaves whose
-        spec pins an f32 dtype (the MoE router), as the reference casts;
+        spec pins an f32 dtype (the MoE router, mamba's ``dt_bias``,
+        ``a_log`` and ``d_skip``), as the reference casts;
         PackedTensor leaves pass through (they expand at their matmul).  A
         tensor already in its dtype is returned as is, so casting once up
         front makes later calls free."""
@@ -101,7 +121,8 @@ class Model:
             if isinstance(tree, list):
                 return [cast(v, name) for v in tree]
             if isinstance(tree, PackedTensor) or \
-                    not tree.is_floating_point() or name in _KEEP_DTYPE:
+                    not tree.is_floating_point() or \
+                    name in self._keep_dtype:
                 return tree
             return tree.to(self.dtype)
         return cast(params)
@@ -237,8 +258,10 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    per_slot: bool = False):
-        """KV cache; ``per_slot`` gives every row its own length
-        (``length`` (batch,)) and position track."""
+        """The serving cache, one per layer: an attention layer's K/V
+        (``max_len`` positions), a mamba layer's conv history and f32
+        state (constant in ``max_len``); ``per_slot`` gives every row its
+        own length (``length`` (batch,)) and position track."""
         return {
             "stack": stack_lib.init_stack_cache(self.cfg, batch, max_len,
                                                 dtype, self.device,
@@ -249,7 +272,7 @@ class Model:
 
     def reset_cache(self, cache) -> None:
         """Empty ``cache`` in place, as ``init_cache`` made it: no key
-        at any position, length 0."""
+        at any position, zero SSM state and conv history, length 0."""
         for layer in cache["stack"]["layers"]:
             for key, t in layer["self"].items():
                 if key == "pos":
@@ -271,7 +294,9 @@ class Model:
         captured into a CUDA graph: each length would need its own)."""
         if not self.cfg.sliding_window or n_tokens <= 1:
             return
-        size = cache["stack"]["layers"][0]["self"]["pos"].shape[-1]
+        size = next(layer["self"]["pos"].shape[-1]
+                    for layer in cache["stack"]["layers"]
+                    if "pos" in layer["self"])
         if cached is None:
             cached = int(cache["length"].max())
         if cached + n_tokens > size:
@@ -294,7 +319,9 @@ class Model:
         ``true_length``; the padded tail's K/V sit at positions >= that
         length, masked for every later query until decode overwrites them.
         Both forms give the same bits.  A windowed cache refuses a call
-        that would overflow its ring (``check_ring_prefill``)."""
+        that would overflow its ring (``check_ring_prefill``).  A model
+        with mamba mixers (``exact_prefill``) takes prompts at their exact
+        length: its state would take in a padded tail."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         sq = tokens.shape[1]
@@ -333,7 +360,7 @@ class Model:
         x = self._embed(params, token, positions)
         x = stack_lib.run_stack(params["stack"], self.cfg, plan, x,
                                 positions=positions, cache=cache["stack"],
-                                cache_len=pos)
+                                cache_len=pos, decode=True)
         logits = self._head(params, x, plan)
         pos.add_(1 if live is None else live.to(pos.dtype))
         return logits, cache

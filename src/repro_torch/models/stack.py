@@ -1,8 +1,9 @@
-"""The decoder-layer stack, dense and MoE families (counterpart of
-``repro.models.stack``).
+"""The decoder-layer stack, dense, MoE, SSM and hybrid families
+(counterpart of ``repro.models.stack``).
 
-A Python loop over layers, each an attention sublayer and a dense or MoE
-FFN (``ModelConfig.layer_specs``).  Parameters load in either of the
+A Python loop over layers, each a mixer sublayer (attention, or a Mamba2
+SSD mixer: ``models.ssm``) and a dense or MoE FFN or none
+(``ModelConfig.layer_specs``).  Parameters load in either of the
 reference's layouts: ``{"layers": [per-layer dicts]}`` (unrolled) or
 ``{"groups": {"l00": ..., "l01": ...}}`` (scan-stacked: one entry per
 position of the specs' repeating period, each a dict of tensors with a
@@ -14,8 +15,8 @@ reference sums them.
 
 With telemetry on, each layer runs in a collection frame
 (``telemetry.collect.layer_frame``) and its sublayers in module scopes
-(``attn``, ``ffn``); the frame's stats come out as ``tel/l{i:02d}/...``
-in the ``aux`` dict the caller passes.
+(``attn`` or ``ssm``, ``ffn`` or ``moe``); the frame's stats come out
+as ``tel/l{i:02d}/...`` in the ``aux`` dict the caller passes.
 
 Remat (``ModelConfig.remat``, the counterpart of the reference's
 ``_checkpoint``): under ``remat_policy="full"`` a training forward keeps
@@ -43,6 +44,7 @@ from repro_torch.kernels.build import recomputing
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.nn.layers import apply_norm
 from repro_torch.nn.params import ParamSpec, map_specs
 from repro_torch.telemetry import collect as telemetry
@@ -62,12 +64,14 @@ def norm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
-    ffn = (moe_lib.moe_param_specs(cfg) if spec.ffn == "moe"
-           else mlp_lib.mlp_param_specs(cfg))
-    return {"mixer_norm": norm_specs(cfg),
-            "mixer": attn_lib.attn_param_specs(cfg),
-            "ffn_norm": norm_specs(cfg),
-            "ffn": ffn}
+    p = {"mixer_norm": norm_specs(cfg),
+         "mixer": (attn_lib.attn_param_specs(cfg) if spec.mixer == "attn"
+                   else ssm_lib.mamba_param_specs(cfg))}
+    if spec.ffn != "none":
+        p["ffn_norm"] = norm_specs(cfg)
+        p["ffn"] = (moe_lib.moe_param_specs(cfg) if spec.ffn == "moe"
+                    else mlp_lib.mlp_param_specs(cfg))
+    return p
 
 
 def stack_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -105,35 +109,48 @@ def layer_params(stack_params, i: int):
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device, per_slot: bool = False):
-    return {"layers": [
-        {"self": attn_lib.init_attn_cache(cfg, batch, max_len, dtype,
-                                          device, per_slot)}
-        for _ in range(cfg.n_layers)]}
+    """One cache a layer, of its mixer's kind: an attention layer's K/V
+    and positions (``max_len`` long, or the window's ring), a mamba
+    layer's conv history and state (no length)."""
+    def layer(spec: LayerSpec):
+        if spec.mixer == "attn":
+            return {"self": attn_lib.init_attn_cache(
+                cfg, batch, max_len, dtype, device, per_slot)}
+        return {"self": ssm_lib.init_mamba_cache(cfg, batch, dtype, device)}
+    return {"layers": [layer(s) for s in cfg.layer_specs()]}
 
 
 def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
-               x, *, positions, cache, cache_len, layer_idx: int,
-               aux: Optional[Dict[str, torch.Tensor]]):
+               x, *, positions, cache, cache_len, decode: bool,
+               layer_idx: int, aux: Optional[Dict[str, torch.Tensor]]):
     """``(x, *moe_terms)``: the layer's output, then a MoE layer's aux
-    losses in ``MOE_AUX`` order (nothing for a dense layer)."""
+    losses in ``MOE_AUX`` order (nothing for a dense layer).  A mamba
+    mixer runs the row's ``ffn_linear`` cell, as the reference's."""
     terms = ()
+    self_cache = None if cache is None else cache["self"]
     with routing.layer_scope(f"L{layer_idx}"), \
             telemetry.layer_frame(layer_idx) as tel_frame:
         h = apply_norm(params["mixer_norm"], x, cfg.norm)
-        with telemetry.module_scope("attn"):
-            x = x + attn_lib.attention(
-                params["mixer"], cfg, h, row.attn_linear,
-                positions=positions,
-                cache=None if cache is None else cache["self"],
-                cache_len=cache_len)
-        h = apply_norm(params["ffn_norm"], x, cfg.norm)
+        if spec.mixer == "attn":
+            with telemetry.module_scope("attn"):
+                x = x + attn_lib.attention(
+                    params["mixer"], cfg, h, row.attn_linear,
+                    positions=positions, cache=self_cache,
+                    cache_len=cache_len)
+        else:
+            with telemetry.module_scope("ssm"):
+                x = x + ssm_lib.mamba_mixer(params["mixer"], cfg, h,
+                                            row.ffn_linear, cache=self_cache,
+                                            decode=decode)
         if spec.ffn == "moe":
+            h = apply_norm(params["ffn_norm"], x, cfg.norm)
             with telemetry.module_scope("moe"):
                 out, moe_aux = moe_lib.moe(params["ffn"], cfg, h,
                                            row.ffn_linear)
             x = x + out
             terms = tuple(moe_aux[k] for k in MOE_AUX)
-        else:
+        elif spec.ffn == "dense":
+            h = apply_norm(params["ffn_norm"], x, cfg.norm)
             with telemetry.module_scope("ffn"):
                 x = x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
     if tel_frame is not None and aux is not None:
@@ -176,9 +193,12 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
               x: torch.Tensor, *, positions: torch.Tensor,
               cache: Optional[Dict[str, List]] = None,
               cache_len: Optional[torch.Tensor] = None,
+              decode: bool = False,
               aux: Optional[Dict[str, torch.Tensor]] = None
               ) -> torch.Tensor:
-    """All layers, each under its plan row; caches update in place;
+    """All layers, each under its plan row; caches update in place
+    (``decode``: a one-token step, which a mamba mixer takes from its
+    state);
     per-layer telemetry stats and the MoE aux losses (summed over the
     layers, in layer order) go into ``aux`` when given."""
     if plan.n_layers != cfg.n_layers:
@@ -192,7 +212,7 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
                 layer_params(params, i), cfg, specs[i], plan.layers[i], x_,
                 positions=positions,
                 cache=None if cache is None else cache["layers"][i],
-                cache_len=cache_len, layer_idx=i,
+                cache_len=cache_len, decode=decode, layer_idx=i,
                 aux=aux if aux_ok else None)
         out = layer(x, True) if cache is not None else remat(layer, x, cfg)
         x = out[0]

@@ -18,7 +18,8 @@ __all__ = ["ParamSpec", "init_params", "map_specs", "spec_leaves",
 class ParamSpec:
     """One parameter tensor: shape, logical axis names, initializer
     ('normal' fan-in scaled truncated normal unless ``scale``, 'embed'
-    normal with std 1/sqrt(d), 'zeros', 'ones'), optional dtype."""
+    normal with std 1/sqrt(d), 'zeros', 'ones', and Mamba2's 'a_log' and
+    'dt_bias'), optional dtype."""
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
@@ -60,6 +61,18 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dtype
         return torch.zeros(spec.shape, dtype=dt, device=gen.device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dt, device=gen.device)
+    if spec.init == "a_log":
+        # Mamba2's A uniform in [1, 16), stored as its log
+        u = torch.empty(spec.shape, dtype=torch.float32, device=gen.device)
+        u.uniform_(1.0, 16.0, generator=gen)
+        return torch.log(u).to(dt)
+    if spec.init == "dt_bias":
+        # softplus(dt_bias) log-uniform in [1e-3, 1e-1]: the inverse
+        # softplus of the drawn step, as the reference computes it
+        u = torch.empty(spec.shape, dtype=torch.float32, device=gen.device)
+        u.uniform_(math.log(1e-3), math.log(1e-1), generator=gen)
+        dt_val = torch.clamp(torch.exp(u), min=1e-4)
+        return (dt_val + torch.log(-torch.expm1(-dt_val))).to(dt)
     if spec.init in ("normal", "embed"):
         if spec.scale is not None:
             std = spec.scale

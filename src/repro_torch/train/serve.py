@@ -5,8 +5,10 @@ sequential reference the batched engine is held to, token for token.
 Under ``jit=True`` (the default, as the reference's) the prefill and the
 decode step are ``train.graphs.GraphedStage``s: on CUDA each is captured
 as a CUDA graph per shape and cache, and replayed; on the CPU they run
-eagerly.  A windowed model's prefill runs eagerly everywhere: each prompt
-length would need its own graph, used once.
+eagerly.  The prefill of a windowed model or one with mamba mixers
+(``Model.exact_prefill``) runs eagerly everywhere: each prompt length
+would need its own graph, used once.  Their decode steps are captured:
+a mamba layer's conv history and state are updated in place.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def _serving_fn(model: Model, kind: str, recipe: PrecisionRecipe,
 
     def step(params, tokens, cache):
         return getattr(ref(), kind)(params, tokens, cache, recipe)
-    if not jit or (kind == "prefill" and model.cfg.sliding_window):
+    if not jit or (kind == "prefill" and model.exact_prefill):
         return step
     stage = GraphedStage(lambda p, c, t: step(p, t, c), kind, pool,
                          max_graphs=MAX_GRAPHS)
@@ -73,7 +75,8 @@ def make_prefill_fn(model: Model, recipe: PrecisionRecipe, *, jit=True):
     updated in place and returned.  Under ``jit`` on CUDA a graph is
     captured per (params, cache) by address and tokens by shape: a caller
     that reuses its cache replays; the fn keeps its ``MAX_GRAPHS`` most
-    recently used graphs.  A windowed model's prefill runs eagerly."""
+    recently used graphs.  A windowed or SSM model's prefill runs
+    eagerly (``Model.exact_prefill``)."""
     return _cached(model, ("prefill", recipe, jit), lambda: _serving_fn(
         model, "prefill", recipe, jit, _cached(model, "pool", GraphPool)))
 

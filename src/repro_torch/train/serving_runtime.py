@@ -6,9 +6,9 @@ engine, continuous batching and streaming prefill (counterpart of
   into a ``PackedTensor`` (uint8 codes + per-128x128 f32 scales), or,
   with ``packed=False``, stores the tile QDQ's dequantized values.
 * ``DecodeEngine`` holds one per-slot KV cache for all slots: prefill per
-  request (bucket-padded to powers of two; exact length under a sliding
-  window), ``insert`` into a slot, and one batched ``generate_step`` for
-  every slot at its own position.  Under ``jit=True`` (the default, as
+  request (bucket-padded to powers of two), ``insert`` into a slot, and one batched ``generate_step`` for
+  every slot at its own position (exact length under a sliding window or
+  with mamba mixers).  Under ``jit=True`` (the default, as
   the reference's) each stage on CUDA is a captured CUDA graph
   (``train.graphs.GraphedStage``), the counterpart of the reference's
   ``jax.jit``.
@@ -40,8 +40,9 @@ __all__ = ["quantize_weights_for_serving", "serving_memory_report",
            "DecodeEngine", "ContinuousBatcher", "streaming_prefill"]
 
 # Matrix-shaped params that no linear consumes: pos_embed is indexed per
-# position, so it stays dense.
-_NOT_LINEAR_CONSUMED = {"pos_embed"}
+# position and the mamba short-conv weights are used elementwise, so they
+# stay dense.
+_NOT_LINEAR_CONSUMED = {"pos_embed", "conv_wx", "conv_wb", "conv_wc"}
 
 
 def _leaves(tree):
@@ -62,7 +63,9 @@ def quantize_weights_for_serving(model: Model, params,
     ``device`` (``cuda`` unless given).
 
     ``packed=True``: pack every linear weight once into a ``PackedTensor``;
-    norms, embeddings / LM head (vocab axis) and pos_embed stay dense.
+    norms, embeddings / LM head (vocab axis), pos_embed, the mamba conv
+    weights and the f32 leaves (router, ``dt_bias``, ``a_log``,
+    ``d_skip``) stay dense.
     Decoded values are bitwise the tile QDQ.
 
     ``packed=False``: the reference's simulated path, a tile QDQ that
@@ -148,7 +151,12 @@ class DecodeEngine:
     positions per layer: decode past the window wraps it, and prefill
     runs at the prompt's exact length (a padded tail would overwrite ring
     slots), refusing a prompt longer than the ring
-    (``Model.check_ring_prefill``).
+    (``Model.check_ring_prefill``).  A config with mamba mixers keeps
+    each mamba layer's conv history and f32 state per slot (their size
+    does not depend on ``max_len``) and prefills at the exact length too
+    (the state would take in a padded tail); the insert and the decode
+    step update them in place, so their graphs replay over fixed
+    addresses.
 
     ``jit=True`` (the default): on CUDA each stage is a CUDA graph
     (``train.graphs.GraphedStage``), captured on first use and replayed:
@@ -157,8 +165,8 @@ class DecodeEngine:
     (the slot index is a device input, as the reference traces it: one
     replay in place of a copy launch per cache tensor, five a layer) and
     one for the batched step (the last tokens and the live mask are
-    device inputs).  A windowed prefill runs eagerly: each prompt length
-    would need its own graph, used once.  On CPU tensors the stages run
+    device inputs).  An exact-length prefill runs eagerly: each prompt
+    length would need its own graph, used once.  On CPU tensors the stages run
     eagerly.  ``jit=False`` runs them eagerly on CUDA too.
     """
 
@@ -183,8 +191,9 @@ class DecodeEngine:
         self.max_len = max_len
         self.min_bucket = min_bucket
         # Bucket-padded prefill relies on padded K/V staying masked; a
-        # ring-window cache would wrap the pad over live slots.
-        self._can_bucket = not cfg.sliding_window
+        # ring-window cache would wrap the pad over live slots and an SSM
+        # state would take it in.
+        self._can_bucket = not self.model.exact_prefill
         self.cache_dtype = torch.bfloat16   # the reference's default
         self.cache = self.model.init_cache(n_slots, max_len,
                                            self.cache_dtype, per_slot=True)

@@ -25,7 +25,8 @@ between the two pipelines.  ``quantize_blockwise`` bitwise.  Batched
 launches (3-D operands, the MoE experts): bitwise equal to one launch
 per pair and to the plain version pair by pair (GEMMs within the GEMM
 bar); an olmoe-1b-7b MoE decode step of 4 slots bitwise equal to 1-slot
-steps.
+steps.  mamba2-780m's in_dt (N = 48, below one tile) in every role on
+both routes, and its packed panel, under the same bars.
 """
 import pytest
 import torch
@@ -770,3 +771,62 @@ def test_moe_decode_step_is_batch_invariant(cuda):
             assert torch.equal(l4[i], l1[0])
         tok = torch.argmax(l4[:, -1].float(), -1)[:, None]
     assert qs.KERNEL.counts()["batched"] > before
+
+
+# mamba2-780m's narrowest projection, in_dt (1536 x 48: N below one
+# 128-wide tile), in each role: the forward (fp4 block x fp4 tile), the
+# dgrad (bf16 pass x pass, w read transposed: K = 48), the wgrad (fp8
+# blocks, x read transposed: N = 48) and the packed decode (fp4 block x
+# the expanded panel); M = 8 takes the FMA route, M = 1024 the tensor
+# cores (the wgrad's M is 1536 and its K the tokens).
+NARROW_ROLES = {
+    "fwd": (lambda m: ((m, 1536), (1536, 48)),
+            dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+                 b_fmt="fp4_e2m1")),
+    "dgrad": (lambda m: ((m, 48), (1536, 48)),
+              dict(a_mode="pass", b_mode="pass", a_fmt="bf16", b_fmt="bf16",
+                   trans_b=True)),
+    "wgrad": (lambda m: ((m, 1536), (m, 48)),
+              dict(a_mode="block", b_mode="block", a_fmt="fp8_e4m3",
+                   b_fmt="fp8_e5m2", trans_a=True)),
+    "decode": (lambda m: ((m, 1536), (1536, 48)),
+               dict(a_mode="block", b_mode="pass", a_fmt="fp4_e2m1",
+                    b_fmt="bf16")),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("role", sorted(NARROW_ROLES))
+def test_narrow_projection_both_routes(cuda, role, m, dtype):
+    """in_dt's roles against the plain version, bitwise against the
+    two-pass pipeline (quantize_rows + tiled_mm) in the same layout, on
+    the route the counters name (tensor cores for bf16 with an effective
+    M > 16)."""
+    shapes, kw = NARROW_ROLES[role]
+    sa, sb = shapes(m)
+    a, b = _rand(sa, dtype, 60), _rand(sb, dtype, 61) * 0.05
+    eff_m = sa[1] if kw.get("trans_a") else sa[0]
+    tc = qs.KERNEL.tc_launches
+    y = qs.qmm_stream(a, b, **kw)
+    want_n = sb[0] if kw.get("trans_b") else sb[1]
+    assert y.shape == (eff_m, want_n)
+    assert qs.KERNEL.tc_launches - tc == \
+        int(dtype == torch.bfloat16 and eff_m > 16)
+    _assert_gemm_close(y, qs.qmm_stream_plain(a, b, **kw))
+    two = fm.fused_qmm(a, b, pipeline="two_pass", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(two))
+
+
+def test_narrow_panel_packs_as_the_tile_qdq(cuda):
+    """A packed 1536 x 48 panel (one partial 128 x 128 tile a row of
+    tiles) decodes on the card to the tile QDQ's values, and the packed
+    decode call equals the same call on those values."""
+    w = _rand((1536, 48), torch.bfloat16, 62) * 0.05
+    spec = QuantSpec("fp4_e2m1", "tile", 128)
+    packed = pack_tensor(w, spec)
+    ref = qr.quantize_rows_plain(w, mode="tile", fmt_name="fp4_e2m1",
+                                 trans=True, emit_trans=True)
+    assert torch.equal(_bits(packed.dequantize().to(torch.bfloat16)),
+                       _bits(ref))

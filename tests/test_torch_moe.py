@@ -117,8 +117,8 @@ def test_config_matches_jax(name):
 @pytest.mark.parametrize("every_k", [1, 2, 3])
 def test_layer_specs_and_unported_families(every_k):
     """``every_k_layers`` places the MoE FFNs as the reference's specs
-    do; dense configs keep dense specs; ssm, hybrid, vlm and audio
-    raise."""
+    do; dense configs keep dense specs; vlm and audio raise (ssm and
+    hybrid are ported: tests/test_torch_ssm.py)."""
     jm, tm = _modules("olmoe_1b_7b")
     moe = dict(num_experts=4, top_k=2, every_k_layers=every_k)
     jc = jm.REDUCED.replace(n_layers=6, moe=JMoE(**moe))
@@ -128,7 +128,7 @@ def test_layer_specs_and_unported_families(every_k):
     assert tc.scan_period() == jc.scan_period()
     dense = get_config("llama-1b")
     assert {s.ffn for s in dense.layer_specs()} == {"dense"}
-    for family in ("ssm", "hybrid", "vlm", "audio"):
+    for family in ("vlm", "audio"):
         with pytest.raises(NotImplementedError):
             dense.replace(family=family).layer_specs()
 
