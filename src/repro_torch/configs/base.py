@@ -1,6 +1,5 @@
-"""Model and training configuration dataclasses (the dense, MoE, SSM and
-hybrid subset of ``repro.configs.base``, same field names and
-defaults)."""
+"""Model and training configuration dataclasses (counterpart of
+``repro.configs.base``, same field names and defaults)."""
 from __future__ import annotations
 
 import dataclasses
@@ -42,9 +41,11 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Field-for-field the reference ``ModelConfig``, so one config dict
-    round-trips between the packages.  The port runs the dense, MoE
-    (``moe``, a ``MoESettings``), SSM and hybrid (``mamba``, a
-    ``MambaSettings``) families; vlm and audio raise.
+    round-trips between the packages.  The port runs every family: dense,
+    MoE (``moe``, a ``MoESettings``), SSM and hybrid (``mamba``, a
+    ``MambaSettings``), and the cross-attention families vlm
+    (``cross_attn_period``, ``n_patches``) and audio
+    (``n_encoder_layers``, ``n_frames``).
 
     ``linear_impl``: ``"qdq"`` (unfused QDQ simulation), ``"pallas"`` (the
     fused quantize+matmul kernels; in this package the hand-written CUDA
@@ -72,10 +73,10 @@ class ModelConfig:
     moe: Optional[MoESettings] = None
     mamba: Optional[MambaSettings] = None
     attn_layer_period: int = 0   # hybrid: attention at i % p == p//2
-    cross_attn_period: int = 0
-    n_encoder_layers: int = 0
-    n_frames: int = 1500
-    n_patches: int = 1601
+    cross_attn_period: int = 0   # vlm: cross sublayer at i % p == p-2
+    n_encoder_layers: int = 0    # audio enc-dec
+    n_frames: int = 1500         # audio frontend stub
+    n_patches: int = 1601        # vlm frontend stub
     dtype: str = "bfloat16"
     attention_impl: str = "chunked"
     linear_impl: str = "qdq"
@@ -96,13 +97,11 @@ class ModelConfig:
     def layer_specs(self) -> List[LayerSpec]:
         """One spec a layer, as the reference's: an ssm stack is mamba
         mixers with no FFN; otherwise attention, or (``attn_layer_period``
-        p, the hybrid) mamba except at ``i % p == p // 2``, and the FFN
-        dense or MoE on the layers with ``i % every_k_layers == k - 1``.
-        The vlm and audio families raise."""
-        if self.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"repro_torch runs the dense, moe, ssm and hybrid "
-                f"families; got {self.family!r}")
+        p, the hybrid) mamba except at ``i % p == p // 2``; a cross
+        sublayer where ``i % cross_attn_period == cross_attn_period - 2``
+        (the reference's rule verbatim: with a period of 1, whisper's, no
+        layer has one); the FFN dense or MoE on the layers with
+        ``i % every_k_layers == k - 1``."""
         specs = []
         for i in range(self.n_layers):
             if self.family == "ssm":
@@ -112,11 +111,14 @@ class ModelConfig:
             if self.attn_layer_period:
                 p = self.attn_layer_period
                 mixer = "attn" if i % p == p // 2 else "mamba"
+            cross = bool(self.cross_attn_period
+                         and i % self.cross_attn_period
+                         == self.cross_attn_period - 2)
             ffn = "dense"
             if self.moe is not None:
                 k = self.moe.every_k_layers
                 ffn = "moe" if i % k == k - 1 else "dense"
-            specs.append(LayerSpec(mixer, False, ffn))
+            specs.append(LayerSpec(mixer, cross, ffn))
         return specs
 
     def scan_period(self) -> int:
@@ -236,9 +238,11 @@ class TrainConfig:
     cost_calibration: str = ""
 
 
-ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "h2o-danube-3-4b",
-         "jamba-1.5-large-398b", "llama-125m", "llama-1b", "mamba2-780m",
-         "mixtral-8x22b", "olmoe-1b-7b", "tiny"]
+ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "granite-34b",
+         "h2o-danube-3-4b", "jamba-1.5-large-398b", "llama-125m",
+         "llama-1b", "llama-3.2-vision-90b", "llama3.2-3b", "mamba2-780m",
+         "mixtral-8x22b", "nemotron-4-15b", "olmoe-1b-7b", "tiny",
+         "whisper-base"]
 
 
 def get_config(arch: str) -> ModelConfig:

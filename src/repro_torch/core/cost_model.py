@@ -223,13 +223,12 @@ class ModelDims:
     def from_config(cls, cfg, seq_len: Optional[int] = None,
                     include_head: bool = True) -> "ModelDims":
         """Resolve a ``configs.base.ModelConfig`` into per-layer dims:
-        each attention layer prices QKV+O and the SDPA matmuls, a mamba
-        mixer its in_z / in_x / out_proj projections as FFN-class flops
-        (``SCOPE_CLASS`` maps ssm -> ffn), a dense FFN the FFN-class
-        flops, a MoE FFN those flops scaled by the router top-k, and the
-        lm-head matmul lands in ``head_flops`` (the reference's walk over
-        ``cfg.layer_specs()``, whose cross-attention branch waits for
-        that family)."""
+        each attention layer prices QKV+O and the SDPA matmuls (a cross
+        sublayer adds a second set), a mamba mixer its in_z / in_x /
+        out_proj projections as FFN-class flops (``SCOPE_CLASS`` maps ssm
+        -> ffn), a dense FFN the FFN-class flops, a MoE FFN those flops
+        scaled by the router top-k, and the lm-head matmul lands in
+        ``head_flops`` (the reference's walk over ``cfg.layer_specs()``)."""
         dm = cfg.d_model
         block = BlockDims(
             d_model=dm, d_ff=cfg.d_ff, n_heads=cfg.n_heads,
@@ -252,6 +251,9 @@ class ModelDims:
                 attn, sdpa = f["attn_linear"], f["attn_sdpa"]
             else:
                 ffn += ssm_proj
+            if spec.cross:
+                attn += f["attn_linear"]
+                sdpa += f["attn_sdpa"]
             if spec.ffn == "dense":
                 ffn += f["ffn"]
             elif spec.ffn == "moe":

@@ -1,5 +1,5 @@
-"""``flash_attention_fwd``: causal online-softmax attention forward — CUDA
-kernel ``csrc/flash_attention.cu``, replacing
+"""``flash_attention_fwd``: online-softmax attention forward, causal or
+not — CUDA kernel ``csrc/flash_attention.cu``, replacing
 ``repro/kernels/flash_attention.py::_fa_kernel``.
 
 q (B*H, S, D), k / v (B*KVH, S, D) with ``rep = H / KVH`` (the reference
@@ -104,10 +104,10 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True) -> torch.Tensor:
-    """Causal attention forward over (BH, S, D).  CUDA tensors launch the
-    kernel (S a multiple of 64, D in 16 / 32 / 64 / 128, contiguous and
-    16-byte aligned, one dtype of f32 / bf16); CPU tensors take the plain
-    version."""
+    """Attention forward over (BH, S, D), causal unless ``causal=False``
+    (an encoder's).  CUDA tensors launch the kernel (S a multiple of 64,
+    D in 16 / 32 / 64 / 128, contiguous and 16-byte aligned, one dtype of
+    f32 / bf16); CPU tensors take the plain version."""
     bh, s, d, rep = _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal)

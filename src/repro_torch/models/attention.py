@@ -1,5 +1,5 @@
-"""Self-attention with KV caches (counterpart of
-``repro.models.attention``, dense subset).
+"""Self-attention with KV caches, and cross-attention over encoder or
+vision states (counterpart of ``repro.models.attention``).
 
 The Q/K/V/O projections are the recipe's attention-class linears.  The
 attention core without a cache takes the flash kernel under
@@ -12,6 +12,14 @@ result does not depend on the batch's size (serving's engine against
 sequential generation).  It is not SDPA: unwritten cache slots carry position -1 and are
 masked by position, and the chunked f32 accumulation is the reference's
 numerics.
+
+Cross-attention (``cross_attention``) is the reference's: non-causal
+chunked attention of the text's queries over K/V projected from
+``kv_states`` (every query at position 0, key j at position j), never the
+flash kernel (the reference never sends it there).  With a cache (the
+layer's ``cross`` entry, exactly as long as the states) a prefill writes
+the projected K/V into it in place and a decode step reads them; over a
+cache it runs a row at a time, as the cached self-attention does.
 
 A cache is allocated in whole chunks of ``attention_chunk`` positions
 (``attn_cache_spec``; a ring keeps its window's size), the extra slots
@@ -39,13 +47,29 @@ from repro_torch.kernels.ops import flash_attention
 from repro_torch.nn.layers import linear, rope
 from repro_torch.nn.params import ParamSpec
 
-__all__ = ["attn_param_specs", "attention", "chunked_attention",
-           "attn_cache_spec", "init_attn_cache", "NEG_INF"]
+__all__ = ["attn_param_specs", "cross_attn_param_specs", "attention",
+           "cross_attention", "chunked_attention", "attn_cache_spec",
+           "init_attn_cache", "NEG_INF"]
 
 NEG_INF = -1e30
 
 
 def attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": ParamSpec((d, nq * hd), ("embed", "heads")),
+        "wk": ParamSpec((d, nkv * hd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, nkv * hd), ("embed", "kv_heads")),
+        "wo": ParamSpec((nq * hd, d), ("heads", "embed"),
+                        scale=1.0 / math.sqrt(nq * hd
+                                              * max(cfg.n_layers, 1))),
+    }
+
+
+def cross_attn_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Q from the text, K / V from the cross states, all of width
+    d_model; O back to d_model."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     return {
@@ -152,17 +176,57 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
     else:
         k_all, v_all, k_pos = _update_cache(cache, k, v, cache_len, window,
                                             cfg.kv_cache_format)
-        # Row by row: cuBLAS picks its batched-GEMM algorithm by the batch
-        # count, so on the card a row of one batched call can differ in
-        # its last bits from the same row alone.  Per row, a slot of the
-        # batched engine computes what sequential generation computes,
-        # bit for bit.
-        def row(t, i):
-            return t[i:i + 1] if t.dim() == 2 else t
-        out = torch.cat([chunked_attention(
-            q[i:i + 1], k_all[i:i + 1], v_all[i:i + 1], row(positions, i),
-            row(k_pos, i), causal=causal, window=window,
-            chunk=cfg.attention_chunk) for i in range(b)])
+        out = _by_row(q, k_all, v_all, positions, k_pos, causal=causal,
+                      window=window, chunk=cfg.attention_chunk)
+    out = out.reshape(b, sq, cfg.n_heads * hd)
+    return linear(out, params["wo"], recipe, cfg)
+
+
+def _by_row(q, k, v, q_pos, k_pos, **kw) -> torch.Tensor:
+    """``chunked_attention`` one batch row at a time.  cuBLAS picks its
+    batched-GEMM algorithm by the batch count, so on the card a row of
+    one batched call can differ in its last bits from the same row alone;
+    per row, a slot of the batched engine computes what sequential
+    generation computes, bit for bit."""
+    def row(t, i):
+        return t[i:i + 1] if t.dim() == 2 else t
+    return torch.cat([chunked_attention(
+        q[i:i + 1], k[i:i + 1], v[i:i + 1], row(q_pos, i), row(k_pos, i),
+        **kw) for i in range(q.shape[0])])
+
+
+def cross_attention(params, cfg: ModelConfig, x: torch.Tensor,
+                    recipe: MatmulRecipe, *,
+                    kv_states: Optional[torch.Tensor] = None,
+                    cache: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """Cross-attention sublayer over ``kv_states`` (B, Skv, Dkv), non-
+    causal.  Training (no cache) and prefill (a cache given with the
+    states) project K / V from the states; a prefill also writes them
+    into ``cache`` ({"k", "v"}, (B, Skv, KVH, D)) in place.  A decode step
+    (a cache and no states) reads K / V from the cache."""
+    b, sq, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear(x, params["wq"], recipe, cfg).reshape(b, sq, cfg.n_heads, hd)
+    if kv_states is not None:
+        skv = kv_states.shape[1]
+        k = linear(kv_states, params["wk"], recipe, cfg).reshape(
+            b, skv, cfg.n_kv_heads, hd)
+        v = linear(kv_states, params["wv"], recipe, cfg).reshape(
+            b, skv, cfg.n_kv_heads, hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    elif cache is not None:
+        k, v = cache["k"], cache["v"]
+    else:
+        raise ValueError("cross_attention needs kv_states or a cache")
+    skv = k.shape[1]
+    k_pos = torch.arange(skv, dtype=torch.int32, device=x.device)
+    q_pos = torch.zeros((sq,), dtype=torch.int32, device=x.device)
+    kw = dict(causal=False, window=0, chunk=cfg.attention_chunk)
+    out = (chunked_attention(q, k, v, q_pos, k_pos, **kw) if cache is None
+           else _by_row(q, k, v, q_pos, k_pos, **kw))
     out = out.reshape(b, sq, cfg.n_heads * hd)
     return linear(out, params["wo"], recipe, cfg)
 

@@ -1,11 +1,30 @@
-"""Model API for the dense, MoE, SSM and hybrid families: init, loss,
-forward, prefill, decode_step (counterpart of ``repro.models.model``).
+"""Model API for every family: init, loss, forward, prefill,
+decode_step (counterpart of ``repro.models.model``).
 
 Parameters are a nested dict mirroring the reference's tree; precision
 enters through the ``plan`` argument (a ``PrecisionPlan``, or a
 ``PrecisionRecipe`` coerced to the uniform plan).  ``loss`` and
 ``hidden`` run under autograd (training); the serving entry points run
 without it.
+
+The cross-attention families take their states from the batch: a vlm's
+``vision`` (B, n_patches, d_model), cast to the compute dtype; an audio
+model's ``frames`` (B, n_frames, d_model), run through its encoder
+(``_encode``: sinusoidal positions, a non-causal stack under the plan
+resized to the encoder's depth, a final norm).  ``prefill`` takes them
+as ``extras`` beside its tokens; ``decode_step`` reads the cross cache
+the prefill filled.
+
+The dead encoder: the reference places a cross sublayer where ``i %
+cross_attn_period == cross_attn_period - 2``, so with whisper's period of
+1 no decoder layer has one, nothing reads the encoder's output, the loss
+does not depend on ``frames`` and every encoder gradient is 0 (XLA drops
+the encoder as dead code under ``jit``).  The port does not run
+``_encode`` when no layer reads it (``reads_cross``): the loss, the
+gradients and the telemetry rows are the reference's (the reference's
+encoder adds no tap to them), and ``train_step`` hands the leaves of
+``unread_leaves`` gradients of zeros, so AdamW moves them as the
+reference's moves them.
 """
 from __future__ import annotations
 
@@ -21,11 +40,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.recipe import PrecisionPlan, as_plan
 from repro_torch.models import stack as stack_lib
-from repro_torch.nn.layers import apply_norm, linear
+from repro_torch.nn.layers import apply_norm, linear, sincos_positions
 from repro_torch.nn.params import (ParamSpec, init_params, param_count,
                                    spec_leaves)
 from repro_torch.telemetry import collect as telemetry
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["Model", "build_model", "tree_map"]
 
@@ -47,9 +66,18 @@ def _pinned_names(specs) -> frozenset:
     return frozenset()
 
 
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The audio encoder's config: the decoder's widths, its own depth,
+    dense, no cross sublayers, no window."""
+    return cfg.replace(n_layers=cfg.n_encoder_layers, family="dense",
+                       cross_attn_period=0, attn_layer_period=0, moe=None,
+                       sliding_window=0)
+
+
 class Model:
-    """Decoder LM (attention or mamba mixers, dense or MoE FFNs or none)
-    on one device (``cuda`` unless ``device`` says otherwise)."""
+    """LM (attention or mamba mixers, cross-attention sublayers, dense or
+    MoE FFNs or none; an audio model's encoder) on one device (``cuda``
+    unless ``device`` says otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -63,6 +91,9 @@ class Model:
         # take in the pad tokens
         self.exact_prefill = bool(cfg.sliding_window) or any(
             s.mixer != "attn" for s in specs)
+        # Whether a layer reads the cross states: not whisper's decoder
+        # (module docstring, the dead encoder)
+        self.reads_cross = any(s.cross for s in specs)
 
     # -- parameters ----------------------------------------------------
 
@@ -82,7 +113,18 @@ class Model:
             specs["head"] = ParamSpec((d, cfg.vocab_size),
                                       ("embed", "vocab"),
                                       scale=1.0 / math.sqrt(d))
+        if self.cfg.family == "audio":
+            enc = _encoder_cfg(cfg)
+            specs["encoder"] = {"stack": stack_lib.stack_param_specs(enc),
+                                "final_norm": stack_lib.norm_specs(enc)}
         return specs
+
+    def unread_leaves(self, params) -> list:
+        """The parameter leaves that no layer reads: a dead encoder's
+        (module docstring); none in every other model."""
+        if "encoder" in params and not self.reads_cross:
+            return tree_leaves(params["encoder"])
+        return []
 
     def init(self, seed: int = 0, dtype=torch.float32,
              on_device: bool = False):
@@ -150,9 +192,44 @@ class Model:
     def _plan(self, p) -> PrecisionPlan:
         return as_plan(p, self.cfg.n_layers)
 
+    # -- cross states (vlm, audio) ----------------------------------------
+
+    def _encode(self, params, frames: torch.Tensor,
+                plan: PrecisionPlan) -> torch.Tensor:
+        """frames (B, F, D), the stubbed conv frontend's embeddings: plus
+        sinusoidal positions, through the encoder stack (non-causal, the
+        decoder's plan resized onto its depth, backward taps folded into
+        the class rows) and its final norm.  ``params`` in the compute
+        dtype."""
+        enc = _encoder_cfg(self.cfg)
+        x = frames.to(self.dtype)
+        x = x + sincos_positions(x.shape[1], enc.d_model,
+                                 x.device).to(self.dtype)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        x = stack_lib.run_stack(params["encoder"]["stack"], enc,
+                                plan.resize(enc.n_layers), x,
+                                positions=positions, causal=False,
+                                indexed_probes=False)
+        return apply_norm(params["encoder"]["final_norm"], x, enc.norm)
+
+    def _cross_states(self, params, extras, plan) -> Optional[torch.Tensor]:
+        """The states the cross sublayers attend to, from ``extras`` (a
+        batch's or a prefill's): ``vision`` cast to the compute dtype, or
+        ``frames`` through the encoder; None for a family with none, or
+        where no layer reads them (the dead encoder)."""
+        if not self.reads_cross:
+            return None
+        if self.cfg.family == "vlm":
+            return extras["vision"].to(self.dtype)
+        if self.cfg.family == "audio":
+            return self._encode(params, extras["frames"], plan)
+        return None
+
     # -- training forward / loss (no cache) -----------------------------
 
-    def _body(self, params, tokens: torch.Tensor, plan, aux=None):
+    def _body(self, params, tokens: torch.Tensor, plan, aux=None,
+              extras=None):
         """(compute-dtype params, plan, the stack's output) of a forward
         with no cache; per-layer telemetry stats go into ``aux``."""
         plan = self._plan(plan)
@@ -160,25 +237,31 @@ class Model:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x = self._embed(params, tokens, positions)
+        cross = self._cross_states(params, extras, plan)
         x = stack_lib.run_stack(params["stack"], self.cfg, plan, x,
-                                positions=positions, aux=aux)
+                                positions=positions, cross_states=cross,
+                                aux=aux)
         return params, plan, x
 
     def _logits(self, params, tokens: torch.Tensor, plan,
-                aux=None) -> torch.Tensor:
-        params, plan, x = self._body(params, tokens, plan, aux)
+                aux=None, extras=None) -> torch.Tensor:
+        params, plan, x = self._body(params, tokens, plan, aux, extras)
         return self._head(params, x, plan)
 
     @torch.no_grad()
-    def forward(self, params, tokens: torch.Tensor, plan) -> torch.Tensor:
-        """Logits of every position, (B, S, V) — teacher forcing."""
-        return self._logits(params, tokens, plan)
+    def forward(self, params, tokens: torch.Tensor, plan, *,
+                extras: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """Logits of every position, (B, S, V) — teacher forcing.  A vlm
+        or audio model takes its ``vision`` / ``frames`` in ``extras``."""
+        return self._logits(params, tokens, plan, extras=extras)
 
     def hidden(self, params, batch: Dict[str, torch.Tensor], plan
                ) -> torch.Tensor:
         """Training-mode forward up to (excluding) the LM head: the final
         norm's output."""
-        params, _, x = self._body(params, batch["tokens"], plan)
+        params, _, x = self._body(params, batch["tokens"], plan,
+                                  extras=batch)
         return apply_norm(params["final_norm"], x, self.cfg.norm)
 
     @staticmethod
@@ -213,10 +296,12 @@ class Model:
         aux: Dict[str, torch.Tensor] = {}
         targets = batch["targets"]
         if not cfg.loss_chunk:
-            logits = self._logits(params, batch["tokens"], plan, aux)
+            logits = self._logits(params, batch["tokens"], plan, aux,
+                                  extras=batch)
             nll, z2, n = self._xent_terms(logits, targets)
         else:
-            params, plan, x = self._body(params, batch["tokens"], plan, aux)
+            params, plan, x = self._body(params, batch["tokens"], plan, aux,
+                                         extras=batch)
             h = apply_norm(params["final_norm"], x, cfg.norm)
             w = (params["embed"].T if cfg.tie_embeddings
                  else params["head"])
@@ -260,21 +345,26 @@ class Model:
                    per_slot: bool = False):
         """The serving cache, one per layer: an attention layer's K/V
         (``max_len`` positions), a mamba layer's conv history and f32
-        state (constant in ``max_len``); ``per_slot`` gives every row its
-        own length (``length`` (batch,)) and position track."""
+        state (constant in ``max_len``), a cross layer's K/V over the
+        states (in the compute dtype: the reference's prefill replaces
+        its cross cache with the K/V it projects); ``per_slot`` gives
+        every row its own length (``length`` (batch,)) and position
+        track."""
         return {
             "stack": stack_lib.init_stack_cache(self.cfg, batch, max_len,
                                                 dtype, self.device,
-                                                per_slot),
+                                                per_slot, self.dtype),
             "length": torch.zeros((batch,) if per_slot else (),
                                   dtype=torch.int32, device=self.device),
         }
 
     def reset_cache(self, cache) -> None:
         """Empty ``cache`` in place, as ``init_cache`` made it: no key
-        at any position, zero SSM state and conv history, length 0."""
+        at any position, zero SSM state, conv history and cross K/V,
+        length 0."""
         for layer in cache["stack"]["layers"]:
-            for key, t in layer["self"].items():
+            for key, t in [*layer["self"].items(),
+                           *layer.get("cross", {}).items()]:
                 if key == "pos":
                     t.fill_(-1)
                 else:
@@ -310,7 +400,9 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, cache, plan, *,
-                true_length=None) -> Tuple[torch.Tensor, Any]:
+                true_length=None,
+                extras: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Any]:
         """Process a prompt into ``cache`` (updated in place); returns
         (last-position logits (B, 1, V), cache).  With ``true_length`` (an
         int, or a 0-d integer tensor: a CUDA graph's device input, as the
@@ -321,7 +413,9 @@ class Model:
         Both forms give the same bits.  A windowed cache refuses a call
         that would overflow its ring (``check_ring_prefill``).  A model
         with mamba mixers (``exact_prefill``) takes prompts at their exact
-        length: its state would take in a padded tail."""
+        length: its state would take in a padded tail.  A vlm or audio
+        model takes its ``vision`` / ``frames`` in ``extras``: each
+        prefill projects them into the cross cache again."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         sq = tokens.shape[1]
@@ -331,9 +425,10 @@ class Model:
         positions = (length[:, None] + ar[None] if length.dim()
                      else length + ar)
         x = self._embed(params, tokens, positions)
+        cross = self._cross_states(params, extras, plan)
         x = stack_lib.run_stack(params["stack"], self.cfg, plan, x,
-                                positions=positions, cache=cache["stack"],
-                                cache_len=length)
+                                positions=positions, cross_states=cross,
+                                cache=cache["stack"], cache_len=length)
         if true_length is None:
             x_last, advance = x[:, -1:], sq
         elif isinstance(true_length, torch.Tensor):
@@ -351,7 +446,8 @@ class Model:
                     ) -> Tuple[torch.Tensor, Any]:
         """One decode step: token (B, 1) -> logits (B, 1, V).  A per-slot
         cache decodes every row at its own position; with ``live`` (B,)
-        bool, only the live rows' lengths advance."""
+        bool, only the live rows' lengths advance.  Cross sublayers read
+        the K/V the prefill cached."""
         plan = self._plan(plan)
         params = self.cast_params(params)
         pos = cache["length"]

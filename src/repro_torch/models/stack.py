@@ -1,9 +1,13 @@
-"""The decoder-layer stack, dense, MoE, SSM and hybrid families
-(counterpart of ``repro.models.stack``).
+"""The layer stack of every family (counterpart of
+``repro.models.stack``).
 
 A Python loop over layers, each a mixer sublayer (attention, or a Mamba2
-SSD mixer: ``models.ssm``) and a dense or MoE FFN or none
-(``ModelConfig.layer_specs``).  Parameters load in either of the
+SSD mixer: ``models.ssm``), on the layers the specs mark a cross-attention
+sublayer over ``cross_states`` (its output scaled by ``tanh`` of the
+layer's f32 ``cross_gate``, which starts at 0), and a dense or MoE FFN or
+none (``ModelConfig.layer_specs``).  The audio encoder is a stack too:
+non-causal, its layers' backward taps folded into the class rows
+(``indexed_probes=False``).  Parameters load in either of the
 reference's layouts: ``{"layers": [per-layer dicts]}`` (unrolled) or
 ``{"groups": {"l00": ..., "l01": ...}}`` (scan-stacked: one entry per
 position of the specs' repeating period, each a dict of tensors with a
@@ -15,8 +19,8 @@ reference sums them.
 
 With telemetry on, each layer runs in a collection frame
 (``telemetry.collect.layer_frame``) and its sublayers in module scopes
-(``attn`` or ``ssm``, ``ffn`` or ``moe``); the frame's stats come out
-as ``tel/l{i:02d}/...`` in the ``aux`` dict the caller passes.
+(``attn`` or ``ssm``, ``cross``, ``ffn`` or ``moe``); the frame's stats
+come out as ``tel/l{i:02d}/...`` in the ``aux`` dict the caller passes.
 
 Remat (``ModelConfig.remat``, the counterpart of the reference's
 ``_checkpoint``): under ``remat_policy="full"`` a training forward keeps
@@ -67,6 +71,13 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     p = {"mixer_norm": norm_specs(cfg),
          "mixer": (attn_lib.attn_param_specs(cfg) if spec.mixer == "attn"
                    else ssm_lib.mamba_param_specs(cfg))}
+    if spec.cross:
+        p["cross_norm"] = norm_specs(cfg)
+        p["cross"] = attn_lib.cross_attn_param_specs(cfg)
+        # learned gate (llama-3.2-vision style): the cross output ramps
+        # in from 0
+        p["cross_gate"] = ParamSpec((1,), (None,), init="zeros",
+                                    dtype=torch.float32)
     if spec.ffn != "none":
         p["ffn_norm"] = norm_specs(cfg)
         p["ffn"] = (moe_lib.moe_param_specs(cfg) if spec.ffn == "moe"
@@ -108,40 +119,68 @@ def layer_params(stack_params, i: int):
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device, per_slot: bool = False):
+                     device, per_slot: bool, cross_dtype):
     """One cache a layer, of its mixer's kind: an attention layer's K/V
     and positions (``max_len`` long, or the window's ring), a mamba
-    layer's conv history and state (no length)."""
+    layer's conv history and state (no length); a cross layer's
+    ``cross`` K/V besides, (batch, ``n_patches`` (vlm) or ``n_frames``,
+    KV heads, head_dim) in ``cross_dtype``: exactly as long as the
+    states, not rounded to whole chunks, so that their chunks are the
+    reference's ``min(attention_chunk, Skv)``."""
+    hd, n_kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    n_cross = cfg.n_patches if cfg.family == "vlm" else cfg.n_frames
+
     def layer(spec: LayerSpec):
         if spec.mixer == "attn":
-            return {"self": attn_lib.init_attn_cache(
+            c = {"self": attn_lib.init_attn_cache(
                 cfg, batch, max_len, dtype, device, per_slot)}
-        return {"self": ssm_lib.init_mamba_cache(cfg, batch, dtype, device)}
+        else:
+            c = {"self": ssm_lib.init_mamba_cache(cfg, batch, dtype, device)}
+        if spec.cross:
+            c["cross"] = {n: torch.zeros((batch, n_cross, n_kv, hd),
+                                         dtype=cross_dtype,
+                                         device=device)
+                          for n in ("k", "v")}
+        return c
     return {"layers": [layer(s) for s in cfg.layer_specs()]}
 
 
 def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
-               x, *, positions, cache, cache_len, decode: bool,
-               layer_idx: int, aux: Optional[Dict[str, torch.Tensor]]):
+               x, *, positions, cross_states, cache, cache_len, decode: bool,
+               causal: bool, layer_idx: int, indexed: bool,
+               aux: Optional[Dict[str, torch.Tensor]]):
     """``(x, *moe_terms)``: the layer's output, then a MoE layer's aux
     losses in ``MOE_AUX`` order (nothing for a dense layer).  A mamba
-    mixer runs the row's ``ffn_linear`` cell, as the reference's."""
+    mixer runs the row's ``ffn_linear`` cell, as the reference's; the
+    cross sublayer its ``attn_linear`` cell.  ``indexed=False`` opens the
+    telemetry frame with no layer index (the backward taps fold into the
+    class rows)."""
     terms = ()
     self_cache = None if cache is None else cache["self"]
     with routing.layer_scope(f"L{layer_idx}"), \
-            telemetry.layer_frame(layer_idx) as tel_frame:
+            telemetry.layer_frame(layer_idx if indexed else None) \
+            as tel_frame:
         h = apply_norm(params["mixer_norm"], x, cfg.norm)
         if spec.mixer == "attn":
             with telemetry.module_scope("attn"):
                 x = x + attn_lib.attention(
                     params["mixer"], cfg, h, row.attn_linear,
                     positions=positions, cache=self_cache,
-                    cache_len=cache_len)
+                    cache_len=cache_len, causal=causal)
         else:
             with telemetry.module_scope("ssm"):
                 x = x + ssm_lib.mamba_mixer(params["mixer"], cfg, h,
                                             row.ffn_linear, cache=self_cache,
                                             decode=decode)
+        if spec.cross:
+            h = apply_norm(params["cross_norm"], x, cfg.norm)
+            with telemetry.module_scope("cross"):
+                out = attn_lib.cross_attention(
+                    params["cross"], cfg, h, row.attn_linear,
+                    kv_states=None if decode else cross_states,
+                    cache=None if cache is None else cache["cross"])
+            gate = torch.tanh(params["cross_gate"].to(torch.float32))
+            x = x + (out.to(torch.float32) * gate).to(x.dtype)
         if spec.ffn == "moe":
             h = apply_norm(params["ffn_norm"], x, cfg.norm)
             with telemetry.module_scope("moe"):
@@ -191,16 +230,22 @@ def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
               x: torch.Tensor, *, positions: torch.Tensor,
+              cross_states: Optional[torch.Tensor] = None,
               cache: Optional[Dict[str, List]] = None,
               cache_len: Optional[torch.Tensor] = None,
-              decode: bool = False,
+              decode: bool = False, causal: bool = True,
+              indexed_probes: bool = True,
               aux: Optional[Dict[str, torch.Tensor]] = None
               ) -> torch.Tensor:
     """All layers, each under its plan row; caches update in place
     (``decode``: a one-token step, which a mamba mixer takes from its
-    state);
+    state and a cross sublayer from its cached K/V; otherwise a cross
+    sublayer projects ``cross_states``);
     per-layer telemetry stats and the MoE aux losses (summed over the
-    layers, in layer order) go into ``aux`` when given."""
+    layers, in layer order) go into ``aux`` when given.
+    ``indexed_probes=False`` (the audio encoder) folds the layers'
+    backward taps into the class rows, so that they do not land in the
+    decoder's rows of the same index."""
     if plan.n_layers != cfg.n_layers:
         raise ValueError(f"plan has {plan.n_layers} layers, model "
                          f"{cfg.n_layers}")
@@ -210,9 +255,10 @@ def run_stack(params, cfg: ModelConfig, plan: PrecisionPlan,
         def layer(x_, aux_ok, i=i):
             return _run_layer(
                 layer_params(params, i), cfg, specs[i], plan.layers[i], x_,
-                positions=positions,
+                positions=positions, cross_states=cross_states,
                 cache=None if cache is None else cache["layers"][i],
-                cache_len=cache_len, decode=decode, layer_idx=i,
+                cache_len=cache_len, decode=decode, causal=causal,
+                layer_idx=i, indexed=indexed_probes,
                 aux=aux if aux_ok else None)
         out = layer(x, True) if cache is not None else remat(layer, x, cfg)
         x = out[0]

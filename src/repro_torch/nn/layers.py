@@ -2,6 +2,7 @@
 ``repro.nn.layers``)."""
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -12,8 +13,8 @@ from repro_torch import constant
 from repro_torch.core.qlinear import qlinear
 from repro_torch.core.recipe import MatmulRecipe
 
-__all__ = ["linear", "gelu", "silu", "rms_norm", "layer_norm",
-           "apply_norm", "rope", "ACTIVATIONS"]
+__all__ = ["linear", "gelu", "silu", "relu2", "rms_norm", "layer_norm",
+           "apply_norm", "rope", "sincos_positions", "ACTIVATIONS"]
 
 
 def linear(x: torch.Tensor, w, recipe: MatmulRecipe, cfg, *,
@@ -39,7 +40,13 @@ def silu(x):
     return x * (1 / (1 + torch.exp(-x)))
 
 
-ACTIVATIONS = {"gelu": gelu, "silu": silu}
+def relu2(x):
+    """Squared ReLU (nemotron-4), ``relu(x) * relu(x)`` in ``x``'s dtype."""
+    r = torch.relu(x)
+    return r * r
+
+
+ACTIVATIONS = {"gelu": gelu, "silu": silu, "relu2": relu2}
 
 
 def rms_norm(x, scale, eps=1e-5):
@@ -83,3 +90,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """Fixed sinusoidal position embeddings (the whisper encoder), (seq_len,
+    dim) f32: computed in numpy f32 as the reference computes them
+    (``torch.sin`` can land an ulp away), then made a tensor on
+    ``device``, once per arguments and shared (a CUDA graph cannot capture
+    the copy; callers must not write to it)."""
+    pos = np.arange(seq_len, dtype=np.float32)[:, None]
+    i = np.arange(dim // 2, dtype=np.float32)[None, :]
+    ang = pos / (10000.0 ** (2 * i / dim))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device)

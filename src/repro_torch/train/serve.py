@@ -8,7 +8,10 @@ as a CUDA graph per shape and cache, and replayed; on the CPU they run
 eagerly.  The prefill of a windowed model or one with mamba mixers
 (``Model.exact_prefill``) runs eagerly everywhere: each prompt length
 would need its own graph, used once.  Their decode steps are captured:
-a mamba layer's conv history and state are updated in place.
+a mamba layer's conv history and state are updated in place.  A vlm
+or audio model's prefill takes its ``vision`` / ``frames`` as ``extras``
+(graph inputs, like the tokens) and fills the cross cache that decode
+reads.
 """
 from __future__ import annotations
 
@@ -52,30 +55,36 @@ def _cached(model: Model, key, build):
 
 def _serving_fn(model: Model, kind: str, recipe: PrecisionRecipe,
                 jit: bool, pool: GraphPool):
-    """``fn(params, tokens, cache)`` calling ``Model.prefill`` or
-    ``Model.decode_step`` of ``model`` (held weakly) under ``recipe``."""
+    """``fn(params, tokens, cache[, extras])`` calling ``Model.prefill``
+    (with ``extras``) or ``Model.decode_step`` of ``model`` (held weakly)
+    under ``recipe``."""
     ref = weakref.ref(model)
 
-    def step(params, tokens, cache):
-        return getattr(ref(), kind)(params, tokens, cache, recipe)
+    def step(params, tokens, cache, extras=None):
+        if kind == "prefill":
+            return ref().prefill(params, tokens, cache, recipe,
+                                 extras=extras)
+        return ref().decode_step(params, tokens, cache, recipe)
     if not jit or (kind == "prefill" and model.exact_prefill):
         return step
-    stage = GraphedStage(lambda p, c, t: step(p, t, c), kind, pool,
+    stage = GraphedStage(lambda p, c, t, e: step(p, t, c, e), kind, pool,
                          max_graphs=MAX_GRAPHS)
 
-    def fn(params, tokens, cache):
-        logits, cache = stage(params, cache, tokens)
+    def fn(params, tokens, cache, extras=None):
+        logits, cache = stage(params, cache, tokens, extras)
         return logits.clone(), cache
     fn.stage = stage
     return fn
 
 
 def make_prefill_fn(model: Model, recipe: PrecisionRecipe, *, jit=True):
-    """``fn(params, tokens, cache) -> (last logits, cache)``, the cache
-    updated in place and returned.  Under ``jit`` on CUDA a graph is
-    captured per (params, cache) by address and tokens by shape: a caller
-    that reuses its cache replays; the fn keeps its ``MAX_GRAPHS`` most
-    recently used graphs.  A windowed or SSM model's prefill runs
+    """``fn(params, tokens, cache, extras=None) -> (last logits, cache)``,
+    the cache updated in place and returned; ``extras`` holds a vlm's
+    ``vision`` or an audio model's ``frames``.  Under ``jit`` on CUDA a
+    graph is captured per (params, cache) by address and tokens and
+    extras by shape (both copied into the graph's static buffers): a
+    caller that reuses its cache replays; the fn keeps its ``MAX_GRAPHS``
+    most recently used graphs.  A windowed or SSM model's prefill runs
     eagerly (``Model.exact_prefill``)."""
     return _cached(model, ("prefill", recipe, jit), lambda: _serving_fn(
         model, "prefill", recipe, jit, _cached(model, "pool", GraphPool)))
@@ -127,12 +136,17 @@ def generate(model: Model, params, prompts: torch.Tensor, *,
              recipe: Optional[PrecisionRecipe] = None,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
+             extras: Optional[Dict[str, torch.Tensor]] = None,
              jit: bool = True) -> torch.Tensor:
     """Greedy (or sampled, ``temperature`` > 0 with ``generator``)
     generation.  prompts (B, S) int -> (B, S + max_new_tokens), on the
-    model's device.  Tokens are chosen outside the graphs."""
+    model's device; ``extras`` holds a vlm's ``vision`` (B, n_patches, D)
+    or an audio model's ``frames`` (B, n_frames, D).  Tokens are chosen
+    outside the graphs."""
     recipe = recipe or RECIPES["bf16"]
     prompts = prompts.to(model.device)
+    if extras is not None:
+        extras = {k: v.to(model.device) for k, v in extras.items()}
     b, s = prompts.shape
     if not jit:
         # Cast once up front, so the eager steps' casts are free.  A
@@ -143,7 +157,7 @@ def generate(model: Model, params, prompts: torch.Tensor, *,
              else model.init_cache(b, s + max_new_tokens))
     prefill = make_prefill_fn(model, recipe, jit=jit)
     decode = make_decode_fn(model, recipe, jit=jit)
-    logits, cache = prefill(params, prompts, cache)
+    logits, cache = prefill(params, prompts, cache, extras)
     toks = [prompts]
     for i in range(max_new_tokens):
         cur = sample_tokens(logits[:, -1], temperature, generator)

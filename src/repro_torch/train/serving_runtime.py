@@ -99,20 +99,23 @@ def quantize_weights_for_serving(model: Model, params,
 
 def streaming_prefill(model: Model, params, tokens: torch.Tensor, cache,
                       recipe: Optional[PrecisionRecipe] = None,
-                      segment: int = 2048):
+                      segment: int = 2048,
+                      extras: Optional[Dict[str, torch.Tensor]] = None):
     """Prefill a long prompt in fixed segments into ``cache`` (in place);
     returns (logits of the last position, cache).  Activation memory is
     O(segment) instead of O(prompt); the KV cache carries across
     segments and the final partial segment runs at its natural length.
     Under a sliding window every segment is checked against the ring
     (``Model.check_ring_prefill``): one that would evict keys its own
-    queries need raises ``ValueError``."""
+    queries need raises ``ValueError``.  ``extras`` (a vlm's ``vision``,
+    an audio model's ``frames``) go with every segment, which projects
+    them into the cross cache again, as the reference's does."""
     recipe = recipe or RECIPES["bf16"]
     logits = None
     for start in range(0, tokens.shape[1], segment):
         logits, cache = model.prefill(params,
                                       tokens[:, start:start + segment],
-                                      cache, recipe)
+                                      cache, recipe, extras=extras)
     return logits, cache
 
 
@@ -168,6 +171,10 @@ class DecodeEngine:
     device inputs).  An exact-length prefill runs eagerly: each prompt
     length would need its own graph, used once.  On CPU tensors the stages run
     eagerly.  ``jit=False`` runs them eagerly on CUDA too.
+
+    The vlm and audio families raise ``NotImplementedError``: a request
+    would need its vision or frame states, and the engine's prefill
+    takes tokens alone, as the reference's does.
     """
 
     def __init__(self, model: Model, params, *, n_slots: int = 4,
@@ -177,6 +184,14 @@ class DecodeEngine:
                  jit: bool = True, device=None):
         dev = resolve_device(device)
         cfg = model.cfg
+        if cfg.family in ("vlm", "audio"):
+            # The reference's engine prefills with the tokens alone, so
+            # it cannot serve a cross family either; ``train.serve.
+            # generate(extras=...)`` does
+            raise NotImplementedError(
+                f"DecodeEngine serves no {cfg.family} model: its requests "
+                "carry vision / frame states that the engine's prefill "
+                "does not take; use train.serve.generate(..., extras=...)")
         if kv_format is not None:
             if F.FORMATS[kv_format].bits != 8:
                 raise ValueError(
@@ -324,7 +339,8 @@ class ContinuousBatcher:
     """Static-shape continuous batching over a fixed slot count: requests
     (prompt, max_new_tokens) are prefilled one by one into free slots and
     all live slots decode together; finished slots refill from the queue
-    at once."""
+    at once.  Raises for the vlm and audio families, as ``DecodeEngine``
+    does."""
 
     def __init__(self, model: Model, params, n_slots: int = 4,
                  max_len: int = 512,

@@ -43,6 +43,7 @@ def _grads(model: Model, plan, params, batch, collector=None):
     with respect to every parameter leaf (a tree like ``params``) and,
     with a telemetry ``collector``, to fresh probes (else None)."""
     leaves = tree_leaves(params)
+    unread = {id(p) for p in model.unread_leaves(params)}
     probes = None
     for p in leaves:
         p.requires_grad_(True)
@@ -59,12 +60,17 @@ def _grads(model: Model, plan, params, batch, collector=None):
         with phase_span("bwd"):
             extra = list(probes.values()) if probes else []
             grads = torch.autograd.grad(loss, leaves + extra,
-                                        allow_unused=bool(extra))
+                                        allow_unused=bool(extra or unread))
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    if any(g is None for g in grads[:len(leaves)]):
+    if any(g is None and id(p) not in unread
+           for p, g in zip(leaves, grads)):
         raise RuntimeError("a parameter does not reach the loss")
+    # an unread leaf's gradient is zeros, as the reference's: AdamW's
+    # moments and weight decay then move it as there
+    grads = [torch.zeros_like(p) if g is None and i < len(leaves) else g
+             for i, (p, g) in enumerate(zip(leaves + extra, grads))]
     # a class with no tap in this model leaves its probe unused: its
     # gradient is zero, as in the reference
     pg = None if probes is None else {

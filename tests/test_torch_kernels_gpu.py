@@ -336,19 +336,20 @@ def test_two_pass_token_modes_transposed(cuda, a_mode, b_mode, trans_a,
     _assert_gemm_close(y, fm.fused_qmm(a.cpu(), b.cpu(), **kw).cuda())
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s", [128, 192, 1024])
 @pytest.mark.parametrize("rep", [1, 2, 4])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_flash_attention_matches_plain(cuda, d, rep, s, dtype):
+def test_flash_attention_matches_plain(cuda, d, rep, s, dtype, causal):
     """Every head dimension (1/sqrt(D) a power of two for 16 and 64, not
     for 32 and 128), GQA by index, S = 192 (a ragged 128-row q tile of
-    the tensor-core route)."""
+    the tensor-core route), causal and not (an encoder's attention)."""
     q = _rand((4, s, d), dtype, 17)
     k, v = _rand((4 // rep, s, d), dtype, 18), _rand((4 // rep, s, d),
                                                     dtype, 19)
-    o = fa.flash_attention_fwd(q, k, v)
-    ref = fa.flash_attention_fwd_plain(q, k, v)
+    o = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     assert o.dtype == q.dtype and o.shape == q.shape
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(o.float(), ref.float(), rtol=rtol, atol=1e-5)

@@ -117,8 +117,10 @@ def test_config_matches_jax(name):
 @pytest.mark.parametrize("every_k", [1, 2, 3])
 def test_layer_specs_and_unported_families(every_k):
     """``every_k_layers`` places the MoE FFNs as the reference's specs
-    do; dense configs keep dense specs; vlm and audio raise (ssm and
-    hybrid are ported: tests/test_torch_ssm.py)."""
+    do; dense configs keep dense specs; the vlm and audio families (no
+    longer unported: their cross sublayers are
+    tests/test_torch_cross.py's) give the reference's specs too, cross
+    placement included, on the same MoE stack."""
     jm, tm = _modules("olmoe_1b_7b")
     moe = dict(num_experts=4, top_k=2, every_k_layers=every_k)
     jc = jm.REDUCED.replace(n_layers=6, moe=JMoE(**moe))
@@ -128,16 +130,22 @@ def test_layer_specs_and_unported_families(every_k):
     assert tc.scan_period() == jc.scan_period()
     dense = get_config("llama-1b")
     assert {s.ffn for s in dense.layer_specs()} == {"dense"}
-    for family in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError):
-            dense.replace(family=family).layer_specs()
+    for family, period in (("vlm", every_k + 2), ("audio", 1)):
+        jf = jc.replace(family=family, cross_attn_period=period)
+        tf = tc.replace(family=family, cross_attn_period=period)
+        assert [dataclasses.astuple(s) for s in tf.layer_specs()] == \
+            [dataclasses.astuple(s) for s in jf.layer_specs()]
+        assert tf.scan_period() == jf.scan_period()
+        assert any(s.cross for s in tf.layer_specs()) == (family == "vlm")
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ("llama_3_2_vision_90b",
+                                          "whisper_base"))
 def test_cost_model_dims_and_param_counts(name):
-    """``ModelDims.from_config`` (the MoE FFN scaled by top-k) and the
-    total / active parameter counts equal the reference's exactly, at
-    full and reduced size."""
+    """``ModelDims.from_config`` (the MoE FFN scaled by top-k; a cross
+    sublayer's second attention row) and the total / active parameter
+    counts (an audio model's encoder included) equal the reference's
+    exactly, at full and reduced size."""
     jm, tm = _modules(name)
     for what in ("CONFIG", "REDUCED"):
         jc, tc = getattr(jm, what), getattr(tm, what)
