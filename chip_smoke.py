@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--phase slice | serve_swa | moe_kernels |
                            train_moe | serve_moe | ssm_kernels |
-                           train_ssm | serve_ssm | hybrid | vlm | audio]
+                           train_ssm | serve_ssm | hybrid | vlm | audio |
+                           train_kernels | train_cli]
 
 With ``--phase`` it runs the build and that phase alone and prints no ok
 line.  Phases, each printing one line (a failed phase raises: no ok line, exit
@@ -27,7 +28,10 @@ code 1):
    at (96, 1024, 64) and (48, 1024, 128), causal, and non-causal (an
    encoder's) at (64, 1536, 64) (whisper-base's 8 heads x batch 8, its
    1500 frames rounded up to a multiple of 128) and (48, 1024, 128),
-   SDPA's time beside each (``is_causal`` as the row).  QDQ panels
+   SDPA's time beside each (``is_causal`` as the row); and llama3.2-3b's
+   (phase 8a) at the same 8192 tokens: the FFN forward 3072 -> 8192, the
+   wq (3072 -> 3072) and wk (-> 1024, wv's shape) forwards, flash at
+   (96, 2048, 128) causal.  QDQ panels
    bitwise, GEMM outputs within one bf16 ulp (+1e-5 max|y|), the stream
    kernel bitwise against quantize_rows + tiled_mm in the same layout,
    attention within
@@ -61,9 +65,10 @@ code 1):
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
-3b. serve_swa — serves h2o-danube-3-4b at full width and half its depth
-   (12 of its 24 layers, SWA_LAYERS: cut so that the whole run stays
-   near half its time limit with the MoE phases; d 3840, 32 heads and
+3b. serve_swa — serves h2o-danube-3-4b at full width and a third of its
+   depth (8 of its 24 layers, SWA_LAYERS: cut to 12 so that the whole
+   run stays near half its time limit with the MoE phases, then to 8 to
+   make room for ``train_cli``; d 3840, 32 heads and
    8 KV heads of 120, d_ff 10240, vocab 32000, sliding window 4096;
    seeded init drawn on the card) through the packed-FP4
    ``ContinuousBatcher`` (fp8 KV, paper_fp4, linear_impl "pallas",
@@ -188,6 +193,31 @@ code 1):
    step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
    switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
    phase 4, with its control.
+8a. train_cli — the training CLI, ``repro_torch.launch.train.main``,
+   called in process (CLI_ARGV): llama3.2-3b at full published width and
+   depth (28 layers, d 3072, 24 query and 8 KV heads of 128, d_ff 8192,
+   vocab 128256, tied embeddings; 3,212,749,824 parameters drawn on the
+   card), ``--recipe paper_fp4 --linear-impl pallas --attention-impl
+   pallas --batch 4 --seq 2048``, 5 AdamW steps (all before the §3.3
+   switch), remat "full" as the config has it.  Prints the CLI's lines
+   (per-step log, ``eval:``, ``step-time:``, ``roofline[...]``), then
+   one line: losses, step times, the CLI's step-time summary and
+   roofline terms, peak memory per step and launches per kernel per
+   step, then a ``train_cli_profile`` line splitting one more step by
+   kernel.  Gates: the model at full size; finite losses; every GEMM
+   kernel and flash launched, each also in a recompute, every one on
+   the tensor-core route; flash at (96, 2048, 128); the CLI's eval,
+   step-time and roofline lines; step 0's calls of layers 0 and 27
+   (fwd, dgrad, wgrad of the seven projections, flash; copied to the
+   host as they run) replayed through the plain versions on the card
+   (d 3072 x 8192-token products would take minutes on the CPU) within
+   OP_BOUND, with a control (layer 0's wq dgrad with its transposes
+   off) that must miss it.  Then the qlint CLI (QLINT_ARGV: tiny,
+   fine_grained_fp4, pallas, with the decode step) on the card against
+   ``tests/qlint_expected_tiny_torch.json``: exit code 0, no violation,
+   no fallback, no drift, and under each pallas role a port kernel in
+   the profiler trace (the trace's kernels matched to the markers' calls
+   in launch order; calls not found are counted on the line).
 8b. train_moe — trains olmoe-1b-7b at full published width and depth
    (16 layers, d 2048, 16 heads of 128, 64 experts of d_ff 1024, top-8,
    router groups of 1024, vocab 50304; 6,919,096,320 parameters drawn
@@ -377,7 +407,7 @@ each mode's time beside its mode-off time, its plain time and its bound
 of its tile launch at each shape from a profiler trace).
 
 Every phase keeps the full depth of its model but ``serve_swa``, cut to
-half its depth (SWA_LAYERS), ``serve_moe``, cut to 12 of 16 layers
+8 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 12 of 16 layers
 (MOE_SERVE_LAYERS), and ``vlm``, cut to its first 5 layers (VLM_LAYERS).
 Exits non-zero without a result when there is no CUDA device or when
 the port is not beside this script.
@@ -432,6 +462,23 @@ RESUME_AT = 4
 # first_last_k with k = 2; op replay of a protected and a middle layer.
 LARGE_BATCH, LARGE_SEQ, LARGE_STEPS, LARGE_K = 4, 2048, 7, 2
 LARGE_REPLAY_LAYERS = (0, 24)
+# The train_cli phase: launch/train.py run in process on llama3.2-3b at
+# full width and depth, 4 x 2048 tokens, 5 AdamW steps of paper_fp4 with
+# both impls "pallas" (round(5 x 0.925) = 5: no §3.3 switch); op replay of layers
+# 0 and 27 through the plain versions on the card.  Then the qlint CLI on
+# tiny on the card against the port's committed expectations.
+CLI_ARCH, CLI_BATCH, CLI_SEQ, CLI_STEPS = "llama3.2-3b", 4, 2048, 5
+CLI_PARAMS = 3_212_749_824
+# (layers, d_model, d_ff, vocab, head_dim) of the full model
+CLI_DIMS = (28, 3072, 8192, 128256, 128)
+CLI_REPLAY_LAYERS = (0, 27)
+CLI_ARGV = ("--arch", CLI_ARCH, "--recipe", "paper_fp4", "--linear-impl",
+            "pallas", "--attention-impl", "pallas", "--batch",
+            str(CLI_BATCH), "--seq", str(CLI_SEQ), "--steps", str(CLI_STEPS),
+            "--device", "cuda")
+QLINT_ARGV = ("--config", "tiny", "--plan", "fine_grained_fp4", "--impl",
+              "pallas", "--decode", "--device", "cuda", "--expect",
+              os.path.join(ROOT, "tests", "qlint_expected_tiny_torch.json"))
 # The stats epilogue against its plain version: lanes 0-2 and 5-7 (counts
 # and scale extrema) bitwise, lanes 3-4 (sums of squares) within this
 # relative bound (both fold in one canonical order, so they are expected
@@ -460,7 +507,7 @@ SLICE_EAGER = 4
 # its 24 layers, 4 slots over a cache of max_len 8192 (a ring of 4096
 # positions a layer), 8 requests of 3840-4096 prompt tokens and 384 new
 # tokens each: every one decodes past the window.
-SWA_LAYERS = 12
+SWA_LAYERS = 8
 SWA_SLOTS, SWA_MAX_LEN, SWA_REQUESTS, SWA_NEW = 4, 8192, 8, 384
 SWA_PROMPT = (3840, 4096)
 # The ring check: request 0's tokens teacher-forced through an f32 engine
@@ -936,6 +983,12 @@ def phase_train_kernels(torch, card):
         ("wgrad w_down", h, g_d, dict(a_mode="block", b_mode="block",
                                       trans_a=True, **fp8)),
     ]
+    # llama3.2-3b's FFN forward (train_cli): 8192 x 3072 -> 8192
+    d3, f3 = 3072, 8192
+    x3 = rand(t, d3, scale=2)
+    stream_calls.append(("llama3.2-3b fwd w_up", x3,
+                         rand(d3, f3, scale=0.05),
+                         dict(a_mode="block", b_mode="tile", **fp4)))
     for role, a, b, kw in stream_calls:
         ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
         y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, b, **kw))
@@ -972,10 +1025,16 @@ def phase_train_kernels(torch, card):
     # Attention linears (two-pass, token modes): fwd x . w; dgrad
     # g . w^T; wgrad x^T . g.
     w = rand(d, d, scale=0.05)
+    # and llama3.2-3b's (train_cli): wq 3072 -> 3072, wk / wv -> 1024
+    # (8 KV heads of 128)
     tok = [
         ("fwd wq", x, w, ("fp8_e4m3", "fp8_e4m3"), False, False),
         ("dgrad wq", g_d, w, ("fp8_e5m2", "fp8_e4m3"), False, True),
         ("wgrad wq", x, g_d, ("fp8_e4m3", "fp8_e5m2"), True, False),
+        ("llama3.2-3b fwd wq", x3, rand(d3, d3, scale=0.05),
+         ("fp8_e4m3", "fp8_e4m3"), False, False),
+        ("llama3.2-3b fwd wk", x3, rand(d3, 1024, scale=0.05),
+         ("fp8_e4m3", "fp8_e4m3"), False, False),
     ]
     for role, a, b, (fa_, fb_), ta, tb in tok:
         aq = quant(f"{role} lhs", a, "token", fa_, ta)
@@ -1009,7 +1068,8 @@ def phase_train_kernels(torch, card):
             ("fwd", TRAIN_BATCH, 12, TRAIN_SEQ, 64, True),
             ("fwd d128", TRAIN_BATCH, 6, TRAIN_SEQ, 128, True),
             ("fwd noncausal", 8, 8, 1536, 64, False),
-            ("fwd noncausal d128", TRAIN_BATCH, 6, TRAIN_SEQ, 128, False)):
+            ("fwd noncausal d128", TRAIN_BATCH, 6, TRAIN_SEQ, 128, False),
+            ("llama3.2-3b fwd", CLI_BATCH, 24, CLI_SEQ, 128, True)):
         bh = batch * heads
         q, k, v = (rand(bh, s_, dh) for _ in range(3))
         kw = dict(causal=causal)
@@ -2296,48 +2356,93 @@ class TrainRecorder:
         return call
 
 
-def _clone(y):
-    """A detached copy of a kernel call's result: a tensor, or (y, (stats
-    vectors or None))."""
+def _clone(y, host=False):
+    """A detached copy of a kernel call's result (on the host with
+    ``host``): a tensor, or (y, (stats vectors or None))."""
     if isinstance(y, tuple):
-        return tuple(_clone(v) for v in y)
-    return None if y is None else y.detach().clone()
+        return tuple(_clone(v, host) for v in y)
+    if y is None:
+        return None
+    return y.detach().cpu() if host else y.detach().clone()
+
+
+class plain_kernels:
+    """While entered, the fused pipeline (``kernels.fp4_matmul``) calls
+    the plain versions of ``qmm_stream``, ``quantize_rows`` and
+    ``tiled_mm``, which run on the card as on the CPU: a recorded card
+    call replays through them on the card's own tensors."""
+
+    def __enter__(self):
+        from repro_torch.kernels import fp4_matmul
+        from repro_torch.kernels import qmm_stream as qs
+        from repro_torch.kernels import quantize_rows as qr
+        from repro_torch.kernels import tiled_mm as tm
+
+        def stream(a, b, *, a_sr=False, b_sr=False, seed_a=None,
+                   seed_b=None, **kw):
+            return qs.qmm_stream_plain(a, b, seed_a=seed_a if a_sr else None,
+                                       seed_b=seed_b if b_sr else None, **kw)
+
+        def quant(x, *, sr=False, seed=None, **kw):
+            return qr.quantize_rows_plain(x, seed=seed if sr else None, **kw)
+        self._saved = [(name, getattr(fp4_matmul, name)) for name in
+                       ("qmm_stream", "quantize_rows", "tiled_mm")]
+        fp4_matmul.qmm_stream, fp4_matmul.quantize_rows = stream, quant
+        fp4_matmul.tiled_mm = tm.tiled_mm_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import fp4_matmul
+        for name, fn in self._saved:
+            setattr(fp4_matmul, name, fn)
 
 
 def replay_train_ops(torch, records, control_role="dgrad wq",
-                     control_kw=None, control_layer=0):
-    """Each recorded card call again on the CPU (the plain versions) on
-    the card's inputs.  Returns per-record (layer, role, relative L2 of
-    the output, quantized operand elements that differ, for a call with
-    the stats epilogue its stats checks) and the control: layer
+                     control_kw=None, control_layer=0, on_card=False):
+    """Each recorded card call again through the plain versions on the
+    card's inputs: on the CPU, or with ``on_card`` on the card (the
+    records may hold their tensors on the host: each goes back to the
+    card for its replay).  Returns per-record (layer, role, relative L2
+    of the output, quantized operand elements that differ, for a call
+    with the stats epilogue its stats checks) and the control: layer
     ``control_layer``'s ``control_role`` replayed with ``control_kw``
     (default: trans_b off, from a paper_fp4 step's wq dgrad)."""
+    import contextlib
     from repro_torch.core.qlinear import ZERO_KEY, kernel_quant_mode
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quantize_rows as qr
     from repro_torch.kernels.rounding import fold_seed
+    dev = "cuda" if on_card else "cpu"
 
     def rel(y, ref):
-        y, ref = y.cpu().double(), ref.double()
+        y, ref = y.cpu().double(), ref.cpu().double()
         return float((y - ref).norm() / max(float(ref.norm()), 1e-30))
 
     def q_diff(x, spec, trans, kw, which):
         """Elements of the card's quantization of operand ``x`` that differ
-        from the plain version's on the CPU (two-pass layout; an SR spec
-        with the seed its role folds)."""
+        from the plain version's (two-pass layout; an SR spec with the
+        seed its role folds)."""
         if spec.is_passthrough:
             return 0
         qkw = dict(mode=kernel_quant_mode(spec), fmt_name=spec.fmt,
                    trans=trans, emit_trans=trans)
         if spec.stochastic:
             qkw.update(sr=True, seed=fold_seed(ZERO_KEY, kw["salt"], which))
-        got = qr.quantize_rows(x, **qkw).cpu()
+        got = qr.quantize_rows(x.cuda() if on_card else x, **qkw).to(dev)
         qkw.pop("sr", None)
-        return int((got != qr.quantize_rows_plain(x.cpu(), **qkw)).sum())
+        return int((got != qr.quantize_rows_plain(x.to(dev), **qkw)).sum())
+
+    def plain(r):
+        """The record's call through the plain versions."""
+        if r["role"] == "flash":
+            return fa.flash_attention_fwd_plain
+        return r["fn"]
 
     out, control = [], None
     for r in records:
-        args = [a.cpu() if hasattr(a, "cpu") else a for a in r["args"]]
-        ref = r["fn"](*args, **r["kw"])
+        args = [a.to(dev) if hasattr(a, "to") else a for a in r["args"]]
+        with plain_kernels() if on_card else contextlib.nullcontext():
+            ref = plain(r)(*args, **r["kw"])
         y, y_ref = r["out"], ref
         stats = stats_ref = None
         if isinstance(y, tuple):                # the stats epilogue's calls
@@ -2357,8 +2462,9 @@ def replay_train_ops(torch, records, control_role="dgrad wq",
                 for s_, sr_ in zip(stats, stats_ref)]
         out.append(row)
         if r["layer"] == control_layer and r["role"] == control_role:
-            bad = r["fn"](*args, **{**r["kw"], **(
-                control_kw or dict(trans_a=False, trans_b=False))})
+            with plain_kernels() if on_card else contextlib.nullcontext():
+                bad = r["fn"](*args, **{**r["kw"], **(
+                    control_kw or dict(trans_a=False, trans_b=False))})
             control = rel(y, bad[0] if isinstance(bad, tuple) else bad)
     return out, control
 
@@ -4051,16 +4157,17 @@ def phase_serve_ssm(torch, card):
     return launches
 
 
-def train_layer_replay(torch, rec, what="hybrid", flash=True, no_dgrad=0):
+def train_layer_replay(torch, rec, what="hybrid", flash=True, no_dgrad=0,
+                       on_card=False):
     """Step 0's calls of ``rec.layers`` (a ``TrainRecorder`` with names by
     layer: fwd, dgrad and wgrad of each product, and with ``flash`` an
     attention layer's flash forward; ``no_dgrad`` products a layer takes
     no dgrad of: a cross sublayer's K / V projections of the vision
     states) again on the CPU through the plain versions
-    (``replay_train_ops``), with the control: the first attention layer's
-    wq dgrad with its transposes off.  Returns the summary for the phase's
-    line; raises on a missing call, a miss or a control within the
-    bound."""
+    (``replay_train_ops``; with ``on_card`` on the card), with the
+    control: the first attention layer's wq dgrad with its transposes
+    off.  Returns the summary for the phase's line; raises on a missing
+    call, a miss or a control within the bound."""
     failures = []
     for layer in rec.layers:
         names = (rec.names[layer] if isinstance(rec.names, dict)
@@ -4075,7 +4182,8 @@ def train_layer_replay(torch, rec, what="hybrid", flash=True, no_dgrad=0):
             failures.append(f"layer {layer} calls {got}, not {want}")
     replay, control = replay_train_ops(torch, rec.records, control_layer=next(
         layer for layer in rec.layers if "wq" in (
-            rec.names[layer] if isinstance(rec.names, dict) else rec.names)))
+            rec.names[layer] if isinstance(rec.names, dict) else rec.names)),
+        on_card=on_card)
     worst = max(r["rel_l2"] for r in replay)
     q_bad = sum(r["quantized_differing"] for r in replay)
     bound = OP_BOUND["bfloat16"]
@@ -4626,6 +4734,193 @@ def phase_audio(torch, card):
             for k in train_launches}
 
 
+class StepZeroRecorder(TrainRecorder):
+    """``TrainRecorder`` keeping the calls of the first training step
+    only (``done`` is set when it ends), each copied to the host at once:
+    a step that fills the card leaves no room for the copies there."""
+
+    done = False
+
+    def _keep(self, layer, role, fn, args, kw, y):
+        if not self.done and layer in self.layers:
+            self.records.append({
+                "layer": layer, "role": role, "fn": fn, "kw": kw,
+                "args": [a.detach().cpu() if hasattr(a, "detach") else a
+                         for a in args], "out": _clone(y, host=True)})
+
+
+def qlint_on_card(torch):
+    """``python -m repro_torch.analysis.qlint`` (QLINT_ARGV) in process on
+    the card: the exit code, the output and each report (its cells'
+    routes, kernel calls by role and kind, and the CUDA kernels the
+    profiler trace shows under each role).  Raises unless it exits 0
+    (no violation, no drift from the committed expectations) with no
+    fallback, a port kernel in the trace under every pallas role (qlint
+    itself requires one of each kind the role called) and every kernel
+    call found in the trace."""
+    import contextlib
+    import io
+    from repro_torch.analysis import qlint
+    from repro_torch.analysis.trace import PORT_KERNELS
+    port_kernels = {k for ks in PORT_KERNELS.values() for k in ks}
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "qlint.json")
+        with contextlib.redirect_stdout(buf):
+            rc = qlint.main([*QLINT_ARGV, "--json", path])
+        with open(path) as f:
+            reports = json.load(f)["reports"]
+    torch.cuda.synchronize()
+    out = {"argv": list(QLINT_ARGV), "rc": rc, "graphs": {}}
+    failures = [] if rc == 0 else [f"exit code {rc}"]
+    for r in reports:
+        pallas_roles = sorted({c["role"] for c in r["cells"]
+                               if c["route"] == "pallas"})
+        traced = r["summary"].get("trace_role_ops", {})
+        out["graphs"][r["label"]] = {
+            "n_cells": len(r["cells"]), "n_violations": r["n_violations"],
+            "n_fallbacks": r["n_fallbacks"],
+            "kernel_calls_by_role": r["summary"]["pallas_calls"],
+            "kernel_calls_by_kind": r["summary"]["kernels"],
+            "qdq_markers": r["summary"]["qdq_markers"],
+            "trace_role_ops": traced}
+        if r["n_violations"] or r["n_fallbacks"]:
+            failures.append(f"{r['label']}: {r['n_violations']} violations,"
+                            f" {r['n_fallbacks']} fallbacks")
+        missing = [role for role in pallas_roles
+                   if not port_kernels & set(traced.get(role, {}))]
+        out["graphs"][r["label"]].update(
+            trace_calls_not_found=r["summary"]["trace_calls_not_found"],
+            trace_kernels_left_over=r["summary"]["trace_kernels_left_over"])
+        if missing:
+            failures.append(f"{r['label']}: no CUDA kernel in the trace "
+                            f"under roles {missing}")
+        if r["summary"]["trace_calls_not_found"]:
+            failures.append(f"{r['label']}: "
+                            f"{r['summary']['trace_calls_not_found']} kernel"
+                            f" call(s) not found in the profiler trace")
+    text = buf.getvalue()
+    out["expectations_match"] = "qlint: expectations match" in text
+    if not out["expectations_match"]:
+        failures.append("no 'expectations match' line: "
+                        + " | ".join(line for line in text.splitlines()
+                                     if "qlint:" in line)[:2000])
+    if failures:
+        raise AssertionError(f"qlint on the card: {failures}; {out}")
+    return out
+
+
+def phase_train_cli(torch, card):
+    """``launch/train.py`` trains llama3.2-3b at full width and depth in
+    process (module docstring), then the qlint CLI audits tiny on the
+    card.  Gate both; return the training run's launch counts."""
+    import contextlib
+    import io
+    from repro_torch.kernels import (build, flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    from repro_torch.launch import train as cli
+    from repro_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+               flash_attention.KERNEL)
+    for kern in build.KERNELS:
+        kern.reset()
+    steps, record = [], Trainer._record
+    rec = StepZeroRecorder(TrainRecorder.SWIGLU, CLI_REPLAY_LAYERS)
+
+    def hooked(self, *args, **kw):
+        rec.done = True
+        torch.cuda.synchronize()
+        steps.append({"peak": int(torch.cuda.max_memory_allocated()),
+                      "counts": {k.name: k.counts() for k in kernels}})
+        torch.cuda.reset_peak_memory_stats()
+        return record(self, *args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    Trainer._record = hooked
+    try:
+        with rec, contextlib.redirect_stdout(buf):
+            res = cli.main(list(CLI_ARGV))
+    finally:
+        Trainer._record = record
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    counts = {k.name: k.counts() for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
+    trainer = res["trainer"]
+    cfg, summ = trainer.model.cfg, res["step_time"]
+    n_params = trainer.model.param_count()
+    losses = [r["loss"] for r in trainer.history]
+    switch = trainer.schedule.switch_step
+    per_step, prev = [], {k.name: dict.fromkeys(k.counts(), 0)
+                          for k in kernels}
+    for st in steps:
+        per_step.append({n: {c: v - prev[n][c] for c, v in cs.items()
+                             if c in ("launches", "tc", "trans",
+                                      "recompute")}
+                         for n, cs in st["counts"].items()})
+        prev = st["counts"]
+    flash_shapes = sorted({tuple(r["args"][0].shape) for r in rec.records
+                           if r["role"] == "flash"})
+    failures = []
+    if n_params != CLI_PARAMS or (cfg.n_layers, cfg.d_model, cfg.d_ff,
+                                  cfg.vocab_size,
+                                  cfg.resolved_head_dim) != CLI_DIMS:
+        failures.append(f"not llama3.2-3b at full size: {n_params} "
+                        f"parameters, {cfg}")
+    if len(losses) != CLI_STEPS or not all(np.isfinite(losses)):
+        failures.append(f"losses: {losses}")
+    if min(launches.values()) <= 0 or \
+            min(counts[k]["recompute"] for k in launches) <= 0:
+        failures.append(f"a kernel of the path never ran, or never in a "
+                        f"recompute: {counts}")
+    if any(counts[k]["tc"] != counts[k]["launches"] for k in TC_SOURCES):
+        failures.append(f"a GEMM or flash launch left the tensor-core "
+                        f"route: {counts}")
+    if flash_shapes != [(CLI_BATCH * cfg.n_heads, CLI_SEQ, CLI_DIMS[-1])]:
+        failures.append(f"flash shapes {flash_shapes}")
+    for prefix in ("eval:", "step-time:", "roofline["):
+        if not any(line.startswith(prefix) for line in text.splitlines()):
+            failures.append(f"no {prefix!r} line from the CLI")
+    peaks = [st["peak"] for st in steps]
+    line = {"phase": "train_cli", "card": card, "argv": list(CLI_ARGV),
+            "model": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+            "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+            "params": n_params, "remat": cfg.remat_policy if cfg.remat
+            else "none", "switch_step": switch, "losses": losses,
+            "plans": [r["recipe"] for r in trainer.history],
+            "step_ms": [r["dt"] * 1e3 for r in trainer.history],
+            "step_time": summ, "eval": res["eval"],
+            "roofline": res["roofline"],
+            "max_memory_allocated_per_step": peaks,
+            "max_memory_allocated": max(peaks),
+            "launches_per_step": per_step, "counts": counts,
+            "flash_shapes": flash_shapes, "run_s": run_s,
+            "cli_lines": [ln for ln in text.splitlines()
+                          if not ln.startswith("step ")]}
+    if failures:
+        emit(line)
+        raise AssertionError("train_cli phase: " + "; ".join(failures))
+    profile_train_step(torch, trainer._step_fn(trainer.plan), res["state"],
+                       trainer._batch(trainer.pipeline, 0), card,
+                       phase="train_cli_profile", plan=trainer.plan.name)
+    del res, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["op_replay"] = train_layer_replay(torch, rec, what="train_cli",
+                                           on_card=True)
+    del rec
+    line["qlint"] = qlint_on_card(torch)
+    line["phase_s"] = time.perf_counter() - t0
+    emit(line)
+    return launches
+
+
 def phase_blockwise(torch, card):
     """``kernels.ops.quantize_blockwise`` over every 2-D weight of a seeded
     gpt2-125m (bf16): fp4 (128 x 128) tiles and fp8 (1 x 128) rows, each
@@ -4671,7 +4966,9 @@ def main() -> int:
             "moe_kernels": phase_moe_kernels, "train_moe": phase_train_moe,
             "serve_moe": phase_serve_moe, "ssm_kernels": phase_ssm_kernels,
             "train_ssm": phase_train_ssm, "serve_ssm": phase_serve_ssm,
-            "hybrid": phase_hybrid, "vlm": phase_vlm, "audio": phase_audio}
+            "hybrid": phase_hybrid, "vlm": phase_vlm, "audio": phase_audio,
+            "train_kernels": phase_train_kernels,
+            "train_cli": phase_train_cli}
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--phase"
                  or args[1] not in solo):
@@ -4726,6 +5023,8 @@ def main() -> int:
     lap("train_adaptive")
     large_launches = phase_train_large(torch, card)
     lap("train_large")
+    cli_launches = phase_train_cli(torch, card)
+    lap("train_cli")
     moe_train_launches, moe_train_batched = phase_train_moe(torch, card)
     lap("train_moe")
     moe_serve_launches, moe_serve_batched = phase_serve_moe(torch, card)
@@ -4747,6 +5046,7 @@ def main() -> int:
                "train_telemetry": tel_launches,
                "train_adaptive": adaptive_launches,
                "train_large": large_launches,
+               "train_cli": cli_launches,
                "train_moe": moe_train_launches,
                "serve_moe": moe_serve_launches,
                "train_ssm": ssm_train_launches,

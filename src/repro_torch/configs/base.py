@@ -7,7 +7,8 @@ import importlib
 from typing import List, Optional, Tuple
 
 __all__ = ["ModelConfig", "MoESettings", "MambaSettings", "LayerSpec",
-           "ControllerSettings", "TrainConfig", "get_config"]
+           "ControllerSettings", "TrainConfig", "ShapeCell", "SHAPE_CELLS",
+           "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,11 +239,35 @@ class TrainConfig:
     cost_calibration: str = ""
 
 
-ARCHS = ["gpt2-125m", "gpt2-335m", "gpt2-774m", "granite-34b",
-         "h2o-danube-3-4b", "jamba-1.5-large-398b", "llama-125m",
-         "llama-1b", "llama-3.2-vision-90b", "llama3.2-3b", "mamba2-780m",
-         "mixtral-8x22b", "nemotron-4-15b", "olmoe-1b-7b", "tiny",
-         "whisper-base"]
+# ---------------------------------------------------------------------------
+# Assigned input-shape cells (LM-family: seq_len x global_batch), the
+# reference's, same fields, cells and order.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+ARCHS = [
+    "nemotron-4-15b", "llama3.2-3b", "h2o-danube-3-4b", "granite-34b",
+    "mixtral-8x22b", "olmoe-1b-7b", "llama-3.2-vision-90b", "whisper-base",
+    "mamba2-780m", "jamba-1.5-large-398b",
+    # the paper's own configs
+    "gpt2-125m", "gpt2-335m", "gpt2-774m", "llama-125m", "llama-1b",
+    # test config
+    "tiny",
+]
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -252,3 +277,7 @@ def get_config(arch: str) -> ModelConfig:
     mod = importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
     return mod.CONFIG
+
+
+def list_archs() -> List[str]:
+    return list(ARCHS)

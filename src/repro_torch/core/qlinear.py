@@ -16,9 +16,12 @@ config's ``linear_impl``:
 * ``"pallas"`` / ``"pallas_two_pass"`` — the fused pipeline of
   ``kernels.fp4_matmul`` (the hand-written CUDA kernels), streaming by
   default or pinned to the two-pass pipeline.  A spec the kernels cannot
-  realize (``kernel_unsupported_reason``) raises ``NotImplementedError``
-  on a CUDA tensor: the card path launches its kernels or fails.  On a
-  CPU tensor that matmul takes ``dot_qdq``, the reference's fallback.
+  realize (``kernel_unsupported_reason``: a block other than 128, fp16)
+  takes ``dot_qdq`` on any device, the reference's documented fallback,
+  recorded in the census as ``qdq_fallback`` with its reasons and, on a
+  CUDA tensor, warned of once per spec pair (the census sees it only
+  inside a capture); a kernel that fails to build or launch still
+  raises.
 
 ``qmatmul`` also takes 3-D operands, (E, C, K) x (E, K, N): the MoE
 experts' batched matmul, the counterpart of the reference's ``jax.vmap``
@@ -59,13 +62,15 @@ scopes.
 from __future__ import annotations
 
 import functools
+import warnings
 from typing import Optional
 
 import torch
 
 from repro_torch.core import routing
 from repro_torch.core.packed import PackedTensor
-from repro_torch.core.quantize import BF16_SPEC, QuantSpec, qdq
+from repro_torch.core.quantize import (BF16_SPEC, QuantSpec, qdq,
+                                       qdq_scope_name)
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.kernels.rounding import fold_seed
 from repro_torch.telemetry import collect as telemetry
@@ -113,6 +118,11 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                        reasons=reasons, sr_a=spec_a.stochastic,
                        sr_b=spec_b.stochastic, cell=census[1],
                        log=census[0])
+    if role is not None and routing.marking():
+        with routing.role_scope(role):
+            for spec in (spec_a, spec_b):
+                if not spec.is_passthrough:
+                    routing.mark_qdq(qdq_scope_name(spec))
     if a.dim() == 3:
         return torch.stack([dot_qdq(x, y, spec_a, spec_b, trans_a=trans_a,
                                     trans_b=trans_b, salt=salt)
@@ -152,6 +162,21 @@ def kernel_quant_mode(spec: QuantSpec) -> Optional[str]:
     return spec.granularity
 
 
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_fallback(a: torch.Tensor, spec_a: QuantSpec, spec_b: QuantSpec,
+                   reasons: tuple) -> None:
+    """Warn once per spec pair that a CUDA matmul took the QDQ fallback:
+    outside a routing capture nothing else shows it."""
+    if a.is_cuda and (spec_a, spec_b) not in _FALLBACK_WARNED:
+        _FALLBACK_WARNED.add((spec_a, spec_b))
+        warnings.warn(f"qdq_fallback: {spec_a.to_str()} x "
+                      f"{spec_b.to_str()} runs unfused "
+                      f"QDQ on the card ({'; '.join(reasons)})",
+                      RuntimeWarning, stacklevel=4)
+
+
 def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, trans_a: bool = False,
                trans_b: bool = False, salt: int = 0,
@@ -159,29 +184,27 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                role: Optional[str] = None, census=None):
     """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
     operands read in their stored layout; with ``collect_stats`` returns
-    ``(y, (stats_a, stats_b))``.  A spec they cannot realize raises on a
-    CUDA tensor and takes ``dot_qdq`` on a CPU tensor (no stats; the
-    census records it as ``qdq_fallback``)."""
+    ``(y, (stats_a, stats_b))``.  A spec they cannot realize takes
+    ``dot_qdq`` on any device, as the reference's (no stats; the census
+    records it as ``qdq_fallback`` with its reasons)."""
     mode_a, mode_b = kernel_quant_mode(spec_a), kernel_quant_mode(spec_b)
     if mode_a is None or mode_b is None:
         reasons = tuple(f"{operand}: {why}" for operand, spec in
                         (("lhs", spec_a), ("rhs", spec_b))
                         for why in (kernel_unsupported_reason(spec),)
                         if why is not None)
-        if a.device.type == "cpu":
-            y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                        trans_b=trans_b, salt=salt, role=role,
-                        route="qdq_fallback", reasons=reasons,
-                        census=census)
-            return (y, (None, None)) if collect_stats else y
-        raise NotImplementedError(
-            f"the CUDA kernels cannot run {spec_a.to_str()} x "
-            f"{spec_b.to_str()}: {'; '.join(reasons)}")
+        _warn_fallback(a, spec_a, spec_b, reasons)
+        y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a, trans_b=trans_b,
+                    salt=salt, role=role, route="qdq_fallback",
+                    reasons=reasons, census=census)
+        return (y, (None, None)) if collect_stats else y
     from repro_torch.kernels.ops import pallas_qmm
-    return pallas_qmm(a, b, spec_a, spec_b, mode_a=mode_a, mode_b=mode_b,
-                      trans_a=trans_a, trans_b=trans_b, key_data=ZERO_KEY,
-                      salt=salt, pipeline=pipeline,
-                      collect_stats=collect_stats, role=role, census=census)
+    with routing.role_scope(role):
+        return pallas_qmm(a, b, spec_a, spec_b, mode_a=mode_a,
+                          mode_b=mode_b, trans_a=trans_a, trans_b=trans_b,
+                          key_data=ZERO_KEY, salt=salt, pipeline=pipeline,
+                          collect_stats=collect_stats, role=role,
+                          census=census)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -260,14 +283,20 @@ class _QMatmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         r, g = ctx.recipe, g.contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
-            dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w, trans_b=True,
-                       salt=2, role="dgrad", census=ctx.census).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
-            dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g, trans_a=True,
-                       salt=4, role="wgrad", census=ctx.census).to(w.dtype)
+        # the forward's census on this (autograd's) thread, for the
+        # kernel and QDQ markers of a qlint capture
+        with routing.replaying(None if ctx.census is None
+                               else ctx.census[0]):
+            if ctx.needs_input_grad[0]:
+                # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
+                dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w,
+                           trans_b=True, salt=2, role="dgrad",
+                           census=ctx.census).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
+                dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g,
+                           trans_a=True, salt=4, role="wgrad",
+                           census=ctx.census).to(w.dtype)
         return dx, dw, None, None, None
 
 

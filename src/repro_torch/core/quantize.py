@@ -24,7 +24,35 @@ from repro_torch.kernels.rounding import group_scale, pow2_floor
 
 __all__ = ["QuantSpec", "BF16_SPEC", "qdq", "quantize_dequantize",
            "compute_scale", "scale_from_amax", "pow2_floor",
-           "underflow_rate"]
+           "underflow_rate", "qdq_scope_name", "scale_logical_axes"]
+
+
+def qdq_scope_name(spec: "QuantSpec") -> str:
+    """The marker of a simulated quantize of ``spec`` (the reference's
+    named-scope label): ``qdq_`` + the spec's canonical string with every
+    run of non-identifier characters folded to ``_``, e.g.
+    ``fp4_e2m1@block128:sr`` -> ``qdq_fp4_e2m1_block128_sr``.
+    ``analysis.qlint`` keys its role-safety checks on it."""
+    return "qdq_" + re.sub(r"[^0-9A-Za-z_]+", "_", spec.to_str())
+
+
+def scale_logical_axes(granularity: str, reduction_axis: int, axes):
+    """Logical axis names of a blocked scale tensor (the reference's scale
+    placement policy), from the 2-D operand's logical (row, col) names:
+    block / tile scale grids keep their operand's reduction axis (the
+    per-128-group count inherits that dim's name), token / tensor scales
+    drop it (replicated along it)."""
+    row_l, col_l = axes
+    if granularity == "tensor":
+        return ()
+    if granularity == "token":
+        return (row_l, None) if reduction_axis == 1 else (None, col_l)
+    if granularity == "block":
+        return ((row_l, col_l, None) if reduction_axis == 1
+                else (row_l, None, col_l))
+    if granularity == "tile":
+        return (row_l, None, col_l, None)
+    raise ValueError(f"unknown granularity: {granularity!r}")
 
 
 def scale_from_amax(amax: torch.Tensor, fmt: F.FloatFormat,

@@ -4,8 +4,8 @@
 Every matmul role of the model goes through one of a small set of
 routes: the fused kernels (``pallas``, the reference's name for them;
 here the CUDA kernels), the QDQ simulation (``qdq``), a QDQ fallback from
-a fused impl that cannot realize a spec (``qdq_fallback``, only on CPU
-tensors: on the card the port raises instead), a plain matmul for a
+a fused impl that cannot realize a spec (``qdq_fallback``), a plain
+matmul for a
 passthrough recipe (``dot``) and the serving panel matmul
 (``packed_dot``).  ``capture()`` installs a :class:`RoutingLog`; while it
 is active, ``core.qlinear`` and ``kernels.ops`` append one
@@ -27,6 +27,21 @@ log of the original forward (``replaying``).  Raw event counts repeat
 
 An inactive census costs one ``is None`` check per matmul and never
 touches a tensor.
+
+Markers (``capture(markers=True)``, what ``analysis.qlint`` installs):
+the counterpart of the reference's ``qrole_*`` / ``qdq_*`` named scopes
+and of its jaxpr's ``pallas_call`` equations.  The reference proves what
+was *staged* apart from what the census *decided*; the port records what
+*ran*.  ``core.qlinear`` opens a ``role_scope`` (fwd | dgrad | wgrad)
+around each matmul role it sends to the kernels or to QDQ; inside a
+marking capture every kernel call (``kernels.build.CudaKernel.launch``,
+or a wrapper's CPU branch) appends a :class:`KernelCall` (kernel name,
+the role in scope, operand dtypes and shapes, the kernels it launched)
+and every QDQ of the ``qdq`` routes one ``(role,
+qdq_scope_name(spec))`` pair; ``analysis.trace.trace_role_ops`` matches
+the calls, in launch order, to the CUDA kernels of a profiler trace.
+Outside a marking capture a kernel call costs one function call and one
+attribute check, a role scope one check.
 """
 from __future__ import annotations
 
@@ -35,10 +50,11 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["RouteEvent", "RoutingLog", "capture", "active", "record",
-           "replaying", "layer_scope", "class_scope",
+__all__ = ["RouteEvent", "RoutingLog", "KernelCall", "capture", "active",
+           "record", "replaying", "layer_scope", "class_scope",
            "plan_class_for_module", "current_layer", "current_class",
-           "current_cell"]
+           "current_cell", "marking", "role_scope", "current_role",
+           "mark_kernel", "mark_qdq"]
 
 # Telemetry module scopes -> plan class: attention and cross-attention use
 # the plan's attn_linear cell, ssm / ffn / moe its ffn_linear, the LM head
@@ -93,11 +109,32 @@ class RouteEvent:
         return d
 
 
-class RoutingLog:
-    """Accumulates :class:`RouteEvent`s for one captured run."""
+@dataclasses.dataclass(frozen=True)
+class KernelCall:
+    """One call of a kernel wrapper inside a marking capture: the kernel
+    (``CudaKernel.name``), the matmul role in scope (None outside one:
+    flash attention), the layer label in scope, each operand's (dtype,
+    shape), the device type it ran on and the kernels it launched there
+    (0 when its plain version ran)."""
+    name: str
+    role: Optional[str]
+    layer: Optional[str]
+    operands: Tuple[Tuple[str, Tuple[int, ...]], ...]
+    device: str
+    launches: int = 0
 
-    def __init__(self) -> None:
+
+class RoutingLog:
+    """Accumulates :class:`RouteEvent`s for one captured run; with
+    ``markers`` also the :class:`KernelCall`s (``kernel_calls``) and the
+    ``(role, qdq scope name)`` of every QDQ (``qdq_calls``)."""
+
+    def __init__(self, markers: bool = False) -> None:
         self.events: List[RouteEvent] = []
+        self.kernel_calls: Optional[List[KernelCall]] = (
+            [] if markers else None)
+        self.qdq_calls: Optional[List[Tuple[Optional[str], str]]] = (
+            [] if markers else None)
 
     def add(self, ev: RouteEvent) -> None:
         self.events.append(ev)
@@ -152,11 +189,53 @@ def _scoped(attr: str, value):
 
 
 @contextlib.contextmanager
-def capture():
-    """Install a fresh RoutingLog (yielded) for the code inside."""
-    log = RoutingLog()
+def capture(markers: bool = False):
+    """Install a fresh RoutingLog (yielded) for the code inside; with
+    ``markers`` it also records kernel calls and QDQs (module
+    docstring)."""
+    log = RoutingLog(markers)
     with _scoped("log", log):
         yield log
+
+
+def marking() -> bool:
+    """Whether a marking capture is installed on this thread."""
+    log = getattr(_STATE, "log", None)
+    return log is not None and log.kernel_calls is not None
+
+
+def current_role() -> Optional[str]:
+    return getattr(_STATE, "role", None)
+
+
+def role_scope(role: Optional[str]):
+    """The matmul role (fwd | dgrad | wgrad) for the kernel calls and QDQs
+    inside; a no-op outside a marking capture."""
+    if role is None or not marking():
+        return contextlib.nullcontext()
+    return _scoped("role", role)
+
+
+def mark_kernel(name: str, operands, launches: int = 0) -> None:
+    """Record one kernel call on ``operands`` (tensors) that launched
+    ``launches`` kernels on the card (0: the plain version ran), in a
+    marking capture; nothing otherwise."""
+    log = getattr(_STATE, "log", None)
+    if log is None or log.kernel_calls is None:
+        return
+    log.kernel_calls.append(KernelCall(
+        name, current_role(), current_layer(),
+        tuple((str(t.dtype).replace("torch.", ""), tuple(t.shape))
+              for t in operands),
+        operands[0].device.type if operands else "?", launches))
+
+
+def mark_qdq(scope: str) -> None:
+    """Record one QDQ (its ``qdq_scope_name``) under the role in scope, in
+    a marking capture; nothing otherwise."""
+    log = getattr(_STATE, "log", None)
+    if log is not None and log.qdq_calls is not None:
+        log.qdq_calls.append((current_role(), scope))
 
 
 def replaying(log: Optional[RoutingLog]):

@@ -20,6 +20,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+from repro_torch.core import routing
+
 __all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
            "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
            "stream_ptr", "stats_buffers", "batch_of", "recomputing",
@@ -197,14 +199,19 @@ class CudaKernel:
             self._route = self._bind("route", [ctypes.c_int] * len(args))
         return bool(self._route(*args))
 
-    def launch(self, *args, kernels: int = 1, trans: bool = False,
-               sr: bool = False, stats: bool = False,
+    def launch(self, *args, operands=(), kernels: int = 1,
+               trans: bool = False, sr: bool = False, stats: bool = False,
                tc: bool = False, batched: bool = False) -> None:
+        """Call the entry point on ``args``; ``operands`` (the call's
+        input tensors) go to a qlint capture's kernel markers
+        (``core.routing.mark_kernel``), as a wrapper's CPU branch sends
+        them."""
         if self._fn is None:
             self._fn = self._bind("launch", self.argtypes)
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        routing.mark_kernel(self.name, operands, kernels)
         self.launches += kernels
         self.trans_launches += kernels * trans
         self.sr_launches += kernels * sr

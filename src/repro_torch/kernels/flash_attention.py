@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import routing
 from repro_torch.kernels.build import CudaKernel, stream_ptr
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "KERNEL",
@@ -110,6 +111,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 / bf16); CPU tensors take the plain version."""
     bh, s, d, rep = _check(q, k, v)
     if q.device.type == "cpu":
+        routing.mark_kernel(KERNEL.name, (q, k, v))
         return flash_attention_fwd_plain(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device or \
             v.device != q.device:
@@ -134,5 +136,6 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       bh, s, d, rep, _scale(d), int(causal), dtype,
-                      stream_ptr(q), tc=KERNEL.tensor_core(dtype))
+                      stream_ptr(q), operands=(q, k, v),
+                      tc=KERNEL.tensor_core(dtype))
     return o

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
                                        effective_dims, stats_buffers,
                                        stream_ptr)
@@ -95,6 +96,7 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
         raise ValueError("a batched product has no stats")
     seed_a, seed_b = (seed_a if a_sr else None), (seed_b if b_sr else None)
     if a.device.type == "cpu":
+        routing.mark_kernel(KERNEL.name, (a, b))
         return qmm_stream_plain(a, b, a_mode=a_mode, b_mode=b_mode,
                                 a_fmt=a_fmt, b_fmt=b_fmt, a_pow2=a_pow2,
                                 b_pow2=b_pow2, trans_a=trans_a,
@@ -120,7 +122,7 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                       *fmt_args(b_mode, b_fmt, b_pow2), int(trans_a),
                       int(trans_b), int(a_sr), seed_arg(seed_a), int(b_sr),
                       seed_arg(seed_b), *ptrs, stream_ptr(a),
-                      kernels=1 + 2 * (n_stats > 0),
+                      operands=(a, b), kernels=1 + 2 * (n_stats > 0),
                       trans=trans_a or trans_b,
                       sr=a_sr or b_sr, stats=n_stats > 0,
                       tc=KERNEL.tensor_core(dtype, m),

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.core.formats import FORMATS
 from repro_torch.kernels.build import CudaKernel, cuda_operands, stream_ptr
 from repro_torch.kernels.ref import quantize_blockwise_ref
@@ -41,6 +42,7 @@ def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",
     if fmt.passthrough:
         raise ValueError(f"{fmt_name} has no kernel rounding grid")
     if x.device.type == "cpu":
+        routing.mark_kernel(KERNEL.name, (x,))
         return quantize_blockwise_plain(x, fmt_name, block, per_row=per_row)
     if block != _BLOCK:
         raise NotImplementedError(f"the kernel's group edge is {_BLOCK}, "
@@ -55,5 +57,5 @@ def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",
     with torch.cuda.device(x.device):
         KERNEL.launch(x.data_ptr(), y.data_ptr(), x.shape[0], x.shape[1],
                       dtype, int(per_row), fmt.max_value, fmt.emin,
-                      fmt.mbits, stream_ptr(x))
+                      fmt.mbits, stream_ptr(x), operands=(x,))
     return y

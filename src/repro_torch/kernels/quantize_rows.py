@@ -21,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.core.formats import FORMATS
 from repro_torch.core.quantize import QuantSpec
 from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
@@ -111,6 +112,7 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     args = fmt_args(mode, fmt_name, pow2)
     seed = seed if sr else None
     if x.device.type == "cpu":
+        routing.mark_kernel(KERNEL.name, (x,))
         return quantize_rows_plain(x, mode=mode, fmt_name=fmt_name,
                                    pow2=pow2, trans=trans,
                                    emit_trans=emit_trans, seed=seed,
@@ -139,7 +141,7 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
                       MODE_CODES[mode], *args, int(trans), int(emit_trans),
                       None if scratch is None else scratch.data_ptr(),
                       int(sr), seed_arg(seed), *ptrs, stream_ptr(x),
-                      kernels=1 + cross_block + 2 * collect_stats,
+                      operands=(x,), kernels=1 + cross_block + 2 * collect_stats,
                       trans=trans or emit_trans, sr=sr,
                       stats=collect_stats, batched=x.dim() == 3)
     return (y, stats[-1]) if collect_stats else y

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import routing
 from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
                                        effective_dims, stream_ptr)
 from repro_torch.kernels.ref import f32_matmul
@@ -45,6 +46,7 @@ def tiled_mm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     """``A' @ B'``; CUDA tensors launch the kernel, CPU tensors take the
     plain version."""
     if a.device.type == "cpu":
+        routing.mark_kernel(KERNEL.name, (a, b))
         return tiled_mm_plain(a, b, trans_a=trans_a, trans_b=trans_b)
     dtype = cuda_operands(a, b)
     m, k, n = effective_dims(a, b, trans_a, trans_b)
@@ -54,7 +56,8 @@ def tiled_mm(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
     with torch.cuda.device(a.device):
         KERNEL.launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                       batch_of(a), dtype, int(trans_a), int(trans_b),
-                      stream_ptr(a), trans=trans_a or trans_b,
+                      stream_ptr(a), operands=(a, b),
+                      trans=trans_a or trans_b,
                       tc=KERNEL.tensor_core(dtype, m),
                       batched=a.dim() == 3)
     return c

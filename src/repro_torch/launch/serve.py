@@ -8,7 +8,11 @@ SSM archs serve too (``--arch mamba2-780m``: the engine prefills at the
 exact length and keeps a state cache of fixed size).
 
 Runs on ``--device cuda`` (the default; the engine's stages are CUDA
-graphs there) or ``--device cpu``.
+graphs there) or ``--device cpu``.  The CLI serves with the
+reference's ``RECIPES["bf16"]``: every activation passes through
+unquantized, so each linear is a plain matmul (over the expanded panel
+with ``--weight-quant``) and no ported kernel launches.  ``main(argv)``
+returns {request id: tokens}.
 """
 import argparse
 import importlib
@@ -23,7 +27,7 @@ from repro_torch.train.serving_runtime import (ContinuousBatcher,
                                                quantize_weights_for_serving)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tiny")
     ap.add_argument("--reduced", action="store_true")
@@ -66,6 +70,7 @@ def main(argv=None) -> None:
           f"({total / dt:.1f} tok/s) with {args.slots} slots")
     for rid in ids[:3]:
         print(f"  req {rid}: {out[rid]}")
+    return out
 
 
 if __name__ == "__main__":

@@ -250,6 +250,16 @@ class DecodeEngine:
                                            live=live)
         return torch.argmax(logits[:, -1].to(torch.float32), dim=-1), logits
 
+    def qlint_report(self, *, trace: Optional[bool] = None):
+        """Precision-flow audit (``analysis.qlint``) of one batched decode
+        step: packed-panel routes, activation-quant kernel presence,
+        zero-fallback serving, the captures per stage.  The step runs
+        eagerly on a scratch copy of the cache (``trace``, default on
+        CUDA: under a profiler trace): the engine's cache, slots and last
+        logits are untouched."""
+        from repro_torch.analysis import qlint
+        return qlint.audit_decode_engine(self, trace=trace)
+
     # -- public stages ---------------------------------------------------
 
     @property

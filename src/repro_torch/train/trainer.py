@@ -180,13 +180,15 @@ class Trainer:
         raise ValueError(f"unknown plan_preset {preset!r}")
 
     def init_state(self, seed: Optional[int] = None,
-                   params=None) -> TrainState:
+                   params=None, on_device: bool = False) -> TrainState:
         """Fresh state: ``params`` (f32 masters, e.g. carried across with
         ``convert.params_from_jax``) moved to the model's device, or a
-        seeded init; zeroed optimizer state; step 0."""
+        seeded init (drawn on the CPU, or with ``on_device`` on the
+        model's device); zeroed optimizer state; step 0."""
         if params is None:
             params = self.model.init(
-                self.tcfg.seed if seed is None else seed, torch.float32)
+                self.tcfg.seed if seed is None else seed, torch.float32,
+                on_device=on_device)
         else:
             params = tree_map(
                 lambda p: p.detach().to(self.model.device, torch.float32)
@@ -240,6 +242,15 @@ class Trainer:
                     else dataclasses.replace(self.tcfg, telemetry=tel))
             self._steps[key] = make_train_step(self.model, tcfg, plan)
         return self._steps[key]
+
+    def qlint_report(self, *, trace: bool = False):
+        """Precision-flow audit (``analysis.qlint``) of the active plan's
+        step plus a recompile-budget census over every step function
+        this trainer has built.  It runs one forward and backward on a
+        fresh init (``trace``: under a profiler trace of the card); no
+        optimizer step, and no state of a run is touched."""
+        from repro_torch.analysis import qlint
+        return qlint.audit_trainer(self, trace=trace)
 
     def _batch(self, pipeline, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.model.device)

@@ -161,17 +161,44 @@ def _launches():
 @pytest.mark.parametrize("packed", [False, True])
 def test_spec_outside_the_kernels_raises_on_cuda(cuda, packed):
     """Block size 64 is no kernel mode: under ``linear_impl="pallas"`` a
-    CUDA tensor raises instead of running the plain QDQ matmul."""
+    CUDA tensor takes the reference's QDQ fallback, as a CPU tensor does
+    (it raised before the fallback was ported to the card): ``dot_qdq``'s
+    values, no kernel launched, the census records ``qdq_fallback``
+    with the reference's reason string, and outside a capture a warning
+    says so once per spec pair."""
+    import warnings
+    from repro_torch.core import qlinear as qlinear_mod
+    from repro_torch.core import routing
+    from repro_torch.core.qlinear import dot_qdq
+    from repro_torch.core.quantize import BF16_SPEC
     x = _rand((8, 256), torch.bfloat16, 7)
     w = _rand((256, 128), torch.bfloat16, 8) * 0.05
+    spec_w = QuantSpec.from_str("fp4_e2m1@tile64")
     if packed:
         w = pack_tensor(w, QuantSpec.from_str("fp4_e2m1@tile128"))
     recipe = MatmulRecipe(fwd_x=QuantSpec.from_str("fp4_e2m1@block64"),
-                          fwd_w=QuantSpec.from_str("fp4_e2m1@tile64"))
+                          fwd_w=spec_w)
     launched = _launches()
-    with pytest.raises(NotImplementedError, match="unsupported_block"):
-        qlinear(x, w, recipe, impl="pallas")
+    qlinear_mod._FALLBACK_WARNED.clear()
+    with pytest.warns(RuntimeWarning, match="qdq_fallback"):
+        y = qlinear(x, w, recipe, impl="pallas")      # outside a capture
+    with routing.capture() as log, warnings.catch_warnings():
+        warnings.simplefilter("error")                # warned once only
+        assert torch.equal(qlinear(x, w, recipe, impl="pallas"), y)
     assert _launches() == launched
+    if packed:
+        want = dot_qdq(x, w.dequantize().to(x.dtype), recipe.fwd_x,
+                       BF16_SPEC)
+        reasons = ["lhs: unsupported_block: block64 (kernel group size is "
+                   "128)"]
+    else:
+        want = dot_qdq(x, w, recipe.fwd_x, spec_w)
+        reasons = ["lhs: unsupported_block: block64 (kernel group size is "
+                   "128)", "rhs: unsupported_block: tile64 (kernel group "
+                   "size is 128)"]
+    assert y.device.type == "cuda" and torch.equal(y, want)
+    (ev,) = log.cells()
+    assert ev.route == "qdq_fallback" and list(ev.reasons) == reasons
 
 
 def test_launch_counts(cuda):
