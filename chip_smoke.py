@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phase slice | serve_swa | moe_kernels |
                            train_moe | serve_moe | ssm_kernels |
                            train_ssm | serve_ssm | hybrid | vlm | audio |
-                           train_kernels | train_cli]
+                           train_kernels | autotune | train_cli]
 
 With ``--phase`` it runs the build and that phase alone and prints no ok
 line.  Phases, each printing one line (a failed phase raises: no ok line, exit
@@ -15,7 +15,9 @@ code 1):
    ``qmm_stream``, ``tiled_mm`` and ``flash_attention`` it counts the
    HGMMA instructions in ``cuobjdump -sass`` (gate: > 0, the products run
    on wgmma) and reads registers and spills of their tensor-core kernels
-   from ptxas (gate: no spill, no serialized wgmma).
+   from ptxas, one entry per instantiation (trans flags, SR / stats, and
+   the (bm, bn) tiling: 128 x 128, 128 x 256, 256 x 128) (gate: no
+   spill, no serialized wgmma).
 2. kernels — each kernel against its plain PyTorch version on the card,
    bf16, with CUDA-event times (L2 flushed before every launch) beside
    the plain version, the bound and ``torch.matmul`` / SDPA on the same
@@ -193,6 +195,22 @@ code 1):
    step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
    switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
    phase 4, with its control.
+8a0. autotune — the tuning table (``kernels/autotune.py``) on the card,
+   within AUTOTUNE_BUDGET_S (45 s; its seconds printed): the committed
+   ``src/repro_torch/kernels/tuning_table.json`` validated (gate: no
+   error, every entry a tiling the kernels are built for); two keys of
+   llama3.2-3b's training step (AUTOTUNE_JOBS: the FFN forward 8192 x
+   3072 -> 8192, block:tile nn; the FFN wgrad 3072 x 8192 x 8192, fp8
+   block:block tn, SR on its gradient operand, stats) swept again into a
+   temporary table, each candidate's time printed beside the committed
+   winner (timing noise makes equality no gate; gate: the key is in the
+   committed table); at each built tiling both calls bitwise equal to
+   128 x 128, values and stats lanes; gpt2-125m (8 x 1024, paper_fp4,
+   both impls "pallas") trained AUTOTUNE_STEPS steps on an empty table
+   and on the committed one: losses, gradient norms and the parameters
+   after the last step bitwise equal (gate), each run's step p50, table
+   hits and misses (gate: no miss on the committed table) and
+   ``qmm_stream``'s launches by tiling printed.
 8a. train_cli — the training CLI, ``repro_torch.launch.train.main``,
    called in process (CLI_ARGV): llama3.2-3b at full published width and
    depth (28 layers, d 3072, 24 query and 8 KV heads of 128, d_ff 8192,
@@ -203,8 +221,11 @@ code 1):
    (per-step log, ``eval:``, ``step-time:``, ``roofline[...]``), then
    one line: losses, step times, the CLI's step-time summary and
    roofline terms, peak memory per step and launches per kernel per
-   step, then a ``train_cli_profile`` line splitting one more step by
-   kernel.  Gates: the model at full size; finite losses; every GEMM
+   step, the tuning table's hits and misses over the run (``fused_qmm``
+   consults the committed table, as the reference's does) and the
+   GEMM kernels' launches by tiling, then a ``train_cli_profile`` line
+   splitting one more step by kernel.  Gates: the model at full size;
+   finite losses; no key of the run missed the table; every GEMM
    kernel and flash launched, each also in a recompute, every one on
    the tensor-core route; flash at (96, 2048, 128); the CLI's eval,
    step-time and roofline lines; step 0's calls of layers 0 and 27
@@ -236,11 +257,11 @@ code 1):
    on the CPU (their first MOE_REPLAY_EXPERTS experts) within OP_BOUND,
    and a control (the w_up forward with its activation unquantized) that
    must miss it.
-8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 12 of its
+8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 8 of its
    16 layers (MOE_SERVE_LAYERS: at 16 it took 133.0 s of an 840.8 s
-   run and at 8 61.8 s of a 719.5 s run; 12 keeps the run with the vlm
-   and audio phases within 840.8 s by a margin as large as the 89.7 s
-   two runs of one tree have differed by; weights drawn on the card in
+   run, at 12 91.4 s and at 8 61.8 s; 8 since the autotune phase and
+   the larger build of the tiled GEMM kernels came in, which keeps the
+   whole run within 840.8 s; weights drawn on the card in
    bf16, experts packed to FP4 matrix by matrix, the f32 router dense)
    through the ``ContinuousBatcher``: fp8 KV, paper_fp4, every stage
    captured, 8 slots, max_len 2048, 16 requests of 16-512 prompt tokens (requests 0
@@ -407,7 +428,7 @@ each mode's time beside its mode-off time, its plain time and its bound
 of its tile launch at each shape from a profiler trace).
 
 Every phase keeps the full depth of its model but ``serve_swa``, cut to
-8 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 12 of 16 layers
+8 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 8 of 16 layers
 (MOE_SERVE_LAYERS), and ``vlm``, cut to its first 5 layers (VLM_LAYERS).
 Exits non-zero without a result when there is no CUDA device or when
 the port is not beside this script.
@@ -476,6 +497,18 @@ CLI_ARGV = ("--arch", CLI_ARCH, "--recipe", "paper_fp4", "--linear-impl",
             "pallas", "--attention-impl", "pallas", "--batch",
             str(CLI_BATCH), "--seq", str(CLI_SEQ), "--steps", str(CLI_STEPS),
             "--device", "cuda")
+# The autotune phase: two keys of llama3.2-3b's training step swept again
+# (the FFN forward 8192 x 3072 -> 8192, and the FFN wgrad, with SR on its
+# gradient operand and the stats epilogue), every built tiling held
+# bitwise against 128 x 128 on them, and gpt2-125m trained AUTOTUNE_STEPS
+# paper_fp4 steps on an empty table, then on the committed one.
+AUTOTUNE_JOBS = (
+    dict(m=8192, n=8192, k=3072, a_mode="block", b_mode="tile",
+         a_fmt="fp4_e2m1", b_fmt="fp4_e2m1"),
+    dict(m=3072, n=8192, k=8192, a_mode="block", b_mode="block",
+         a_fmt="fp8_e4m3", b_fmt="fp8_e5m2", trans_a=True, b_sr=True,
+         seed_b=-1253433917, collect_stats=True))
+AUTOTUNE_STEPS, AUTOTUNE_BUDGET_S = 4, 45.0
 QLINT_ARGV = ("--config", "tiny", "--plan", "fine_grained_fp4", "--impl",
               "pallas", "--decode", "--device", "cuda", "--expect",
               os.path.join(ROOT, "tests", "qlint_expected_tiny_torch.json"))
@@ -546,9 +579,9 @@ MOE_REPLAY_EXPERTS = 2
 # router groups), for the check against the sequential generate.
 MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 8, 2048, 16, 64
 MOE_EXACT_PROMPTS = (128, 256)
-# serve_moe's depth: 12 of olmoe's 16 layers, cut so that the whole run
-# with the vlm and audio phases stays within the 840.8 s it took before
-MOE_SERVE_LAYERS = 12
+# serve_moe's depth: 8 of olmoe's 16 layers, cut so that the whole run
+# with the autotune phase stays within the 840.8 s it took before
+MOE_SERVE_LAYERS = 8
 # mamba2-780m's projection shapes: d 1536 -> d_inner 3072 (in_z, in_x),
 # n_groups x d_state 128 (in_b, in_c), 48 heads (in_dt: N below one
 # 128-wide tile), and out_proj 3072 -> 1536.
@@ -4810,14 +4843,135 @@ def qlint_on_card(torch):
     return out
 
 
+def phase_autotune(torch, card):
+    """The tuning table on the card (module docstring): validate the
+    committed table, sweep AUTOTUNE_JOBS again into a temporary table
+    beside the committed winners, hold every built tiling bitwise against
+    128 x 128 on them, and train gpt2-125m on an empty table and on the
+    committed one (bitwise equal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import autotune, fp4_matmul, qmm_stream
+    from repro_torch.kernels.build import TILINGS
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    failures = []
+    errors = autotune.validate_table(autotune.DEFAULT_TABLE_PATH)
+    committed = autotune.TuningTable.load(autotune.DEFAULT_TABLE_PATH)
+    unbuilt = [k for k in committed.entries
+               if committed.lookup(k) not in TILINGS]
+    if errors or unbuilt:
+        failures.append(f"committed table: {errors} {unbuilt}")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sweeps, bitwise = [], []
+    for job in AUTOTUNE_JOBS:
+        job = {"trans_a": False, "trans_b": False, "dtype": "bfloat16",
+               **job}
+        times = {}
+        autotune.autotune_qmm(**job, table=autotune.TuningTable(),
+                              times=times)
+        a = torch.randn(*((job["k"], job["m"]) if job["trans_a"] else
+                          (job["m"], job["k"])), generator=g,
+                        device="cuda").bfloat16()
+        b = torch.randn(job["k"], job["n"], generator=g,
+                        device="cuda").bfloat16() * 0.05
+        kw = {k: job[k] for k in ("a_mode", "b_mode", "a_fmt", "b_fmt",
+                                  "trans_a", "trans_b")}
+        if job.get("b_sr"):
+            kw.update(b_sr=True, seed_b=job["seed_b"])
+        kw["collect_stats"] = bool(job.get("collect_stats"))
+        _, key = fp4_matmul.resolve_qmm_tiles(
+            a, b, kw["a_mode"], kw["b_mode"], kw["trans_a"], kw["trans_b"],
+            bm=128)
+        outs = {t: fp4_matmul.fused_qmm(a, b, bm=t[0], bn=t[1], **kw)
+                for t in TILINGS}
+        torch.cuda.synchronize()
+        ref = outs[TILINGS[0]]
+        for t, out in outs.items():
+            y, stats = out if kw["collect_stats"] else (out, ())
+            y0, stats0 = ref if kw["collect_stats"] else (ref, ())
+            same = torch.equal(y.view(torch.int16), y0.view(torch.int16))
+            same_stats = all(torch.equal(s, s0) for s, s0 in
+                             zip(stats, stats0) if s is not None)
+            bitwise.append({"key": key, "tiles": list(t[:2]),
+                            "values": same, "stats": same_stats})
+            if not (same and same_stats):
+                failures.append(f"{key} at {t[:2]} differs from 128 x 128")
+        sweeps.append({"key": key, "us": {f"{t[0]}x{t[1]}": v
+                                          for t, v in times.items()},
+                       "committed": committed.entries.get(key)})
+        if key not in committed.entries:
+            failures.append(f"{key} is not in the committed table")
+        del a, b, outs, ref
+    # gpt2-125m on an empty table, then on the committed one
+    cfg = get_config("gpt2-125m").replace(linear_impl="pallas",
+                                          attention_impl="pallas",
+                                          remat=False)
+    runs = {}
+    for name, table in (("empty", autotune.TuningTable()),
+                        ("committed", None)):
+        autotune.set_table(table)
+        tcfg = TrainConfig(recipe="paper_fp4", total_steps=TRAIN_STEPS,
+                           global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                           log_every=0)
+        trainer = Trainer(build_model(cfg), tcfg, SyntheticLM(
+            cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+        state = trainer.init_state(seed=0, on_device=True)
+        before = dict(autotune.COUNTERS)
+        qmm_stream.KERNEL.tile_launches.clear()
+        state = trainer.train(state, num_steps=AUTOTUNE_STEPS)
+        torch.cuda.synchronize()
+        runs[name] = {
+            "losses": [r["loss"] for r in trainer.history],
+            "grad_norms": [r["grad_norm"] for r in trainer.history],
+            "step_p50_ms": float(np.median(
+                [r["dt"] for r in trainer.history[1:]])) * 1e3,
+            "table": {c: autotune.COUNTERS[c] - before[c]
+                      for c in before},
+            "qmm_stream_tiles": {f"{t[0]}x{t[1]}": n for t, n in
+                                 qmm_stream.KERNEL.tile_launches.items()},
+            "params": [p.detach().clone()
+                       for p in tree_leaves(state.params)]}
+        del trainer, state
+    autotune.set_table(None)
+    e, c = runs["empty"], runs["committed"]
+    params_equal = len(e["params"]) == len(c["params"]) and all(
+        torch.equal(x, y) for x, y in zip(e["params"], c["params"]))
+    if e["losses"] != c["losses"] or e["grad_norms"] != c["grad_norms"] \
+            or not params_equal:
+        failures.append("gpt2-125m on the committed table differs from "
+                        "the empty table")
+    if c["table"]["miss"] or not c["table"]["hit"]:
+        failures.append(f"gpt2-125m's keys missed the table: {c['table']}")
+    for r in runs.values():
+        del r["params"]
+    line = {"phase": "autotune", "card": card,
+            "table": str(autotune.DEFAULT_TABLE_PATH.relative_to(ROOT)),
+            "table_meta": committed.meta,
+            "entries": len(committed.entries), "validate": errors,
+            "sweeps": sweeps, "bitwise": bitwise,
+            "gpt2_125m": runs, "params_equal": params_equal,
+            "seconds": time.perf_counter() - t0,
+            "budget_s": AUTOTUNE_BUDGET_S}
+    emit(line)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("autotune phase: " + "; ".join(failures))
+
+
 def phase_train_cli(torch, card):
     """``launch/train.py`` trains llama3.2-3b at full width and depth in
     process (module docstring), then the qlint CLI audits tiny on the
     card.  Gate both; return the training run's launch counts."""
     import contextlib
     import io
-    from repro_torch.kernels import (build, flash_attention, qmm_stream,
-                                     quantize_rows, tiled_mm)
+    from repro_torch.kernels import (autotune, build, flash_attention,
+                                     qmm_stream, quantize_rows, tiled_mm)
     from repro_torch.launch import train as cli
     from repro_torch.train.trainer import Trainer
 
@@ -4826,6 +4980,8 @@ def phase_train_cli(torch, card):
                flash_attention.KERNEL)
     for kern in build.KERNELS:
         kern.reset()
+    autotune.set_table(None)     # the committed table, resolved afresh
+    table_before = dict(autotune.COUNTERS)
     steps, record = [], Trainer._record
     rec = StepZeroRecorder(TrainRecorder.SWIGLU, CLI_REPLAY_LAYERS)
 
@@ -4850,6 +5006,11 @@ def phase_train_cli(torch, card):
     print(text, end="", flush=True)
     counts = {k.name: k.counts() for k in kernels}
     launches = {k.name: k.launches for k in kernels}
+    table = {c: autotune.COUNTERS[c] - table_before[c]
+             for c in table_before}
+    tiles = {k.name: {f"{t[0]}x{t[1]}": n
+                      for t, n in sorted(k.tile_launches.items())}
+             for k in (qmm_stream.KERNEL, tiled_mm.KERNEL)}
     trainer = res["trainer"]
     cfg, summ = trainer.model.cfg, res["step_time"]
     n_params = trainer.model.param_count()
@@ -4882,6 +5043,9 @@ def phase_train_cli(torch, card):
                         f"route: {counts}")
     if flash_shapes != [(CLI_BATCH * cfg.n_heads, CLI_SEQ, CLI_DIMS[-1])]:
         failures.append(f"flash shapes {flash_shapes}")
+    if table["miss"] or not table["hit"]:
+        failures.append(f"a key of the step missed the tuning table: "
+                        f"{table}")
     for prefix in ("eval:", "step-time:", "roofline["):
         if not any(line.startswith(prefix) for line in text.splitlines()):
             failures.append(f"no {prefix!r} line from the CLI")
@@ -4900,6 +5064,7 @@ def phase_train_cli(torch, card):
             "max_memory_allocated_per_step": peaks,
             "max_memory_allocated": max(peaks),
             "launches_per_step": per_step, "counts": counts,
+            "tuning_table": table, "tile_launches": tiles,
             "flash_shapes": flash_shapes, "run_s": run_s,
             "cli_lines": [ln for ln in text.splitlines()
                           if not ln.startswith("step ")]}
@@ -4968,7 +5133,7 @@ def main() -> int:
             "train_ssm": phase_train_ssm, "serve_ssm": phase_serve_ssm,
             "hybrid": phase_hybrid, "vlm": phase_vlm, "audio": phase_audio,
             "train_kernels": phase_train_kernels,
-            "train_cli": phase_train_cli}
+            "autotune": phase_autotune, "train_cli": phase_train_cli}
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--phase"
                  or args[1] not in solo):
@@ -5023,6 +5188,8 @@ def main() -> int:
     lap("train_adaptive")
     large_launches = phase_train_large(torch, card)
     lap("train_large")
+    phase_autotune(torch, card)
+    lap("autotune")
     cli_launches = phase_train_cli(torch, card)
     lap("train_cli")
     moe_train_launches, moe_train_batched = phase_train_moe(torch, card)

@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build_all", "load", "sass", "BUILD_DIR",
            "NVCC_FLAGS", "CudaKernel", "cuda_operands", "effective_dims",
            "stream_ptr", "stats_buffers", "batch_of", "recomputing",
            "recomputing_now", "KERNELS", "launch_counts",
-           "add_launch_counts"]
+           "add_launch_counts", "TILINGS", "check_tiling"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
@@ -35,6 +35,10 @@ SOURCES = ("quantize_rows", "qmm_stream", "tiled_mm", "flash_attention",
            "quantize_blockwise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# The (bm, bn, bk) output tilings the GEMM kernels' tensor-core route is
+# built for (csrc/gemm_sm90.cuh ``Tiling``; bk is one quant group).
+TILINGS = ((128, 128, 128), (128, 256, 128), (256, 128, 128))
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Every CudaKernel made (one per wrapper module), for launch_counts
@@ -58,6 +62,14 @@ def recomputing():
 def recomputing_now() -> bool:
     """Whether a rematerialized forward is running (``recomputing``)."""
     return _RECOMPUTE[0] > 0
+
+
+def check_tiling(bm: int, bn: int, bk: int = 128) -> None:
+    """Raise ``ValueError`` unless the kernels are built for (bm, bn,
+    bk): an explicit tiling is a request, so none is replaced."""
+    if (bm, bn, bk) not in TILINGS:
+        raise ValueError(f"no kernel is built for tiles (bm, bn, bk) = "
+                         f"{(bm, bn, bk)}; built: {TILINGS}")
 
 
 def _nvcc() -> str:
@@ -146,7 +158,9 @@ class CudaKernel:
     ran on the tensor-core route (a GEMM kernel's bf16 calls with M > 16,
     flash attention's bf16 calls: ``tensor_core``) and
     ``batched_launches`` the part that ran a batch of operand pairs in
-    one launch (``batched``: the MoE experts).  A CUDA graph's
+    one launch (``batched``: the MoE experts).  ``tile_launches`` counts
+    a GEMM kernel's eager tensor-core calls by their ``(bm, bn)`` tiling
+    (``tiles``; not part of ``counts()``).  A CUDA graph's
     replay launches what its capture recorded without calling the entry
     point: ``graphs.GraphedStage`` adds the capture's counts on every
     replay (``add_launch_counts``) and takes them back from the capture,
@@ -166,6 +180,7 @@ class CudaKernel:
         self.launches = self.trans_launches = 0
         self.sr_launches = self.stats_launches = self.tc_launches = 0
         self.recompute_launches = self.batched_launches = 0
+        self.tile_launches: Dict[Tuple[int, int], int] = {}
 
     def counts(self) -> Dict[str, int]:
         return {"launches": self.launches, "trans": self.trans_launches,
@@ -201,7 +216,8 @@ class CudaKernel:
 
     def launch(self, *args, operands=(), kernels: int = 1,
                trans: bool = False, sr: bool = False, stats: bool = False,
-               tc: bool = False, batched: bool = False) -> None:
+               tc: bool = False, batched: bool = False,
+               tiles=None) -> None:
         """Call the entry point on ``args``; ``operands`` (the call's
         input tensors) go to a qlint capture's kernel markers
         (``core.routing.mark_kernel``), as a wrapper's CPU branch sends
@@ -219,6 +235,8 @@ class CudaKernel:
         self.tc_launches += kernels * tc
         self.recompute_launches += kernels * recomputing_now()
         self.batched_launches += kernels * batched
+        if tc and tiles is not None:
+            self.tile_launches[tiles] = self.tile_launches.get(tiles, 0) + 1
 
 
 def launch_counts() -> Dict[str, Dict[str, int]]:

@@ -1,38 +1,49 @@
 // The tensor-core main loop that qmm_stream.cu and tiled_mm.cu share.
 //
-// One block owns one 128 x 128 output tile of y = A' . B' (A' M x K, B'
-// K x N, bf16, f32 accumulators) and walks K in 128-wide steps, one quant
-// group a step.  Two consumer warpgroups each own 64 output rows and
-// issue, per K step, eight wgmma.mma_async m64n128k16 f32.bf16.bf16 with
-// both operands read from shared memory through matrix descriptors; two
-// more warpgroups only load and prepare stages (qmm_stream's QDQ is
-// latency-bound on the CUDA cores, and 16 warps hide that latency better
-// than 8).  A stage of the shared ring holds the step's A tile and B
-// tile, each 128 stored rows x 128 contiguous elements as two 64-wide
-// panels of 128-byte rows, 128-byte swizzled ([panel][row][64], 16-byte
-// chunk index XOR row % 8).  Each operand is loaded in its stored layout:
-// a K-major operand (A stored (M, K), or B stored (N, K) under trans_b)
-// has the reduction axis along the rows, an MN-major one (A stored (K, M)
-// under trans_a, B stored (K, N)) across them, and the descriptor's
-// transpose bit tells wgmma which.  So no transposed copy of an operand
-// reaches device memory.
+// One block owns one BM x BN output tile of y = A' . B' (A' M x K, B'
+// K x N, bf16, f32 accumulators), (BM, BN) one of the built tilings
+// (Tiling below: 128 x 128, 128 x 256, 256 x 128), and walks K in
+// 128-wide steps, one quant group a step.  The tile is cut into 64 x 128
+// slices, one a consumer warpgroup, which issues per K step eight
+// wgmma.mma_async m64n128k16 f32.bf16.bf16 with both operands read from
+// shared memory through matrix descriptors.  The block always has four
+// warpgroups (512 threads): at 128 x 128 two of them consume and two only
+// load and prepare stages (qmm_stream's QDQ is latency-bound on the CUDA
+// cores, and 16 warps hide that latency better than 8); a 256-wide tile
+// has four slices, so all four consume.  Every thread thus holds one
+// slice's 64 f32 accumulators at every tiling, within the 128 registers
+// a thread of a 512-thread block has (a 128 x 256 tile over two
+// warpgroups would need 128 accumulators a thread and spill).  A stage
+// of the shared ring holds the step's A tile (BM x 128) and B tile (128
+// x BN), each as 64-wide panels of 128-byte rows in its stored layout,
+// 128-byte swizzled ([panel][row][64], 16-byte chunk index XOR row % 8).
+// Each operand is loaded in its stored layout: a K-major operand (A
+// stored (M, K), or B stored (N, K) under trans_b) has the reduction axis
+// along the rows, an MN-major one (A stored (K, M) under trans_a, B
+// stored (K, N)) across them, and the descriptor's transpose bit tells
+// wgmma which.  So no transposed copy of an operand reaches device
+// memory.
 //
 // Loads are cp.async 16-byte chunks, zero-filled beyond the ragged M / N
 // / K edges (a zero leaves every group's amax as the reference's zero
 // padding does); an operand whose contiguous extent is not a multiple of
 // 8 elements, or whose base is not 16-byte aligned, is loaded element by
-// element in the same loop.  The ring has kStages stages and the loads
-// run kStages - 1 steps ahead.  A step: wait for the stage, prep it
-// (qmm_stream's in-place QDQ; nothing for tiled_mm), fence.proxy.async
-// (the cp.async landing and prep's stores are generic-proxy writes that
-// wgmma reads through the async proxy), barrier, issue and commit the
-// step's products, wait for them, barrier, refill the stage they read.
-// The loads of later steps stay in flight through it all.
+// element in the same loop.  The ring has kStages stages (3 of 64 KB at
+// 128 x 128, 2 of 96 KB where one side is 256: 193 KB of shared memory
+// either way) and the loads run kStages - 1 steps ahead.  A step: wait
+// for the stage, barrier (every product of the step before is done, so
+// its stage is free), refill that stage, prep this one (qmm_stream's
+// in-place QDQ; nothing for tiled_mm), fence.proxy.async (the cp.async
+// landing and prep's stores are generic-proxy writes that wgmma reads
+// through the async proxy), barrier, issue and commit the step's
+// products, wait for them.  The loads of later steps stay in flight
+// through it all.
 //
 // One summation order: every output element is summed over the K steps
-// in increasing k by the same wgmma sequence, whatever M, the tile's
-// place, the layouts or the kernel that runs the loop.  A row's result
-// therefore does not depend on the other rows of the call, and the stream
+// in increasing k by the same wgmma sequence (one m64n128k16 per k16
+// slice), whatever M, the tiling, the tile's place, the layouts or the
+// kernel that runs the loop.  A row's result therefore does not depend
+// on the other rows of the call or on the tiling, and the stream
 // pipeline equals quantize pass + tiled_mm bit for bit: both run this
 // loop on equal shared tiles.
 #pragma once
@@ -41,15 +52,33 @@
 
 namespace sm90 {
 
-constexpr int kTile = 128;                       // BM = BN = BK
-constexpr int kStages = 3;
-constexpr int kMmaThreads = 256;                 // two consumer warpgroups
-constexpr int kThreads = 512;                    // + two that only prep
-constexpr int kPanelBytes = kTile * 128;         // 128 rows x 128 bytes
-constexpr int kOperandBytes = 2 * kPanelBytes;   // a 128 x 128 bf16 tile
-constexpr int kStageBytes = 2 * kOperandBytes;   // A and B
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment
-static_assert(kTile == codec::kGroup, "one K step is one quant group");
+constexpr int kKStep = 128;                      // BK: one quant group
+constexpr int kThreads = 512;                    // four warpgroups
+static_assert(kKStep == codec::kGroup, "one K step is one quant group");
+
+// The output tilings the kernels are built for (BK = kKStep): 128 x 128,
+// 128 x 256 and 256 x 128.  256 x 256 is not: a stage would take 128 KB,
+// and a two-stage ring does not fit in 227 KB.
+inline bool tile_built(int bm, int bn) {
+  return (bm == 128 && (bn == 128 || bn == 256)) || (bm == 256 && bn == 128);
+}
+
+template <int BM_, int BN_>
+struct Tiling {
+  static constexpr int BM = BM_, BN = BN_;
+  static_assert((BM == 128 && (BN == 128 || BN == 256)) ||
+                    (BM == 256 && BN == 128),
+                "a built tiling (tile_built)");
+  static constexpr int kRowSlices = BM / 64;     // m64 slices down M
+  static constexpr int kMmaWarpgroups = kRowSlices * (BN / 128);
+  static constexpr int kABytes = BM * kKStep * 2;
+  static constexpr int kBBytes = BN * kKStep * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = kStageBytes <= 64 * 1024 ? 3 : 2;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + align
+  static_assert(kMmaWarpgroups <= kThreads / 128, "a slice a warpgroup");
+  static_assert(kSmemBytes <= 232448, "227 KB of shared memory a block");
+};
 
 using bf16 = __nv_bfloat16;
 
@@ -58,9 +87,11 @@ using bf16 = __nv_bfloat16;
 // bound) keep the CUDA-core FMA kernels.  dtype: 0 = float32, 1 = bf16.
 inline bool tensor_core_route(int dtype, int M) { return dtype == 1 && M > 16; }
 
-// Byte offset of element (row, col) of a staged 128 x 128 operand tile.
+// Byte offset of element (row, col) of a staged operand tile of kRows
+// stored rows: 64-wide panels of kRows 128-byte rows.
+template <int kRows>
 __device__ __forceinline__ int swz(int row, int col) {
-  return (col >> 6) * kPanelBytes + row * 128 +
+  return (col >> 6) * (kRows * 128) + row * 128 +
          ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2;
 }
 
@@ -93,42 +124,55 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Load the 128 x 128 stored tile at (r0, c0) into the stage at dst,
-// zero outside the operand.
+// Load the kRows x kCols stored tile at (r0, c0) into the stage at dst,
+// zero outside the operand.  A thread keeps one 16-byte column chunk and
+// walks down the rows kRowStep at a time (a multiple of 8, so the
+// chunk's swizzled place moves by whole rows): one running source
+// pointer and shared address, not one per row, which keeps the loads
+// within the registers the 64 accumulators leave.
+template <int kRows, int kCols>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const Operand& op,
                                           int r0, int c0) {
   if (op.vec) {
-    const uint32_t base = smem_u32(dst);
-    for (int i = threadIdx.x; i < kTile * 16; i += kThreads) {
-      const int row = i >> 4, col = (i & 15) * 8;
-      const int r = r0 + row, c = c0 + col;
-      const bool in = r < op.rows && c < op.cols;
-      const bf16* src = in ? op.p + (long)r * op.cols + c : op.p;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                       base + swz(row, col)),
-                   "l"(src), "r"(in ? 16 : 0)
+    constexpr int kChunks = kCols / 8;           // 16-byte chunks a row
+    constexpr int kRowStep = kThreads / kChunks;
+    static_assert(kThreads % kChunks == 0 && kRowStep % 8 == 0,
+                  "a chunk keeps its swizzle down the rows");
+    const int row0 = threadIdx.x / kChunks, col = (threadIdx.x % kChunks) * 8;
+    const bool col_in = c0 + col < op.cols;
+    const bf16* src = op.p + (long)(r0 + row0) * op.cols + c0 + col;
+    uint32_t to = smem_u32(dst) + swz<kRows>(row0, col);
+#pragma unroll 1
+    for (int row = row0; row < kRows; row += kRowStep) {
+      const bool in = col_in && r0 + row < op.rows;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to),
+                   "l"(in ? src : op.p), "r"(in ? 16 : 0)
                    : "memory");
+      src += (long)kRowStep * op.cols;
+      to += kRowStep * 128;
     }
   } else {
     const bf16 zero = __float2bfloat16_rn(0.f);
-    for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-      const int row = i >> 7, col = i & 127;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kRows * kCols; i += kThreads) {
+      const int row = i / kCols, col = i % kCols;
       const int r = r0 + row, c = c0 + col;
-      *reinterpret_cast<bf16*>(dst + swz(row, col)) =
+      *reinterpret_cast<bf16*>(dst + swz<kRows>(row, col)) =
           (r < op.rows && c < op.cols) ? op.p[(long)r * op.cols + c] : zero;
     }
   }
 }
 
-// The stage tile of operand op at output offset mn0 and K step k0.
-template <bool kKMajor>
+// The stage tile of operand op: kExtent rows of the output's M (A) or N
+// (B) axis from mn0, the K step from k0.
+template <bool kKMajor, int kExtent>
 __device__ __forceinline__ void load_operand(uint8_t* dst,
                                              const Operand& op, int mn0,
                                              int k0) {
   if (kKMajor)
-    load_tile(dst, op, mn0, k0);
+    load_tile<kExtent, kKStep>(dst, op, mn0, k0);
   else
-    load_tile(dst, op, k0, mn0);
+    load_tile<kKStep, kExtent>(dst, op, k0, mn0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -206,76 +250,86 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "memory");
 }
 
-// The products of one K step of this warpgroup: its 64 rows of the A
-// tile at a, the whole B tile at b, eight k16 slices in increasing k.
-template <bool kAK, bool kBK>
+// The products of one K step of the consumer warpgroup of slice (rs,
+// cs): rows 64 rs .. 64 rs + 63 of the A tile at a, columns 128 cs .. 128
+// cs + 127 of the B tile at b, eight k16 slices in increasing k.
+template <bool kAK, bool kBK, int BM, int BN>
 __device__ __forceinline__ void step_products(float (&d)[64], uint32_t a,
-                                              uint32_t b, int wg) {
+                                              uint32_t b, int rs, int cs) {
+  constexpr int kPanelA = (kAK ? BM : kKStep) * 128;  // bytes a 64-wide panel
+  constexpr int kPanelB = (kBK ? BN : kKStep) * 128;
 #pragma unroll
-  for (int kk = 0; kk < kTile / 16; ++kk) {
-    // K-major: a k16 slice is 32 bytes along the row, in panel kk / 4;
-    // MN-major: it is 16 rows (2048 bytes) down.
-    const uint32_t ao = kAK ? (kk >> 2) * kPanelBytes + wg * 64 * 128 +
+  for (int kk = 0; kk < kKStep / 16; ++kk) {
+    // K-major: a k16 slice is 32 bytes along the row, in panel kk / 4, and
+    // the slice's rows start 64 rs (A) or 128 cs (B) rows down; MN-major:
+    // it is 16 rows (2048 bytes) down, in panel rs (A: 64 columns) or
+    // panels 2 cs and 2 cs + 1 (B: 128 columns, LBO apart).
+    const uint32_t ao = kAK ? (kk >> 2) * kPanelA + rs * 64 * 128 +
                                   (kk & 3) * 32
-                            : wg * kPanelBytes + kk * 2048;
-    const uint32_t bo = kBK ? (kk >> 2) * kPanelBytes + (kk & 3) * 32
-                            : kk * 2048;
+                            : rs * kPanelA + kk * 2048;
+    const uint32_t bo = kBK ? (kk >> 2) * kPanelB + cs * 128 * 128 +
+                                  (kk & 3) * 32
+                            : 2 * cs * kPanelB + kk * 2048;
     wgmma_m64n128k16<kAK ? 0 : 1, kBK ? 0 : 1>(
-        d, make_desc(a + ao, kPanelBytes, 1024),
-        make_desc(b + bo, kPanelBytes, 1024));
+        d, make_desc(a + ao, kPanelA, 1024),
+        make_desc(b + bo, kPanelB, 1024));
   }
 }
 
-// The main loop: acc (this thread's 64 f32 of the tile, zeroed by the
-// caller) += A'[m0:m0+128, :] . B'[:, n0:n0+128].  prep(a_tile, b_tile,
-// k0) runs on every stage after it lands and before its products, with
-// the whole block; it may rewrite the tiles in place (generic stores,
-// element (row, col) at swz(row, col)).  A step waits for its own
-// products before the barrier: products left in flight across the next
-// step (its prep calls the IEEE division's slow path, and only two of the
-// four warpgroups issue wgmma) made ptxas serialize every wgmma of the
-// loop (C7515 / C7518).  smem: kSmemBytes of dynamic shared memory.
-template <bool kAK, bool kBK, typename Prep>
+// The main loop: acc (this thread's 64 f32 of its slice of the BM x BN
+// tile, zeroed by the caller) += A'[m0:m0+BM, :] . B'[:, n0:n0+BN].
+// prep(a_tile, b_tile, k0) runs on every stage after it lands and before
+// its products, with the whole block; it may rewrite the tiles in place
+// (generic stores, element (row, col) at swz<stored rows>(row, col)).  A
+// step waits for its own products before the next step's barrier:
+// products left in flight across the next step (its prep calls the IEEE
+// division's slow path, and at 128 x 128 only two of the four
+// warpgroups issue wgmma) made ptxas serialize every wgmma of the loop
+// (C7515 / C7518).  smem: Tiling<BM, BN>::kSmemBytes of dynamic shared
+// memory.
+template <bool kAK, bool kBK, int BM, int BN, typename Prep>
 __device__ __forceinline__ void mainloop(float (&acc)[64], uint8_t* smem_raw,
                                          const Operand& a, const Operand& b,
                                          int m0, int n0, int K, Prep prep) {
+  using T = Tiling<BM, BN>;
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int wg = threadIdx.x >> 7;
-  const bool mma = threadIdx.x < kMmaThreads;  // warpgroup-uniform
-  const int nk = (K + kTile - 1) / kTile;
-  auto tile_a = [&](int s) { return smem + s * kStageBytes; };
-  auto tile_b = [&](int s) { return smem + s * kStageBytes + kOperandBytes; };
+  const bool mma = wg < T::kMmaWarpgroups;     // warpgroup-uniform
+  const int rs = wg % T::kRowSlices, cs = wg / T::kRowSlices;
+  const int nk = (K + kKStep - 1) / kKStep;
+  auto tile_a = [&](int s) { return smem + s * T::kStageBytes; };
+  auto tile_b = [&](int s) { return smem + s * T::kStageBytes + T::kABytes; };
   auto load = [&](int kt) {
-    const int s = kt % kStages;
-    load_operand<kAK>(tile_a(s), a, m0, kt * kTile);
-    load_operand<kBK>(tile_b(s), b, n0, kt * kTile);
+    const int s = kt % T::kStages;
+    load_operand<kAK, BM>(tile_a(s), a, m0, kt * kKStep);
+    load_operand<kBK, BN>(tile_b(s), b, n0, kt * kKStep);
   };
 #pragma unroll
-  for (int kt = 0; kt < kStages - 1; ++kt) {
+  for (int kt = 0; kt < T::kStages - 1; ++kt) {
     if (kt < nk) load(kt);
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % kStages;
-    cp_async_wait<kStages - 2>();  // this thread's copies of step kt
-    __syncthreads();               // everyone's
-    prep(tile_a(s), tile_b(s), kt * kTile);
+    const int s = kt % T::kStages;
+    cp_async_wait<T::kStages - 2>();  // this thread's copies of step kt
+    __syncthreads();  // everyone's; every product of step kt - 1 is done
+    // refill the stage step kt - 1 read
+    if (kt + T::kStages - 1 < nk) load(kt + T::kStages - 1);
+    cp_async_commit();
+    prep(tile_a(s), tile_b(s), kt * kKStep);
     fence_proxy_async();
     __syncthreads();
     if (mma) {
       fence_acc(acc);
       wgmma_fence();
-      step_products<kAK, kBK>(acc, smem_u32(tile_a(s)), smem_u32(tile_b(s)),
-                              wg);
+      step_products<kAK, kBK, BM, BN>(acc, smem_u32(tile_a(s)),
+                                      smem_u32(tile_b(s)), rs, cs);
       wgmma_commit();
       fence_acc(acc);
       wgmma_wait<0>();
       fence_acc(acc);
     }
-    __syncthreads();               // both warpgroups': its stage is free
-    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
-    cp_async_commit();
   }
   if (mma) {
     wgmma_wait<0>();
@@ -283,18 +337,21 @@ __device__ __forceinline__ void mainloop(float (&acc)[64], uint8_t* smem_raw,
   }
 }
 
-// Store this thread's accumulators of the tile at (m0, n0) into the
-// row-major (M, N) output, rounded to T (nearest even), masked at the
-// ragged edges.  Fragment of m64nNk16: warp w of the warpgroup, lane l,
-// holds rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1).
-template <typename T>
+// Store this thread's accumulators of its slice of the BM x BN tile at
+// (m0, n0) into the row-major (M, N) output, rounded to T (nearest even),
+// masked at the ragged edges.  Fragment of m64nNk16: warp w of the
+// warpgroup, lane l, holds rows 16 w + l / 4 (+ 8) and columns 8 j + 2 (l
+// % 4) (+ 1) of the slice.
+template <int BM, int BN, typename T>
 __device__ __forceinline__ void store_tile(const float (&acc)[64],
                                            T* __restrict__ c, int M, int N,
                                            int m0, int n0) {
-  if (threadIdx.x >= kMmaThreads) return;
-  const int t = threadIdx.x & 127, wg = threadIdx.x >> 7;
-  const int r0 = m0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
-  const int c0 = n0 + (t & 3) * 2;
+  using G = Tiling<BM, BN>;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  if (wg >= G::kMmaWarpgroups) return;
+  const int r0 = m0 + (wg % G::kRowSlices) * 64 + (t >> 5) * 16 +
+                 ((t & 31) >> 2);
+  const int c0 = n0 + (wg / G::kRowSlices) * 128 + (t & 3) * 2;
 #pragma unroll
   for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -312,13 +369,13 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64],
     }
 }
 
-// Let a kernel use kSmemBytes of dynamic shared memory; once per
-// instantiation, before its first launch.
-template <typename Kernel>
+// Let a kernel of tiling (BM, BN) use its dynamic shared memory; before
+// its first launch.
+template <int BM, int BN, typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
+                              Tiling<BM, BN>::kSmemBytes);
 }
 
 }  // namespace sm90

@@ -15,21 +15,27 @@
 //
 // Route (gemm_sm90.cuh tensor_core_route, of dtype and M alone):
 // - bf16, M > 16 (prefill, training): the tensor-core main loop of
-//   gemm_sm90.cuh, which tiled_mm.cu runs too.  128 x 128 output tiles,
-//   one 128-wide quant group a K step, a 3-stage cp.async ring in dynamic
-//   shared memory, wgmma m64n128k16 from 128-byte-swizzled tiles read in
-//   their stored layout (the trans flags are the descriptors' transpose
-//   bits).  Between a stage's arrival and its products the block QDQs the
-//   stage's A and B tiles in place: one warp a quant row, lane l owning
-//   k = l + 32 j, with the unchanged codec; a tile-mode group is the whole
-//   staged 128 x 128 tile, so its amax is a block max over shared memory.
+//   gemm_sm90.cuh, which tiled_mm.cu runs too.  BM x BN output tiles
+//   of the caller's choice (128 x 128, 128 x 256 or 256 x 128: the
+//   reference's (bm, bn), resolved per call from the tuning table,
+//   kernels/autotune.py), one 128-wide quant group a K step (bk = 128), a
+//   cp.async ring in dynamic shared memory, wgmma m64n128k16 from
+//   128-byte-swizzled tiles read in their stored layout (the trans flags
+//   are the descriptors' transpose bits).  Between a stage's arrival and
+//   its products the block QDQs the stage's A and B tiles in place: one
+//   warp a quant row, lane l owning k = l + 32 j, with the unchanged
+//   codec; a tile-mode group is 128 quant rows of the stage (two groups
+//   in a 256-wide stage), so its amax is a block max over shared memory.
 //   Bound: operations at every training shape, 2 M N K (8192 x 768 x
 //   3072: 38.7 GFLOP, 39 us at 989 TFLOP/s bf16).  What holds it back is
-//   the QDQ on the CUDA cores: each A tile is quantized N / 128 times and
-//   each B tile M / 128 times (the TPU kernel's cache_a / cache_b has no
+//   the QDQ on the CUDA cores: each A tile is quantized N / BN times and
+//   each B tile M / BM times (the TPU kernel's cache_a / cache_b has no
 //   counterpart here yet), ~300 M QDQs of ~30 instructions at the FFN
-//   shapes, so a quantizing launch is expected near 0.3-0.6 ms; a pass x
-//   pass launch (the FFN dgrad) runs no QDQ and is a plain GEMM.
+//   shapes with 128 x 128 tiles; a 256-wide side halves the other
+//   operand's share.  A pass x pass launch (the FFN dgrad) runs no QDQ
+//   and is a plain GEMM.  The tiling never changes a value: the QDQ is
+//   keyed by global coordinates and every output element is summed by
+//   the same instructions in the same order.
 // - f32 (tensor cores would take it as TF32), or M <= 16 (decode): CUDA-
 //   core FMA with 16 x 32 tiles for M <= 16 and 32 x 32 otherwise (f32),
 //   static shared memory; each K step loads the tiles (zero outside the
@@ -52,7 +58,9 @@
 // the first output column (n0 == 0) write A's row partials and only those
 // of the first output row (m0 == 0) write B's, one per (quant row,
 // k-slab), computed from the shared tile before it is quantized in place;
-// codec.cuh's two fold kernels fold them after the main kernel.
+// codec.cuh's two fold kernels fold them after the main kernel (into
+// 128-row slabs, then the total), so the stats do not depend on the
+// tiling either.
 // Zero-filled ragged edges add nothing to any lane, and the count lane
 // counts the columns inside K, which masks the padding as the reference's
 // m_real / k_real do.  Each quant row is QDQ'd by one warp, so the
@@ -276,49 +284,66 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route: QDQ one staged 128 x 128 operand tile in place
-// (gemm_sm90.cuh's layout; kKMajor: quant rows are the stored rows).  A
-// tile-mode group is the whole stage, zero outside the operand, so its
-// amax is a block max over shared memory.  Quant rows past the operand
-// (rows) are zero and stay zero: skipped.
-template <bool kExtra, bool kKMajor>
+// The tensor-core route: QDQ one staged operand tile in place: kExtent
+// quant rows (A's M rows, B's N columns) of one 128-wide K step, in
+// gemm_sm90.cuh's layout (kKMajor: quant rows are the stored rows).  A
+// tile-mode group is 128 quant rows of the stage (one at extent 128, two
+// at 256), zero outside the operand, so each group's amax is a block max
+// over its part of the stage.  Quant rows past the operand (rows) are
+// zero and stay zero: skipped.
+template <bool kExtra, bool kKMajor, int kExtent>
 __device__ __forceinline__ void qdq_stage(uint8_t* tile, const Operand& op,
                                           int mn0, int rows, int k0, int K,
                                           int n_ks, bool stats) {
   using bf16 = __nv_bfloat16;
+  constexpr int kGroups = kExtent / codec::kGroup;
+  constexpr int kStoredRows = kKMajor ? kExtent : sm90::kKStep;
+  static_assert(kGroups == 1 || kGroups == 2, "a stage of 128 or 256 rows");
   if (op.mode == codec::kPass) return;
-  float tile_s = 0.f;
+  float tile_s[kGroups] = {};
   if (op.mode == codec::kTile) {
+    // Group g's bytes: K-major, rows 128 g .. 128 g + 127 of each 64-wide
+    // panel of kExtent rows; MN-major, panels 2 g and 2 g + 1.
     const auto* w = reinterpret_cast<const __nv_bfloat162*>(tile);
-    float m = 0.f;
-    for (int i = threadIdx.x; i < sm90::kOperandBytes / 4;
+    float m[kGroups] = {};
+    for (int i = threadIdx.x; i < kExtent * sm90::kKStep / 2;
          i += sm90::kThreads) {
       const float2 v = __bfloat1622float2(w[i]);
-      m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+      const float x = fmaxf(fabsf(v.x), fabsf(v.y));
+      const int g = kGroups == 1 ? 0
+                    : kKMajor    ? (i >> 12) & 1   // 4 i a byte, 16 KB
+                                 : i >> 13;        // 32 KB a group
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j)
+        if (j == g) m[j] = fmaxf(m[j], x);
     }
-    tile_s = codec::group_scale(codec::block_max(m), op.f);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      tile_s[j] = codec::group_scale(codec::block_max(m[j]), op.f);
   }
   const int lane = threadIdx.x & 31;
-  for (int q = threadIdx.x >> 5; q < sm90::kTile && mn0 + q < rows;
+  for (int q = threadIdx.x >> 5; q < kExtent && mn0 + q < rows;
        q += sm90::kThreads / 32)
     qdq_row<bf16, kExtra>(
         [&](int j) -> bf16& {
           const int k = lane + 32 * j;
           return *reinterpret_cast<bf16*>(
-              tile + (kKMajor ? sm90::swz(q, k) : sm90::swz(k, q)));
+              tile + (kKMajor ? sm90::swz<kStoredRows>(q, k)
+                              : sm90::swz<kStoredRows>(k, q)));
         },
-        op, tile_s, mn0 + q, k0, K, n_ks, stats);
+        op, q < codec::kGroup ? tile_s[0] : tile_s[kGroups - 1], mn0 + q,
+        k0, K, n_ks, stats);
 }
 
 // kAKMaj: A' is K-major (A stored (M, K)); kBKMaj: B' is K-major (B
-// stored (N, K), trans_b).
-template <bool kAKMaj, bool kBKMaj, bool kExtra>
+// stored (N, K), trans_b).  (BM, BN): the output tiling (gemm_sm90.cuh).
+template <bool kAKMaj, bool kBKMaj, bool kExtra, int BM, int BN>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     qmm_stream_tc_kernel(sm90::Operand a, sm90::Operand b,
                          __nv_bfloat16* __restrict__ c, int M, int N, int K,
                          Operand oa, Operand ob) {
   extern __shared__ uint8_t smem[];
-  const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   c += sm90::to_pair(a, b, M, N);
   const int n_ks = (K + kBK - 1) / kBK;
   // each quantized element's stats fold once (see the header)
@@ -327,41 +352,59 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  sm90::mainloop<kAKMaj, kBKMaj>(
+  sm90::mainloop<kAKMaj, kBKMaj, BM, BN>(
       acc, smem, a, b, m0, n0, K, [&](uint8_t* ta, uint8_t* tb, int k0) {
-        qdq_stage<kExtra, kAKMaj>(ta, oa, m0, M, k0, K, n_ks, stats_a);
-        qdq_stage<kExtra, kBKMaj>(tb, ob, n0, N, k0, K, n_ks, stats_b);
+        qdq_stage<kExtra, kAKMaj, BM>(ta, oa, m0, M, k0, K, n_ks, stats_a);
+        qdq_stage<kExtra, kBKMaj, BN>(tb, ob, n0, N, k0, K, n_ks, stats_b);
       });
-  sm90::store_tile(acc, c, M, N, m0, n0);
+  sm90::store_tile<BM, BN>(acc, c, M, N, m0, n0);
 }
 
-template <bool kAKMaj, bool kBKMaj, bool kExtra>
+template <bool kAKMaj, bool kBKMaj, bool kExtra, int BM, int BN>
 int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
            int N, int K, int batch, const Operand& oa, const Operand& ob,
            cudaStream_t s) {
-  auto* kern = qmm_stream_tc_kernel<kAKMaj, kBKMaj, kExtra>;
-  const cudaError_t attr = sm90::allow_smem(kern);
+  auto* kern = qmm_stream_tc_kernel<kAKMaj, kBKMaj, kExtra, BM, BN>;
+  const cudaError_t attr = sm90::allow_smem<BM, BN>(kern);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
-                  (M + sm90::kTile - 1) / sm90::kTile, batch);
-  kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
+  kern<<<grid, sm90::kThreads, sm90::Tiling<BM, BN>::kSmemBytes, s>>>(
       a, b, static_cast<__nv_bfloat16*>(c), M, N, K, oa, ob);
   return (int)cudaGetLastError();
 }
 
+template <bool kExtra, int BM, int BN>
+int launch_tc(const sm90::Operand& A, const sm90::Operand& B, void* c,
+              int M, int N, int K, int batch, const Operand& oa,
+              const Operand& ob, int ta, int tb, cudaStream_t s) {
+  if (ta && tb)
+    return run_tc<false, true, kExtra, BM, BN>(A, B, c, M, N, K, batch, oa,
+                                               ob, s);
+  if (ta)
+    return run_tc<false, false, kExtra, BM, BN>(A, B, c, M, N, K, batch, oa,
+                                                ob, s);
+  if (tb)
+    return run_tc<true, true, kExtra, BM, BN>(A, B, c, M, N, K, batch, oa,
+                                              ob, s);
+  return run_tc<true, false, kExtra, BM, BN>(A, B, c, M, N, K, batch, oa, ob,
+                                             s);
+}
+
+// Every trans pair of every built tiling (sm90::tile_built).
 template <bool kExtra>
 int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
               int batch, const Operand& oa, const Operand& ob, int ta,
-              int tb, cudaStream_t s) {
+              int tb, int bm, int bn, cudaStream_t s) {
   const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
   const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
-  if (ta && tb)
-    return run_tc<false, true, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
-  if (ta)
-    return run_tc<false, false, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
-  if (tb)
-    return run_tc<true, true, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
-  return run_tc<true, false, kExtra>(A, B, c, M, N, K, batch, oa, ob, s);
+  if (bm == 256)
+    return launch_tc<kExtra, 256, 128>(A, B, c, M, N, K, batch, oa, ob, ta,
+                                       tb, s);
+  if (bn == 256)
+    return launch_tc<kExtra, 128, 256>(A, B, c, M, N, K, batch, oa, ob, ta,
+                                       tb, s);
+  return launch_tc<kExtra, 128, 128>(A, B, c, M, N, K, batch, oa, ob, ta, tb,
+                                     s);
 }
 
 }  // namespace
@@ -378,10 +421,13 @@ extern "C" int qmm_stream_route(int dtype, int M) {
 // (b_stats): null, or three f32 device pointers (row partials (M, n_ks,
 // 8), slab partials (ceil(M / 128), n_ks, 8), the (8,) result) for the
 // stats epilogue and its fold, n_ks = ceil(K / 128); for B the quant rows
-// are N.  The route is qmm_stream_route(dtype, M): the tensor-core kernel
-// takes 193 KB of dynamic shared memory (3 stages of two 32 KB tiles),
-// the FMA kernels stay under the 48 KB static limit (f32 32x32 tiles,
-// 34 KB with the pad; 16x32 for M <= 16).
+// are N.  bm / bn: the output tiling of the tensor-core route, one of
+// sm90::tile_built's (the FMA route keeps its own tiles and ignores
+// them).  The route is qmm_stream_route(dtype, M): the tensor-core kernel
+// takes 193 KB of dynamic shared memory (3 stages of two 32 KB tiles at
+// 128 x 128, 2 stages of 32 + 64 KB where one side is 256), the FMA
+// kernels stay under the 48 KB static limit (f32 32x32 tiles, 34 KB with
+// the pad; 16x32 for M <= 16).
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int M, int N, int K, int batch, int dtype,
                                  int a_mode,
@@ -391,7 +437,8 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int trans_a, int trans_b, int a_sr,
                                  unsigned int a_seed, int b_sr,
                                  unsigned int b_seed, void** a_stats,
-                                 void** b_stats, void* stream) {
+                                 void** b_stats, int bm, int bn,
+                                 void* stream) {
   const Operand oa{a_mode, codec::make_fmt(a_qmax, a_emin, a_mbits, a_pow2),
                    {a_sr, a_seed},
                    a_stats ? static_cast<float*>(a_stats[0]) : nullptr};
@@ -402,16 +449,16 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
       b_mode < codec::kPass || b_mode > codec::kTile ||
       (dtype != 0 && dtype != 1) || batch > 65535 ||
-      (batch > 1 && (a_stats || b_stats)))
+      (batch > 1 && (a_stats || b_stats)) || !sm90::tile_built(bm, bn))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
   const bool extra = a_sr || b_sr || a_stats || b_stats;
   int err;
   if (sm90::tensor_core_route(dtype, M))
     err = extra ? launch_tc<true>(a, b, c, M, N, K, batch, oa, ob, trans_a,
-                                  trans_b, s)
+                                  trans_b, bm, bn, s)
                 : launch_tc<false>(a, b, c, M, N, K, batch, oa, ob, trans_a,
-                                   trans_b, s);
+                                   trans_b, bm, bn, s);
   else if (dtype == 0)
     err = M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, batch, oa, ob,
                                           trans_a, trans_b, s)

@@ -16,9 +16,10 @@
 // rule as qmm_stream.cu):
 // - bf16, M > 16 (prefill, training): the tensor-core main loop of
 //   gemm_sm90.cuh with nothing between a stage's arrival and its products:
-//   128 x 128 output tiles, 128-wide K steps through a 3-stage cp.async
-//   ring, wgmma m64n128k16 from 128-byte-swizzled tiles in their stored
-//   layout.  It is the loop qmm_stream.cu runs, so quantize_rows +
+//   BM x BN output tiles of the caller's choice (128 x 128, 128 x 256 or
+//   256 x 128, the same tilings as qmm_stream.cu), 128-wide K steps
+//   through a cp.async ring, wgmma m64n128k16 from 128-byte-swizzled
+//   tiles in their stored layout.  It is the loop qmm_stream.cu runs, so quantize_rows +
 //   tiled_mm equals the stream pipeline bit for bit.  Bound: operations,
 //   2 M N K (8192 x 768 x 768: 9.7 GFLOP, 9.8 us at 989 TFLOP/s bf16).
 //   What holds it back: every block loads its own A and B tiles (a 128 x
@@ -156,43 +157,54 @@ int launch(const void* a, const void* b, void* c, int M, int N, int K,
 }
 
 // kAKMaj: A' is K-major (A stored (M, K)); kBKMaj: B' is K-major (B
-// stored (N, K), trans_b).
-template <bool kAKMaj, bool kBKMaj>
+// stored (N, K), trans_b).  (BM, BN): the output tiling (gemm_sm90.cuh).
+template <bool kAKMaj, bool kBKMaj, int BM, int BN>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     tiled_mm_tc_kernel(sm90::Operand a, sm90::Operand b,
                        __nv_bfloat16* __restrict__ c, int M, int N, int K) {
   extern __shared__ uint8_t smem[];
-  const int m0 = blockIdx.y * sm90::kTile, n0 = blockIdx.x * sm90::kTile;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   c += sm90::to_pair(a, b, M, N);
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  sm90::mainloop<kAKMaj, kBKMaj>(acc, smem, a, b, m0, n0, K,
-                                 [](uint8_t*, uint8_t*, int) {});
-  sm90::store_tile(acc, c, M, N, m0, n0);
+  sm90::mainloop<kAKMaj, kBKMaj, BM, BN>(acc, smem, a, b, m0, n0, K,
+                                         [](uint8_t*, uint8_t*, int) {});
+  sm90::store_tile<BM, BN>(acc, c, M, N, m0, n0);
 }
 
-template <bool kAKMaj, bool kBKMaj>
+template <bool kAKMaj, bool kBKMaj, int BM, int BN>
 int run_tc(const sm90::Operand& a, const sm90::Operand& b, void* c, int M,
            int N, int K, int batch, cudaStream_t s) {
-  auto* kern = tiled_mm_tc_kernel<kAKMaj, kBKMaj>;
-  const cudaError_t attr = sm90::allow_smem(kern);
+  auto* kern = tiled_mm_tc_kernel<kAKMaj, kBKMaj, BM, BN>;
+  const cudaError_t attr = sm90::allow_smem<BM, BN>(kern);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + sm90::kTile - 1) / sm90::kTile,
-                  (M + sm90::kTile - 1) / sm90::kTile, batch);
-  kern<<<grid, sm90::kThreads, sm90::kSmemBytes, s>>>(
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, batch);
+  kern<<<grid, sm90::kThreads, sm90::Tiling<BM, BN>::kSmemBytes, s>>>(
       a, b, static_cast<__nv_bfloat16*>(c), M, N, K);
   return (int)cudaGetLastError();
 }
 
+template <int BM, int BN>
+int launch_tc(const sm90::Operand& A, const sm90::Operand& B, void* c,
+              int M, int N, int K, int batch, int ta, int tb,
+              cudaStream_t s) {
+  if (ta && tb) return run_tc<false, true, BM, BN>(A, B, c, M, N, K, batch, s);
+  if (ta) return run_tc<false, false, BM, BN>(A, B, c, M, N, K, batch, s);
+  if (tb) return run_tc<true, true, BM, BN>(A, B, c, M, N, K, batch, s);
+  return run_tc<true, false, BM, BN>(A, B, c, M, N, K, batch, s);
+}
+
+// Every trans pair of every built tiling (sm90::tile_built).
 int launch_tc(const void* a, const void* b, void* c, int M, int N, int K,
-              int batch, int ta, int tb, cudaStream_t s) {
+              int batch, int ta, int tb, int bm, int bn, cudaStream_t s) {
   const sm90::Operand A = sm90::make_operand(a, ta ? K : M, ta ? M : K);
   const sm90::Operand B = sm90::make_operand(b, tb ? N : K, tb ? K : N);
-  if (ta && tb) return run_tc<false, true>(A, B, c, M, N, K, batch, s);
-  if (ta) return run_tc<false, false>(A, B, c, M, N, K, batch, s);
-  if (tb) return run_tc<true, true>(A, B, c, M, N, K, batch, s);
-  return run_tc<true, false>(A, B, c, M, N, K, batch, s);
+  if (bm == 256)
+    return launch_tc<256, 128>(A, B, c, M, N, K, batch, ta, tb, s);
+  if (bn == 256)
+    return launch_tc<128, 256>(A, B, c, M, N, K, batch, ta, tb, s);
+  return launch_tc<128, 128>(A, B, c, M, N, K, batch, ta, tb, s);
 }
 
 }  // namespace
@@ -203,16 +215,20 @@ extern "C" int tiled_mm_route(int dtype, int M) {
 
 // M, N, K are the effective (A' M x K, B' K x N) sizes of one pair;
 // batch pairs are stored back to back (1: an unbatched call).  dtype: 0 =
-// float32, 1 = bfloat16.  The route is tiled_mm_route(dtype, M).
+// float32, 1 = bfloat16.  bm / bn: the output tiling of the tensor-core
+// route, one of sm90::tile_built's (the FMA route keeps its own tiles
+// and ignores them).  The route is tiled_mm_route(dtype, M).
 extern "C" int tiled_mm_launch(const void* a, const void* b, void* c, int M,
                                int N, int K, int batch, int dtype,
-                               int trans_a, int trans_b, void* stream) {
+                               int trans_a, int trans_b, int bm, int bn,
+                               void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if ((dtype != 0 && dtype != 1) || batch > 65535)
+  if ((dtype != 0 && dtype != 1) || batch > 65535 ||
+      !sm90::tile_built(bm, bn))
     return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
   if (sm90::tensor_core_route(dtype, M))
-    return launch_tc(a, b, c, M, N, K, batch, trans_a, trans_b, s);
+    return launch_tc(a, b, c, M, N, K, batch, trans_a, trans_b, bm, bn, s);
   if (dtype == 0)
     return M <= 16 ? launch<float, 16, 32>(a, b, c, M, N, K, batch, trans_a,
                                            trans_b, s)

@@ -26,6 +26,14 @@ one (8,) f32 vector per quantized operand (None for ``pass``), folded in
 one canonical order (``ref.quant_stats_ref``) by every kernel, so the
 pipelines agree on them bit for bit; ``finalize_quant_stats`` reduces a
 vector to the telemetry stats.
+
+Tiling (the tensor-core route's ``(bm, bn, bk)``, the reference's rule):
+explicit tiles win; when all three are omitted the tuning table
+(``kernels.autotune``) is consulted, 128 x 128 x 128 on a miss; a partial
+set skips the table (the rest 128).  Resolution happens per call on the
+host, so a CUDA graph's capture sees a fixed tiling.  A tiling the
+kernels are not built for raises ``ValueError``.  No tiling changes a
+value.
 """
 from __future__ import annotations
 
@@ -34,6 +42,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
+from repro_torch.kernels.build import (TILINGS, batch_of, check_tiling,
+                                       effective_dims)
 from repro_torch.kernels.qmm_stream import qmm_stream
 from repro_torch.kernels.quantize_rows import quantize_rows
 from repro_torch.kernels.ref import STATS_WIDTH
@@ -41,7 +52,10 @@ from repro_torch.kernels.tiled_mm import tiled_mm
 
 __all__ = ["QUANT_MODES", "PIPELINES", "STATS_WIDTH", "stream_supported",
            "resolve_pipeline", "quantize_panels", "fused_qmm",
-           "finalize_quant_stats", "default_pipeline", "use_pipeline"]
+           "finalize_quant_stats", "default_pipeline", "use_pipeline",
+           "resolve_qmm_tiles"]
+
+BLOCK = 128           # the quant group edge, and the table's key block
 
 QUANT_MODES = ("pass", "block", "tile", "token", "tensor")
 PIPELINES = ("stream", "two_pass")
@@ -122,6 +136,32 @@ def quantize_panels(t: torch.Tensor, *, mode: str = "block",
                          collect_stats=collect_stats)
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def resolve_qmm_tiles(a: torch.Tensor, b: torch.Tensor, a_mode: str,
+                      b_mode: str, trans_a: bool, trans_b: bool,
+                      bm=None, bn=None, bk=None):
+    """The ``(bm, bn, bk)`` a ``fused_qmm`` call runs at (module
+    docstring) and the call's table key.  The key's dims are one pair's
+    (M, N, K) rounded up to the block, as the reference pads before its
+    lookup."""
+    m, k, n = effective_dims(a, b, trans_a, trans_b)
+    dims = tuple(-(-d // BLOCK) * BLOCK for d in (m, n, k))
+    dtypes, modes = (_dtype_name(a), _dtype_name(b)), (a_mode, b_mode)
+    key = autotune.tuning_key(*dims, dtypes, modes, (trans_a, trans_b),
+                              BLOCK)
+    if bm is None and bn is None and bk is None:
+        bm, bn, bk = autotune.resolve_tiles(
+            *dims, dtypes=dtypes, modes=modes, trans=(trans_a, trans_b),
+            block=BLOCK) or TILINGS[0]
+    else:
+        bm, bn, bk = (BLOCK if t is None else t for t in (bm, bn, bk))
+    check_tiling(bm, bn, bk)
+    return (bm, bn, bk), key
+
+
 def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
               a_mode: str = "block", b_mode: str = "tile",
               a_fmt: str = "fp4_e2m1", b_fmt: str = "fp4_e2m1",
@@ -130,7 +170,8 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
               seed_a=None, seed_b=None,
               trans_a: bool = False, trans_b: bool = False,
               pipeline: Optional[str] = None,
-              collect_stats: bool = False):
+              collect_stats: bool = False, bm: Optional[int] = None,
+              bn: Optional[int] = None, bk: Optional[int] = None):
     """``y = Q(A') @ Q(B')``; ``A' = a.T`` under ``trans_a`` (same for B').
 
     Effective shapes A' (M, K), B' (K, N), any sizes: the kernels mask the
@@ -140,15 +181,30 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
     ``jax.vmap`` over its kernels; no stats).  Per-operand modes ``pass | block | tile | token |
     tensor``; groups of 128 along K.  ``a_sr`` / ``b_sr`` need their
     seeds; with ``collect_stats`` returns ``(y, (stats_a, stats_b))``.
+    ``bm`` / ``bn`` / ``bk``: the tiling (module docstring); a batched
+    call keys on one pair's dims, as the reference's ``jax.vmap`` over
+    its ``fused_qmm`` does.
     """
     if a_mode not in QUANT_MODES or b_mode not in QUANT_MODES:
         raise ValueError(f"unknown modes {(a_mode, b_mode)}")
-    if resolve_pipeline(pipeline, a_mode, b_mode) == "stream":
+    pipeline = resolve_pipeline(pipeline, a_mode, b_mode)
+    (bm, bn, _), key = resolve_qmm_tiles(a, b, a_mode, b_mode, trans_a,
+                                         trans_b, bm, bn, bk)
+    if autotune.recording_now():
+        m, k, n = effective_dims(a, b, trans_a, trans_b)
+        autotune.note_call(
+            key, m=m, n=n, k=k, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt,
+            b_fmt=b_fmt, a_pow2=a_pow2, b_pow2=b_pow2,
+            dtype=_dtype_name(a), trans_a=trans_a, trans_b=trans_b,
+            a_sr=a_sr, b_sr=b_sr, seed_a=seed_a, seed_b=seed_b,
+            collect_stats=collect_stats,
+            batch=batch_of(a) if a.dim() == 3 else 0, pipeline=pipeline)
+    if pipeline == "stream":
         return qmm_stream(a, b, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt,
                           b_fmt=b_fmt, a_pow2=a_pow2, b_pow2=b_pow2,
                           trans_a=trans_a, trans_b=trans_b, a_sr=a_sr,
                           b_sr=b_sr, seed_a=seed_a, seed_b=seed_b,
-                          collect_stats=collect_stats)
+                          collect_stats=collect_stats, bm=bm, bn=bn)
     # Each quantize pass writes in its operand's stored layout (emit_trans
     # undoes trans), so tiled_mm keeps the original trans flags.  Stats, as
     # in the reference, come from the quantized operands only.
@@ -167,5 +223,5 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
                           sr=b_sr, seed=seed_b, collect_stats=collect_stats)
         if collect_stats:
             b, stats[1] = b
-    y = tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b)
+    y = tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b, bm=bm, bn=bn)
     return (y, tuple(stats)) if collect_stats else y

@@ -45,7 +45,8 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                trans_a: bool = False, trans_b: bool = False,
                key_data=None, salt: int = 0,
                pipeline: Optional[str] = None,
-               collect_stats: bool = False,
+               bm: Optional[int] = None, bn: Optional[int] = None,
+               bk: Optional[int] = None, collect_stats: bool = False,
                role: Optional[str] = None, census=None):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
@@ -58,6 +59,8 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     dgrad, 4 wgrad), operand index 0 for A and 1 for B.  With
     ``collect_stats`` returns ``(y, (stats_a, stats_b))``, raw stats
     vectors (``fp4_matmul.finalize_quant_stats`` reduces them).
+    ``pipeline`` / ``bm`` / ``bn`` / ``bk`` pass straight through to
+    ``fused_qmm`` (None: the default pipeline, the tuning table's tiles).
 
     ``census`` (``(log, (layer, class))`` from ``core.qlinear``) records
     the call as a ``pallas`` route event of ``role`` in that log, with
@@ -80,8 +83,8 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
         b_pow2=spec_b.pow2_scale, a_sr=a_sr, b_sr=b_sr,
         seed_a=fold_seed(key_data, salt, 0) if a_sr else None,
         seed_b=fold_seed(key_data, salt, 1) if b_sr else None,
-        trans_a=trans_a, trans_b=trans_b, pipeline=pipeline,
-        collect_stats=collect_stats)
+        trans_a=trans_a, trans_b=trans_b, pipeline=pipeline, bm=bm, bn=bn,
+        bk=bk, collect_stats=collect_stats)
 
 
 def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",

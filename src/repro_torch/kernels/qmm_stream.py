@@ -16,7 +16,12 @@ run on the tensor cores, f32 and M <= 16 on CUDA-core FMA loops (the
 library's rule, ``KERNEL.tensor_core``; ``tiled_mm`` follows the same
 one).  3-D operands (E, ., .) run E products in one batched launch (the
 MoE experts, each pair as it would run alone, every pair with the same
-SR noise; no stats).  ``qmm_stream_plain`` is the plain version.
+SR noise; no stats).  ``bm`` / ``bn``: the tensor-core route's output
+tiling, one of ``build.TILINGS`` (128 x 128 unless the caller says;
+``fused_qmm`` resolves it from the tuning table); an unbuilt one raises
+``ValueError``.  The FMA route keeps its own fixed tiles, so there a
+tiling changes nothing, and no tiling changes a value.
+``qmm_stream_plain`` is the plain version.
 """
 from __future__ import annotations
 
@@ -25,9 +30,9 @@ import ctypes
 import torch
 
 from repro_torch.core import routing
-from repro_torch.kernels.build import (CudaKernel, batch_of, cuda_operands,
-                                       effective_dims, stats_buffers,
-                                       stream_ptr)
+from repro_torch.kernels.build import (CudaKernel, batch_of, check_tiling,
+                                       cuda_operands, effective_dims,
+                                       stats_buffers, stream_ptr)
 from repro_torch.kernels.quantize_rows import (MODE_CODES, fmt_args,
                                                mode_spec, seed_arg, sr_noise)
 from repro_torch.kernels.ref import f32_matmul, qdq_grid_ref, \
@@ -41,18 +46,20 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNEL = CudaKernel("qmm_stream",
                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _F, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                     _I, _U, _I, _U, _P, _P, _P])
+                     _I, _U, _I, _U, _P, _P, _I, _I, _P])
 
 
 def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                      b_mode: str, a_fmt: str, b_fmt: str,
                      a_pow2: bool = False, b_pow2: bool = False,
                      trans_a: bool = False, trans_b: bool = False,
-                     seed_a=None, seed_b=None, collect_stats: bool = False):
+                     seed_a=None, seed_b=None, collect_stats: bool = False,
+                     bm: int = 128, bn: int = 128):
     """Plain PyTorch version: unfused QDQ of both operands (SR noise of
     ``seed_a`` / ``seed_b`` when given), then an f32-accumulated product;
     with ``collect_stats`` also the stats vectors (None for a pass
-    operand).  3-D operands pair by pair (no stats)."""
+    operand).  3-D operands pair by pair (no stats).  ``bm`` / ``bn`` are
+    taken and ignored: a tiling never changes a value."""
     if a.dim() == 3:
         if collect_stats:
             raise ValueError("a batched product has no stats")
@@ -80,11 +87,12 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                b_pow2: bool = False, trans_a: bool = False,
                trans_b: bool = False, a_sr: bool = False,
                b_sr: bool = False, seed_a=None, seed_b=None,
-               collect_stats: bool = False):
+               collect_stats: bool = False, bm: int = 128, bn: int = 128):
     """``Q(A') @ Q(B')``, or ``(y, (stats_a, stats_b))`` with
     ``collect_stats`` (None for a pass operand); CUDA tensors launch the
-    kernel (and, with stats, the two fold kernels), CPU tensors take the
-    plain version."""
+    kernel (and, with stats, the two fold kernels) at tiling (bm, bn),
+    CPU tensors take the plain version."""
+    check_tiling(bm, bn)
     for mode in (a_mode, b_mode):
         if mode not in STREAM_MODES:
             raise ValueError(f"the stream pipeline takes {STREAM_MODES}, "
@@ -121,12 +129,12 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                       *fmt_args(a_mode, a_fmt, a_pow2),
                       *fmt_args(b_mode, b_fmt, b_pow2), int(trans_a),
                       int(trans_b), int(a_sr), seed_arg(seed_a), int(b_sr),
-                      seed_arg(seed_b), *ptrs, stream_ptr(a),
+                      seed_arg(seed_b), *ptrs, bm, bn, stream_ptr(a),
                       operands=(a, b), kernels=1 + 2 * (n_stats > 0),
                       trans=trans_a or trans_b,
                       sr=a_sr or b_sr, stats=n_stats > 0,
                       tc=KERNEL.tensor_core(dtype, m),
-                      batched=a.dim() == 3)
+                      batched=a.dim() == 3, tiles=(bm, bn))
     if not collect_stats:
         return c
     return c, tuple(None if s is None else s[-1] for s in stats)

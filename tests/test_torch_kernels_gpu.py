@@ -42,6 +42,7 @@ from repro_torch.kernels import qmm_stream as qs
 from repro_torch.kernels import quantize as qb
 from repro_torch.kernels import quantize_rows as qr
 from repro_torch.kernels import tiled_mm as tm
+from repro_torch.kernels.build import TILINGS
 
 pytestmark = pytest.mark.gpu
 
@@ -265,16 +266,17 @@ def test_route_counters(cuda, kernel, dtype, m, tc):
     assert kern.tensor_core(1 if dtype == torch.bfloat16 else 0, m) == tc
 
 
+@pytest.mark.parametrize("tiles", [t[:2] for t in TILINGS])
 @pytest.mark.parametrize("trans_a,trans_b", TRANS)
 @pytest.mark.parametrize("kernel", ["qmm_stream", "tiled_mm"])
-def test_rows_do_not_depend_on_m(cuda, kernel, trans_a, trans_b):
+def test_rows_do_not_depend_on_m(cuda, kernel, trans_a, trans_b, tiles):
     """On the tensor-core route a row's result does not depend on the
     other rows: rows 0-16 of an M = 300 call bitwise equal an M = 17 call
-    on the same first 17 rows, in every layout."""
+    on the same first 17 rows, in every layout, at every tiling."""
     a = _stored((300, 384), trans_a, torch.bfloat16, 42)
     b = _stored((384, 320), trans_b, torch.bfloat16, 43, 0.05)
     a17 = (a[:, :17] if trans_a else a[:17]).contiguous()
-    kw = dict(trans_a=trans_a, trans_b=trans_b)
+    kw = dict(trans_a=trans_a, trans_b=trans_b, bm=tiles[0], bn=tiles[1])
     if kernel == "qmm_stream":
         kw.update(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
                   b_fmt="fp4_e2m1")
