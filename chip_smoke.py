@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--phase slice | serve_swa | moe_kernels |
                            train_moe | serve_moe | ssm_kernels |
                            train_ssm | serve_ssm | hybrid | vlm | audio |
-                           train_kernels | autotune | train_cli]
+                           train_kernels | autotune | train_cli |
+                           train_compressed | train_mesh | train_dp]
 
 With ``--phase`` it runs the build and that phase alone and prints no ok
 line.  Phases, each printing one line (a failed phase raises: no ok line, exit
@@ -67,10 +68,11 @@ code 1):
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
-3b. serve_swa — serves h2o-danube-3-4b at full width and a third of its
-   depth (8 of its 24 layers, SWA_LAYERS: cut to 12 so that the whole
+3b. serve_swa — serves h2o-danube-3-4b at full width and a sixth of its
+   depth (4 of its 24 layers, SWA_LAYERS: cut to 12 so that the whole
    run stays near half its time limit with the MoE phases, then to 8 to
-   make room for ``train_cli``; d 3840, 32 heads and
+   make room for ``train_cli``, then to 4 for the data-parallel phases
+   (5b-5d); d 3840, 32 heads and
    8 KV heads of 120, d_ff 10240, vocab 32000, sliding window 4096;
    seeded init drawn on the card) through the packed-FP4
    ``ContinuousBatcher`` (fp8 KV, paper_fp4, linear_impl "pallas",
@@ -136,6 +138,34 @@ code 1):
    control (layer 0's SR wgrad replayed with salt 5 for 4) that must miss.
    Two ``train_telemetry_profile`` lines split one step of the recipe
    without and with telemetry by kernel.
+5b. train_compressed — phase 4's run (gpt2-125m, full width and depth,
+   8 x 1024, 8 steps, paper_fp4, both impls "pallas") with
+   ``grad_compression="fp8"`` through ``Trainer``.  Gates: finite
+   losses; every GEMM and attention kernel launched; steps 0 and 1's
+   compressed gradients and new residuals (``fp8_compress_grads``),
+   replayed on the CPU from the card's own inputs, bitwise equal (RTN on
+   a per-tensor scale is integer exact); a control, step 1 replayed with
+   its residuals dropped, that must miss; a fresh ``Trainer`` resumed
+   from the step-4 checkpoint ends bit for bit the uninterrupted run
+   (params, moments, residuals).  Prints the step p50 beside phase 4's,
+   the residual bytes and the peak memory.
+5c. train_mesh — a world of one NCCL rank: the same model on a (1, 1)
+   mesh (fsdp on), 2 steps without and with compression, bit for bit the
+   rules-free ``Trainer`` (the reference's own property); then
+   ``compressed_psum`` over the NCCL group equal to
+   ``fp8_compress_grads``; prints the collective census.
+5d. train_dp — two processes on the one card over ``gloo``, a (2, 1)
+   mesh, gpt2-125m at full width cut to 2 layers (DP_LAYERS), 4 x 1024
+   a rank.  Without compression (fsdp on) losses and parameters within
+   DP_TOL of one process on the 8-row batch; with compression (fsdp
+   off) each rank's reduced gradients and residual bitwise
+   ``compressed_reduce_dp`` over both ranks' stacked gradients in one
+   process, a control (residuals dropped) that must miss, and 1-byte
+   gradient payloads in the census (``qlint.audit_comms`` clean).
+   ``gloo`` takes CUDA tensors for ``all_reduce`` only: the ranks stage
+   ``all_gather`` / ``reduce_scatter`` through host memory
+   (``comms.host_staging``), and the phase says so.  NCCL across cards
+   is not proven by a one-card machine.
 6. speed_factors — the card's cost calibration (the reference's
    ``measure_speed_factors``): every distinct operand-spec pair of the
    fwd, dgrad and wgrad matmuls of bf16, fp8, paper_fp4 and
@@ -257,11 +287,12 @@ code 1):
    on the CPU (their first MOE_REPLAY_EXPERTS experts) within OP_BOUND,
    and a control (the w_up forward with its activation unquantized) that
    must miss it.
-8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 8 of its
+8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 4 of its
    16 layers (MOE_SERVE_LAYERS: at 16 it took 133.0 s of an 840.8 s
    run, at 12 91.4 s and at 8 61.8 s; 8 since the autotune phase and
-   the larger build of the tiled GEMM kernels came in, which keeps the
-   whole run within 840.8 s; weights drawn on the card in
+   the larger build of the tiled GEMM kernels came in, 4 since the
+   data-parallel phases (5b-5d) did, which keeps the whole run within
+   the 809.4-879.6 s it took before them; weights drawn on the card in
    bf16, experts packed to FP4 matrix by matrix, the f32 router dense)
    through the ``ContinuousBatcher``: fp8 KV, paper_fp4, every stage
    captured, 8 slots, max_len 2048, 16 requests of 16-512 prompt tokens (requests 0
@@ -428,8 +459,9 @@ each mode's time beside its mode-off time, its plain time and its bound
 of its tile launch at each shape from a profiler trace).
 
 Every phase keeps the full depth of its model but ``serve_swa``, cut to
-8 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 8 of 16 layers
-(MOE_SERVE_LAYERS), and ``vlm``, cut to its first 5 layers (VLM_LAYERS).
+4 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 4 of 16 layers
+(MOE_SERVE_LAYERS), ``vlm``, cut to its first 5 layers (VLM_LAYERS),
+and ``train_dp``, cut to 2 of 12 layers (DP_LAYERS).
 Exits non-zero without a result when there is no CUDA device or when
 the port is not beside this script.
 """
@@ -478,6 +510,17 @@ TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 REPLAY_LAYERS = (0, 11)
 # The train phase saves at step 4; a second Trainer resumes there.
 RESUME_AT = 4
+# train_compressed: the steps whose compression the CPU replays (step 1
+# carries step 0's residuals; the control drops them there).
+COMP_REPLAY_STEPS = (0, 1)
+# train_mesh: steps of each run on the (1, 1) mesh and without rules.
+MESH_STEPS = 2
+# train_dp: two gloo ranks on the card, gpt2-125m cut to DP_LAYERS,
+# DP_ROWS x 1024 tokens a rank, DP_STEPS steps.  Bars against one process
+# on both ranks' rows (paper_fp4, test_torch_train's bars: a last-bit
+# difference of summation order flips an FP4 / FP8 rounding now and then).
+DP_LAYERS, DP_ROWS, DP_STEPS = 2, 4, 3
+DP_TOL = {"loss": 1e-2, "params": 1e-2}
 # The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
 # (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
 # first_last_k with k = 2; op replay of a protected and a middle layer.
@@ -540,7 +583,7 @@ SLICE_EAGER = 4
 # its 24 layers, 4 slots over a cache of max_len 8192 (a ring of 4096
 # positions a layer), 8 requests of 3840-4096 prompt tokens and 384 new
 # tokens each: every one decodes past the window.
-SWA_LAYERS = 8
+SWA_LAYERS = 4
 SWA_SLOTS, SWA_MAX_LEN, SWA_REQUESTS, SWA_NEW = 4, 8192, 8, 384
 SWA_PROMPT = (3840, 4096)
 # The ring check: request 0's tokens teacher-forced through an f32 engine
@@ -579,9 +622,10 @@ MOE_REPLAY_EXPERTS = 2
 # router groups), for the check against the sequential generate.
 MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 8, 2048, 16, 64
 MOE_EXACT_PROMPTS = (128, 256)
-# serve_moe's depth: 8 of olmoe's 16 layers, cut so that the whole run
-# with the autotune phase stays within the 840.8 s it took before
-MOE_SERVE_LAYERS = 8
+# serve_moe's depth: 4 of olmoe's 16 layers, cut so that the whole run
+# with the data-parallel phases stays within the 809.4-879.6 s it took
+# before them
+MOE_SERVE_LAYERS = 4
 # mamba2-780m's projection shapes: d 1536 -> d_inner 3072 (in_z, in_x),
 # n_groups x d_state 128 (in_b, in_c), 48 heads (in_dt: N below one
 # 128-wide tile), and out_proj 3072 -> 1536.
@@ -2520,7 +2564,7 @@ def profile_train_step(torch, fn, state, batch, card, phase="train_profile",
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(state.params, state.opt_state, batch, 0)
+        fn(state.params, state.opt_state, state.comp_state, batch, 0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups = (("qmm_stream", ("qmm_stream_kernel", "qmm_stream_tc_kernel")),
@@ -5086,6 +5130,431 @@ def phase_train_cli(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training and fp8 gradient compression
+# ---------------------------------------------------------------------------
+
+def _gemm_kernels():
+    from repro_torch.kernels import (flash_attention, qmm_stream,
+                                     quantize_rows, tiled_mm)
+    return (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
+            flash_attention.KERNEL)
+
+
+def _gpt2_train_cfg(**over):
+    from repro_torch.configs import get_config
+    return get_config("gpt2-125m").replace(linear_impl="pallas",
+                                           attention_impl="pallas",
+                                           remat=False, **over)
+
+
+def _host_leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return [t.detach().to("cpu", copy=True) for t in tree_leaves(tree)]
+
+
+def _differing(a, b) -> int:
+    """Tensors of two lists that are not equal bit for bit."""
+    import torch
+    return sum(not torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def phase_train_compressed(torch, card, paper_p50_ms):
+    """gpt2-125m at full width and depth, TRAIN_STEPS steps of 8 x 1024
+    under paper_fp4 on the kernels with ``grad_compression="fp8"``
+    through ``Trainer``; gate the run (module docstring); return the
+    path's launch counts."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim import compression
+    from repro_torch.train import train_step as step_mod
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = _gemm_kernels()
+    cfg = _gpt2_train_cfg()
+    ckpt_dir = tempfile.TemporaryDirectory()
+    tcfg = TrainConfig(recipe="paper_fp4", total_steps=TRAIN_STEPS,
+                       global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       log_every=0, grad_compression="fp8",
+                       checkpoint_every=RESUME_AT,
+                       checkpoint_dir=ckpt_dir.name)
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    trainer = Trainer(build_model(cfg), tcfg, pipeline)
+    state = trainer.init_state(seed=0)
+    real, at, records = step_mod.fp8_compress_grads, [0], {}
+
+    def recorded(grads, residuals):   # the card's inputs and outputs
+        ins = ((_host_leaves(grads), _host_leaves(residuals))
+               if at[0] in COMP_REPLAY_STEPS else None)
+        out = real(grads, residuals)
+        if ins is not None:
+            records[at[0]] = ins + (_host_leaves(out[0]),
+                                    _host_leaves(out[1]))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.reset()
+    step_mod.fp8_compress_grads = recorded
+    try:
+        for step in range(TRAIN_STEPS):
+            at[0] = step
+            state = trainer.train(state, num_steps=1)
+    finally:
+        step_mod.fp8_compress_grads = real
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    p50 = float(np.median([r["dt"] for r in hist][1:]))
+    res_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(state.comp_state))
+    # the CPU replays the compression of each recorded step from the
+    # card's own inputs: RTN on a per-tensor scale is integer exact
+    replay = {}
+    for step, (g, r, out, new) in sorted(records.items()):
+        cpu_out, cpu_new = compression.fp8_compress_grads(g, r)
+        replay[step] = {"grads_differing": _differing(cpu_out, out),
+                        "residuals_differing": _differing(cpu_new, new),
+                        "residual_amax": max(float(t.abs().max())
+                                             for t in r)}
+    # control: step 1 replayed with its residuals dropped must miss
+    g, r, out, _ = records[1]
+    ctl_out, _ = compression.fp8_compress_grads(
+        g, [torch.zeros_like(t) for t in r])
+    control = _differing(ctl_out, out)
+    del records, g, r, out, ctl_out
+    resumed, differing, rows_equal = compressed_resume(
+        torch, cfg, tcfg, pipeline, trainer, state, ckpt_dir)
+    failures = []
+    if not all(np.isfinite(losses)):
+        failures.append(f"non-finite loss: {losses}")
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never ran: {launches}")
+    if any(v["grads_differing"] or v["residuals_differing"]
+           for v in replay.values()):
+        failures.append(f"the CPU replay of the compression differs: "
+                        f"{replay}")
+    if not control:
+        failures.append("the control (residuals dropped) did not miss")
+    if differing or not rows_equal or resumed.step != state.step:
+        failures.append(f"resume: {differing} tensors differ, rows equal "
+                        f"{rows_equal}")
+    emit({"phase": "train_compressed", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "steps": TRAIN_STEPS, "recipe": "paper_fp4",
+          "grad_compression": "fp8", "losses": losses,
+          "step_ms": [r["dt"] * 1e3 for r in hist],
+          "step_p50_ms_after_first": p50 * 1e3,
+          "uncompressed_train_step_p50_ms": paper_p50_ms,
+          "compression_ms_per_step": (None if paper_p50_ms is None
+                                      else p50 * 1e3 - paper_p50_ms),
+          "residual_bytes": res_bytes, "max_memory_allocated": int(peak),
+          "launches": launches,
+          "replay": {str(k): v for k, v in replay.items()},
+          "control_residuals_dropped_tensors_differing": control,
+          "resume": {"resumed_at": RESUME_AT, "tensors_differing":
+                     differing, "rows_equal": rows_equal}})
+    if failures:
+        raise AssertionError("train_compressed: " + "; ".join(failures))
+    return launches
+
+
+def compressed_resume(torch, cfg, tcfg, pipeline, trainer, state, ckpt_dir):
+    """A fresh ``Trainer`` resumes the compressed run from its RESUME_AT
+    checkpoint (alone in a directory) and runs to the end: (its state,
+    the tensors of params, moments and residuals that differ from the
+    uninterrupted run's, whether the rows equal)."""
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    name = f"step_{RESUME_AT:08d}"
+    with tempfile.TemporaryDirectory() as tmp:
+        os.replace(os.path.join(ckpt_dir.name, name),
+                   os.path.join(tmp, name))
+        ckpt_dir.cleanup()
+        second = Trainer(build_model(cfg), dataclasses.replace(
+            tcfg, checkpoint_dir=tmp), pipeline)
+        resumed = second.train(second.resume())
+    keys = ("loss", "grad_norm", "recipe")
+    rows_equal = ([[r[k] for k in keys] for r in second.history]
+                  == [[r[k] for k in keys]
+                      for r in trainer.history[RESUME_AT:]])
+
+    def leaves(s):
+        return (tree_leaves(s.params) + tree_leaves(s.opt_state.mu)
+                + tree_leaves(s.opt_state.nu) + tree_leaves(s.comp_state))
+    return resumed, _differing(leaves(resumed), leaves(state)), rows_equal
+
+
+def phase_train_mesh(torch, card):
+    """A world of one NCCL rank: gpt2-125m at full width on a (1, 1) mesh
+    (fsdp on), with and without fp8 compression, against the rules-free
+    ``Trainer`` (bit for bit: the reference's own property), then
+    ``compressed_psum`` over the NCCL group against
+    ``fp8_compress_grads``; prints the collective census.  Returns the
+    path's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.analysis.qlint import audit_comms
+    from repro_torch.analysis.trace import collective_bytes
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import comms
+    from repro_torch.models import build_model
+    from repro_torch.optim import compressed_psum_grads, fp8_compress_grads
+    from repro_torch.train.train_step import _grads
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    kernels = _gemm_kernels()
+    cfg = _gpt2_train_cfg()
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        for kern in kernels:
+            kern.reset()
+        out, census = {}, []
+        for comp in ("none", "fp8"):
+            runs = []
+            for mesh in (None, (1, 1)):
+                tr = Trainer(build_model(cfg), TrainConfig(
+                    recipe="paper_fp4", total_steps=TRAIN_STEPS,
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    log_every=0, grad_compression=comp, mesh_shape=mesh),
+                    pipeline)
+                st = tr.init_state(seed=0, on_device=True)
+                with comms.recording() as log:
+                    st = tr.train(st, num_steps=MESH_STEPS)
+                census += log
+                comp_leaves = (tree_leaves(st.comp_state)
+                               if comp == "fp8" else [st.comp_state])
+                runs.append((tr, tree_leaves(st.params)
+                             + tree_leaves(st.opt_state.mu)
+                             + tree_leaves(st.opt_state.nu) + comp_leaves))
+            (t0, a), (t1, b) = runs
+            out[comp] = {"tensors": len(a), "tensors_differing":
+                         _differing(a, b),
+                         "losses": [r["loss"] for r in t1.history],
+                         "rows_equal": [r["loss"] for r in t0.history]
+                         == [r["loss"] for r in t1.history],
+                         "dp_size": t1.rules.dp_size}
+            del runs, a, b
+        launches = {k.name: k.launches for k in kernels}
+        # the reduction over the NCCL group: world of one, so the shared
+        # scale is the tensor's own and it equals the single-device hook
+        model = t1.model
+        params = model.init(0, torch.float32, on_device=True)
+        batch = t1._batch(pipeline, 0)
+        _, _, grads, _ = _grads(model, t1.plan, params, batch)
+        res = [torch.full_like(g, 1e-7) for g in tree_leaves(grads)]
+        with comms.recording() as log:
+            red, new = compressed_psum_grads(tree_leaves(grads), res)
+        want, want_new = fp8_compress_grads(tree_leaves(grads), res)
+        psum_diff = _differing(red, want) + _differing(new, want_new)
+        audit, findings = audit_comms(log, expect_fp8=True)
+    finally:
+        dist.destroy_process_group()
+    failures = [f"{k}: {v['tensors_differing']} tensors differ, rows "
+                f"equal {v['rows_equal']}" for k, v in out.items()
+                if v["tensors_differing"] or not v["rows_equal"]]
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never ran: {launches}")
+    if psum_diff or findings:
+        failures.append(f"NCCL compressed_psum: {psum_diff} tensors "
+                        f"differ from fp8_compress_grads; {findings}")
+    emit({"phase": "train_mesh", "card": card, "model": cfg.name,
+          "backend": "nccl", "world": 1, "mesh": [1, 1], "fsdp": True,
+          "steps": MESH_STEPS, "global_batch": TRAIN_BATCH,
+          "seq_len": TRAIN_SEQ, "vs_rules_free": out, "launches": launches,
+          "mesh_step_census": collective_bytes(census),
+          "nccl_compressed_psum": {
+              "tensors_differing": psum_diff,
+              "census": audit, "findings": [f.to_dict() for f in findings]}})
+    if failures:
+        raise AssertionError("train_mesh: " + "; ".join(failures))
+    return launches
+
+
+def _dp_rank(rank, world, store, out_dir):
+    """One rank of ``train_dp`` (a spawned process): gpt2-125m cut to
+    DP_LAYERS on a (world, 1) mesh over gloo on the one card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import comms
+    from repro_torch.models import build_model
+    from repro_torch.optim import compressed_psum_grads
+    from repro_torch.train.train_step import _grads
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        kernels = _gemm_kernels()
+        for kern in kernels:
+            kern.reset()
+        cfg = _gpt2_train_cfg(n_layers=DP_LAYERS)
+        batch = world * DP_ROWS
+        pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
+        kw = dict(recipe="paper_fp4", total_steps=DP_STEPS,
+                  global_batch=batch, seq_len=TRAIN_SEQ, log_every=0,
+                  mesh_shape=(world, 1))
+        result = {}
+        # the choice of gloo: its all_gather / reduce_scatter take host
+        # tensors only
+        with comms.host_staging():
+            tr = Trainer(build_model(cfg), TrainConfig(**kw), pipeline)
+            st = tr.init_state(seed=0)
+            with comms.recording() as log:
+                st = tr.train(st)
+            full = tr.dp.full(st.params)     # a collective: every rank
+            result["mean"] = {
+                "losses": [r["loss"] for r in tr.history],
+                "census": [r.to_dict() for r in log],
+                "params": _host_leaves(full) if rank == 0 else None}
+            del full
+            del tr, st
+            tr = Trainer(build_model(cfg), TrainConfig(
+                **kw, grad_compression="fp8", fsdp=False), pipeline)
+            st = tr.train(tr.init_state(seed=0), num_steps=1)
+            # step 1's reduction, from this rank's gradients and the
+            # residual step 0 left it
+            rows = tr.dp.rows(tr._batch(pipeline, 1))
+            _, _, grads, _ = _grads(tr.model, tr.plan, st.params, rows)
+            res = tree_map(lambda r: r[0], st.comp_state)
+            with comms.recording() as log:
+                red, new = compressed_psum_grads(grads, res, tr.dp.group)
+            result["fp8"] = {
+                "local": _host_leaves(grads), "res": _host_leaves(res),
+                "reduced": _host_leaves(red), "new": _host_leaves(new),
+                "census": [r.to_dict() for r in log]}
+            del grads, red, new
+            st = tr.train(st)
+            result["fp8"]["losses"] = [r["loss"] for r in tr.history]
+        result["launches"] = {k.name: k.launches for k in kernels}
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_train_dp(torch, card):
+    """Two processes on the one card over gloo, a (2, 1) mesh:
+    gpt2-125m at full width cut to DP_LAYERS layers, DP_ROWS x 1024 a
+    rank.  Gates: without compression (fsdp on) losses and parameters
+    within TRAIN_TOL of one process on the whole batch; with compression
+    (fsdp off) each rank's reduced gradients and residual bitwise
+    ``compressed_reduce_dp`` over the two ranks' stacked gradients in
+    one process; 1-byte gradient payloads in the census.  Returns the
+    path's launch counts (both ranks')."""
+    import torch.multiprocessing as mp
+    from repro_torch.analysis.qlint import audit_comms
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.comms import CollectiveRecord
+    from repro_torch.models import build_model
+    from repro_torch.optim import compressed_reduce_dp
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+
+    world = 2
+    cfg = _gpt2_train_cfg(n_layers=DP_LAYERS)
+    batch = world * DP_ROWS
+    pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
+    one = Trainer(build_model(cfg), TrainConfig(
+        recipe="paper_fp4", total_steps=DP_STEPS, global_batch=batch,
+        seq_len=TRAIN_SEQ, log_every=0), pipeline)
+    st = one.train(one.init_state(seed=0))
+    one_losses = [r["loss"] for r in one.history]
+    one_params = _host_leaves(st.params)
+    del one, st
+    torch.cuda.empty_cache()
+    print("train_dp: gloo takes CUDA tensors for all_reduce only; the "
+          "ranks stage all_gather / reduce_scatter through host memory "
+          "(comms.host_staging)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_dp_rank, args=(world, os.path.join(tmp, "store"), tmp),
+                 nprocs=world, join=True)
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    mean = ranks[0]["mean"]
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(mean["losses"], one_losses))
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(mean["params"], one_params))
+    # the reduction in one process, on the card, over the stacked pieces
+    n = len(ranks[0]["fp8"]["local"])
+    g = [torch.stack([r["fp8"]["local"][i] for r in ranks]).cuda()
+         for i in range(n)]
+    res = [torch.stack([r["fp8"]["res"][i] for r in ranks]).cuda()
+           for i in range(n)]
+    red, new = compressed_reduce_dp(g, res)
+    red, new = [t.cpu() for t in red], [t.cpu() for t in new]
+    red_diff = [_differing(r["fp8"]["reduced"], red) for r in ranks]
+    new_diff = [_differing(r["fp8"]["new"], [t[i] for t in new])
+                for i, r in enumerate(ranks)]
+    ctl = compressed_reduce_dp(g, [torch.zeros_like(t) for t in res])[0]
+    control = _differing(ranks[0]["fp8"]["reduced"],
+                         [t.cpu() for t in ctl])
+    del g, res, ctl
+    census = [CollectiveRecord(**c) for c in ranks[0]["fp8"]["census"]]
+    audit, findings = audit_comms(census, expect_fp8=True)
+    mean_census = [CollectiveRecord(**c) for c in mean["census"]]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    tol = DP_TOL
+    failures = []
+    if not loss_err <= tol["loss"] or not param_err <= tol["params"]:
+        failures.append(f"2 ranks vs one process: loss rel err {loss_err}, "
+                        f"param abs err {param_err} ({tol})")
+    if any(red_diff) or any(new_diff):
+        failures.append(f"fp8 reduction vs compressed_reduce_dp: reduced "
+                        f"{red_diff}, residuals {new_diff} tensors differ")
+    if not control:
+        failures.append("the control (residuals dropped) did not miss")
+    if findings:
+        failures.append(f"comms audit: {[f.to_dict() for f in findings]}")
+    fp8_losses = ranks[0]["fp8"]["losses"]
+    if not all(np.isfinite(fp8_losses + mean["losses"])):
+        failures.append(f"non-finite loss: {mean['losses']}, {fp8_losses}")
+    if min(launches.values()) <= 0:
+        failures.append(f"a kernel of the path never ran: {launches}")
+    emit({"phase": "train_dp", "card": card, "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "backend": "gloo (all_gather / reduce_scatter staged through "
+                     "host memory)", "world": world, "mesh": [world, 1],
+          "rows_per_rank": DP_ROWS, "seq_len": TRAIN_SEQ,
+          "steps": DP_STEPS, "recipe": "paper_fp4",
+          "mean": {"fsdp": True, "losses": mean["losses"],
+                   "one_process_losses": one_losses,
+                   "loss_rel_err": loss_err, "param_abs_err": param_err,
+                   "tol": tol,
+                   "census": {r.op + ":" + r.tag + ":" + r.dtype:
+                              sum(1 for c in mean_census
+                                  if (c.op, c.tag, c.dtype)
+                                  == (r.op, r.tag, r.dtype))
+                              for r in mean_census}},
+          "fp8": {"fsdp": False, "losses": fp8_losses,
+                  "tensors": n, "reduced_differing": red_diff,
+                  "residuals_differing": new_diff,
+                  "control_residuals_dropped_differing": control,
+                  "census": audit},
+          "ranks_s": ranks_s, "launches": launches,
+          "launches_by_rank": [r["launches"] for r in ranks]})
+    if failures:
+        raise AssertionError("train_dp: " + "; ".join(failures))
+    return launches
+
+
 def phase_blockwise(torch, card):
     """``kernels.ops.quantize_blockwise`` over every 2-D weight of a seeded
     gpt2-125m (bf16): fp4 (128 x 128) tiles and fp8 (1 x 128) rows, each
@@ -5133,7 +5602,10 @@ def main() -> int:
             "train_ssm": phase_train_ssm, "serve_ssm": phase_serve_ssm,
             "hybrid": phase_hybrid, "vlm": phase_vlm, "audio": phase_audio,
             "train_kernels": phase_train_kernels,
-            "autotune": phase_autotune, "train_cli": phase_train_cli}
+            "autotune": phase_autotune, "train_cli": phase_train_cli,
+            "train_compressed": lambda torch, card:
+                phase_train_compressed(torch, card, None),
+            "train_mesh": phase_train_mesh, "train_dp": phase_train_dp}
     args = sys.argv[1:]
     if args and (len(args) != 2 or args[0] != "--phase"
                  or args[1] not in solo):
@@ -5182,6 +5654,12 @@ def main() -> int:
     train_launches, paper_p50_ms = phase_train(torch, card)
     tel_launches = phase_train_telemetry(torch, card, paper_p50_ms)
     lap("train")
+    comp_launches = phase_train_compressed(torch, card, paper_p50_ms)
+    lap("train_compressed")
+    mesh_launches = phase_train_mesh(torch, card)
+    lap("train_mesh")
+    dp_launches = phase_train_dp(torch, card)
+    lap("train_dp")
     with tempfile.TemporaryDirectory() as cal_dir:
         cal_path = phase_speed_factors(torch, card, cal_dir)
         adaptive_launches = phase_train_adaptive(torch, card, cal_path)
@@ -5211,6 +5689,8 @@ def main() -> int:
     by_path = {"serve": serve_launches, "serve_swa": swa_launches,
                "train": train_launches,
                "train_telemetry": tel_launches,
+               "train_compressed": comp_launches,
+               "train_mesh": mesh_launches, "train_dp": dp_launches,
                "train_adaptive": adaptive_launches,
                "train_large": large_launches,
                "train_cli": cli_launches,

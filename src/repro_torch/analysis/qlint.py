@@ -21,11 +21,14 @@ reference's:
     plan's resolved cell), stochastic rounding is armed exactly where
     specs say ``:sr``, and no operand wider than ``cfg.dtype`` reaches a
     kernel;
-  * **scale placement** — the block / tile quant-scale placement table
-    still shards scales with their operand's reduction axis
-    (``core.quantize.scale_logical_axes``).  The reference's comms check
-    of a meshed step waits for the multi-GPU modules: ``--mesh`` and
-    ``audit_hlo_comms`` raise ``NotImplementedError``;
+  * **scale placement and comms** — the block / tile quant-scale
+    placement table still shards scales with their operand's reduction
+    axis (``core.quantize.scale_logical_axes``); a meshed step (``--mesh``,
+    run on its ranks) runs whole, optimizer included, and
+    ``audit_comms`` reads the collectives it issued
+    (``distributed.comms.recording``): under fp8 compression with a data
+    axis > 1 every gradient payload must be 1-byte codes, the f32 amax
+    reductions are censused apart as scale metadata;
   * **recompile budget** — a census over the trainer's step functions
     (``Trainer._steps``, keyed by plan and telemetry as the reference's
     compiled graphs) flags a plan outside the expected set; for an
@@ -47,6 +50,11 @@ CLI::
         --plan fine_grained_fp4 --impl pallas --decode \\
         [--device cpu|cuda] [--json F] [--expect F] [--update-expectations]
 
+``--mesh 2,1`` adds a data-parallel fp8 step: launch its ranks with
+``torchrun --standalone --nproc-per-node 2 -m repro_torch.analysis.qlint
+... --mesh 2,1`` (``gloo`` on ``--device cpu``, NCCL on ``cuda``); rank 0
+prints.
+
 ``--expect`` compares the normalized findings against a committed
 expectations JSON (``tests/qlint_expected_tiny_torch.json`` for
 ``tiny``); ``--update-expectations`` rewrites that file from the current
@@ -58,30 +66,30 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
 import sys
 from collections import Counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.analysis.trace import (kernel_census, trace_role_ops,
-                                        wide_operands)
+from repro_torch.analysis.trace import (collective_bytes, kernel_census,
+                                        trace_role_ops, wide_operands)
 from repro_torch.core import routing
 from repro_torch.core.quantize import (QuantSpec, qdq_scope_name,
                                        scale_logical_axes)
 from repro_torch.core.recipe import ROLE_SUBSETS, PrecisionPlan
 
 __all__ = ["Finding", "QlintReport", "graph_census", "audit_cells",
-           "audit_graph_vs_census", "audit_scale_placement",
+           "audit_graph_vs_census", "audit_scale_placement", "audit_comms",
            "recompile_census", "engine_capture_census",
            "audit_train_graph", "audit_decode_graph", "audit_decode_engine",
            "audit_trainer", "expectations_payload", "compare_expectations",
            "build_reports", "main"]
 
 _TRAIN_ROLES = ("fwd", "dgrad", "wgrad")
-_UNPORTED_MESH = ("meshes and gradient comms need the multi-GPU modules "
-                  "(distributed/*, optim/compression.py), which are not "
-                  "ported")
+# what a recorded collective carries (``comms.CollectiveRecord.tag``)
+_GRAD_TAGS = ("grad", "grad_codes")
 
 
 # ---------------------------------------------------------------------------
@@ -416,10 +424,40 @@ def audit_graph_vs_census(graph: Dict[str, Any],
     return findings
 
 
-def audit_hlo_comms(*_args, **_kw):
-    """The reference's gradient all-reduce payload audit: a one-card port
-    has no collectives."""
-    raise NotImplementedError(_UNPORTED_MESH)
+def audit_comms(records, *, expect_fp8: bool) -> Tuple[
+        Dict[str, Any], List[Finding]]:
+    """Gradient payload audit over a step's recorded collectives (the
+    counterpart of the reference's ``audit_hlo_comms``).
+
+    ``expect_fp8``: the step was built with ``grad_compression='fp8'``
+    and a data axis > 1, so every gradient payload (an all-gather of
+    codes, an all-reduce or reduce-scatter of gradients) must be 1-byte
+    codes; a wider payload means the gradient bytes went uncompressed.
+    The f32 amax reductions of the shared scales are scale metadata,
+    censused apart and not flagged.  Returns (census, findings)."""
+    findings: List[Finding] = []
+    grad = [r for r in records if r.tag in _GRAD_TAGS]
+    census = {"grad_payload_dtypes": dict(Counter(r.dtype for r in grad)),
+              "scale_allreduce_dtypes": dict(Counter(
+                  r.dtype for r in records if r.tag == "scale")),
+              "other": dict(Counter(f"{r.tag}:{r.op}:{r.dtype}"
+                                    for r in records
+                                    if r.tag not in _GRAD_TAGS + ("scale",))),
+              "grad_payload_bytes": sum(r.nbytes for r in grad),
+              "bytes": collective_bytes(records)}
+    if expect_fp8:
+        if not grad:
+            findings.append(Finding(
+                "comms", "violation", "grad",
+                "fp8 gradient compression expected but the step issued "
+                "no gradient payload"))
+        for r in grad:
+            if r.nbytes != math.prod(r.shape):
+                findings.append(Finding(
+                    "comms", "violation", f"{r.op}[{r.tag}]",
+                    f"gradient payload is {r.dtype}{list(r.shape)}, not "
+                    "1-byte fp8 codes"))
+    return census, findings
 
 
 def audit_scale_placement(plan: PrecisionPlan) -> List[Finding]:
@@ -596,22 +634,35 @@ def _audit_step(trainer, plan: Optional[PrecisionPlan], label: str,
                 ) -> QlintReport:
     """One forward and backward of the trainer's plan on a fresh init
     (no optimizer step), audited against ``plan`` (default the
-    trainer's)."""
+    trainer's).  On a data-parallel mesh the whole step runs (its
+    collectives are the audit's subject) on a fresh state, and
+    ``audit_comms`` reads what it issued."""
+    from repro_torch.distributed import comms
     from repro_torch.train.train_step import _grads
     model, tcfg = trainer.model, trainer.tcfg
     cfg = model.cfg
     trace = model.device.type == "cuda" if trace is None else trace
-    trainer._step_fn(trainer.plan)   # the step the census counts
-    params = model.init(tcfg.seed)
+    step = trainer._step_fn(trainer.plan)   # the step the census counts
     b = _synth_batch(cfg, batch, seq, model.device)
     report = QlintReport(label)
-    with routing.capture(markers=True) as log:
-        prof = _profiled(
-            lambda: _grads(model, trainer.plan, params, b), trace)
-    del params
+    if trainer.dp is None:
+        params = model.init(tcfg.seed)
+        run = lambda: _grads(model, trainer.plan, params, b)  # noqa: E731
+    else:
+        st = trainer.init_state()
+        run = lambda: step(st.params, st.opt_state,  # noqa: E731
+                           st.comp_state, b, 0)
+    with routing.capture(markers=True) as log, comms.recording() as rec:
+        prof = _profiled(run, trace)
+    del run
     _finish_report(report, log, cfg, trainer.plan,
                    plan if plan is not None else trainer.plan,
                    cfg.linear_impl, prof=prof)
+    if trainer.dp is not None:
+        comms_census, findings = audit_comms(
+            rec, expect_fp8=trainer._spmd)
+        report.summary["comms"] = comms_census
+        report.extend(findings)
     census, findings = recompile_census(trainer)
     report.summary["recompile"] = census
     report.extend(findings)
@@ -629,11 +680,10 @@ def audit_train_graph(cfg, tcfg, *, label: str = "train",
     overrides the trainer's plan as the AUDIT REFERENCE only — the step
     still runs the trainer's plan: the seeded-violation hook (run plan B,
     audit against plan A).  ``trace`` (default: on CUDA) adds the
-    profiler trace's kernels per role."""
+    profiler trace's kernels per role.  With ``tcfg.mesh_shape`` every
+    rank of the world runs this (see ``_audit_step``)."""
     from repro_torch.models import build_model
     from repro_torch.train.trainer import Trainer
-    if tcfg.mesh_shape is not None or tcfg.grad_compression != "none":
-        raise NotImplementedError(_UNPORTED_MESH)
     trainer = Trainer(build_model(cfg, device), tcfg, pipeline=None)
     return _audit_step(trainer, plan, label, batch or tcfg.global_batch,
                        seq or tcfg.seq_len, trace)
@@ -696,9 +746,8 @@ def audit_trainer(trainer, *, label: str = "trainer",
     """The :meth:`Trainer.qlint_report` backend: audit the trainer's plan's
     step (forward and backward on a fresh init at the config's batch; no
     optimizer step, the trainer's state untouched) plus the
-    recompile-budget census over every step function it has built."""
-    if trainer.tcfg.mesh_shape is not None:
-        raise NotImplementedError(_UNPORTED_MESH)
+    recompile-budget census over every step function it has built.  On
+    a mesh every rank calls it (the step's collectives)."""
     return _audit_step(trainer, None, label, trainer.tcfg.global_batch,
                        trainer.tcfg.seq_len, trace)
 
@@ -762,17 +811,34 @@ def compare_expectations(payload: Dict[str, Any],
 # CLI
 # ---------------------------------------------------------------------------
 
+def _parse_mesh(s: Optional[str]) -> Optional[Tuple[int, ...]]:
+    if not s:
+        return None
+    return tuple(int(p) for p in s.split(","))
+
+
 def build_reports(config: str, plan_name: str, *, impl: str = "pallas",
-                  mesh: Optional[str] = None, decode: bool = False,
-                  seq: int = 32, batch: int = 4, device=None,
-                  trace: Optional[bool] = None) -> List[QlintReport]:
-    """The CLI's step family: unrolled and scan-layout train steps and,
-    with ``decode``, the packed decode step."""
+                  mesh: Optional[Tuple[int, ...]] = None,
+                  decode: bool = False, seq: int = 32, batch: int = 4,
+                  device=None, trace: Optional[bool] = None
+                  ) -> List[QlintReport]:
+    """The CLI's step family: unrolled and scan-layout train steps,
+    with ``mesh`` a data-sharded step with fp8 gradient comms (every rank
+    of a world of ``prod(mesh)`` calls this), and with ``decode`` the
+    packed decode step."""
+    import torch.distributed as dist
     from repro_torch.configs.base import TrainConfig, get_config
     from repro_torch.core.recipe import RECIPES
 
-    if mesh:
-        raise NotImplementedError(f"--mesh {mesh}: {_UNPORTED_MESH}")
+    if mesh is not None:
+        need = math.prod(mesh)
+        have = dist.get_world_size() if dist.is_initialized() else 1
+        if have < need:
+            raise SystemExit(
+                f"--mesh {mesh} needs {need} ranks but the world has "
+                f"{have}; launch them with torchrun --standalone "
+                f"--nproc-per-node {need} -m repro_torch.analysis.qlint "
+                "... (gloo on --device cpu, NCCL on cuda)")
     base = get_config(config).replace(linear_impl=impl)
     tcfg = TrainConfig(recipe=plan_name, total_steps=8, global_batch=batch,
                        seq_len=seq)
@@ -782,6 +848,15 @@ def build_reports(config: str, plan_name: str, *, impl: str = "pallas",
         audit_train_graph(base.replace(scan_layers=True), tcfg,
                           label="train_scan", device=device, trace=trace),
     ]
+    if mesh is not None:
+        dp = mesh[0]
+        tcfg_m = dataclasses.replace(
+            tcfg, mesh_shape=mesh, fsdp=False,
+            grad_compression="fp8" if dp > 1 else "none")
+        reports.append(audit_train_graph(
+            base.replace(scan_layers=True), tcfg_m,
+            label=f"train_mesh{'x'.join(map(str, mesh))}", device=device,
+            trace=trace))
     if decode:
         reports.append(audit_decode_graph(
             base, RECIPES[plan_name], label="decode_packed", device=device,
@@ -800,7 +875,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--impl", default="pallas",
                     choices=["qdq", "pallas", "pallas_two_pass"])
     ap.add_argument("--mesh", default=None,
-                    help="comma mesh shape (not ported: raises)")
+                    help="comma mesh shape, e.g. 2,1 (data,model); adds a "
+                         "sharded train step with fp8 gradient comms (run "
+                         "its ranks under torchrun)")
     ap.add_argument("--decode", action="store_true",
                     help="also audit the packed-weight decode step")
     ap.add_argument("--seq", type=int, default=32)
@@ -814,11 +891,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="rewrite --expect from this audit instead of "
                          "gating")
     args = ap.parse_args(argv)
+    mesh = _parse_mesh(args.mesh)
+    if mesh is not None:
+        from repro_torch.distributed.mesh import init_distributed
+        init_distributed(args.device)
 
     reports = build_reports(args.config, args.plan, impl=args.impl,
-                            mesh=args.mesh, decode=args.decode,
+                            mesh=mesh, decode=args.decode,
                             seq=args.seq, batch=args.batch,
                             device=args.device)
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_rank() != 0:
+        n_viol = sum(len(r.violations()) for r in reports)
+        return 1 if n_viol else 0
 
     for r in reports:
         print(r.human_report())

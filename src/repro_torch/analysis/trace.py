@@ -7,21 +7,25 @@ and shapes, kernels launched) and the CUDA kernels of a
 ``torch.profiler`` trace.  ``kernel_census`` and ``wide_operands`` read
 the first; ``trace_role_ops`` matches the two, call by call.
 
-The reference's collective-bytes census (``parse_collectives`` /
-``collective_bytes``) waits for the multi-GPU modules
-(``distributed/*``, ``optim/compression.py``), which are not ported: one
-card has no collectives to count.
+The collective census (``parse_collectives`` / ``collective_bytes``,
+the reference's names and ``COLLECTIVE_FACTORS``) reads the records the
+port's collectives keep of every call (``distributed.comms.recording``:
+op, dtype, per-rank payload bytes, group size, what it carries) where
+the reference reads the compiled HLO.  The payload dtypes are the wire's
+own: no backend legalizes them, so the reference's ``_wire`` adjustments
+(f32 for bf16, f16 for fp8 on XLA:CPU) do not apply.
 """
 from __future__ import annotations
 
 import math
 import re
-from collections import Counter
+from collections import Counter, defaultdict
 from typing import Dict, Iterable, List, Sequence, Tuple
 
-__all__ = ["DTYPE_BYTES", "PORT_KERNELS", "shape_bytes", "kernel_census",
-           "wide_operands", "device_kernels", "trace_role_ops",
-           "kernel_name"]
+__all__ = ["DTYPE_BYTES", "PORT_KERNELS", "COLLECTIVE_FACTORS",
+           "shape_bytes", "kernel_census", "wide_operands",
+           "device_kernels", "trace_role_ops", "kernel_name",
+           "parse_collectives", "collective_bytes"]
 
 # Bytes per element of the torch dtypes (``str(dtype)`` without the
 # ``torch.`` prefix, as ``KernelCall.operands`` names them).
@@ -57,6 +61,45 @@ def shape_bytes(dtype: str, shape: Sequence[int]) -> int:
     if nb is None:
         return 0
     return math.prod(shape) * nb
+
+
+# Ring-model bytes a rank moves per payload byte, the reference's.
+COLLECTIVE_FACTORS = {
+    "all-reduce": 2.0,
+    "all-gather": 1.0,
+    "reduce-scatter": 1.0,
+    "all-to-all": 1.0,
+    "collective-permute": 1.0,
+}
+
+
+def parse_collectives(records: Iterable) -> List[Tuple[str, str, int]]:
+    """[(op kind, "dtype[dims]", per-rank bytes)] for every recorded
+    collective (``comms.CollectiveRecord``s, in issue order)."""
+    return [(r.op, f"{r.dtype}[{','.join(map(str, r.shape))}]", r.nbytes)
+            for r in records if r.op in COLLECTIVE_FACTORS]
+
+
+def collective_bytes(records: Iterable) -> Dict[str, float]:
+    """Per-op-kind raw and ring-model effective per-rank bytes, the
+    reference's keys: ``raw_<kind>``, ``raw_<kind>_<dtype>``,
+    ``raw_total``, ``effective_total`` (``COLLECTIVE_FACTORS`` applied;
+    ``effective_total_wire`` the same figure: the dtypes are the
+    wire's), ``n_ops``."""
+    ops = parse_collectives(records)
+    raw: Dict[str, float] = defaultdict(float)
+    by_dtype: Dict[Tuple[str, str], float] = defaultdict(float)
+    for kind, shape, b in ops:
+        raw[kind] += b
+        by_dtype[(kind, shape.split("[", 1)[0])] += b
+    out = {f"raw_{k}": v for k, v in raw.items()}
+    out.update({f"raw_{k}_{d}": v for (k, d), v in by_dtype.items()})
+    out["raw_total"] = sum(raw.values())
+    out["effective_total"] = sum(COLLECTIVE_FACTORS[k] * v
+                                 for k, v in raw.items())
+    out["effective_total_wire"] = out["effective_total"]
+    out["n_ops"] = len(ops)
+    return out
 
 
 def kernel_census(calls: Iterable) -> Dict[str, int]:

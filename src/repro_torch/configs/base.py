@@ -192,17 +192,17 @@ class ControllerSettings:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Field-for-field the reference ``TrainConfig``.  The port's
-    ``Trainer`` runs one device with AdamW or Adafactor, the plan presets
+    ``Trainer`` runs AdamW or Adafactor, the plan presets
     (``plan_preset``, ``plan_k``, ``plan_frac``), the §3.3 switch,
     checkpoints and resume (``checkpoint_every``, ``checkpoint_dir``,
     ``keep_checkpoints``, ``async_checkpoint``), quantization telemetry
     (``telemetry``, ``telemetry_every``, ``telemetry_jsonl``), the step
     timer (``profiler_warmup``), the adaptive precision controller
     (``controller``, a ``ControllerSettings``) and its measured cost
-    calibration (``cost_calibration``, a ``speed_factors.v1`` JSON path);
-    it raises ``NotImplementedError`` for the fields of the features it
-    does not have yet (fp8 gradient compression, meshes) rather than
-    ignore them."""
+    calibration (``cost_calibration``, a ``speed_factors.v1`` JSON path),
+    fp8 error-feedback gradient compression (``grad_compression``) and
+    data-parallel meshes (``mesh_shape``, ``mesh_axes``, ``fsdp``; a
+    model axis larger than 1 raises ``NotImplementedError``)."""
 
     recipe: str = "paper_fp4"
     total_steps: int = 200

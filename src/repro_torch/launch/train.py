@@ -12,9 +12,16 @@ default to the config's own values (``qdq`` / ``chunked`` for every
 config, as in the reference), so with no flag the CLI trains what the
 reference's CLI trains; ``--linear-impl pallas --attention-impl pallas``
 runs the quantized matmuls and the attention forward on the CUDA
-kernels.  ``--grad-compression`` other than ``none`` and ``--mesh`` need
-the multi-GPU modules, which are not ported: ``Trainer`` raises
-``NotImplementedError``.
+kernels.  ``--grad-compression fp8`` compresses the gradients (error
+feedback).  ``--mesh d,1`` trains data-parallel on a (data, model) mesh
+of ``d`` ranks, launched with ``torchrun``, NCCL on ``--device cuda``
+and ``gloo`` on ``--device cpu``::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --mesh 2,1 --grad-compression fp8 --no-fsdp
+
+(with no ``torchrun`` a mesh of one rank runs in this process alone); a
+model axis larger than 1 raises ``NotImplementedError``.  Rank 0 prints.
 
 Prints the reference's lines (the per-step log, ``eval:``, ``step-time:``
 p50 / p95 / p99, tokens/s and MFU) and one ``roofline[...]`` line from
@@ -25,6 +32,7 @@ for callers that run it in process.
 """
 import argparse
 import importlib
+import math
 from typing import Any, Dict, Optional, Sequence
 
 from repro_torch.analysis.roofline import HW_H100, model_flops, \
@@ -32,6 +40,7 @@ from repro_torch.analysis.roofline import HW_H100, model_flops, \
 from repro_torch.configs.base import ShapeCell, TrainConfig, get_config
 from repro_torch.core.qlinear import LINEAR_IMPLS
 from repro_torch.data import make_pipeline
+from repro_torch.distributed.mesh import init_distributed
 from repro_torch.models import build_model
 from repro_torch.train.trainer import Trainer
 
@@ -54,9 +63,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--mesh", default="",
-                    help="mesh shape, e.g. '4,2' (not ported: raises)")
+                    help="mesh shape, e.g. '4,1' (axes data,model; one "
+                         "rank a data shard, under torchrun); empty = "
+                         "single-device step")
     ap.add_argument("--no-fsdp", action="store_true",
-                    help="replicate embed params over the data axes")
+                    help="replicate embed params over the data axes "
+                         "(required with --grad-compression fp8)")
     ap.add_argument("--telemetry-jsonl", default="",
                     help="JSONL metrics log (written off the critical "
                          "path by the async writer)")
@@ -112,9 +124,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = parse_args(argv)
     cfg = model_config(args)
     tcfg = train_config(args)
+    made = tcfg.mesh_shape is not None and init_distributed(args.device)
+    try:
+        return _run(args, cfg, tcfg)
+    finally:
+        if made:     # the group this call made ends with it
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, tcfg) -> Dict[str, Any]:
     model = build_model(cfg, args.device)
     pipe = make_pipeline(args.data, cfg.vocab_size, args.seq, args.batch)
     trainer = Trainer(model, tcfg, pipe)
+    say = print if trainer.rank == 0 else (lambda *a: None)
     # what train() starts from with no state, in both packages (so with
     # or without --resume): the newest checkpoint, else a fresh init,
     # drawn on the card
@@ -122,25 +145,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         on_device=model.device.type == "cuda")
     state = trainer.train(state, log=print)
     ev = trainer.evaluate(state)
-    print("eval:", ev)
+    say("eval:", ev)
     summ = trainer.step_time_summary()
     terms = None
     if summ.get("steps"):
-        print("step-time: "
-              + " ".join(f"{k}={summ[k]:.1f}" for k in
-                         ("p50_ms", "p95_ms", "p99_ms") if k in summ)
-              + (f" tokens/s={summ['tokens_per_sec']:.0f}"
-                 if "tokens_per_sec" in summ else "")
-              + (f" mfu={summ['mfu']:.4f}" if "mfu" in summ else ""))
+        say("step-time: "
+            + " ".join(f"{k}={summ[k]:.1f}" for k in
+                       ("p50_ms", "p95_ms", "p99_ms") if k in summ)
+            + (f" tokens/s={summ['tokens_per_sec']:.0f}"
+               if "tokens_per_sec" in summ else "")
+            + (f" mfu={summ['mfu']:.4f}" if "mfu" in summ else ""))
         cell = ShapeCell("cli", args.seq, args.batch, "train")
         flops = model_flops(cfg, cell, model.active_param_count())
-        terms = roofline_terms(hlo_flops=flops, hlo_bytes=0.0,
-                               collective_bytes_eff=0.0, chips=1,
+        chips = math.prod(tcfg.mesh_shape or (1,))
+        terms = roofline_terms(hlo_flops=flops / chips, hlo_bytes=0.0,
+                               collective_bytes_eff=0.0, chips=chips,
                                hw=HW_H100, model_flops_total=flops)
-        terms["mfu"] = flops / (summ["p50_ms"] / 1e3 * HW_H100.peak_flops)
-        print(f"roofline[{HW_H100.name}]: model_flops={flops:.4e} "
-              f"compute_bound_ms={terms['compute_s'] * 1e3:.4g} "
-              f"mfu={terms['mfu']:.4f}")
+        terms["mfu"] = flops / (summ["p50_ms"] / 1e3 * HW_H100.peak_flops
+                                * chips)
+        say(f"roofline[{HW_H100.name}]: model_flops={flops:.4e} "
+            f"compute_bound_ms={terms['compute_s'] * 1e3:.4g} "
+            f"mfu={terms['mfu']:.4f}")
     return {"trainer": trainer, "state": state, "eval": ev,
             "step_time": summ, "roofline": terms}
 

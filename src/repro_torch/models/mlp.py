@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.recipe import MatmulRecipe
-from repro_torch.nn.layers import ACTIVATIONS, linear
+from repro_torch.nn.layers import ACTIVATIONS, linear, shard_hint
 from repro_torch.nn.params import ParamSpec
 
 __all__ = ["mlp_param_specs", "mlp"]
@@ -37,4 +37,5 @@ def mlp(params, cfg: ModelConfig, x: torch.Tensor,
     else:
         h = ACTIVATIONS[cfg.activation](
             linear(x, params["w_up"], recipe, cfg))
+    h = shard_hint(h, ("batch", "seq", "mlp"))
     return linear(h, params["w_down"], recipe, cfg)

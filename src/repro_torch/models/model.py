@@ -40,7 +40,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.recipe import PrecisionPlan, as_plan
 from repro_torch.models import stack as stack_lib
-from repro_torch.nn.layers import apply_norm, linear, sincos_positions
+from repro_torch.nn.layers import (apply_norm, linear, shard_hint,
+                                    sincos_positions)
 from repro_torch.nn.params import (ParamSpec, init_params, param_count,
                                    spec_leaves)
 from repro_torch.telemetry import collect as telemetry
@@ -180,14 +181,15 @@ class Model:
         if self.cfg.pos_emb == "learned":
             pe = F.embedding(positions, params["pos_embed"]).to(self.dtype)
             x = x + (pe if positions.dim() == tokens.dim() else pe[None])
-        return x
+        return shard_hint(x, ("batch", "seq", "embed"))
 
     def _head(self, params, x, plan: PrecisionPlan):
         x = apply_norm(params["final_norm"], x, self.cfg.norm)
         w = (params["embed"].to(self.dtype).T if self.cfg.tie_embeddings
              else params["head"].to(self.dtype))
         with telemetry.module_scope("head"):
-            return linear(x, w, plan.head_linear, self.cfg)
+            logits = linear(x, w, plan.head_linear, self.cfg)
+        return shard_hint(logits, ("batch", "seq", "vocab"))
 
     def _plan(self, p) -> PrecisionPlan:
         return as_plan(p, self.cfg.n_layers)

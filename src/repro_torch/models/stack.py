@@ -49,7 +49,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.nn.layers import apply_norm
+from repro_torch.nn.layers import apply_norm, shard_hint
 from repro_torch.nn.params import ParamSpec, map_specs
 from repro_torch.telemetry import collect as telemetry
 
@@ -160,7 +160,8 @@ def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
     with routing.layer_scope(f"L{layer_idx}"), \
             telemetry.layer_frame(layer_idx if indexed else None) \
             as tel_frame:
-        h = apply_norm(params["mixer_norm"], x, cfg.norm)
+        h = shard_hint(apply_norm(params["mixer_norm"], x, cfg.norm),
+                       ("batch", "seq", "embed"))
         if spec.mixer == "attn":
             with telemetry.module_scope("attn"):
                 x = x + attn_lib.attention(
@@ -173,7 +174,8 @@ def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
                                             row.ffn_linear, cache=self_cache,
                                             decode=decode)
         if spec.cross:
-            h = apply_norm(params["cross_norm"], x, cfg.norm)
+            h = shard_hint(apply_norm(params["cross_norm"], x, cfg.norm),
+                           ("batch", "seq", "embed"))
             with telemetry.module_scope("cross"):
                 out = attn_lib.cross_attention(
                     params["cross"], cfg, h, row.attn_linear,
@@ -182,16 +184,19 @@ def _run_layer(params, cfg: ModelConfig, spec: LayerSpec, row: LayerRecipe,
             gate = torch.tanh(params["cross_gate"].to(torch.float32))
             x = x + (out.to(torch.float32) * gate).to(x.dtype)
         if spec.ffn == "moe":
-            h = apply_norm(params["ffn_norm"], x, cfg.norm)
+            h = shard_hint(apply_norm(params["ffn_norm"], x, cfg.norm),
+                           ("batch", "seq", "embed"))
             with telemetry.module_scope("moe"):
                 out, moe_aux = moe_lib.moe(params["ffn"], cfg, h,
                                            row.ffn_linear)
             x = x + out
             terms = tuple(moe_aux[k] for k in MOE_AUX)
         elif spec.ffn == "dense":
-            h = apply_norm(params["ffn_norm"], x, cfg.norm)
+            h = shard_hint(apply_norm(params["ffn_norm"], x, cfg.norm),
+                           ("batch", "seq", "embed"))
             with telemetry.module_scope("ffn"):
                 x = x + mlp_lib.mlp(params["ffn"], cfg, h, row.ffn_linear)
+        x = shard_hint(x, ("batch", "seq", "embed"))
     if tel_frame is not None and aux is not None:
         for k, v in tel_frame.stats.items():
             aux[f"tel/l{layer_idx:02d}/{k}"] = v

@@ -1,10 +1,12 @@
-"""Layer math: linears, activations, norms, RoPE (counterpart of
-``repro.nn.layers``)."""
+"""Layer math: linears, activations, norms, RoPE, and the activation
+sharding hints (counterpart of ``repro.nn.layers``)."""
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional
+import threading
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -14,7 +16,9 @@ from repro_torch.core.qlinear import qlinear
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["linear", "gelu", "silu", "relu2", "rms_norm", "layer_norm",
-           "apply_norm", "rope", "sincos_positions", "ACTIVATIONS"]
+           "apply_norm", "rope", "sincos_positions", "ACTIVATIONS",
+           "set_sharding_context", "get_sharding_context",
+           "sharding_context", "shard_hint"]
 
 
 def linear(x: torch.Tensor, w, recipe: MatmulRecipe, cfg, *,
@@ -104,3 +108,57 @@ def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
     ang = pos / (10000.0 ** (2 * i / dim))
     emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
     return torch.from_numpy(emb).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding hints.
+#
+# Model code calls ``shard_hint(x, ('batch', 'seq', 'embed'))``; a step
+# installs a context (a ``distributed.sharding.ShardingRules``) mapping
+# logical activation axes to mesh axes.  Without a context this is a
+# no-op, as the reference's.  The port holds each rank's own block of a
+# data-parallel step, so a hint that maps only to axes of size 1 (the
+# data axes are stripped by the step's ``manual_over``) is a no-op too;
+# a hint that would shard over a larger axis raises.
+# ---------------------------------------------------------------------------
+
+_CTX = threading.local()
+
+
+def set_sharding_context(ctx) -> None:
+    """Install a sharding context (a ``ShardingRules``; None: none)."""
+    _CTX.value = ctx
+
+
+def get_sharding_context():
+    return getattr(_CTX, "value", None)
+
+
+@contextlib.contextmanager
+def sharding_context(ctx):
+    prev = get_sharding_context()
+    set_sharding_context(ctx)
+    try:
+        yield
+    finally:
+        set_sharding_context(prev)
+
+
+def shard_hint(x: torch.Tensor,
+               axes: Sequence[Optional[str]]) -> torch.Tensor:
+    """``x`` itself; raises ``NotImplementedError`` when the context would
+    shard it over a mesh axis larger than 1 (tensor parallelism, or the
+    data axes outside a data-manual region)."""
+    ctx = get_sharding_context()
+    if ctx is None:
+        return x
+    sharding = ctx.activation_sharding(tuple(axes), x.shape)
+    for dim, names in sharding.dim_axes().items():
+        if ctx.axis_size(names) > 1:
+            raise NotImplementedError(
+                f"shard_hint{tuple(axes)}: dim {dim} would shard over mesh "
+                f"axes {names} (size {ctx.axis_size(names)}); the port "
+                "runs data parallelism over rank-local slices (run under "
+                "rules.manual_over(rules.dp_axes)) and has no tensor "
+                "parallelism yet (ROADMAP queue A)")
+    return x

@@ -1,12 +1,19 @@
-"""Optimizers with f32 master weights, the LR schedule and gradient
-clipping (counterpart of ``repro.optim``)."""
+"""Optimizers with f32 master weights, the LR schedule, gradient
+clipping and fp8 gradient compression (counterpart of ``repro.optim``)."""
 from repro_torch.optim.adafactor import adafactor
 from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.optim.clip import clip_by_global_norm, global_norm
+from repro_torch.optim.compression import (compressed_psum,
+                                           compressed_psum_grads,
+                                           compressed_reduce_dp,
+                                           fp8_compress_grads,
+                                           init_compression_state)
 from repro_torch.optim.schedule import warmup_cosine
 
 __all__ = ["Optimizer", "adamw", "adafactor", "warmup_cosine",
-           "clip_by_global_norm", "global_norm", "get_optimizer"]
+           "clip_by_global_norm", "global_norm", "fp8_compress_grads",
+           "init_compression_state", "compressed_psum",
+           "compressed_psum_grads", "compressed_reduce_dp", "get_optimizer"]
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:

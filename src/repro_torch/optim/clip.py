@@ -16,14 +16,17 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tree, max_norm: float):
+def clip_by_global_norm(tree, max_norm: float, *, norm=None):
     """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm).  The
     leaves are scaled in place and the same tree is returned: no second
     copy of the gradients is alive at once.  An f32 leaf's ``mul_`` is the
     reference's ``(g.astype(f32) * scale).astype(g.dtype)`` bit for bit;
     a leaf of a narrower dtype is scaled in f32 and rounded back, as
-    there."""
-    norm = global_norm(tree)
+    there.  ``norm`` (default ``global_norm(tree)``) is the norm to clip
+    by: a data-parallel step whose leaves are shards passes the norm of
+    the whole gradient."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(torch.full_like(norm, max_norm)
                         / torch.clamp(norm, min=1e-12), max=1.0)
     done = set()

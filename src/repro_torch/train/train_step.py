@@ -1,6 +1,6 @@
-"""One training step on one device: loss, gradients (with microbatch
-accumulation), global-norm clipping, the LR schedule and the optimizer
-update (counterpart of ``repro.train.train_step``, single device, eager).
+"""One training step: loss, gradients (with microbatch accumulation),
+global-norm clipping, fp8 gradient compression, the LR schedule and the
+optimizer update (counterpart of ``repro.train.train_step``, eager).
 
 The precision plan changes the math, so the trainer builds one step per
 active plan, as the reference holds one compiled graph per plan; here a
@@ -12,24 +12,61 @@ metrics, the backward-side ones as the gradients of zero probes
 (``telemetry.collect``), and the per-layer gradient norms are added.
 With it off the step has no collector and no probes: it is the plain
 step.
+
+Data parallelism (``rules``, a ``distributed.sharding.ShardingRules``
+over a live ``DeviceMesh``; only its data axes may be larger than 1):
+``torch.distributed`` runs one process a data shard, each holding the
+whole step.  Each rank takes its rows of the global batch (rows
+``i*B/dp ...``, as ``rules.batch_sharding`` splits dim 0) and runs the
+model under ``rules.manual_over(rules.dp_axes)`` (its slice is already
+the data shard: a data hint is a no-op).  The reduction follows the
+reference's two orders:
+
+  * ``grad_compression="fp8"`` with a data axis > 1: quantize before
+    communicating, then clip — ``optim.compressed_psum_grads`` over the
+    data group (1-byte codes on the wire, a shared f32 scale, each rank
+    its own residual: the residual tree keeps the reference's leading
+    replica axis, a rank holding its block ``(1, *shape)``);
+  * otherwise the mean gradient (weighted by each rank's count of
+    targets, which makes it the global batch's gradient), then the
+    global-norm clip.  With ``fsdp`` the leaves the rules shard over the
+    data axes (``embed``) and their optimizer state are held as blocks:
+    the step all-gathers them for the forward, reduce-scatters their
+    gradients, and clips by the norm of the whole gradient (the blocks'
+    squared sums all-reduced).
+
+With no rules, or a data axis of 1, the step is the single-device step:
+clip, then ``fp8_compress_grads`` (the reference's order there), and no
+collective.  Every collective goes through ``distributed.comms``, which
+records it for the census.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.qlinear import matmul_impl
 from repro_torch.core.recipe import as_plan
+from repro_torch.distributed import comms
+from repro_torch.distributed.sharding import (Sharding, ShardingRules,
+                                              opt_state_shardings)
 from repro_torch.models.model import Model
-from repro_torch.optim import clip_by_global_norm, get_optimizer, \
-    warmup_cosine
+from repro_torch.nn import layers
+from repro_torch.nn.params import map_specs
+from repro_torch.optim import (clip_by_global_norm, compressed_psum_grads,
+                               fp8_compress_grads, get_optimizer,
+                               warmup_cosine)
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.telemetry import collect as telemetry
 from repro_torch.telemetry.profiler import phase_span
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["make_train_step", "make_eval_step", "make_optimizer"]
+__all__ = ["make_train_step", "make_eval_step", "make_optimizer",
+           "train_step_shardings", "compression_state_sharding",
+           "DataParallel", "check_rules"]
 
 
 def make_optimizer(model: Model, tcfg: TrainConfig):
@@ -81,22 +118,258 @@ def _grads(model: Model, plan, params, batch, collector=None):
             tree_map(lambda _: next(it), params), pg)
 
 
-def make_train_step(model: Model, tcfg: TrainConfig, plan):
-    """Returns ``train_step(params, opt_state, batch, step, lr_scale=1.0)
-    -> (params, opt_state, metrics)``; the scheduled LR times ``lr_scale``
-    (the controller's backoff), both f32.  ``batch`` holds int32 tensors on
-    the model's device; ``params`` (f32 masters) and ``opt_state`` are
-    updated in place and returned.  Metrics: ``loss``, ``tokens``,
-    ``total_loss`` (and ``z_loss`` when set), ``grad_norm``, ``lr``, as
-    0-dim tensors; with ``tcfg.telemetry`` also the ``tel/...`` stats."""
+# ---------------------------------------------------------------------------
+# Mesh structure
+# ---------------------------------------------------------------------------
+
+def check_rules(rules: ShardingRules) -> None:
+    """Raise ``NotImplementedError`` for a mesh axis other than the data
+    axes that is larger than 1 (the port has no tensor parallelism)."""
+    for name in rules.axis_names:
+        if name not in rules.dp_axes and rules.axis_size((name,)) > 1:
+            raise NotImplementedError(
+                f"mesh axis {name!r} of size {rules.axis_size((name,))}: "
+                "the port runs data parallelism only; the model axis "
+                "through the kernels is ROADMAP queue A")
+
+
+def compression_state_sharding(rules: ShardingRules, param_shardings):
+    """Shardings of the error-feedback residuals: with a data axis > 1 a
+    leading replica axis over the data axes (each data shard owns its
+    slice) before the parameter's own spec; else the params'."""
+    dp = rules.dp_axes
+    if rules.dp_size <= 1:
+        return param_shardings
+
+    def shift(sh: Sharding) -> Sharding:
+        if sh.uses(dp):
+            raise ValueError(
+                "fp8 grad compression's per-shard residuals need params "
+                "replicated over the data axes, but a param shards over "
+                f"{sh.spec}.  Build rules with default_rules(..., "
+                "fsdp=False) (TrainConfig.fsdp = False).")
+        return Sharding(rules.mesh,
+                        (dp[0] if len(dp) == 1 else dp,) + tuple(sh.spec))
+
+    return tree_map(shift, param_shardings)
+
+
+def train_step_shardings(model: Model, tcfg: TrainConfig,
+                         rules: ShardingRules):
+    """(in_shardings, out_shardings) of the step ``(params, opt_state,
+    comp_state, batch, step, lr_scale)``, as the reference derives them:
+    params and optimizer state from the rules, the batch's dim 0 over the
+    data axes, the rest replicated."""
+    p_shard = rules.param_shardings(model.param_specs())
+    meta = map_specs(lambda sp: torch.empty(sp.shape, device="meta"),
+                     model.param_specs())
+    opt_like = make_optimizer(model, tcfg).init(meta)
+    o_shard = opt_state_shardings(opt_like, meta, p_shard, rules.mesh)
+    c_shard = (compression_state_sharding(rules, p_shard)
+               if tcfg.grad_compression == "fp8" else rules.replicated())
+    rep = rules.replicated()
+    return ((p_shard, o_shard, c_shard, rules.batch_sharding(2), rep, rep),
+            (p_shard, o_shard, c_shard, rep))
+
+
+_GROUPS: Dict[Any, Any] = {}
+
+
+def _data_group(rules: ShardingRules):
+    """The process group of the data axes (the whole mesh: every other
+    axis is 1)."""
+    mesh, axes = rules.mesh, rules.dp_axes
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    ranks = tuple(sorted(mesh.mesh.flatten().tolist()))
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
+class DataParallel:
+    """A rank's side of a data-parallel mesh: its data group, its index
+    there, and for each parameter leaf the dim the rules shard over the
+    data axes (None: replicated)."""
+
+    def __init__(self, model: Model, rules: ShardingRules):
+        self.rules = rules
+        self.size = rules.dp_size
+        self.group = _data_group(rules)
+        self.index = dist.get_rank(self.group)
+        self.dims = tree_map(self._dim,
+                             rules.param_shardings(model.param_specs()))
+        self.sharded = any(d is not None for d in tree_leaves(self.dims))
+
+    def _dim(self, sh: Sharding) -> Optional[int]:
+        dims = [d for d, names in sh.dim_axes().items()
+                if any(a in self.rules.dp_axes for a in names)]
+        if not dims:
+            return None
+        if sh.dim_axes()[dims[0]] != self.rules.dp_axes:
+            raise NotImplementedError(
+                f"spec {sh.spec} shards over part of the data axes "
+                f"{self.rules.dp_axes}; not supported (ROADMAP queue A)")
+        return dims[0]
+
+    @staticmethod
+    def of(model: Model, rules: Optional[ShardingRules]
+           ) -> Optional["DataParallel"]:
+        """None without rules or on a data axis of 1 (the single-device
+        step); raises for a model axis > 1."""
+        if rules is None:
+            return None
+        check_rules(rules)
+        return DataParallel(model, rules) if rules.dp_size > 1 else None
+
+    # -- layout ------------------------------------------------------------
+
+    def block(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's block of a full tensor sharded on ``dim``."""
+        if dim is None:
+            return t
+        return t.chunk(self.size, dim)[self.index].clone()
+
+    def gather_leaf(self, t: torch.Tensor, dim: Optional[int],
+                    tag: str = "param") -> torch.Tensor:
+        """The full tensor of the blocks sharded on ``dim``."""
+        if dim is None:
+            return t
+        parts = comms.all_gather(t, self.group, tag=tag)
+        return torch.cat(list(parts.unbind(0)), dim)
+
+    def local(self, tree):
+        """Blocks of a full params-shaped tree (params, mu, nu)."""
+        return tree_map(self.block, tree, self.dims)
+
+    def full(self, tree, tag: str = "param"):
+        return tree_map(lambda t, d: self.gather_leaf(t, d, tag), tree,
+                        self.dims)
+
+    def local_opt_state(self, opt_state):
+        if not self.sharded:
+            return opt_state
+        if not isinstance(opt_state, AdamWState):
+            raise NotImplementedError(
+                "fsdp over the data axes with adafactor: its factored "
+                "moments reduce over the sharded dim (ROADMAP queue A); "
+                "use TrainConfig(fsdp=False)")
+        return AdamWState(opt_state.count, self.local(opt_state.mu),
+                          self.local(opt_state.nu))
+
+    def full_opt_state(self, opt_state):
+        if not self.sharded:
+            return opt_state
+        return AdamWState(opt_state.count, self.full(opt_state.mu, "opt"),
+                          self.full(opt_state.nu, "opt"))
+
+    def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch."""
+        out = {}
+        for k, v in batch.items():
+            if v.shape[0] % self.size:
+                raise ValueError(
+                    f"batch dim {v.shape[0]} not divisible by the "
+                    f"data-parallel degree {self.size}")
+            n = v.shape[0] // self.size
+            out[k] = v[self.index * n:(self.index + 1) * n]
+        return out
+
+    # -- reductions ----------------------------------------------------------
+
+    def _reduce_leaf(self, g: torch.Tensor, dim: Optional[int]
+                     ) -> torch.Tensor:
+        if dim is None:
+            return comms.all_reduce(g, "sum", self.group, tag="grad")
+        moved = g.movedim(dim, 0)
+        out = comms.reduce_scatter(moved, self.group, tag="grad")
+        return out.movedim(0, dim)
+
+    def reduce_grads(self, grads, weight: torch.Tensor):
+        """The weighted sum over ranks of ``weight * grads``: all-reduced
+        replicated leaves, reduce-scattered blocks of the sharded ones."""
+        return tree_map(lambda g, d: self._reduce_leaf(g * weight, d),
+                        grads, self.dims)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The norm of the whole gradient: a block's squared sum is
+        all-reduced, a replicated leaf's counted once."""
+        sq = {True: [], False: []}
+        for g, d in zip(tree_leaves(grads), tree_leaves(self.dims)):
+            sq[d is None].append(torch.sum(torch.square(g.to(torch.float32))))
+        dev = tree_leaves(grads)[0].device
+        total = sum(sq[True], torch.zeros((), device=dev))
+        if sq[False]:
+            total = total + comms.all_reduce(
+                sum(sq[False]).reshape(1), "sum", self.group, tag="norm")[0]
+        return torch.sqrt(total)
+
+    def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
+                       weight: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """Metrics over the group in one all-reduce: counts (integer
+        metrics and ``tokens``) summed, the rest averaged (by ``weight``
+        when given: each rank's share of the targets)."""
+        names = list(metrics)
+        count = [n == "tokens" or not metrics[n].is_floating_point()
+                 for n in names]
+        dev = metrics[names[0]].device
+        vals = torch.stack([
+            metrics[n].detach().to(dev, torch.float64).reshape(())
+            * (1.0 if c else (weight.to(torch.float64) if weight is not None
+                              else 1.0 / self.size))
+            for n, c in zip(names, count)])
+        comms.all_reduce(vals, "sum", self.group, tag="metric")
+        return {n: vals[i].to(metrics[n].dtype)
+                for i, n in enumerate(names)}
+
+    def token_weight(self, metrics) -> torch.Tensor:
+        """This rank's share of the global batch's targets (f32)."""
+        n = metrics["tokens"].detach().to(torch.float32).reshape(1)
+        total = comms.all_reduce(n.clone(), "sum", self.group, tag="metric")
+        return (n / total)[0]
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
+                    rules: Optional[ShardingRules] = None):
+    """Returns ``train_step(params, opt_state, comp_state, batch, step,
+    lr_scale=1.0) -> (params, opt_state, comp_state, metrics)``; the
+    scheduled LR times ``lr_scale`` (the controller's backoff), both f32.
+    ``batch`` holds the global batch's int32 tensors on the model's
+    device; ``params`` (f32 masters) and ``opt_state`` are updated in
+    place and returned.  ``comp_state`` is the error-feedback residual
+    tree under ``grad_compression="fp8"`` (anything, returned as is,
+    otherwise).  Metrics: ``loss``, ``tokens``, ``total_loss`` (and
+    ``z_loss`` when set), ``grad_norm``, ``lr``, as 0-dim tensors; with
+    ``tcfg.telemetry`` also the ``tel/...`` stats.  ``rules``: see the
+    module docstring."""
     matmul_impl(model.cfg.linear_impl)   # a typo'd impl fails here
     plan = as_plan(plan, model.cfg.n_layers)
     opt = make_optimizer(model, tcfg)
     lr_fn = warmup_cosine(tcfg.learning_rate, tcfg.total_steps,
                           tcfg.warmup_frac, tcfg.min_lr_frac)
     k = tcfg.microbatch
+    use_compression = tcfg.grad_compression == "fp8"
+    dp = DataParallel.of(model, rules)
+    spmd = dp is not None and use_compression
+    if spmd and dp.sharded:
+        bad = [sh.spec for sh in tree_leaves(rules.param_shardings(
+            model.param_specs())) if sh.uses(rules.dp_axes)]
+        raise ValueError(
+            "fp8 grad compression's manual-DP reduction needs params "
+            "replicated over the data axes (each shard applies the "
+            f"same compressed update), but these specs use them: "
+            f"{bad[:3]}...  Build rules with default_rules(..., "
+            "fsdp=False).")
     # one collector for the step's life; None keeps the plain step
     collector = telemetry.TelemetryCollector() if tcfg.telemetry else None
+    if dp is not None and collector is not None and not spmd:
+        raise NotImplementedError(
+            "telemetry on a data axis > 1 without fp8 compression: the "
+            "reference's stats there are of the global batch, a rank sees "
+            "its slice (ROADMAP queue A)")
+    ctx = (rules.manual_over(rules.dp_axes) if rules is not None
+           else None)
 
     def compute_grads(params, batch):
         if not (k and k > 1):
@@ -131,12 +404,51 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan):
             metrics.update(telemetry.probe_metrics(pg))
         return grads, metrics
 
-    def train_step(params, opt_state, batch: Dict[str, torch.Tensor], step,
-                   lr_scale: float = 1.0):
-        grads, metrics = compute_grads(params, batch)
+    def reduce_spmd(params, comp_state, batch):
+        """Compress before communicating (a data axis > 1 under fp8)."""
+        grads, metrics = compute_grads(params, dp.rows(batch))
+        with phase_span("collective"):
+            grads, res = compressed_psum_grads(
+                grads, tree_map(lambda r: r[0], comp_state), dp.group)
+            comp_state = tree_map(lambda r: r[None], res)
+            metrics = dp.reduce_metrics(metrics)
         if collector is not None:
             metrics.update(telemetry.grad_norm_metrics(grads))
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+        return grads, comp_state, metrics, gnorm
+
+    def reduce_mean(params, batch):
+        """The mean gradient of the global batch (blocks of the fsdp
+        leaves), clipped by the whole gradient's norm."""
+        full = dp.full(params) if dp.sharded else params
+        grads, metrics = compute_grads(full, dp.rows(batch))
+        del full
+        with phase_span("collective"):
+            weight = dp.token_weight(metrics)
+            grads = dp.reduce_grads(grads, weight)
+            metrics = dp.reduce_metrics(metrics, weight)
+            norm = dp.global_norm(grads) if dp.sharded else None
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=norm)
+        return grads, metrics, gnorm
+
+    def train_step(params, opt_state, comp_state,
+                   batch: Dict[str, torch.Tensor], step,
+                   lr_scale: float = 1.0):
+        with layers.sharding_context(ctx):
+            if dp is None:
+                grads, metrics = compute_grads(params, batch)
+                if collector is not None:
+                    metrics.update(telemetry.grad_norm_metrics(grads))
+                grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                if use_compression:
+                    with phase_span("collective"):
+                        grads, comp_state = fp8_compress_grads(grads,
+                                                               comp_state)
+            elif spmd:
+                grads, comp_state, metrics, gnorm = reduce_spmd(
+                    params, comp_state, batch)
+            else:
+                grads, metrics, gnorm = reduce_mean(params, batch)
         # the scale enters in f32, as the reference's traced scalar: a
         # backed-off LR equals the reference's bit for bit
         lr = lr_fn(step) * torch.tensor(lr_scale, dtype=torch.float32)
@@ -145,16 +457,27 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan):
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
-        return params, opt_state, metrics
+        return params, opt_state, comp_state, metrics
 
     return train_step
 
 
-def make_eval_step(model: Model, plan):
+def make_eval_step(model: Model, plan, *,
+                   rules: Optional[ShardingRules] = None):
+    """``eval_step(params, batch) -> metrics`` of the global batch; on a
+    data axis > 1 each rank evaluates its rows (the fsdp blocks
+    gathered) and the metrics are reduced as the step's."""
     plan = as_plan(plan, model.cfg.n_layers)
+    dp = DataParallel.of(model, rules)
+    ctx = rules.manual_over(rules.dp_axes) if rules is not None else None
 
     @torch.no_grad()
     def eval_step(params, batch):
-        return model.loss(params, batch, plan)[1]
+        with layers.sharding_context(ctx):
+            if dp is None:
+                return model.loss(params, batch, plan)[1]
+            full = dp.full(params) if dp.sharded else params
+            metrics = model.loss(full, dp.rows(batch), plan)[1]
+            return dp.reduce_metrics(metrics, dp.token_weight(metrics))
 
     return eval_step

@@ -17,14 +17,16 @@ and every straggler event goes to a JSONL log through the asynchronous
 writer, complete when ``train()`` returns.
 
 Checkpoints (``checkpoint_every`` > 0 with a ``checkpoint_dir``):
-params, optimizer state and the reference's ``comp_state`` (a zero
-scalar: no gradient compression) every ``checkpoint_every`` steps, in
-the reference's file layout (``checkpoint.CheckpointManager``, newest
-``keep_checkpoints`` kept, written in the background under
-``async_checkpoint``).  ``train()`` with no state starts from
-``resume()``, which restores the newest complete checkpoint, the port's
-or the reference's; the plan is re-derived from the restored step, so a
-run resumed across the §3.3 switch continues on the right plan and, the
+params, optimizer state and the reference's ``comp_state`` (the
+error-feedback residuals under ``grad_compression="fp8"``, else a zero
+scalar) every ``checkpoint_every`` steps, in the reference's file
+layout (``checkpoint.CheckpointManager``, newest ``keep_checkpoints``
+kept, written in the background under ``async_checkpoint``): full,
+unsharded arrays, the residuals with their leading replica axis on a
+data axis > 1.  ``train()`` with no state starts from ``resume()``,
+which restores the newest complete checkpoint, the port's or the
+reference's; the plan is re-derived from the restored step, so a run
+resumed across the §3.3 switch continues on the right plan and, the
 batches being a function of the step, bit for bit.
 
 Adaptive precision (``TrainConfig.controller``, a ``ControllerSettings``):
@@ -40,9 +42,18 @@ checkpoint's ``extra["controller"]``, the reference's keys, so a resume
 re-derives the plan across a demotion, a search edit or a replay window
 too.
 
-Features of the reference's trainer that the port does not have yet —
-fp8 gradient compression and meshes — raise ``NotImplementedError`` when
-their ``TrainConfig`` field is set.  ``ModelConfig.remat`` is honoured
+Meshes (``TrainConfig.mesh_shape`` / ``mesh_axes``, or ``rules=``): the
+trainer builds a ``DeviceMesh`` over the world and ``default_rules``
+(``fsdp`` as the config says), and every step, evaluation and checkpoint
+runs data-parallel (``train.train_step``).  ``torch.distributed`` must
+be initialised by the caller (``torchrun``, or a spawn with a store)
+with a world of ``prod(mesh_shape)`` ranks; every rank builds the same
+``Trainer``, draws the same seeded init and takes its block; rank 0
+logs and writes checkpoints (the others join their gathers); every
+rank reads them.  A mesh axis other than the data axes larger than 1
+raises ``NotImplementedError`` (ROADMAP queue A), as do the few
+combinations the data-parallel step cannot run yet (telemetry without
+compression, fsdp with adafactor).  ``ModelConfig.remat`` is honoured
 in ``models.stack``; ``scan_layers`` changes no numbers (the port loops
 over layers either way).
 """
@@ -54,6 +65,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import TrainConfig
@@ -64,26 +76,22 @@ from repro_torch.models.model import Model
 from repro_torch.telemetry.controller import PrecisionController
 from repro_torch.telemetry.profiler import (StepTimer, device_peak_flops,
                                             phase_span, train_step_flops)
+from repro_torch.distributed import comms
+from repro_torch.distributed.sharding import ShardingRules, default_rules
+from repro_torch.optim import init_compression_state
 from repro_torch.telemetry.writer import AsyncJsonlWriter
-from repro_torch.train.train_step import (make_eval_step, make_optimizer,
-                                          make_train_step)
+from repro_torch.train.train_step import (DataParallel, make_eval_step,
+                                          make_optimizer, make_train_step)
 from repro_torch.tree import tree_map
 
 __all__ = ["Trainer", "TrainState", "StepTimeMonitor"]
-
-_DEFAULTS = TrainConfig()
-# field -> the reference feature it turns on, for the fields the port
-# refuses when they differ from their default
-_UNPORTED = {
-    "grad_compression": "fp8 gradient compression",
-    "mesh_shape": "mesh-native training",
-}
 
 
 @dataclasses.dataclass
 class TrainState:
     params: Any
     opt_state: Any
+    comp_state: Any
     step: int
 
 
@@ -119,18 +127,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 class Trainer:
     def __init__(self, model: Model, tcfg: TrainConfig, pipeline, *,
-                 eval_pipeline=None):
-        for name, what in _UNPORTED.items():
-            if getattr(tcfg, name) != getattr(_DEFAULTS, name):
-                raise NotImplementedError(
-                    f"TrainConfig.{name}={getattr(tcfg, name)!r}: {what} "
-                    "is not ported")
+                 eval_pipeline=None, rules: Optional[ShardingRules] = None):
         self.model = model
         self.tcfg = tcfg
         self.pipeline = pipeline
         self.eval_pipeline = eval_pipeline
+        self.rules = rules if rules is not None else self._build_rules()
+        # None on one device or a data axis of 1; raises for a model axis
+        self.dp = DataParallel.of(model, self.rules)
+        self.rank = _rank()
         self.recipe = RECIPES[tcfg.recipe]
         n_layers = model.cfg.n_layers
         self.plan = self._build_plan(n_layers)
@@ -163,7 +174,28 @@ class Trainer:
         # so disk latency never lands in a step
         self.writer: Optional[AsyncJsonlWriter] = (
             AsyncJsonlWriter(tcfg.telemetry_jsonl)
-            if tcfg.telemetry_jsonl else None)
+            if tcfg.telemetry_jsonl and self.rank == 0 else None)
+
+    def _build_rules(self) -> Optional[ShardingRules]:
+        """A mesh over the world and the default rules from
+        ``TrainConfig.mesh_shape`` (None without one), as the
+        reference's."""
+        shape = self.tcfg.mesh_shape
+        if shape is None:
+            return None
+        from repro_torch.distributed.mesh import make_mesh
+        axes = self.tcfg.mesh_axes or ("data", "model")[:len(shape)]
+        if len(axes) != len(shape):
+            raise ValueError(f"mesh_axes {axes} does not match "
+                             f"mesh_shape {shape}")
+        mesh = make_mesh(tuple(shape), tuple(axes))
+        return default_rules(mesh, self.model.cfg, fsdp=self.tcfg.fsdp)
+
+    @property
+    def _spmd(self) -> bool:
+        """Compression over a data axis > 1: residuals with a replica
+        axis."""
+        return self.dp is not None and self.tcfg.grad_compression == "fp8"
 
     def _build_plan(self, n_layers: int) -> PrecisionPlan:
         """``TrainConfig.recipe`` / ``plan_preset`` as a plan (the
@@ -184,7 +216,8 @@ class Trainer:
         """Fresh state: ``params`` (f32 masters, e.g. carried across with
         ``convert.params_from_jax``) moved to the model's device, or a
         seeded init (drawn on the CPU, or with ``on_device`` on the
-        model's device); zeroed optimizer state; step 0."""
+        model's device); zeroed optimizer state and residuals; step 0.
+        On a mesh, this rank's blocks."""
         if params is None:
             params = self.model.init(
                 self.tcfg.seed if seed is None else seed, torch.float32,
@@ -193,38 +226,85 @@ class Trainer:
             params = tree_map(
                 lambda p: p.detach().to(self.model.device, torch.float32)
                 .clone(), params)
+        if self.tcfg.grad_compression == "fp8":
+            comp = init_compression_state(params)
+            if self._spmd:
+                comp = tree_map(lambda r: r[None], comp)
+        else:
+            comp = torch.zeros((), dtype=torch.float32,
+                               device=self.model.device)
+        if self.dp is not None:
+            params = self.dp.local(params)
         opt = make_optimizer(self.model, self.tcfg)
-        return TrainState(params, opt.init(params), 0)
+        return TrainState(params, opt.init(params), comp, 0)
+
+    def _full_like(self, device):
+        """The checkpoint's tree of full arrays on ``device`` (empty
+        tensors: a shape template)."""
+        params = tree_map(lambda s: torch.empty(s.shape, device=device),
+                          self.model.param_specs())
+        if self.tcfg.grad_compression == "fp8":
+            lead = (self.dp.size,) if self._spmd else ()
+            comp = tree_map(lambda p: torch.empty(lead + tuple(p.shape),
+                                                  device=device), params)
+        else:
+            comp = torch.zeros((), device=device)
+        return {"params": params,
+                "opt_state": make_optimizer(self.model,
+                                            self.tcfg).init(params),
+                "comp_state": comp}
 
     def resume(self) -> Optional[TrainState]:
         """The newest complete checkpoint as a state on the model's device
         (None if there is none), in fresh tensors; its step and the
         controller state it carries (loaded into ``self.controller``) pick
-        the plan, as in the reference."""
-        if self.ckpt is None or self.ckpt.latest_step() is None:
+        the plan, as in the reference.  Every rank reads the full arrays
+        and keeps its blocks."""
+        if self.ckpt is None:
             return None
-        meta = torch.device("meta")
-        params = tree_map(lambda s: torch.empty(s.shape, device=meta),
-                          self.model.param_specs())
-        like = {"params": params,
-                "opt_state": make_optimizer(self.model,
-                                            self.tcfg).init(params),
-                "comp_state": torch.zeros((), device=meta)}
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            self.ckpt.wait()        # rank 0's pending write
+            dist.barrier()
+        if self.ckpt.latest_step() is None:
+            return None
+        like = self._full_like(torch.device("meta"))
         restored, extra = self.ckpt.restore(like, device=self.model.device)
         if self.controller is not None and "controller" in extra:
             self.controller.load_state(extra["controller"])
-        return TrainState(restored["params"], restored["opt_state"],
-                          int(extra["step"]))
+        params, opt_state = restored["params"], restored["opt_state"]
+        comp = restored["comp_state"]
+        if self.dp is not None:
+            params = self.dp.local(params)
+            opt_state = self.dp.local_opt_state(opt_state)
+            if self._spmd:
+                i = self.dp.index
+                comp = tree_map(lambda r: r[i:i + 1].clone(), comp)
+        return TrainState(params, opt_state, comp, int(extra["step"]))
+
+    def _gather_comp(self, comp):
+        return tree_map(
+            lambda r: comms.all_gather(r, self.dp.group, tag="residual")
+            .reshape((self.dp.size,) + tuple(r.shape[1:])), comp)
 
     def save(self, state: TrainState) -> None:
         """Checkpoint ``state`` (no-op without a checkpoint directory) with
         the controller's state; the active plan's table rides along in the
         manifest, as in the reference, for forensics: ``resume``
-        re-derives it from the step and the controller state."""
+        re-derives it from the step and the controller state.  On a mesh
+        every rank joins the gathers of its blocks and rank 0 writes."""
         if self.ckpt is None:
             return
-        tree = {"params": state.params, "opt_state": state.opt_state,
-                "comp_state": torch.zeros((), dtype=torch.float32)}
+        params, opt_state, comp = (state.params, state.opt_state,
+                                   state.comp_state)
+        if self.dp is not None:
+            params = self.dp.full(params)
+            opt_state = self.dp.full_opt_state(opt_state)
+            if self._spmd:
+                comp = self._gather_comp(comp)
+        if self.rank != 0:
+            return
+        tree = {"params": params, "opt_state": opt_state,
+                "comp_state": comp}
         extra = {"recipe": self.recipe.name,
                  "plan": self._active_plan(state.step).to_dict()}
         if self.controller is not None:
@@ -240,7 +320,8 @@ class Trainer:
         if key not in self._steps:
             tcfg = (self.tcfg if tel == self.tcfg.telemetry
                     else dataclasses.replace(self.tcfg, telemetry=tel))
-            self._steps[key] = make_train_step(self.model, tcfg, plan)
+            self._steps[key] = make_train_step(self.model, tcfg, plan,
+                                               rules=self.rules)
         return self._steps[key]
 
     def qlint_report(self, *, trace: bool = False):
@@ -262,7 +343,8 @@ class Trainer:
         state = state or self.resume() or self.init_state()
         total = self.tcfg.total_steps
         end = min(total, state.step + (num_steps or total))
-        log = log or (lambda s: None)
+        if log is None or self.rank != 0:
+            log = lambda s: None   # noqa: E731 -- rank 0 logs
         dev = self.model.device
         while state.step < end:
             step = state.step
@@ -286,14 +368,14 @@ class Trainer:
             with phase_span("step"):
                 _sync(dev)
                 t0 = time.perf_counter()
-                params, opt_state, metrics = fn(state.params,
-                                                state.opt_state, batch, step,
-                                                lr_scale)
+                params, opt_state, comp_state, metrics = fn(
+                    state.params, state.opt_state, state.comp_state, batch,
+                    step, lr_scale)
                 _sync(dev)
                 dt = time.perf_counter() - t0
             self.timer.record(dt)
             straggler = self.monitor.record(step, dt)
-            state = TrainState(params, opt_state, step + 1)
+            state = TrainState(params, opt_state, comp_state, step + 1)
             with phase_span("host"):
                 row = self._record(step, plan, metrics, dt, straggler, log)
                 # the controller first: a rollback must restore a checkpoint
@@ -412,19 +494,22 @@ class Trainer:
     def step_time_summary(self) -> Dict[str, float]:
         """Measured step-time statistics of this trainer's run so far:
         p50/p95/p99/mean (ms), tokens/s at the median step, and MFU from
-        the model's ``ModelDims`` flops against the device's peak."""
+        the model's ``ModelDims`` flops against the peak of the devices
+        that ran the step (each rank of a mesh one)."""
         tokens = self.tcfg.global_batch * self.tcfg.seq_len
+        ranks = self.dp.size if self.dp is not None else 1
         return self.timer.summary(
             tokens_per_step=tokens,
             flops_per_step=train_step_flops(self.dims, tokens),
-            peak_flops=device_peak_flops(self.model.device))
+            peak_flops=device_peak_flops(self.model.device) * ranks)
 
     def evaluate(self, state: TrainState, n_batches: int = 8,
                  recipe=None) -> Dict[str, float]:
         """Mean loss over ``n_batches`` held-out batches (steps 10^7 + i
         of the eval pipeline) under ``recipe`` (a recipe or plan; default
         the BF16 baseline)."""
-        fn = make_eval_step(self.model, recipe or RECIPES["bf16"])
+        fn = make_eval_step(self.model, recipe or RECIPES["bf16"],
+                            rules=self.rules)
         pipeline = self.eval_pipeline or self.pipeline
         losses = [float(fn(state.params,
                            self._batch(pipeline, 10_000_000 + i))["loss"])

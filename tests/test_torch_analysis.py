@@ -249,7 +249,8 @@ def test_qlint_cells_match_reference(tiny_reports):
 
 def test_qlint_cli_gate(tiny_reports, monkeypatch, tmp_path, capsys):
     """The CLI's exits: 0 against the committed file, 2 on drift; its
-    JSON; ``--mesh`` raises (no multi-GPU modules)."""
+    JSON; ``--mesh`` in a world smaller than the mesh stops with how to
+    launch the ranks (the meshed audit itself: test_torch_spmd_train)."""
     monkeypatch.setattr(qlint, "build_reports",
                         lambda *a, **k: tiny_reports)
     argv = ["--config", "tiny", "--plan", "fine_grained_fp4", "--impl",
@@ -268,10 +269,12 @@ def test_qlint_cli_gate(tiny_reports, monkeypatch, tmp_path, capsys):
     assert qlint.main(argv + ["--expect", str(drift)]) == 2
     assert "EXPECTATION DRIFT" in capsys.readouterr().out
     monkeypatch.undo()
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        qlint.build_reports("tiny", "fine_grained_fp4", mesh="2,1")
-    with pytest.raises(NotImplementedError):
-        qlint.audit_hlo_comms("", expect_fp8=True)
+    with pytest.raises(SystemExit, match="nproc-per-node 2"):
+        qlint.build_reports("tiny", "fine_grained_fp4", mesh=(2, 1),
+                            device="cpu")
+    census, findings = qlint.audit_comms([], expect_fp8=True)
+    assert census["grad_payload_bytes"] == 0
+    assert [f.severity for f in findings] == ["violation"]
 
 
 def test_label_layers_and_scale_placement_match_reference():

@@ -306,7 +306,7 @@ def test_training_step_resolves_the_references_keys(monkeypatch):
     step = make_train_step(tm, t_tcfg, tp)
     tseen = _spy(monkeypatch, ta)
     with ta.recording() as jobs:
-        step(tparams, make_optimizer(tm, t_tcfg).init(tparams),
+        step(tparams, make_optimizer(tm, t_tcfg).init(tparams), None,
              {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     assert set(tseen) == set(jseen)
     assert {(m, n, k) for m, n, k, *_ in jseen} >= {(128, 128, 128)}
@@ -320,7 +320,7 @@ def test_training_step_resolves_the_references_keys(monkeypatch):
         tt.record(key, 128, 128, 128, 1.0)
     ta.set_table(tt)
     before = dict(ta.COUNTERS)
-    step(tparams, make_optimizer(tm, t_tcfg).init(tparams),
+    step(tparams, make_optimizer(tm, t_tcfg).init(tparams), None,
          {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     assert ta.COUNTERS["miss"] == before["miss"]
     assert ta.COUNTERS["hit"] - before["hit"] == len(jobs)

@@ -123,7 +123,7 @@ def test_jax_restores_port_checkpoint(tmp_path):
     topt = opt_state_from_jax(jax.tree.map(np.asarray, st), tcfg)
     tr = _trainer(tcfg, checkpoint_every=2, checkpoint_dir=str(tmp_path))
     from repro_torch.train.trainer import TrainState
-    tr.save(TrainState(tparams, topt, 4))
+    tr.save(TrainState(tparams, topt, torch.zeros(()), 4))
     like = {"params": params, "opt_state": st,
             "comp_state": jnp.zeros((), jnp.float32)}
     mgr = j_ckpt.CheckpointManager(str(tmp_path))

@@ -149,7 +149,8 @@ def test_vlm_step_census_matches_reference():
             jnp.zeros((), jnp.int32), jnp.ones((), jnp.float32))
     step = make_train_step(tm, t_tcfg, tp)
     with routing.capture() as tlog:
-        step(tparams, make_optimizer(tm, t_tcfg).init(tparams), tb, 0)
+        step(tparams, make_optimizer(tm, t_tcfg).init(tparams), None, tb,
+             0)
     got, want = (sorted(log.to_dict()["cells"], key=repr)
                  for log in (tlog, jlog))
     assert got == want

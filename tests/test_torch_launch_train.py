@@ -84,9 +84,23 @@ def test_impl_flags_default_to_the_config():
 
 
 def test_unported_flags_raise():
-    for extra in (["--grad-compression", "fp8"], ["--mesh", "2,1"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(["--device", "cpu", "--steps", "1"] + extra)
+    """The flags the port once refused now train: ``--grad-compression
+    fp8`` carries residuals, ``--mesh 1,1`` runs a mesh of this process
+    alone (its group ends with ``main``); a mesh larger than the world
+    raises ``ValueError`` (a model axis > 1: test_torch_train; the
+    2-rank CLI under torchrun: test_torch_spmd_train)."""
+    import torch.distributed as dist
+    base = ["--device", "cpu", "--steps", "1", "--batch", "2", "--seq",
+            "32"]
+    out = cli.main(base + ["--grad-compression", "fp8"])
+    assert set(out["state"].comp_state) == set(out["state"].params)
+    out = cli.main(base + ["--mesh", "1,1", "--grad-compression", "fp8",
+                           "--no-fsdp"])
+    assert out["trainer"].rules.dp_size == 1 and not dist.is_initialized()
+    for mesh in ("2,1", "1,2"):
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            cli.main(base + ["--mesh", mesh])
+    assert not dist.is_initialized()
 
 
 # The reference CLI's line formats (src/repro/launch/train.py and its

@@ -242,7 +242,7 @@ def test_train_step_census_matches_reference(arch):
     t_tcfg = TrainConfig(total_steps=8, global_batch=2, seq_len=64)
     step = make_train_step(tm, t_tcfg, tplan)
     with routing.capture() as tlog:
-        step(tparams, make_optimizer(tm, t_tcfg).init(tparams),
+        step(tparams, make_optimizer(tm, t_tcfg).init(tparams), None,
              {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     got = _cells(tlog)
     assert got == _cells(jlog)

@@ -116,7 +116,7 @@ def test_train_step_census_matches_reference(kind, impl, n_layers):
     t_tcfg = TrainConfig(total_steps=8, global_batch=BATCH, seq_len=SEQ)
     step = make_train_step(tm, t_tcfg, tp)
     with routing.capture() as tlog:
-        step(tparams, make_optimizer(tm, t_tcfg).init(tparams),
+        step(tparams, make_optimizer(tm, t_tcfg).init(tparams), None,
              {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     got, want = _cells(tlog), _cells(jlog)
     assert got == want

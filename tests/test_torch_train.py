@@ -338,20 +338,37 @@ def test_trainer_matches_jax(recipe):
         np.testing.assert_allclose(a, b, rtol=0, atol=tol["params"])
 
 
-def test_trainer_refuses_unported_features():
+def test_trainer_refuses_unported_features(tmp_path):
     """Every TrainConfig field of a feature the port has not got raises
     instead of being ignored (telemetry, its JSONL log and the step
     timer's warm-up are ported: test_torch_telemetry; checkpoints, the
     plan presets, remat, ``loss_chunk`` and adafactor: the tests below
     and test_torch_checkpoint; the controller and its cost calibration:
-    test_torch_controller).  ``remat_policy="dots"`` raises: no
-    selective-checkpoint policy sees the port's matmul kernels."""
+    test_torch_controller; fp8 gradient compression and data-parallel
+    meshes: test_torch_spmd_train).  ``grad_compression`` and
+    ``mesh_shape`` are accepted; a ``model`` axis larger than 1 raises
+    (no tensor parallelism), and so does a mesh larger than the world.
+    ``remat_policy="dots"`` raises: no selective-checkpoint policy sees
+    the port's matmul kernels."""
+    import torch.distributed as dist
+    from repro_torch.distributed import AbstractMesh, default_rules
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
-    for over in (dict(grad_compression="fp8"), dict(mesh_shape=(1, 1))):
-        with pytest.raises(NotImplementedError):
-            Trainer(model, TrainConfig(**over), pipe)
+    with pytest.raises(NotImplementedError, match="queue A"):
+        Trainer(model, TrainConfig(), pipe, rules=default_rules(
+            AbstractMesh((1, 2), ("data", "model")), cfg))
+    Trainer(model, TrainConfig(grad_compression="fp8"), pipe)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        tr = Trainer(model, TrainConfig(mesh_shape=(1, 1)), pipe)
+        assert tr.rules.dp_size == 1 and tr.dp is None
+        with pytest.raises(ValueError, match="need 2 devices, have 1"):
+            Trainer(model, TrainConfig(mesh_shape=(2, 1)), pipe)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError):
         Trainer(model, TrainConfig(plan_preset="nope"), pipe)
     dots = t_build(cfg.replace(dtype="float32", remat_policy="dots"), "cpu")
