@@ -34,7 +34,12 @@ code 1):
    SDPA's time beside each (``is_causal`` as the row); and llama3.2-3b's
    (phase 8a) at the same 8192 tokens: the FFN forward 3072 -> 8192, the
    wq (3072 -> 3072) and wk (-> 1024, wv's shape) forwards, flash at
-   (96, 2048, 128) causal.  QDQ panels
+   (96, 2048, 128) causal; a data-parallel rank's wgrad wq lhs (4096
+   of the 8192 tokens) through ``quantize_rows``' shared-amax entry (its
+   amax words maxed with the other rank's between the amax and the QDQ
+   launches: bitwise its plain version's same entry and the whole
+   operand's rows, the rank's own amax missing) and the stream kernel's
+   SR keyed from a rank's origin.  QDQ panels
    bitwise, GEMM outputs within one bf16 ulp (+1e-5 max|y|), the stream
    kernel bitwise against quantize_rows + tiled_mm in the same layout,
    attention within
@@ -156,8 +161,15 @@ code 1):
    ``fp8_compress_grads``; prints the collective census.
 5d. train_dp — two processes on the one card over ``gloo``, a (2, 1)
    mesh, gpt2-125m at full width cut to 2 layers (DP_LAYERS), 4 x 1024
-   a rank.  Without compression (fsdp on) losses and parameters within
-   DP_TOL of one process on the 8-row batch; with compression (fsdp
+   a rank.  Without compression (fsdp on, paper_fp4, telemetry on) the
+   quant groups that span the batch share one amax over the ranks: every
+   wgrad operand of a token group QDQ'd on a rank equals the same rows of
+   one process's QDQ of both ranks' inputs bit for bit (a control with
+   the rank's own amax must miss), losses and parameters within DP_TOL
+   of one process on the 8-row batch, step 0's telemetry within DP_TOL
+   of its stats (the forward counts equal), the amax all-reduces
+   censused as words (``qlint.audit_comms`` clean); one adafactor step
+   with fsdp within DP_TOL of one process; with compression (fsdp
    off) each rank's reduced gradients and residual bitwise
    ``compressed_reduce_dp`` over both ranks' stacked gradients in one
    process, a control (residuals dropped) that must miss, and 1-byte
@@ -246,7 +258,7 @@ code 1):
    depth (28 layers, d 3072, 24 query and 8 KV heads of 128, d_ff 8192,
    vocab 128256, tied embeddings; 3,212,749,824 parameters drawn on the
    card), ``--recipe paper_fp4 --linear-impl pallas --attention-impl
-   pallas --batch 4 --seq 2048``, 5 AdamW steps (all before the §3.3
+   pallas --batch 4 --seq 2048``, 4 AdamW steps (all before the §3.3
    switch), remat "full" as the config has it.  Prints the CLI's lines
    (per-step log, ``eval:``, ``step-time:``, ``roofline[...]``), then
    one line: losses, step times, the CLI's step-time summary and
@@ -516,22 +528,37 @@ COMP_REPLAY_STEPS = (0, 1)
 # train_mesh: steps of each run on the (1, 1) mesh and without rules.
 MESH_STEPS = 2
 # train_dp: two gloo ranks on the card, gpt2-125m cut to DP_LAYERS,
-# DP_ROWS x 1024 tokens a rank, DP_STEPS steps.  Bars against one process
-# on both ranks' rows (paper_fp4, test_torch_train's bars: a last-bit
-# difference of summation order flips an FP4 / FP8 rounding now and then).
+# DP_ROWS x 1024 tokens a rank, DP_STEPS steps of paper_fp4.  Bars
+# against one process on both ranks' rows.  The ranks share each quant
+# group's amax (the sharp gate: their wgrad operands bitwise one
+# process's QDQ of the stacked inputs), but their steps still differ:
+# the head's dgrad runs in cuBLAS, whose bits depend on M, so the
+# cotangents differ in their last bits; a wgrad sums its two halves of
+# the tokens (each rounded to bf16, where one process rounds the whole
+# sum once); and AdamW's update, like adafactor's factored one, turns a
+# near-zero gradient that changes sign into a +-lr step.  "loss"
+# relative (the first card run read 1.58e-4); "params" the largest
+# element's difference, bounded by such a flip on each step (2 x 6e-4 a
+# step); "params_rel" the L2 norm of the params' difference over that of
+# one process's update (read 3.4e-2); "tel_rtol" step 0's float stats
+# (the backward ones read 1.4e-3: the cotangents' flips); one adafactor
+# step ("adafactor_*": read loss 0, params 1.2e-3, one flip).
 DP_LAYERS, DP_ROWS, DP_STEPS = 2, 4, 3
-DP_TOL = {"loss": 1e-2, "params": 1e-2}
+DP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 5e-2,
+          "tel_rtol": 2e-3, "adafactor_loss": 1e-6,
+          "adafactor_params": 1.5e-3}
 # The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
 # (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
 # first_last_k with k = 2; op replay of a protected and a middle layer.
 LARGE_BATCH, LARGE_SEQ, LARGE_STEPS, LARGE_K = 4, 2048, 7, 2
 LARGE_REPLAY_LAYERS = (0, 24)
 # The train_cli phase: launch/train.py run in process on llama3.2-3b at
-# full width and depth, 4 x 2048 tokens, 5 AdamW steps of paper_fp4 with
-# both impls "pallas" (round(5 x 0.925) = 5: no §3.3 switch); op replay of layers
+# full width and depth, 4 x 2048 tokens, 4 AdamW steps of paper_fp4 (5
+# until train_dp's data-parallel gates grew) with both impls "pallas"
+# (round(4 x 0.925) = 4: no §3.3 switch); op replay of layers
 # 0 and 27 through the plain versions on the card.  Then the qlint CLI on
 # tiny on the card against the port's committed expectations.
-CLI_ARCH, CLI_BATCH, CLI_SEQ, CLI_STEPS = "llama3.2-3b", 4, 2048, 5
+CLI_ARCH, CLI_BATCH, CLI_SEQ, CLI_STEPS = "llama3.2-3b", 4, 2048, 4
 CLI_PARAMS = 3_212_749_824
 # (layers, d_model, d_ff, vocab, head_dim) of the full model
 CLI_DIMS = (28, 3072, 8192, 128256, 128)
@@ -1136,6 +1163,14 @@ def phase_train_kernels(torch, card):
                              lambda rows_: tm.tiled_mm(aq[:rows_], bq, **kw),
                              y)
 
+    # A data-parallel rank's wgrad wq lhs (train_dp: 2 ranks of 4096 of
+    # the 8192 tokens): the shared-amax entry, its amax words maxed with
+    # the other rank's (what the data group's all-reduce returns), bitwise
+    # its plain version's same entry and the whole operand's rows; and
+    # fine_grained_fp4's SR wgrad on the stream kernel keyed from the
+    # rank's origin
+    shared_amax_rows(torch, timer, rows, x, bitwise)
+
     # Flash attention forward, causal: (B*H, S, D) = (96, 1024, 64), the
     # training step's; and (48, 1024, 128), the head dimension whose scale
     # is not a power of two, at the same bytes.  Non-causal (an encoder's
@@ -1183,6 +1218,68 @@ def phase_train_kernels(torch, card):
           "tokens": t, "ok": True, "table": rows,
           "flash_precision_d128": precision})
     return rows
+
+
+def shared_amax_rows(torch, timer, rows, x, bitwise):
+    """``quantize_rows``' shared-amax entry at a data-parallel rank's
+    wgrad shape, and ``qmm_stream``'s SR keyed from a rank's origin
+    (``train_kernels``); appends the shared entry's timing row."""
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    half = x.shape[0] // 2
+    kw = dict(mode="token", fmt_name="fp8_e4m3", trans=True,
+              emit_trans=True)
+    whole = qr.quantize_rows(x, **kw)
+    other = x[:half].float().abs().amax(dim=0).view(torch.int32)
+
+    def share(words):
+        torch.maximum(words, other, out=words)
+    part = x[half:]
+    qr.KERNEL.reset()
+    y = qr.quantize_rows(part, amax_reduce=share, **kw)
+    if qr.KERNEL.launches != 2:
+        raise AssertionError(f"quantize_rows shared amax: "
+                             f"{qr.KERNEL.launches} launches, not 2")
+    bitwise(y, qr.quantize_rows_plain(part, amax_reduce=share, **kw),
+            "quantize_rows shared amax")
+    bitwise(y, whole[half:], "quantize_rows shared amax vs the whole "
+            "operand's rows")
+    local = qr.quantize_rows_plain(part, **kw)
+    torch.cuda.synchronize()
+    if torch.equal(local.view(torch.int16), y.view(torch.int16)):
+        raise AssertionError("quantize_rows shared amax: the control "
+                             "(the rank's local amax) did not miss")
+    n = part.numel()
+    b_ms, b_by = _bound(4 * n, 8 * n, H100_F32_FLOPS)
+    rows.append({
+        "name": "quantize_rows", "role": "wgrad wq lhs shared amax",
+        "shape": list(part.shape), "trans": True, "max_abs_err": 0.0,
+        "ms": timer.ms(lambda: qr.quantize_rows(part, amax_reduce=share,
+                                                **kw), iters=10),
+        "plain_ms": timer.ms(lambda: qr.quantize_rows_plain(
+            part, amax_reduce=share, **kw), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    # the stream kernel's SR from the rank's origin: its B panel (the
+    # cotangent, SR block groups along the tokens) alone equals the same
+    # columns of the whole operand's
+    g = x[:, :512].contiguous()
+    sr = dict(mode="block", fmt_name="fp4_e2m1", trans=True, sr=True,
+              seed=-1253433917)
+    whole = qr.quantize_rows(g, **sr)
+    halfq = qr.quantize_rows(g[half:], sr_origin=(0, half), **sr)
+    bitwise(halfq, whole[:, half:], "quantize_rows SR from a rank's origin")
+    st = dict(a_mode="block", b_mode="block", a_fmt="fp8_e4m3",
+              b_fmt="fp4_e2m1", trans_a=True, seed_b=-1253433917)
+    ys = qs.qmm_stream(x[half:], g[half:], b_sr=True, sr_origin_b=(0, half),
+                       **st)
+    ref = qs.qmm_stream_plain(x[half:], g[half:], sr_origin_b=(0, half),
+                              **st)
+    torch.cuda.synchronize()
+    err = (ys.float() - ref.float()).abs()
+    if not bool((err <= 2.0 ** -7 * ref.float().abs()
+                 + 1e-5 * ref.float().abs().max()).all()):
+        raise AssertionError(f"qmm_stream SR from a rank's origin out of "
+                             f"tolerance: max err {err.max().item()}")
 
 
 def phase_moe_kernels(torch, card):
@@ -5380,6 +5477,60 @@ def phase_train_mesh(torch, card):
     return launches
 
 
+class WgradCapture:
+    """Records, while open, the quantized wgrad operands of the token and
+    tensor groups (the attention linears' two-pass route, as
+    ``fp4_matmul.fused_qmm`` calls ``quantize_rows``: x^T, then the
+    cotangent) as host copies in the operand's stored layout, in call
+    order, with the call's layout arguments; with ``control`` also its
+    input and the
+    same input quantized by the plain version with this rank's own amax
+    (no kernel launch)."""
+
+    def __init__(self, control: bool = False):
+        self.control, self.calls = control, []
+
+    def __enter__(self):
+        from repro_torch.core import routing
+        from repro_torch.kernels import fp4_matmul as fm
+        from repro_torch.kernels import quantize_rows as qr
+        self._fm, self._orig = fm, fm.quantize_rows
+        # a marking capture opens the matmul roles' scopes
+        self._roles = routing.capture(markers=True)
+        self._roles.__enter__()
+
+        def wrapped(x, **kw):
+            y = self._orig(x, **kw)
+            if routing.current_role() == "wgrad" and \
+                    kw["mode"] in ("token", "tensor"):
+                rec = {"y": (y[0] if kw.get("collect_stats") else y)
+                       .to("cpu", copy=True),
+                       "kw": {k: kw[k] for k in ("mode", "fmt_name",
+                                                 "pow2", "trans",
+                                                 "emit_trans") if k in kw}}
+                if self.control:
+                    rec["x"] = x.to("cpu", copy=True)
+                    local = {k: v for k, v in kw.items()
+                             if k not in ("amax_reduce", "sr", "seed",
+                                          "collect_stats")}
+                    rec["local"] = qr.quantize_rows_plain(
+                        x, seed=kw.get("seed") if kw.get("sr") else None,
+                        **local).to("cpu", copy=True)
+                self.calls.append(rec)
+            return y
+        fm.quantize_rows = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self._fm.quantize_rows = self._orig
+        self._roles.__exit__(*exc)
+
+
+def _tel_rows(history):
+    return [{k: v for k, v in r.items() if k.startswith("tel/")}
+            for r in history]
+
+
 def _dp_rank(rank, world, store, out_dir):
     """One rank of ``train_dp`` (a spawned process): gpt2-125m cut to
     DP_LAYERS on a (world, 1) mesh over gloo on the one card."""
@@ -5411,17 +5562,29 @@ def _dp_rank(rank, world, store, out_dir):
         # the choice of gloo: its all_gather / reduce_scatter take host
         # tensors only
         with comms.host_staging():
-            tr = Trainer(build_model(cfg), TrainConfig(**kw), pipeline)
+            tr = Trainer(build_model(cfg), TrainConfig(**kw, telemetry=True),
+                         pipeline)
             st = tr.init_state(seed=0)
-            with comms.recording() as log:
-                st = tr.train(st)
+            with WgradCapture(control=True) as cap, \
+                    comms.recording() as log:
+                st = tr.train(st, num_steps=1)
+            st = tr.train(st)
             full = tr.dp.full(st.params)     # a collective: every rank
             result["mean"] = {
                 "losses": [r["loss"] for r in tr.history],
+                "tel": _tel_rows(tr.history),
                 "census": [r.to_dict() for r in log],
+                "operands": cap.calls,
                 "params": _host_leaves(full) if rank == 0 else None}
-            del full
-            del tr, st
+            del full, tr, st, cap
+            tr = Trainer(build_model(cfg.replace(optimizer="adafactor")),
+                         TrainConfig(**dict(kw, total_steps=1)), pipeline)
+            st = tr.train(tr.init_state(seed=0))
+            full = tr.dp.full(st.params)
+            result["adafactor"] = {
+                "losses": [r["loss"] for r in tr.history],
+                "params": _host_leaves(full) if rank == 0 else None}
+            del full, tr, st
             tr = Trainer(build_model(cfg), TrainConfig(
                 **kw, grad_compression="fp8", fsdp=False), pipeline)
             st = tr.train(tr.init_state(seed=0), num_steps=1)
@@ -5445,15 +5608,77 @@ def _dp_rank(rank, world, store, out_dir):
         dist.destroy_process_group()
 
 
+def _one_process(torch, cfg, tcfg, pipeline, capture=False):
+    """``tcfg``'s run in this process on the whole batch: its history,
+    its final params on the host and (``capture``) step 0's quantized
+    wgrad operands."""
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    one = Trainer(build_model(cfg), tcfg, pipeline)
+    st = one.init_state(seed=0)
+    calls = []
+    if capture:
+        with WgradCapture() as cap:
+            st = one.train(st, num_steps=1)
+        calls = cap.calls
+    st = one.train(st)
+    out = (one.history, _host_leaves(st.params), calls)
+    del one, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tel_misses(got_rows, want_rows, rtol):
+    """Telemetry stats of a rank against one process's (step 0): the taps
+    equal; the forward-side clip / underflow rates equal to the rounding
+    of the kernels' f32 count lanes (exact below 2^24 elements: 1e-6
+    relative); the backward-side rates within 5e-4 and every other stat
+    within ``rtol`` (the cotangents differ in their last bits: the
+    head's cuBLAS dgrad depends on M); every miss."""
+    misses = []
+    for got, want in zip(got_rows[:1], want_rows[:1]):
+        if set(got) != set(want):
+            misses.append(("keys", sorted(set(got) ^ set(want))[:5]))
+        for k, w in want.items():
+            stat, v = k.rsplit("/", 1)[1], got.get(k, float("nan"))
+            if stat == "taps":
+                ok = v == w
+            elif stat in ("clip", "underflow"):
+                ok = (abs(v - w) <= 5e-4 if k.startswith("tel/bwd/")
+                      else abs(v - w) <= 1e-6 * abs(w))
+            else:
+                ok = abs(v - w) <= rtol * abs(w) + 1e-12
+            if not ok:
+                misses.append((k, v, w))
+    return misses
+
+
+def _params_err(got, want, init):
+    """(max abs difference, its L2 norm over the L2 norm of the
+    one-process update) of two param lists."""
+    diff = sum(float((a - b).double().pow(2).sum())
+               for a, b in zip(got, want)) ** 0.5
+    upd = sum(float((b - c).double().pow(2).sum())
+              for b, c in zip(want, init)) ** 0.5
+    return (max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            diff / max(upd, 1e-30))
+
+
 def phase_train_dp(torch, card):
     """Two processes on the one card over gloo, a (2, 1) mesh:
     gpt2-125m at full width cut to DP_LAYERS layers, DP_ROWS x 1024 a
-    rank.  Gates: without compression (fsdp on) losses and parameters
-    within TRAIN_TOL of one process on the whole batch; with compression
+    rank.  Gates: without compression (fsdp on, paper_fp4, telemetry on)
+    every wgrad operand of the token groups QDQ'd on a rank (its amax
+    shared over the data group) equals the same rows of one process's
+    QDQ bit for bit, and the control (the rank's own amax) misses; losses
+    and params within DP_TOL of one process on the whole batch; step 0's
+    telemetry counts equal one process's, the float stats within
+    DP_TOL; the comms audit clean with the amax words censused; one
+    adafactor fsdp step within DP_TOL of one process; with compression
     (fsdp off) each rank's reduced gradients and residual bitwise
-    ``compressed_reduce_dp`` over the two ranks' stacked gradients in
-    one process; 1-byte gradient payloads in the census.  Returns the
-    path's launch counts (both ranks')."""
+    ``compressed_reduce_dp`` over the two ranks' stacked gradients in one
+    process; 1-byte gradient payloads in the census.  Returns the path's
+    launch counts (both ranks')."""
     import torch.multiprocessing as mp
     from repro_torch.analysis.qlint import audit_comms
     from repro_torch.configs.base import TrainConfig
@@ -5461,21 +5686,22 @@ def phase_train_dp(torch, card):
     from repro_torch.distributed.comms import CollectiveRecord
     from repro_torch.models import build_model
     from repro_torch.optim import compressed_reduce_dp
-    from repro_torch.train.trainer import Trainer
-    from repro_torch.tree import tree_leaves
 
     world = 2
     cfg = _gpt2_train_cfg(n_layers=DP_LAYERS)
     batch = world * DP_ROWS
     pipeline = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
-    one = Trainer(build_model(cfg), TrainConfig(
-        recipe="paper_fp4", total_steps=DP_STEPS, global_batch=batch,
-        seq_len=TRAIN_SEQ, log_every=0), pipeline)
-    st = one.train(one.init_state(seed=0))
-    one_losses = [r["loss"] for r in one.history]
-    one_params = _host_leaves(st.params)
-    del one, st
-    torch.cuda.empty_cache()
+    kw = dict(recipe="paper_fp4", total_steps=DP_STEPS, global_batch=batch,
+              seq_len=TRAIN_SEQ, log_every=0)
+    init = _host_leaves(build_model(cfg).init(0, torch.float32))
+    t0 = time.perf_counter()
+    one_hist, one_params, one_ops = _one_process(
+        torch, cfg, TrainConfig(**kw, telemetry=True), pipeline,
+        capture=True)
+    ada_hist, ada_params, _ = _one_process(
+        torch, cfg.replace(optimizer="adafactor"),
+        TrainConfig(**dict(kw, total_steps=1)), pipeline)
+    one_s = time.perf_counter() - t0
     print("train_dp: gloo takes CUDA tensors for all_reduce only; the "
           "ranks stage all_gather / reduce_scatter through host memory "
           "(comms.host_staging)", flush=True)
@@ -5487,10 +5713,45 @@ def phase_train_dp(torch, card):
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(world)]
     mean = ranks[0]["mean"]
+    one_losses = [r["loss"] for r in one_hist]
     loss_err = max(abs(a - b) / abs(b)
                    for a, b in zip(mean["losses"], one_losses))
-    param_err = max(float((a - b).abs().max())
-                    for a, b in zip(mean["params"], one_params))
+    param_err, param_rel = _params_err(mean["params"], one_params, init)
+    # the wgrad operands: each rank's QDQ (its amax shared) bit for bit
+    # the same rows of one process's QDQ of both ranks' inputs stacked
+    # along the tokens; and, informative, against the operands of the
+    # one-process run above (equal for x^T; the cotangents enter through
+    # the head's cuBLAS dgrad, whose bits depend on M)
+    from repro_torch.kernels import quantize_rows as qr
+    n_ops = len(one_ops)
+    op_diff, ctl_diff, op_elems, run_diff = 0, 0, 0, [0, 0]
+    for i in range(n_ops):
+        got = [rk["mean"]["operands"][i] for rk in ranks]
+        whole = qr.quantize_rows(torch.cat([g["x"] for g in got]).cuda(),
+                                 **got[0]["kw"]).cpu()
+        for r, g in enumerate(got):
+            m = g["y"].shape[0]
+            want = whole[r * m:(r + 1) * m]
+            op_diff += not torch.equal(g["y"].view(torch.int16),
+                                       want.view(torch.int16))
+            ctl_diff += not torch.equal(g["local"].view(torch.int16),
+                                        want.view(torch.int16))
+            op_elems += g["y"].numel()
+            # a rank's loss is the mean over its own rows, so its
+            # cotangent is world x one process's (a power of two)
+            run = one_ops[i]["y"][r * m:(r + 1) * m] * (world if i % 2
+                                                        else 1)
+            run_diff[i % 2] += not torch.equal(g["y"].view(torch.int16),
+                                               run.view(torch.int16))
+        del whole
+    tel_misses = [_tel_misses(rk["mean"]["tel"], _tel_rows(one_hist),
+                              DP_TOL["tel_rtol"]) for rk in ranks]
+    tel_keys = len(_tel_rows(one_hist)[0])
+    ada = ranks[0]["adafactor"]
+    ada_loss_err = abs(ada["losses"][0] - ada_hist[0]["loss"]) / abs(
+        ada_hist[0]["loss"])
+    ada_param_err, ada_param_rel = _params_err(ada["params"], ada_params,
+                                               init)
     # the reduction in one process, on the card, over the stacked pieces
     n = len(ranks[0]["fp8"]["local"])
     g = [torch.stack([r["fp8"]["local"][i] for r in ranks]).cuda()
@@ -5509,13 +5770,32 @@ def phase_train_dp(torch, card):
     census = [CollectiveRecord(**c) for c in ranks[0]["fp8"]["census"]]
     audit, findings = audit_comms(census, expect_fp8=True)
     mean_census = [CollectiveRecord(**c) for c in mean["census"]]
+    mean_audit, mean_findings = audit_comms(mean_census, expect_fp8=False)
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
     tol = DP_TOL
     failures = []
-    if not loss_err <= tol["loss"] or not param_err <= tol["params"]:
+    if not n_ops or op_diff or any(len(rk["mean"]["operands"]) != n_ops
+                                   for rk in ranks):
+        failures.append(f"wgrad operands: {op_diff} of {world * n_ops} "
+                        "differ from one process's rows")
+    if not ctl_diff:
+        failures.append("the control (each rank's own amax) did not miss")
+    if not loss_err <= tol["loss"] or not param_rel <= tol["params_rel"] \
+            or not param_err <= tol["params"]:
         failures.append(f"2 ranks vs one process: loss rel err {loss_err}, "
-                        f"param abs err {param_err} ({tol})")
+                        f"param abs err {param_err}, rel {param_rel} "
+                        f"({tol})")
+    if any(tel_misses):
+        failures.append(f"telemetry vs one process: "
+                        f"{[m[:6] for m in tel_misses]}")
+    if not ada_loss_err <= tol["adafactor_loss"] or \
+            not ada_param_err <= tol["adafactor_params"]:
+        failures.append(f"adafactor fsdp step vs one process: loss rel err "
+                        f"{ada_loss_err}, param abs err {ada_param_err}")
+    if mean_findings or not mean_audit["amax_allreduces"]:
+        failures.append(f"comms audit (mean): {mean_audit}, "
+                        f"{[f.to_dict() for f in mean_findings]}")
     if any(red_diff) or any(new_diff):
         failures.append(f"fp8 reduction vs compressed_reduce_dp: reduced "
                         f"{red_diff}, residuals {new_diff} tensors differ")
@@ -5524,8 +5804,9 @@ def phase_train_dp(torch, card):
     if findings:
         failures.append(f"comms audit: {[f.to_dict() for f in findings]}")
     fp8_losses = ranks[0]["fp8"]["losses"]
-    if not all(np.isfinite(fp8_losses + mean["losses"])):
-        failures.append(f"non-finite loss: {mean['losses']}, {fp8_losses}")
+    if not all(np.isfinite(fp8_losses + mean["losses"] + ada["losses"])):
+        failures.append(f"non-finite loss: {mean['losses']}, {fp8_losses}, "
+                        f"{ada['losses']}")
     if min(launches.values()) <= 0:
         failures.append(f"a kernel of the path never ran: {launches}")
     emit({"phase": "train_dp", "card": card, "model": cfg.name,
@@ -5534,21 +5815,33 @@ def phase_train_dp(torch, card):
                      "host memory)", "world": world, "mesh": [world, 1],
           "rows_per_rank": DP_ROWS, "seq_len": TRAIN_SEQ,
           "steps": DP_STEPS, "recipe": "paper_fp4",
-          "mean": {"fsdp": True, "losses": mean["losses"],
+          "mean": {"fsdp": True, "telemetry": True,
+                   "losses": mean["losses"],
                    "one_process_losses": one_losses,
                    "loss_rel_err": loss_err, "param_abs_err": param_err,
-                   "tol": tol,
-                   "census": {r.op + ":" + r.tag + ":" + r.dtype:
-                              sum(1 for c in mean_census
-                                  if (c.op, c.tag, c.dtype)
-                                  == (r.op, r.tag, r.dtype))
-                              for r in mean_census}},
+                   "param_rel_err": param_rel, "tol": tol,
+                   "wgrad_operands": {"captured": world * n_ops,
+                                      "elements": op_elems,
+                                      "differing": op_diff,
+                                      "control_local_amax_differing":
+                                          ctl_diff,
+                                      "vs_one_process_run_differing": {
+                                          "x": run_diff[0],
+                                          "cotangent": run_diff[1]}},
+                   "telemetry": {"keys": tel_keys,
+                                 "misses": [len(m) for m in tel_misses]},
+                   "census": mean_audit},
+          "adafactor": {"fsdp": True, "steps": 1, "losses": ada["losses"],
+                        "one_process_losses": [r["loss"] for r in ada_hist],
+                        "loss_rel_err": ada_loss_err,
+                        "param_abs_err": ada_param_err,
+                        "param_rel_err": ada_param_rel},
           "fp8": {"fsdp": False, "losses": fp8_losses,
                   "tensors": n, "reduced_differing": red_diff,
                   "residuals_differing": new_diff,
                   "control_residuals_dropped_differing": control,
                   "census": audit},
-          "ranks_s": ranks_s, "launches": launches,
+          "one_process_s": one_s, "ranks_s": ranks_s, "launches": launches,
           "launches_by_rank": [r["launches"] for r in ranks]})
     if failures:
         raise AssertionError("train_dp: " + "; ".join(failures))

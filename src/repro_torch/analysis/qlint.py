@@ -434,17 +434,32 @@ def audit_comms(records, *, expect_fp8: bool) -> Tuple[
     codes, an all-reduce or reduce-scatter of gradients) must be 1-byte
     codes; a wider payload means the gradient bytes went uncompressed.
     The f32 amax reductions of the shared scales are scale metadata,
-    censused apart and not flagged.  Returns (census, findings)."""
+    censused apart and not flagged.  So are the quant groups' shared
+    amax reductions of a data-parallel token split (tag ``amax``): they
+    are counted as words (one a quant group), never as payloads, and one
+    that is not a MAX over 4-byte words is a violation.  Returns (census,
+    findings)."""
     findings: List[Finding] = []
     grad = [r for r in records if r.tag in _GRAD_TAGS]
+    amax = [r for r in records if r.tag == "amax"]
     census = {"grad_payload_dtypes": dict(Counter(r.dtype for r in grad)),
               "scale_allreduce_dtypes": dict(Counter(
                   r.dtype for r in records if r.tag == "scale")),
+              "amax_allreduces": len(amax),
+              "amax_words": sum(math.prod(r.shape) for r in amax),
               "other": dict(Counter(f"{r.tag}:{r.op}:{r.dtype}"
                                     for r in records
-                                    if r.tag not in _GRAD_TAGS + ("scale",))),
+                                    if r.tag not in _GRAD_TAGS
+                                    + ("scale", "amax"))),
               "grad_payload_bytes": sum(r.nbytes for r in grad),
               "bytes": collective_bytes(records)}
+    for r in amax:
+        if (r.op, r.reduce_op) != ("all-reduce", "max") or \
+                r.nbytes != 4 * math.prod(r.shape):
+            findings.append(Finding(
+                "comms", "violation", f"{r.op}[amax]",
+                f"a shared amax travels as a MAX all-reduce of 4-byte "
+                f"words, not {r.op} {r.reduce_op} of {r.dtype}"))
     if expect_fp8:
         if not grad:
             findings.append(Finding(

@@ -45,6 +45,17 @@ interpret-mode noise); the ``"qdq"`` impl draws from a ``torch.Generator``
 seeded from the same folded seed, equal to the reference's ``jax.random``
 stream only in distribution.
 
+Data parallelism (``core.quantize.TokenSplit``): inside a split the
+rows of ``x`` and ``g`` are a rank's share of the global batch's tokens.
+Each role tells the quantize layer which operand axis runs over tokens
+(``ROLE_TOKENS``, the counterpart of the reference's logical axes
+``axes_a=(k, row)``): the rows of fwd's ``x`` and dgrad's ``g``, the
+reduction axis of both wgrad operands.  A group spanning the tokens then
+shares its amax across the data group, and the kernels key their SR
+noise by the global rows, so the split step quantizes as one process
+does.  ``_QMatmul`` keeps the forward's split for its backward, which
+autograd may run on a thread of its own.
+
 Telemetry (``telemetry.collect``): with a collector installed, each
 quantized linear records its forward-side operand stats (under
 ``"pallas"`` the fwd_x / fwd_w slots come from the kernels' stats
@@ -70,18 +81,23 @@ import torch
 from repro_torch.core import routing
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.quantize import (BF16_SPEC, QuantSpec, qdq,
-                                       qdq_scope_name)
+                                       qdq_scope_name, splitting,
+                                       token_split)
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.kernels.rounding import fold_seed
 from repro_torch.telemetry import collect as telemetry
 
 __all__ = ["qlinear", "qmatmul", "pallas_qmatmul_stats", "packed_linear",
            "dot_qdq", "kernel_quant_mode", "kernel_unsupported_reason",
-           "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY"]
+           "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY", "ROLE_TOKENS"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
 ZERO_KEY = (0, 0)   # the reference's _zero_key(): the key every layer uses
+# per role, the axis of the effective operands A' and B' that runs over
+# tokens (None: the weight): fwd x (M, K), dgrad g (M, N), wgrad x^T (K,
+# M) and g (M, N)
+ROLE_TOKENS = {"fwd": (0, None), "dgrad": (0, None), "wgrad": (1, 0)}
 
 
 def _generator(spec: QuantSpec, salt: int, which: int, device):
@@ -106,13 +122,14 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             spec_b: QuantSpec, *, trans_a: bool = False,
             trans_b: bool = False, salt: int = 0,
             role: Optional[str] = None, route: str = "qdq",
-            reasons=(), census=None) -> torch.Tensor:
+            reasons=(), census=None, tokens=(None, None)) -> torch.Tensor:
     """QDQ both operands of ``A' @ B'`` (``A' = a.T`` under ``trans_a``,
     same for B'; reduction axes 1 and 0), then the matmul in the input
     dtype; ``salt`` seeds a stochastic spec's noise.  With a ``census``
     (``_census()``) and a ``role`` the call records one ``route`` event
     (``qdq``, or ``qdq_fallback`` with its ``reasons``).  3-D operands
-    pair by pair, every pair with the same noise."""
+    pair by pair, every pair with the same noise.  ``tokens``: the axis
+    of A' and of B' that runs over tokens (``ROLE_TOKENS``)."""
     if census is not None and role is not None:
         routing.record(role, route, spec_a.to_str(), spec_b.to_str(),
                        reasons=reasons, sr_a=spec_a.stochastic,
@@ -125,13 +142,16 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                     routing.mark_qdq(qdq_scope_name(spec))
     if a.dim() == 3:
         return torch.stack([dot_qdq(x, y, spec_a, spec_b, trans_a=trans_a,
-                                    trans_b=trans_b, salt=salt)
+                                    trans_b=trans_b, salt=salt,
+                                    tokens=tokens)
                             for x, y in zip(a, b)])
     return torch.matmul(
         qdq(a.T if trans_a else a, spec_a, 1,
-            generator=_generator(spec_a, salt, 0, a.device)),
+            generator=_generator(spec_a, salt, 0, a.device),
+            token_axis=tokens[0]),
         qdq(b.T if trans_b else b, spec_b, 0,
-            generator=_generator(spec_b, salt, 1, b.device)))
+            generator=_generator(spec_b, salt, 1, b.device),
+            token_axis=tokens[1]))
 
 
 def kernel_unsupported_reason(spec: QuantSpec) -> Optional[str]:
@@ -181,7 +201,8 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, trans_a: bool = False,
                trans_b: bool = False, salt: int = 0,
                pipeline: Optional[str] = None, collect_stats: bool = False,
-               role: Optional[str] = None, census=None):
+               role: Optional[str] = None, census=None,
+               tokens=(None, None)):
     """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
     operands read in their stored layout; with ``collect_stats`` returns
     ``(y, (stats_a, stats_b))``.  A spec they cannot realize takes
@@ -196,7 +217,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
         _warn_fallback(a, spec_a, spec_b, reasons)
         y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a, trans_b=trans_b,
                     salt=salt, role=role, route="qdq_fallback",
-                    reasons=reasons, census=census)
+                    reasons=reasons, census=census, tokens=tokens)
         return (y, (None, None)) if collect_stats else y
     from repro_torch.kernels.ops import pallas_qmm
     with routing.role_scope(role):
@@ -204,7 +225,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                           mode_b=mode_b, trans_a=trans_a, trans_b=trans_b,
                           key_data=ZERO_KEY, salt=salt, pipeline=pipeline,
                           collect_stats=collect_stats, role=role,
-                          census=census)
+                          census=census, tokens=tokens)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -249,26 +270,33 @@ def _role(impl: str, a, b, spec_a: QuantSpec, spec_b: QuantSpec, *,
           census=None):
     """One matmul role under ``impl`` (stored operands, trans flags; the
     SR salt of the role); stats only under the fused impls.  ``role``
-    (fwd | dgrad | wgrad) and ``census`` feed the routing census."""
+    (fwd | dgrad | wgrad) and ``census`` feed the routing census; the
+    role's token axes (``ROLE_TOKENS``; none without a role) the
+    quantize layer."""
+    tokens = ROLE_TOKENS.get(role, (None, None))
     if impl == "qdq":
         return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
-                       trans_b=trans_b, salt=salt, role=role, census=census)
+                       trans_b=trans_b, salt=salt, role=role, census=census,
+                       tokens=tokens)
     return _dot_fused(a, b, spec_a, spec_b, trans_a=trans_a,
                       trans_b=trans_b, salt=salt, pipeline=_check_impl(impl),
-                      collect_stats=collect_stats, role=role, census=census)
+                      collect_stats=collect_stats, role=role, census=census,
+                      tokens=tokens)
 
 
 class _QMatmul(torch.autograd.Function):
     """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE).  With
     ``collect_stats`` the forward also returns its quantized operands'
     stats vectors (no gradient; None for a pass operand).  The forward
-    keeps the routing census of its thread and cell for the backward."""
+    keeps the routing census of its thread and cell, and its token split,
+    for the backward."""
 
     @staticmethod
     def forward(ctx, x, w, recipe: MatmulRecipe, impl: str,
                 collect_stats: bool):
         ctx.save_for_backward(x, w)
         ctx.recipe, ctx.impl, ctx.census = recipe, impl, _census()
+        ctx.split = token_split()
         out = _role(impl, x, w, recipe.fwd_x, recipe.fwd_w, salt=0,
                     collect_stats=collect_stats, role="fwd",
                     census=ctx.census)
@@ -286,7 +314,7 @@ class _QMatmul(torch.autograd.Function):
         # the forward's census on this (autograd's) thread, for the
         # kernel and QDQ markers of a qlint capture
         with routing.replaying(None if ctx.census is None
-                               else ctx.census[0]):
+                               else ctx.census[0]), splitting(ctx.split):
             if ctx.needs_input_grad[0]:
                 # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
                 dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w,
@@ -355,9 +383,13 @@ def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
             mb = kernel_quant_mode(recipe.fwd_w)
             if (ma is not None and mb is not None
                     and (ma != "pass" or mb != "pass")):
-                from repro_torch.kernels.fp4_matmul import \
-                    finalize_quant_stats
+                from repro_torch.kernels.fp4_matmul import (
+                    finalize_quant_stats, reduce_quant_stats)
                 y, (sa, sb) = pallas_qmatmul_stats(x2d, w, recipe)
+                # x's rows are a rank's tokens: its stats the group's
+                split = token_split()
+                if split is not None and sa is not None:
+                    sa = reduce_quant_stats(sa, split.group)
                 fused_fwd = {slot: None if s is None
                              else finalize_quant_stats(s)
                              for slot, s in (("fwd_x", sa), ("fwd_w", sb))}

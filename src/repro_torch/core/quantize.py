@@ -9,12 +9,27 @@ low-bit grid (App. A, Eq. 1-7).  Granularities: ``tensor`` (one scale),
 All full-size intermediates stay in the input dtype; only the small
 per-group scales are f32 — the reference's dtype discipline, which the
 bitwise tests hold the port to.
+
+A data-parallel step splits the token axis over ranks (``TokenSplit``,
+installed by the step around its rank-local region with
+:func:`splitting`).  The reference's step is the one-device function of
+the global batch, so a quant group that spans the token axis must see
+every rank's tokens: ``quantize_dequantize(..., token_axis=)`` names the
+operand axis that runs over tokens, and inside a split a ``tensor`` group,
+or a ``token`` group whose reduction axis is the token axis, all-reduces
+its amax (MAX) over the data group before ``scale_from_amax``
+(:func:`share_amax`).  A ``block`` / ``tile`` group along the token axis
+stays local when a rank's token count is a multiple of its edge (the
+groups then end on rank boundaries) and raises ``ValueError`` otherwise
+(:func:`spans_ranks`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
-from typing import Optional
+import threading
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F_nn
@@ -24,7 +39,9 @@ from repro_torch.kernels.rounding import group_scale, pow2_floor
 
 __all__ = ["QuantSpec", "BF16_SPEC", "qdq", "quantize_dequantize",
            "compute_scale", "scale_from_amax", "pow2_floor",
-           "underflow_rate", "qdq_scope_name", "scale_logical_axes"]
+           "underflow_rate", "qdq_scope_name", "scale_logical_axes",
+           "TokenSplit", "token_split", "splitting", "spans_ranks",
+           "share_amax"]
 
 
 def qdq_scope_name(spec: "QuantSpec") -> str:
@@ -159,6 +176,80 @@ def _blocked_view(x2d: torch.Tensor, granularity: str, block: int,
     raise ValueError(f"unknown granularity: {granularity!r}")
 
 
+# ---------------------------------------------------------------------------
+# The token axis split over a data group
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TokenSplit:
+    """A rank's share of a data-parallel step's token axis: rank
+    ``index`` of ``size`` in ``group`` holds, of every operand with a
+    token axis, the rows ``index * n ... (index + 1) * n`` of the global
+    operand (``n`` its local count: each rank holds an equal, contiguous
+    share of the global batch)."""
+
+    group: Any
+    index: int
+    size: int
+
+    def offset(self, n: int) -> int:
+        """This rank's first row of a token axis it holds ``n`` of."""
+        return self.index * n
+
+
+_SPLIT = threading.local()
+
+
+def token_split() -> Optional[TokenSplit]:
+    """The split installed on this thread (None: the whole batch)."""
+    return getattr(_SPLIT, "value", None)
+
+
+@contextlib.contextmanager
+def splitting(split: Optional[TokenSplit]):
+    """Install ``split`` on this thread inside the block (None: none;
+    a split of size 1 is none)."""
+    prev = token_split()
+    _SPLIT.value = split if split is not None and split.size > 1 else None
+    try:
+        yield
+    finally:
+        _SPLIT.value = prev
+
+
+def spans_ranks(granularity: str, block: int, tokens: int,
+                along_reduction: bool) -> bool:
+    """Whether a quant group's amax spans the ranks of a token split (a
+    ``tensor`` group, a ``token`` group along the tokens), for an operand
+    holding ``tokens`` rows of the token axis locally, the token axis
+    being its reduction axis (``along_reduction``) or the other; False
+    when every group is a rank's own.  A ``block`` group along the
+    tokens, or a ``tile``, whose edge does not divide ``tokens``
+    straddles a rank boundary: ``ValueError``."""
+    if granularity == "tensor" or (granularity == "token"
+                                   and along_reduction):
+        return True
+    if ((granularity == "tile" or (granularity == "block"
+                                   and along_reduction))
+            and tokens % block):
+        raise ValueError(
+            f"a {granularity}{block} quant group along the token axis "
+            f"straddles a data-parallel rank boundary: each rank holds "
+            f"{tokens} token rows, not a multiple of {block} (make the "
+            "per-rank batch x sequence a multiple of the group edge)")
+    return False
+
+
+def share_amax(amax: torch.Tensor, split: TokenSplit) -> torch.Tensor:
+    """The elementwise max of ``amax`` over the split's group (f32 on the
+    wire, exact for the input dtypes), in ``amax``'s dtype; recorded under
+    the tag ``amax``."""
+    from repro_torch.distributed import comms
+    words = amax.to(torch.float32, copy=True)
+    comms.all_reduce(words, "max", split.group, tag="amax")
+    return words.to(amax.dtype)
+
+
 def _group_amax(xb: torch.Tensor, granularity: str,
                 reduction_axis: int) -> torch.Tensor:
     mag = xb.abs()  # amax in the input dtype (exact)
@@ -182,10 +273,13 @@ def compute_scale(x2d: torch.Tensor, spec: QuantSpec,
 
 def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
                         reduction_axis: int, *,
-                        generator: Optional[torch.Generator] = None
-                        ) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        token_axis: Optional[int] = None) -> torch.Tensor:
     """Simulated low-precision representation of ``x2d`` (Eq. 1-7), in
-    ``x2d``'s dtype.  ``generator`` feeds stochastic specs."""
+    ``x2d``'s dtype.  ``generator`` feeds stochastic specs.
+    ``token_axis``: the axis of ``x2d`` that runs over tokens (None: a
+    weight); inside a :func:`splitting` region a group spanning the
+    tokens shares its amax across the data group (module docstring)."""
     if spec.is_passthrough:
         return x2d
     fmt = spec.format
@@ -193,9 +287,13 @@ def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
         return F.round_to_format(x2d, fmt)
     rows, cols = x2d.shape
     xb = _blocked_view(x2d, spec.granularity, spec.block, reduction_axis)
-    scale = scale_from_amax(
-        _group_amax(xb, spec.granularity, reduction_axis), fmt,
-        spec.pow2_scale).to(x2d.dtype)
+    amax = _group_amax(xb, spec.granularity, reduction_axis)
+    split = token_split() if token_axis is not None else None
+    if split is not None and spans_ranks(
+            spec.granularity, spec.block, x2d.shape[token_axis],
+            token_axis == reduction_axis):
+        amax = share_amax(amax, split)
+    scale = scale_from_amax(amax, fmt, spec.pow2_scale).to(x2d.dtype)
     gen = generator if spec.stochastic else None
     y = F.round_to_format(xb / scale, fmt, generator=gen) * scale
     if spec.granularity == "block" and reduction_axis == 1:

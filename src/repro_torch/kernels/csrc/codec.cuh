@@ -64,6 +64,9 @@ inline Fmt make_fmt(float qmax, int emin, int mbits, int pow2) {
 struct Sr {
   int on;
   unsigned int seed;
+  // the operand's element (0, 0) in the global operand: a data-parallel
+  // rank's share of the token axis draws the one-process noise of its rows
+  unsigned int row0, col0;
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -105,11 +108,12 @@ __device__ __forceinline__ float uniform_from_bits(unsigned int bits) {
   return __fmul_rn((float)(bits >> 8), 5.9604644775390625e-08f);  // 2^-24
 }
 
-// The SR noise of element (row, col) in quant orientation, or -1 (round
-// to nearest) when SR is off.
+// The SR noise of element (row, col) in quant orientation (offset by the
+// operand's origin), or -1 (round to nearest) when SR is off.
 __device__ __forceinline__ float noise(const Sr& sr, int row, int col) {
-  return sr.on ? uniform_from_bits(hash_bits(sr.seed, (unsigned int)row,
-                                             (unsigned int)col))
+  return sr.on ? uniform_from_bits(hash_bits(sr.seed,
+                                             sr.row0 + (unsigned int)row,
+                                             sr.col0 + (unsigned int)col))
                : -1.f;
 }
 

@@ -50,7 +50,9 @@
 // bit for bit.
 //
 // Stochastic rounding keys each element's noise by its global (row, col)
-// in the operand's quant orientation, (m, k) for A and (n, k) for B,
+// in the operand's quant orientation, (m, k) for A and (n, k) for B (plus
+// the operand's origin: a data-parallel rank's token rows are keyed where
+// they lie in the global batch),
 // never by the output tile the block owns: a tile that another block
 // re-quantizes draws the same noise, as the reference's
 // requantize-per-revisit branch does (fp4_matmul.py:786-819).  The stats
@@ -417,7 +419,9 @@ extern "C" int qmm_stream_route(int dtype, int M) {
 // batch pairs are stored back to back (1: an unbatched call; a batched
 // call takes no stats).  dtype: 0 = float32, 1 = bfloat16.  a_mode /
 // b_mode: codec::kPass, kBlock or kTile.
-// a_sr / a_seed (b_*): stochastic rounding of the operand.  a_stats
+// a_sr / a_seed (b_*): stochastic rounding of the operand; a_row0 /
+// a_col0 (b_*): the operand's origin in quant orientation, added to each
+// element's coordinates before its noise is drawn.  a_stats
 // (b_stats): null, or three f32 device pointers (row partials (M, n_ks,
 // 8), slab partials (ceil(M / 128), n_ks, 8), the (8,) result) for the
 // stats epilogue and its fold, n_ks = ceil(K / 128); for B the quant rows
@@ -436,14 +440,16 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int b_emin, int b_mbits, int b_pow2,
                                  int trans_a, int trans_b, int a_sr,
                                  unsigned int a_seed, int b_sr,
-                                 unsigned int b_seed, void** a_stats,
+                                 unsigned int b_seed, unsigned int a_row0,
+                                 unsigned int a_col0, unsigned int b_row0,
+                                 unsigned int b_col0, void** a_stats,
                                  void** b_stats, int bm, int bn,
                                  void* stream) {
   const Operand oa{a_mode, codec::make_fmt(a_qmax, a_emin, a_mbits, a_pow2),
-                   {a_sr, a_seed},
+                   {a_sr, a_seed, a_row0, a_col0},
                    a_stats ? static_cast<float*>(a_stats[0]) : nullptr};
   const Operand ob{b_mode, codec::make_fmt(b_qmax, b_emin, b_mbits, b_pow2),
-                   {b_sr, b_seed},
+                   {b_sr, b_seed, b_row0, b_col0},
                    b_stats ? static_cast<float*>(b_stats[0]) : nullptr};
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||

@@ -37,16 +37,23 @@
 // with emit_trans keeps each warp store on one line, a transposed read
 // without it (quantize_panels) writes element by element.
 //
+// A data-parallel rank holds a share of the token axis; a tensor group,
+// or a token group along the tokens, must take its amax over every rank's
+// share.  The entry then runs in two calls (amax_phase 1 and 2): the amax
+// kernel into the zeroed words, then, once the caller has all-reduced
+// those words (MAX, over the data group: the words are non-negative f32
+// bits, which order as integers), the QDQ kernel reading them.
+//
 // Stochastic rounding (sr) keys each element's noise by its (quant row,
-// col), whatever block owns it.  The stats epilogue (collect_stats)
-// writes one row partial per (quant row, k-slab) into a (rows, k-slabs,
-// 8) buffer in codec::row_stats's lane layout (lane l holds columns
-// k0 + l + 32 j); codec.cuh's fold kernels then fold the buffer in the
-// canonical order.  The epilogue re-computes the QDQ, which is
-// deterministic: row-major launches re-read their row from L1 (lanes on
-// neighbouring columns), transposed launches stage their 128 x strip
-// tile in shared memory, padded so that lanes walking down a quant row's
-// columns hit 32 different banks.
+// col) plus the operand's origin (row0, col0), whatever block owns it.
+// The stats epilogue (collect_stats) writes one row partial per (quant
+// row, k-slab) into a (rows, k-slabs, 8) buffer in codec::row_stats's
+// lane layout (lane l holds columns k0 + l + 32 j); codec.cuh's fold
+// kernels then fold the buffer in the canonical order.  The epilogue
+// re-computes the QDQ, which is deterministic: row-major launches
+// re-read their row from L1 (lanes on neighbouring columns), transposed
+// launches stage their 128 x strip tile in shared memory, padded so that
+// lanes walking down a quant row's columns hit 32 different banks.
 //
 // Bound: bytes.  Each input element is read once (twice for a transposed
 // token group; the second read hits L2) and each output written once:
@@ -352,10 +359,12 @@ void launch_tok(const T* x, T* y, int rows, int cols, int batch,
       x, y, rows, cols, f, emit_trans, tensor_amax, sr, part, n_ks);
 }
 
+// amax_phase: 0 runs the whole QDQ; 1 only reduces a cross-block amax
+// into the scratch; 2 only runs the QDQ, reading the scratch as given.
 template <typename T>
 int launch(const void* xv, void* yv, int rows, int cols, int batch,
            int mode, codec::Fmt f, int trans, int emit_trans,
-           unsigned int* scratch, codec::Sr sr, float* part,
+           unsigned int* scratch, int amax_phase, codec::Sr sr, float* part,
            cudaStream_t s) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
@@ -364,12 +373,18 @@ int launch(const void* xv, void* yv, int rows, int cols, int batch,
   if (mode != codec::kBlock && mode != codec::kTile &&
       mode != codec::kToken && mode != codec::kTensor)
     return (int)cudaErrorInvalidValue;
-  if (mode == codec::kTensor) {  // whole-tensor amax into scratch[0]
+  if (mode == codec::kTensor && amax_phase != 2) {  // into scratch[0]
     const long n = (long)rows * cols;
     const long want = (n + kThreads - 1) / kThreads;
     tensor_amax_kernel<T>
         <<<dim3(want < 1024 ? (int)want : 1024, 1, batch), kThreads, 0, s>>>(
             x, n, scratch);
+  }
+  if (amax_phase == 1) {  // the transposed token groups' amax alone
+    if (mode == codec::kToken)
+      col_amax_kernel<T><<<dim3((rows + 31) / 32, n_ks, batch), kThreads, 0,
+                           s>>>(x, rows, cols, scratch);
+    return (int)cudaGetLastError();
   }
   if (mode == codec::kTile || (mode == codec::kBlock && !trans)) {
     const int gr = mode == codec::kTile ? codec::kGroup : 1;
@@ -382,7 +397,7 @@ int launch(const void* xv, void* yv, int rows, int cols, int batch,
         n_ks);
   } else if (trans) {  // block, token, tensor: read transposed
     const dim3 grid((rows + 31) / 32, n_ks, batch);
-    if (mode == codec::kToken)
+    if (mode == codec::kToken && amax_phase == 0)
       col_amax_kernel<T><<<grid, kThreads, 0, s>>>(x, rows, cols, scratch);
     auto* kern = extra ? quantize_cols_kernel<T, true>
                        : quantize_cols_kernel<T, false>;
@@ -418,33 +433,42 @@ inline bool cross_block_amax(int mode, int trans) {
 // under emit_trans.  dtype: 0 = float32, 1 = bfloat16.  mode: codec::Mode
 // (not kPass).  scratch: zeroed uint32s on the device, one per operand for
 // tensor mode and one per quant row of each operand for a transposed token
-// launch (null otherwise).  sr / seed: stochastic
-// rounding.  stats: null, or (row partials (rows, ceil(cols / 128), 8),
-// slab partials (ceil(rows / 128), ceil(cols / 128), 8), the (8,) result)
-// as three f32 device pointers, for the stats epilogue and its fold.
+// launch (null otherwise).  amax_phase (a cross-block amax only): 0 the
+// whole pass; 1 the amax alone, reduced into the scratch, and nothing
+// written to y; 2 the QDQ alone, from the scratch as the caller left it
+// (a data-parallel rank's shared amax: the caller all-reduces the words,
+// MAX, between 1 and 2).  sr / seed: stochastic rounding; row0 / col0:
+// the operand's origin in quant orientation, added to each element's
+// coordinates before its noise is drawn.  stats: null, or (row partials
+// (rows, ceil(cols / 128), 8), slab partials (ceil(rows / 128),
+// ceil(cols / 128), 8), the (8,) result) as three f32 device pointers,
+// for the stats epilogue and its fold.
 extern "C" int quantize_rows_launch(const void* x, void* y, int rows,
                                     int cols, int batch, int dtype, int mode,
                                     float qmax, int emin, int mbits,
                                     int pow2, int trans, int emit_trans,
-                                    void* scratch, int sr, unsigned int seed,
-                                    void* part, void* slab, void* stats,
-                                    void* stream) {
+                                    void* scratch, int amax_phase, int sr,
+                                    unsigned int seed, unsigned int row0,
+                                    unsigned int col0, void* part,
+                                    void* slab, void* stats, void* stream) {
   const codec::Fmt f = codec::make_fmt(qmax, emin, mbits, pow2);
-  const codec::Sr r{sr, seed};
+  const codec::Sr r{sr, seed, row0, col0};
   auto* sc = static_cast<unsigned int*>(scratch);
   auto* p = static_cast<float*>(part);
   auto s = static_cast<cudaStream_t>(stream);
   if (batch > 65535 || (batch > 1 && p)) return (int)cudaErrorInvalidValue;
   if (rows <= 0 || cols <= 0 || batch <= 0) return 0;
-  if (cross_block_amax(mode, trans) && !sc)
+  if (cross_block_amax(mode, trans) ? !sc : amax_phase != 0)
+    return (int)cudaErrorInvalidValue;
+  if (amax_phase < 0 || amax_phase > 2 || (amax_phase == 1 && p))
     return (int)cudaErrorInvalidValue;
   int err;
   if (dtype == 0)
     err = launch<float>(x, y, rows, cols, batch, mode, f, trans, emit_trans,
-                        sc, r, p, s);
+                        sc, amax_phase, r, p, s);
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(x, y, rows, cols, batch, mode, f, trans,
-                                emit_trans, sc, r, p, s);
+                                emit_trans, sc, amax_phase, r, p, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err || !p) return err;

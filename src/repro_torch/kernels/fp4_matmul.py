@@ -52,7 +52,8 @@ from repro_torch.kernels.tiled_mm import tiled_mm
 
 __all__ = ["QUANT_MODES", "PIPELINES", "STATS_WIDTH", "stream_supported",
            "resolve_pipeline", "quantize_panels", "fused_qmm",
-           "finalize_quant_stats", "default_pipeline", "use_pipeline",
+           "finalize_quant_stats", "reduce_quant_stats",
+           "default_pipeline", "use_pipeline",
            "resolve_qmm_tiles"]
 
 BLOCK = 128           # the quant group edge, and the table's key block
@@ -123,6 +124,22 @@ def finalize_quant_stats(vec: torch.Tensor):
     }
 
 
+def reduce_quant_stats(vec: torch.Tensor, group) -> torch.Tensor:
+    """The stats vector of an operand whose rows are split over ``group``
+    (a data-parallel rank's share of the tokens), from each rank's own:
+    the count and sum lanes (0-4, 7) summed, lane 5 (the least group
+    scale) the min, lane 6 (the greatest) the max.  Two all-reduces, tag
+    ``telemetry``; ``finalize_quant_stats`` then reduces it as one
+    process's vector."""
+    from repro_torch.distributed import comms
+    v = vec.reshape(STATS_WIDTH).to(torch.float32)
+    sums = v[[0, 1, 2, 3, 4, 7]].clone()
+    comms.all_reduce(sums, "sum", group, tag="telemetry")
+    ext = torch.stack([-v[5], v[6]])
+    comms.all_reduce(ext, "max", group, tag="telemetry")
+    return torch.cat([sums[:5], -ext[:1], ext[1:], sums[5:]])
+
+
 def quantize_panels(t: torch.Tensor, *, mode: str = "block",
                     fmt_name: str = "fp4_e2m1", pow2: bool = False,
                     sr: bool = False, seed=None, trans: bool = False,
@@ -171,7 +188,9 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
               trans_a: bool = False, trans_b: bool = False,
               pipeline: Optional[str] = None,
               collect_stats: bool = False, bm: Optional[int] = None,
-              bn: Optional[int] = None, bk: Optional[int] = None):
+              bn: Optional[int] = None, bk: Optional[int] = None,
+              sr_origin_a=(0, 0), sr_origin_b=(0, 0), amax_reduce_a=None,
+              amax_reduce_b=None):
     """``y = Q(A') @ Q(B')``; ``A' = a.T`` under ``trans_a`` (same for B').
 
     Effective shapes A' (M, K), B' (K, N), any sizes: the kernels mask the
@@ -183,7 +202,12 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
     seeds; with ``collect_stats`` returns ``(y, (stats_a, stats_b))``.
     ``bm`` / ``bn`` / ``bk``: the tiling (module docstring); a batched
     call keys on one pair's dims, as the reference's ``jax.vmap`` over
-    its ``fused_qmm`` does.
+    its ``fused_qmm`` does.  A data-parallel rank's share of the token
+    axis: ``sr_origin_a`` / ``sr_origin_b`` key the SR noise from the
+    operand's origin in the global operand (quant orientation), and
+    ``amax_reduce_a`` / ``amax_reduce_b`` share a token / tensor group's
+    amax across ranks (``quantize_rows``; those modes take ``two_pass``,
+    so the stream kernel never needs it).
     """
     if a_mode not in QUANT_MODES or b_mode not in QUANT_MODES:
         raise ValueError(f"unknown modes {(a_mode, b_mode)}")
@@ -204,6 +228,7 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
                           b_fmt=b_fmt, a_pow2=a_pow2, b_pow2=b_pow2,
                           trans_a=trans_a, trans_b=trans_b, a_sr=a_sr,
                           b_sr=b_sr, seed_a=seed_a, seed_b=seed_b,
+                          sr_origin_a=sr_origin_a, sr_origin_b=sr_origin_b,
                           collect_stats=collect_stats, bm=bm, bn=bn)
     # Each quantize pass writes in its operand's stored layout (emit_trans
     # undoes trans), so tiled_mm keeps the original trans flags.  Stats, as
@@ -213,14 +238,18 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
         # A's quant orientation (M, K) is A' itself.
         a = quantize_rows(a, mode=a_mode, fmt_name=a_fmt, pow2=a_pow2,
                           trans=trans_a, emit_trans=trans_a, sr=a_sr,
-                          seed=seed_a, collect_stats=collect_stats)
+                          seed=seed_a, sr_origin=sr_origin_a,
+                          amax_reduce=amax_reduce_a,
+                          collect_stats=collect_stats)
         if collect_stats:
             a, stats[0] = a
     if b_mode != "pass":
         # B's quant orientation is (N, K) = B'.T: groups reduce over K.
         b = quantize_rows(b, mode=b_mode, fmt_name=b_fmt, pow2=b_pow2,
                           trans=not trans_b, emit_trans=not trans_b,
-                          sr=b_sr, seed=seed_b, collect_stats=collect_stats)
+                          sr=b_sr, seed=seed_b, sr_origin=sr_origin_b,
+                          amax_reduce=amax_reduce_b,
+                          collect_stats=collect_stats)
         if collect_stats:
             b, stats[1] = b
     y = tiled_mm(a, b, trans_a=trans_a, trans_b=trans_b, bm=bm, bn=bn)

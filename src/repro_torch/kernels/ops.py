@@ -17,7 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import routing
-from repro_torch.core.quantize import QuantSpec
+from repro_torch.core.quantize import (QuantSpec, TokenSplit,
+                                       spans_ranks, token_split)
+from repro_torch.distributed import comms
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fp4_matmul import fused_qmm, resolve_pipeline
@@ -40,6 +42,25 @@ def fp4_matmul(x: torch.Tensor, w: torch.Tensor, *,
                      b_fmt=w_fmt)
 
 
+def _split_args(split: TokenSplit, side: str, x: torch.Tensor,
+                trans: bool, mode: str, axis: int) -> dict:
+    """``fused_qmm``'s split arguments of one operand whose effective
+    axis ``axis`` (of A' or B') runs over tokens: the SR origin of its
+    rows in the global operand and, for a group spanning the tokens, the
+    amax all-reduce (MAX over the data group, tag ``amax``)."""
+    rows, cols = x.shape[-2:]
+    eff = (cols, rows) if trans else (rows, cols)
+    n = eff[axis]
+    # quant orientation: A' itself, B'^T (its reduction K on axis 1)
+    q_axis = axis if side == "a" else 1 - axis
+    out = {f"sr_origin_{side}": ((split.offset(n), 0) if q_axis == 0
+                                 else (0, split.offset(n)))}
+    if spans_ranks(mode, 128, n, q_axis == 1):
+        out[f"amax_reduce_{side}"] = lambda words: comms.all_reduce(
+            words, "max", split.group, tag="amax")
+    return out
+
+
 def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                spec_b: QuantSpec, *, mode_a: str, mode_b: str,
                trans_a: bool = False, trans_b: bool = False,
@@ -47,7 +68,8 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                pipeline: Optional[str] = None,
                bm: Optional[int] = None, bn: Optional[int] = None,
                bk: Optional[int] = None, collect_stats: bool = False,
-               role: Optional[str] = None, census=None):
+               role: Optional[str] = None, census=None,
+               tokens=(None, None)):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
     name is the reference's; here it runs the CUDA kernels.  3-D
@@ -64,7 +86,14 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
 
     ``census`` (``(log, (layer, class))`` from ``core.qlinear``) records
     the call as a ``pallas`` route event of ``role`` in that log, with
-    the modes, the pipeline it resolves to and the SR it arms."""
+    the modes, the pipeline it resolves to and the SR it arms.
+
+    ``tokens``: for A' and B', the effective axis that runs over tokens
+    (None: a weight).  Inside a data-parallel split
+    (``core.quantize.splitting``) such an operand keys its SR noise by
+    its global rows and shares a token-spanning group's amax across the
+    data group; a block / tile group straddling a rank boundary raises
+    ``ValueError``."""
     a_sr = spec_a.stochastic and mode_a != "pass"
     b_sr = spec_b.stochastic and mode_b != "pass"
     if census is not None:
@@ -77,6 +106,14 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             log=census[0])
     if (a_sr or b_sr) and key_data is None:
         raise ValueError("a stochastic spec needs key_data")
+    split, kw = token_split(), {}
+    if split is not None:
+        for side, x, trans, mode, axis in (("a", a, trans_a, mode_a,
+                                            tokens[0]),
+                                           ("b", b, trans_b, mode_b,
+                                            tokens[1])):
+            if axis is not None and mode != "pass":
+                kw.update(_split_args(split, side, x, trans, mode, axis))
     return fused_qmm(
         a, b, a_mode=mode_a, b_mode=mode_b, a_fmt=spec_a.fmt,
         b_fmt=spec_b.fmt, a_pow2=spec_a.pow2_scale,
@@ -84,7 +121,7 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
         seed_a=fold_seed(key_data, salt, 0) if a_sr else None,
         seed_b=fold_seed(key_data, salt, 1) if b_sr else None,
         trans_a=trans_a, trans_b=trans_b, pipeline=pipeline, bm=bm, bn=bn,
-        bk=bk, collect_stats=collect_stats)
+        bk=bk, collect_stats=collect_stats, **kw)
 
 
 def quantize_blockwise(x: torch.Tensor, fmt_name: str = "fp4_e2m1",

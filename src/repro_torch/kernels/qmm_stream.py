@@ -10,7 +10,10 @@ place.  Ragged M / N / K edges are masked in
 the kernel; the result equals the reference's zero-padded computation
 sliced back to (M, N).  ``a_sr`` / ``b_sr`` round an operand
 stochastically with the counter-hash noise of its seed, keyed in its
-quant orientation ((M, K) for A, (N, K) for B).  ``collect_stats`` adds
+quant orientation ((M, K) for A, (N, K) for B), offset by
+``sr_origin_a`` / ``sr_origin_b`` (the operand's element (0, 0) in the
+global operand: a data-parallel rank's token rows draw the one-process
+noise).  ``collect_stats`` adds
 the stats epilogue of each quantized operand.  bf16 calls with M > 16
 run on the tensor cores, f32 and M <= 16 on CUDA-core FMA loops (the
 library's rule, ``KERNEL.tensor_core``; ``tiled_mm`` follows the same
@@ -46,14 +49,15 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 KERNEL = CudaKernel("qmm_stream",
                     [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _F, _I, _I, _I, _F, _I, _I, _I, _I, _I,
-                     _I, _U, _I, _U, _P, _P, _I, _I, _P])
+                     _I, _U, _I, _U, _U, _U, _U, _U, _P, _P, _I, _I, _P])
 
 
 def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                      b_mode: str, a_fmt: str, b_fmt: str,
                      a_pow2: bool = False, b_pow2: bool = False,
                      trans_a: bool = False, trans_b: bool = False,
-                     seed_a=None, seed_b=None, collect_stats: bool = False,
+                     seed_a=None, seed_b=None, sr_origin_a=(0, 0),
+                     sr_origin_b=(0, 0), collect_stats: bool = False,
                      bm: int = 128, bn: int = 128):
     """Plain PyTorch version: unfused QDQ of both operands (SR noise of
     ``seed_a`` / ``seed_b`` when given), then an f32-accumulated product;
@@ -66,14 +70,17 @@ def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
         return torch.stack([qmm_stream_plain(
             x, y, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt, b_fmt=b_fmt,
             a_pow2=a_pow2, b_pow2=b_pow2, trans_a=trans_a, trans_b=trans_b,
-            seed_a=seed_a, seed_b=seed_b) for x, y in zip(a, b)])
+            seed_a=seed_a, seed_b=seed_b, sr_origin_a=sr_origin_a,
+            sr_origin_b=sr_origin_b) for x, y in zip(a, b)])
     ae = a.T if trans_a else a
     bq_orient = b if trans_b else b.T          # B in quant orientation
     (m, k), n = ae.shape, bq_orient.shape[0]
     spec_a = mode_spec(a_mode, a_fmt, a_pow2)
     spec_b = mode_spec(b_mode, b_fmt, b_pow2)
-    aq = qdq_grid_ref(ae, spec_a, 1, sr_noise(m, k, seed_a, a.device))
-    bq = qdq_grid_ref(bq_orient, spec_b, 1, sr_noise(n, k, seed_b, b.device))
+    aq = qdq_grid_ref(ae, spec_a, 1,
+                      sr_noise(m, k, seed_a, a.device, sr_origin_a))
+    bq = qdq_grid_ref(bq_orient, spec_b, 1,
+                      sr_noise(n, k, seed_b, b.device, sr_origin_b))
     y = f32_matmul(aq, bq.T, a.dtype)
     if not collect_stats:
         return y
@@ -87,6 +94,7 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                b_pow2: bool = False, trans_a: bool = False,
                trans_b: bool = False, a_sr: bool = False,
                b_sr: bool = False, seed_a=None, seed_b=None,
+               sr_origin_a=(0, 0), sr_origin_b=(0, 0),
                collect_stats: bool = False, bm: int = 128, bn: int = 128):
     """``Q(A') @ Q(B')``, or ``(y, (stats_a, stats_b))`` with
     ``collect_stats`` (None for a pass operand); CUDA tensors launch the
@@ -109,7 +117,9 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                                 a_fmt=a_fmt, b_fmt=b_fmt, a_pow2=a_pow2,
                                 b_pow2=b_pow2, trans_a=trans_a,
                                 trans_b=trans_b, seed_a=seed_a,
-                                seed_b=seed_b, collect_stats=collect_stats)
+                                seed_b=seed_b, sr_origin_a=sr_origin_a,
+                                sr_origin_b=sr_origin_b,
+                                collect_stats=collect_stats)
     dtype = cuda_operands(a, b)
     m, k, n = effective_dims(a, b, trans_a, trans_b)
     c = torch.empty((*a.shape[:-2], m, n), dtype=a.dtype, device=a.device)
@@ -129,7 +139,10 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                       *fmt_args(a_mode, a_fmt, a_pow2),
                       *fmt_args(b_mode, b_fmt, b_pow2), int(trans_a),
                       int(trans_b), int(a_sr), seed_arg(seed_a), int(b_sr),
-                      seed_arg(seed_b), *ptrs, bm, bn, stream_ptr(a),
+                      seed_arg(seed_b),
+                      *(int(o) & 0xFFFFFFFF
+                        for o in (*sr_origin_a, *sr_origin_b)),
+                      *ptrs, bm, bn, stream_ptr(a),
                       operands=(a, b), kernels=1 + 2 * (n_stats > 0),
                       trans=trans_a or trans_b,
                       sr=a_sr or b_sr, stats=n_stats > 0,

@@ -43,16 +43,21 @@ _GROUP = 128
 
 
 def qdq_grid_ref(x2d: torch.Tensor, spec: QuantSpec, reduction_axis: int,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise: Optional[torch.Tensor] = None,
+                 amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """QDQ through the shared grid codec with injectable SR noise (f32
     uniform [0, 1), the shape of ``x2d``): given the noise a kernel drew,
-    this reproduces its stochastic rounding bit for bit."""
-    if noise is None or spec.is_passthrough:
+    this reproduces its stochastic rounding bit for bit.  ``amax``: the
+    group amax to scale by (blocked layout, as ``_group_amax`` gives it)
+    in place of ``x2d``'s own (a data-parallel rank's shared amax)."""
+    if spec.is_passthrough or (noise is None and amax is None):
         return qdq(x2d, spec, reduction_axis)
     rows, cols = x2d.shape
     xb = _blocked_view(x2d, spec.granularity, spec.block, reduction_axis)
-    nb = _blocked_view(noise, spec.granularity, spec.block, reduction_axis)
-    amax = _group_amax(xb, spec.granularity, reduction_axis)
+    nb = (None if noise is None else
+          _blocked_view(noise, spec.granularity, spec.block, reduction_axis))
+    if amax is None:
+        amax = _group_amax(xb, spec.granularity, reduction_axis)
     scale = group_scale(amax, spec.format, spec.pow2_scale).to(x2d.dtype)
     y = round_to_grid(xb / scale, spec.format, nb) * scale
     if spec.granularity == "block" and reduction_axis == 1:
@@ -85,13 +90,16 @@ def tree128(v: torch.Tensor, dim: int, op=torch.add) -> torch.Tensor:
     return t[..., 0]
 
 
-def _row_slab_scales(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
-    """(rows, k-slabs) f32 scale of the group each row-slab lies in."""
+def _row_slab_scales(x: torch.Tensor, spec: QuantSpec,
+                     amax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(rows, k-slabs) f32 scale of the group each row-slab lies in
+    (``amax``: the groups' amax given, as ``qdq_grid_ref`` takes it)."""
     rows, cols = x.shape
     ks = -(-cols // _GROUP)
-    xb = _blocked_view(x, spec.granularity, spec.block, 1)
-    s = group_scale(_group_amax(xb, spec.granularity, 1), spec.format,
-                    spec.pow2_scale)
+    if amax is None:
+        xb = _blocked_view(x, spec.granularity, spec.block, 1)
+        amax = _group_amax(xb, spec.granularity, 1)
+    s = group_scale(amax, spec.format, spec.pow2_scale)
     if spec.granularity == "block":
         return s[..., 0]
     if spec.granularity == "tile":             # (rb, 1, cb, 1)
@@ -99,18 +107,19 @@ def _row_slab_scales(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     return s.expand(rows, ks)               # token (rows, 1), tensor ()
 
 
-def quant_stats_ref(x: torch.Tensor, q: torch.Tensor,
-                    spec: QuantSpec) -> torch.Tensor:
+def quant_stats_ref(x: torch.Tensor, q: torch.Tensor, spec: QuantSpec,
+                    amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The stats epilogue's (8,) f32 vector of one operand in quant
     orientation: ``x`` (rows, reduction) and its QDQ result ``q``, groups
-    along axis 1 per ``spec``; in the canonical fold order above."""
+    along axis 1 per ``spec`` (scaled by ``amax`` when given); in the
+    canonical fold order above."""
     rows, cols = x.shape
     ks = -(-cols // _GROUP)
     pad = ks * _GROUP - cols
     xf = torch.nn.functional.pad(x.to(torch.float32), (0, pad))
     qf = torch.nn.functional.pad(q.to(torch.float32), (0, pad))
     xf, qf = xf.view(rows, ks, _GROUP), qf.view(rows, ks, _GROUP)
-    scale = _row_slab_scales(x, spec).to(torch.float32)
+    scale = _row_slab_scales(x, spec, amax).to(torch.float32)
     thr = torch.full_like(scale, float(np.float32(
         spec.format.max_value * (1.0 + 1e-6))))
     mag = xf.abs()

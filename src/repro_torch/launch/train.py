@@ -14,14 +14,24 @@ reference's CLI trains; ``--linear-impl pallas --attention-impl pallas``
 runs the quantized matmuls and the attention forward on the CUDA
 kernels.  ``--grad-compression fp8`` compresses the gradients (error
 feedback).  ``--mesh d,1`` trains data-parallel on a (data, model) mesh
-of ``d`` ranks, launched with ``torchrun``, NCCL on ``--device cuda``
-and ``gloo`` on ``--device cpu``::
+of ``d`` ranks, ``--mesh p,d,1`` on a (pod, data, model) mesh of ``p *
+d`` (the batch and the fsdp blocks over both data axes), launched with
+``torchrun``, NCCL on ``--device cuda`` and ``gloo`` on ``--device
+cpu``::
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
         --device cpu --mesh 2,1 --grad-compression fp8 --no-fsdp
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --mesh 2,1 --telemetry --linear-impl pallas
 
-(with no ``torchrun`` a mesh of one rank runs in this process alone); a
-model axis larger than 1 raises ``NotImplementedError``.  Rank 0 prints.
+(with no ``torchrun`` a mesh of one rank runs in this process alone).
+Without compression the data-parallel step is the one-device step of the
+global batch: quant groups that span the batch share one amax across the
+ranks, and ``--telemetry`` (the quant stats and gradient norms in every
+step's row) reduces its stats over them; a rank's token count must then
+be a multiple of 128 wherever a block group runs along the tokens
+(``ValueError`` otherwise).  A model axis larger than 1 raises
+``NotImplementedError``.  Rank 0 prints.
 
 Prints the reference's lines (the per-step log, ``eval:``, ``step-time:``
 p50 / p95 / p99, tokens/s and MFU) and one ``roofline[...]`` line from
@@ -44,7 +54,12 @@ from repro_torch.distributed.mesh import init_distributed
 from repro_torch.models import build_model
 from repro_torch.train.trainer import Trainer
 
-__all__ = ["main", "parse_args", "model_config", "train_config"]
+__all__ = ["main", "parse_args", "model_config", "train_config",
+           "MESH_AXES"]
+
+# --mesh's axes by its length
+MESH_AXES = {1: ("data",), 2: ("data", "model"),
+             3: ("pod", "data", "model")}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -63,12 +78,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--mesh", default="",
-                    help="mesh shape, e.g. '4,1' (axes data,model; one "
-                         "rank a data shard, under torchrun); empty = "
-                         "single-device step")
+                    help="mesh shape, e.g. '4,1' (axes data,model) or "
+                         "'2,2,1' (pod,data,model); one rank a data "
+                         "shard, under torchrun; empty = single-device "
+                         "step")
     ap.add_argument("--no-fsdp", action="store_true",
                     help="replicate embed params over the data axes "
                          "(required with --grad-compression fp8)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="collect the quant stats and gradient norms "
+                         "every step (the history rows' tel/... keys)")
     ap.add_argument("--telemetry-jsonl", default="",
                     help="JSONL metrics log (written off the critical "
                          "path by the async writer)")
@@ -107,15 +126,14 @@ def train_config(args: argparse.Namespace) -> TrainConfig:
     CLI's."""
     mesh_shape = (tuple(int(d) for d in args.mesh.split(","))
                   if args.mesh else None)
-    mesh_axes = (("data", "model")[:len(mesh_shape)]
-                 if mesh_shape else None)
+    mesh_axes = (MESH_AXES[len(mesh_shape)] if mesh_shape else None)
     return TrainConfig(
         recipe=args.recipe, total_steps=args.steps,
         global_batch=args.batch, seq_len=args.seq, learning_rate=args.lr,
         microbatch=args.microbatch, grad_compression=args.grad_compression,
         mesh_shape=mesh_shape, mesh_axes=mesh_axes, fsdp=not args.no_fsdp,
         checkpoint_every=args.ckpt_every, checkpoint_dir=args.ckpt,
-        telemetry_jsonl=args.telemetry_jsonl,
+        telemetry=args.telemetry, telemetry_jsonl=args.telemetry_jsonl,
         cost_calibration=args.cost_calibration,
         log_every=max(args.steps // 20, 1))
 

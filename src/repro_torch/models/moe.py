@@ -25,6 +25,16 @@ weighted by their gates (rounded to the compute dtype, as the
 reference's einsum rounds its combine tensor) in f32, in k order, the
 same for every batch size.  Nothing here reads a device value on the
 host, so a decode step can be captured into a CUDA graph.
+
+Inside a data-parallel token split (``core.quantize.TokenSplit``: the
+reference's step is the one-device function of the global batch) a rank
+must hold whole router groups, so its token count must be a multiple of
+``group_size`` (``ValueError`` otherwise); routing and capacity are then
+per group, the rank's own.  The load-balancing loss multiplies two means
+over every token: the expert-count fractions (no gradient) are
+all-reduced over the group, so that the mean of the ranks' losses, and of
+their gradients, is the global batch's.  The router z-loss and the drop
+fraction are means of per-token terms: the ranks' mean is the global one.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.packed import PackedTensor
 from repro_torch.core.qlinear import qmatmul
+from repro_torch.core.quantize import token_split
+from repro_torch.distributed import comms
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.nn.layers import ACTIVATIONS
 from repro_torch.nn.params import ParamSpec
@@ -146,6 +158,11 @@ def moe(params: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     st = cfg.moe
     b, s, d = x.shape
     tokens = b * s
+    split = token_split()
+    if split is not None and tokens % st.group_size:
+        raise ValueError(
+            f"a router group of {st.group_size} tokens straddles a "
+            f"data-parallel rank boundary: each rank holds {tokens} tokens")
     gsz = min(st.group_size, tokens)
     n_groups = -(-tokens // gsz)
     pad = n_groups * gsz - tokens
@@ -201,6 +218,9 @@ def moe(params: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
     me = probs.mean(dim=(0, 1))
     ce = (expert_idx[..., None] == torch.arange(e, device=x.device)).to(
         torch.float32).sum(dim=2).mean(dim=(0, 1))
+    if split is not None:       # the global batch's fractions
+        ce = comms.all_reduce(ce.contiguous(), "sum", split.group,
+                              tag="metric") / split.size
     lb = e * torch.sum(me * ce) * st.load_balance_loss
     zl = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * st.router_z_loss
     frac_dropped = 1.0 - kept.sum().to(torch.float32) / (n_tok * k)

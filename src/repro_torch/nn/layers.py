@@ -13,6 +13,7 @@ import torch
 
 from repro_torch import constant
 from repro_torch.core.qlinear import qlinear
+from repro_torch.core.quantize import TokenSplit, splitting
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["linear", "gelu", "silu", "relu2", "rms_norm", "layer_norm",
@@ -120,6 +121,14 @@ def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # data-parallel step, so a hint that maps only to axes of size 1 (the
 # data axes are stripped by the step's ``manual_over``) is a no-op too;
 # a hint that would shard over a larger axis raises.
+#
+# The data-manual region of a data-parallel step that reduces the mean
+# gradient (``train.train_step``'s ``reduce_mean`` and the eval step) also
+# carries the token split (``core.quantize.TokenSplit``: the data group
+# and this rank's index there, whence its row offset): quant groups that
+# span the tokens share their amax across the group inside it.  The fp8
+# compressed step's region carries none: the reference's per-shard slices
+# quantize on their own there.
 # ---------------------------------------------------------------------------
 
 _CTX = threading.local()
@@ -135,11 +144,14 @@ def get_sharding_context():
 
 
 @contextlib.contextmanager
-def sharding_context(ctx):
+def sharding_context(ctx, split: Optional[TokenSplit] = None):
+    """Install ``ctx`` (and the token ``split``, None: none) inside the
+    block."""
     prev = get_sharding_context()
     set_sharding_context(ctx)
     try:
-        yield
+        with splitting(split):
+            yield
     finally:
         set_sharding_context(prev)
 

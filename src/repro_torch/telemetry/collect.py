@@ -28,6 +28,15 @@ Statistics per operand slot (f32): ``clip`` (fraction above the group's
 clip point), ``underflow`` (fraction of nonzeros that quantize to 0, the
 Fig. 1b signal), ``rel_err`` (||x - Q(x)|| / ||x||) and ``scale_spread``
 (log2 of the max over the min group scale).
+
+Inside a data-parallel token split (``core.quantize.TokenSplit``) an
+operand with a token axis (``x``, the cotangent ``g``) is a rank's share
+of the global batch's.  The reference's stats there are of the global
+operand, so each tap computes its share's sums (counts, squared sums,
+the extreme scales) from the global groups (a token-spanning group's
+amax shared, the subsampled rows the global operand's) and reduces them
+over the data group before it finalizes them: every rank then holds one
+process's stats (counts exactly, squared sums to rounding).
 """
 from __future__ import annotations
 
@@ -41,7 +50,10 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.core import routing
 from repro_torch.core.quantize import (QuantSpec, _blocked_view,
-                                       _group_amax, scale_from_amax)
+                                       _group_amax, scale_from_amax,
+                                       share_amax, spans_ranks,
+                                       splitting, token_split)
+from repro_torch.distributed import comms
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["TelemetryCollector", "collecting", "active", "suppressed",
@@ -225,8 +237,28 @@ def _statable(spec: QuantSpec) -> bool:
     return not spec.is_passthrough and spec.fmt != "fp16"
 
 
+def _subsample(a2d: torch.Tensor, axis: int, token_axis, split
+               ) -> torch.Tensor:
+    """Every ``stride``-th line of ``a2d`` along ``axis``, ``stride`` from
+    the global operand's count there; a rank's share of the token axis
+    keeps the lines the global operand's subsample keeps."""
+    n = a2d.shape[axis]
+    if split is None or axis != token_axis:
+        stride = n // _SAMPLE_GROUPS
+        if stride <= 1:
+            return a2d
+        return a2d[::stride] if axis == 0 else a2d[:, ::stride]
+    stride = n * split.size // _SAMPLE_GROUPS
+    if stride <= 1:
+        return a2d
+    first = -split.offset(n) % stride
+    return a2d[first::stride] if axis == 0 else a2d[:, first::stride]
+
+
 def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
-                  reduction_axis: int) -> Dict[str, torch.Tensor]:
+                  reduction_axis: int,
+                  token_axis: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Quant-health stats of one matmul operand under ``spec`` (f32 0-dim
     tensors), in one blocked pass, as the reference computes them.
 
@@ -234,43 +266,70 @@ def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
     ``block`` granularities the groups lie along the reduction axis, so
     the operand is strided-subsampled along the other axis to at most
     ``_SAMPLE_GROUPS`` groups first: per-group math stays exact and the
-    rates become a sample mean.
+    rates become a sample mean.  ``token_axis``: the axis that runs over
+    tokens (None: a weight); inside a token split the stats are the
+    global operand's, reduced over the data group (module docstring).
     """
     fmt = spec.format
+    split = token_split() if token_axis is not None else None
     if spec.granularity in ("token", "block"):
-        axis = 1 - reduction_axis
-        stride = a2d.shape[axis] // _SAMPLE_GROUPS
-        if stride > 1:
-            a2d = a2d[::stride] if axis == 0 else a2d[:, ::stride]
+        a2d = _subsample(a2d, 1 - reduction_axis, token_axis, split)
     rows, cols = a2d.shape
     af = _blocked_view(a2d, spec.granularity, spec.block,
                        reduction_axis).to(torch.float32)
     mag = af.abs()
-    scale = scale_from_amax(_group_amax(af, spec.granularity,
-                                        reduction_axis), fmt,
-                            spec.pow2_scale)
+    amax = _group_amax(af, spec.granularity, reduction_axis)
+    if split is not None and spans_ranks(
+            spec.granularity, spec.block, a2d.shape[token_axis],
+            token_axis == reduction_axis):
+        amax = share_amax(amax, split)
+    scale = scale_from_amax(amax, fmt, spec.pow2_scale)
     q = F.round_to_format(af / scale, fmt) * scale
     nonzero = mag > 0
-    underflow = ((nonzero & (q == 0)).sum()
-                 / torch.clamp(nonzero.sum(), min=1))
-    rel_err = torch.sqrt(((af - q) ** 2).sum()
-                         / torch.clamp((af * af).sum(), min=1e-30))
-    clip = (mag > scale * (fmt.max_value * (1.0 + 1e-6))).sum() / (rows * cols)
-    spread = torch.log2(torch.clamp(scale.max(), min=1e-30)
-                        / torch.clamp(scale.min(), min=1e-30))
+    under, nz = (nonzero & (q == 0)).sum(), nonzero.sum()
+    err2, val2 = ((af - q) ** 2).sum(), (af * af).sum()
+    clipped = (mag > scale * (fmt.max_value * (1.0 + 1e-6))).sum()
+    smax, smin = scale.max(), scale.min()
+    n = rows * cols
+    if split is not None:
+        under, nz, clipped, err2, val2, smax, smin, n = _reduce_sums(
+            split, under, nz, clipped, err2, val2, smax, smin, n)
+    underflow = under / torch.clamp(nz, min=1)
+    rel_err = torch.sqrt(err2 / torch.clamp(val2, min=1e-30))
+    clip = clipped / n
+    spread = torch.log2(torch.clamp(smax, min=1e-30)
+                        / torch.clamp(smin, min=1e-30))
     return {k: v.to(torch.float32) for k, v in (
         ("clip", clip), ("underflow", underflow), ("rel_err", rel_err),
         ("scale_spread", spread))}
 
 
+def _reduce_sums(split, under, nz, clipped, err2, val2, smax, smin, n):
+    """The group's totals of one operand's stat sums (counts exact in
+    f64, squared sums in f32 as the taps hold them), its extreme scales
+    (one all-reduce of sums, one of maxima: min as the max of -min)."""
+    dev = err2.device
+    sums = torch.stack([under.double(), nz.double(), clipped.double(),
+                        err2.double(), val2.double(),
+                        torch.tensor(float(n), dtype=torch.float64,
+                                     device=dev)])
+    comms.all_reduce(sums, "sum", split.group, tag="telemetry")
+    ext = torch.stack([smax, -smin])
+    comms.all_reduce(ext, "max", split.group, tag="telemetry")
+    counts = sums[[0, 1, 2]].to(torch.int64)
+    return (counts[0], counts[1], counts[2], sums[3].float(),
+            sums[4].float(), ext[0], -ext[1], int(sums[5].item()))
+
+
 # slot -> (operand index, spec name, reduction axis in the stored (M, K)
-# x / (K, N) w layout)
+# x / (K, N) w layout); x's axis 0 runs over tokens
 _FWD_SLOTS = (
     ("fwd_x", 0, "fwd_x", 1),      # x quantized over K
     ("fwd_w", 1, "fwd_w", 0),      # w quantized over K
     ("wgrad_x", 0, "wgrad_x", 0),  # x^T quantized over M == x over axis 0
     ("dgrad_w", 1, "dgrad_w", 1),  # w^T quantized over N == w over axis 1
 )
+_TOKEN_AXIS = (0, None)            # of (x, w)
 
 
 def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
@@ -298,11 +357,13 @@ def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
         if pre is not None:
             stats = pre
         elif ops[op_i].dim() == 3:
-            per_e = [operand_stats(a, spec, axis) for a in ops[op_i]]
+            per_e = [operand_stats(a, spec, axis, _TOKEN_AXIS[op_i])
+                     for a in ops[op_i]]
             stats = {k: torch.stack([s_[k] for s_ in per_e]).mean()
                      for k in per_e[0]}
         else:
-            stats = operand_stats(ops[op_i], spec, axis)
+            stats = operand_stats(ops[op_i], spec, axis,
+                                  _TOKEN_AXIS[op_i])
         for stat, v in stats.items():
             fr.stats[f"{scope}/mm{j}/{slot}/{stat}"] = v
 
@@ -326,14 +387,23 @@ def make_probes(n_layers: int, device=None) -> Dict[str, torch.Tensor]:
 def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
     g2 = g.reshape(-1, g.shape[-1])
     vals = []
-    # dgrad: g reduced over N (axis 1); wgrad: g reduced over M (axis 0)
+    # dgrad: g reduced over N (axis 1); wgrad: g reduced over M (axis 0);
+    # g's rows are tokens
     for spec, axis in ((recipe.dgrad_g, 1), (recipe.wgrad_g, 0)):
         if _statable(spec):
-            s = operand_stats(g2, spec, axis)
+            s = operand_stats(g2, spec, axis, 0)
             vals += [s["clip"], s["underflow"], s["rel_err"]]
         else:
             vals += [torch.zeros((), device=g.device)] * 3
-    vals.append((g2.to(torch.float32) ** 2).sum())
+    gnorm_sq = (g2.to(torch.float32) ** 2).sum()
+    split = token_split()
+    if split is not None:
+        # a rank's loss is the mean over its own rows, so with equal
+        # shares of the targets its cotangent is size x the global
+        # loss's: the squared sums are scaled back by size^2 (exact)
+        gnorm_sq = comms.all_reduce(gnorm_sq.reshape(1), "sum", split.group,
+                                    tag="telemetry")[0] / split.size ** 2
+    vals.append(gnorm_sq)
     vals.append(torch.ones((), device=g.device))   # tap count
     return torch.stack(vals)
 
@@ -341,17 +411,20 @@ def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
 class _GradTap(torch.autograd.Function):
     """Identity on ``y``; its backward passes the cotangent on unchanged
     and returns the cotangent's stats as the probe's gradient, in row
-    ``row``."""
+    ``row`` (under the forward's token split: autograd may run the
+    backward on a thread of its own)."""
 
     @staticmethod
     def forward(ctx, y, probe, row: int, recipe: MatmulRecipe):
         ctx.row, ctx.recipe, ctx.shape = row, recipe, probe.shape
+        ctx.split = token_split()
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
         gp = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
-        gp[ctx.row] = _cotangent_stats(g, ctx.recipe)
+        with splitting(ctx.split):
+            gp[ctx.row] = _cotangent_stats(g, ctx.recipe)
         return g, gp, None, None
 
 

@@ -26,14 +26,28 @@ reference's two orders:
     communicating, then clip — ``optim.compressed_psum_grads`` over the
     data group (1-byte codes on the wire, a shared f32 scale, each rank
     its own residual: the residual tree keeps the reference's leading
-    replica axis, a rank holding its block ``(1, *shape)``);
+    replica axis, a rank holding its block ``(1, *shape)``).  The
+    reference vmaps its model over per-shard slices there, so each
+    slice's quantization is its own: the region carries no token split;
   * otherwise the mean gradient (weighted by each rank's count of
     targets, which makes it the global batch's gradient), then the
-    global-norm clip.  With ``fsdp`` the leaves the rules shard over the
-    data axes (``embed``) and their optimizer state are held as blocks:
-    the step all-gathers them for the forward, reduce-scatters their
+    global-norm clip.  The reference's step is then the one-device
+    function of the global batch, so the region carries the token split
+    (``core.quantize.TokenSplit``): a quant group spanning the tokens
+    shares its amax across the data group, the kernels key their SR
+    noise by the global rows, and the telemetry taps reduce their stats
+    over the group, so every rank's quantization and stats are one
+    process's.  Microbatches split the global batch first and each rank
+    takes its rows of each, as the reference's reshape of the sharded
+    batch does.  With ``fsdp`` the leaves the rules shard over the data
+    axes (``embed``) and their optimizer state are held as blocks: the
+    step all-gathers them for the forward, reduce-scatters their
     gradients, and clips by the norm of the whole gradient (the blocks'
-    squared sums all-reduced).
+    squared sums all-reduced).  A spec over part of the data axes (on a
+    ``(pod, data, model)`` mesh, ``data`` alone) gathers and
+    reduce-scatters over that axis's group and all-reduces over the
+    others'.  Adafactor's factored moments reduce over the sharded dim
+    (``optim.adafactor``, ``shards=``).
 
 With no rules, or a data axis of 1, the step is the single-device step:
 clip, then ``fp8_compress_grads`` (the reference's order there), and no
@@ -42,13 +56,15 @@ records it for the census.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.qlinear import matmul_impl
+from repro_torch.core.quantize import TokenSplit
 from repro_torch.core.recipe import as_plan
 from repro_torch.distributed import comms
 from repro_torch.distributed.sharding import (Sharding, ShardingRules,
@@ -59,6 +75,7 @@ from repro_torch.nn.params import map_specs
 from repro_torch.optim import (clip_by_global_norm, compressed_psum_grads,
                                fp8_compress_grads, get_optimizer,
                                warmup_cosine)
+from repro_torch.optim.adafactor import AdafactorState
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.telemetry import collect as telemetry
 from repro_torch.telemetry.profiler import phase_span
@@ -66,7 +83,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "make_eval_step", "make_optimizer",
            "train_step_shardings", "compression_state_sharding",
-           "DataParallel", "check_rules"]
+           "DataParallel", "Shard", "check_rules"]
 
 
 def make_optimizer(model: Model, tcfg: TrainConfig):
@@ -187,30 +204,85 @@ def _data_group(rules: ShardingRules):
     return _GROUPS[ranks]
 
 
+def _axes_group(rules: ShardingRules, axes: Tuple[str, ...]):
+    """The process group of ``axes``, data axes of the mesh: all of them
+    (the data group) or one (the mesh's own group of that axis, made with
+    the mesh: every rank builds every axis's groups once)."""
+    if axes == rules.dp_axes:
+        return _data_group(rules)
+    if len(axes) == 1:
+        return rules.mesh.get_group(axes[0])
+    raise NotImplementedError(f"a spec over the data axes {axes} of "
+                              f"{rules.dp_axes}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """A leaf's layout on the data axes: its tensor dim ``dim`` is split
+    over the data axes ``axes`` (``group``; this rank's block ``index``
+    of ``size``).  ``rest``: the group of the other data axes, over which
+    the blocks are replicas (None when the leaf shards over every data
+    axis)."""
+
+    dim: int
+    axes: Tuple[str, ...]
+    group: Any
+    index: int
+    size: int
+    rest: Any = None
+
+    def at(self, dim: Optional[int]) -> Optional["Shard"]:
+        """The same split on another dim (None: the tensor is whole)."""
+        return None if dim is None else dataclasses.replace(self, dim=dim)
+
+
+def _factor_dims(dim: int, nd: int):
+    """The dims of adafactor's (vr, vc) that a parameter's split ``dim``
+    lands on (None: that factor is reduced over it, or has no such dim),
+    as ``sharding.opt_state_shardings`` drops the trailing spec entries."""
+    if nd < 2:
+        return dim, None
+    return (dim if dim < nd - 1 else None,
+            dim if dim < nd - 2 else (nd - 2 if dim == nd - 1 else None))
+
+
 class DataParallel:
     """A rank's side of a data-parallel mesh: its data group, its index
-    there, and for each parameter leaf the dim the rules shard over the
-    data axes (None: replicated)."""
+    there, and for each parameter leaf its layout on the data axes
+    (``shards``: a ``Shard``, None: replicated; ``dims``: the dims)."""
 
     def __init__(self, model: Model, rules: ShardingRules):
         self.rules = rules
         self.size = rules.dp_size
         self.group = _data_group(rules)
         self.index = dist.get_rank(self.group)
-        self.dims = tree_map(self._dim,
-                             rules.param_shardings(model.param_specs()))
+        self.shards = tree_map(self._shard,
+                               rules.param_shardings(model.param_specs()))
+        self.dims = tree_map(lambda sh: None if sh is None else sh.dim,
+                             self.shards)
         self.sharded = any(d is not None for d in tree_leaves(self.dims))
+        nds = map_specs(lambda sp: len(sp.shape), model.param_specs())
+        factors = tree_map(
+            lambda sh, nd: (None, None) if sh is None else
+            tuple(sh.at(d) for d in _factor_dims(sh.dim, nd)),
+            self.shards, nds)
+        self.vr_shards = tree_map(lambda f: f[0], factors)
+        self.vc_shards = tree_map(lambda f: f[1], factors)
 
-    def _dim(self, sh: Sharding) -> Optional[int]:
+    def _shard(self, sh: Sharding) -> Optional[Shard]:
+        dp = self.rules.dp_axes
         dims = [d for d, names in sh.dim_axes().items()
-                if any(a in self.rules.dp_axes for a in names)]
+                if any(a in dp for a in names)]
         if not dims:
             return None
-        if sh.dim_axes()[dims[0]] != self.rules.dp_axes:
-            raise NotImplementedError(
-                f"spec {sh.spec} shards over part of the data axes "
-                f"{self.rules.dp_axes}; not supported (ROADMAP queue A)")
-        return dims[0]
+        axes = tuple(a for a in sh.dim_axes()[dims[0]] if a in dp)
+        if axes == dp:
+            return Shard(dims[0], axes, self.group, self.index, self.size)
+        group = _axes_group(self.rules, axes)
+        rest = tuple(a for a in dp if a not in axes)
+        return Shard(dims[0], axes, group, dist.get_rank(group),
+                     self.rules.axis_size(axes),
+                     _axes_group(self.rules, rest))
 
     @staticmethod
     def of(model: Model, rules: Optional[ShardingRules]
@@ -222,44 +294,58 @@ class DataParallel:
         check_rules(rules)
         return DataParallel(model, rules) if rules.dp_size > 1 else None
 
+    def token_split(self) -> TokenSplit:
+        """The split of the tokens over the data group (this rank holds
+        rows ``index * n ...`` of every token axis)."""
+        return TokenSplit(self.group, self.index, self.size)
+
     # -- layout ------------------------------------------------------------
 
-    def block(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's block of a full tensor sharded on ``dim``."""
-        if dim is None:
+    @staticmethod
+    def block(t: torch.Tensor, sh: Optional[Shard]) -> torch.Tensor:
+        """This rank's block of a full tensor laid out as ``sh``."""
+        if sh is None:
             return t
-        return t.chunk(self.size, dim)[self.index].clone()
+        return t.chunk(sh.size, sh.dim)[sh.index].clone()
 
-    def gather_leaf(self, t: torch.Tensor, dim: Optional[int],
+    @staticmethod
+    def gather_leaf(t: torch.Tensor, sh: Optional[Shard],
                     tag: str = "param") -> torch.Tensor:
-        """The full tensor of the blocks sharded on ``dim``."""
-        if dim is None:
+        """The full tensor of the blocks laid out as ``sh``."""
+        if sh is None:
             return t
-        parts = comms.all_gather(t, self.group, tag=tag)
-        return torch.cat(list(parts.unbind(0)), dim)
+        parts = comms.all_gather(t, sh.group, tag=tag)
+        return torch.cat(list(parts.unbind(0)), sh.dim)
 
     def local(self, tree):
         """Blocks of a full params-shaped tree (params, mu, nu)."""
-        return tree_map(self.block, tree, self.dims)
+        return tree_map(self.block, tree, self.shards)
 
     def full(self, tree, tag: str = "param"):
-        return tree_map(lambda t, d: self.gather_leaf(t, d, tag), tree,
-                        self.dims)
+        return tree_map(lambda t, sh: self.gather_leaf(t, sh, tag), tree,
+                        self.shards)
 
     def local_opt_state(self, opt_state):
         if not self.sharded:
             return opt_state
-        if not isinstance(opt_state, AdamWState):
-            raise NotImplementedError(
-                "fsdp over the data axes with adafactor: its factored "
-                "moments reduce over the sharded dim (ROADMAP queue A); "
-                "use TrainConfig(fsdp=False)")
+        if isinstance(opt_state, AdafactorState):
+            return AdafactorState(
+                opt_state.count,
+                tree_map(self.block, opt_state.vr, self.vr_shards),
+                tree_map(self.block, opt_state.vc, self.vc_shards))
         return AdamWState(opt_state.count, self.local(opt_state.mu),
                           self.local(opt_state.nu))
 
     def full_opt_state(self, opt_state):
         if not self.sharded:
             return opt_state
+        if isinstance(opt_state, AdafactorState):
+            return AdafactorState(
+                opt_state.count,
+                tree_map(lambda t, sh: self.gather_leaf(t, sh, "opt"),
+                         opt_state.vr, self.vr_shards),
+                tree_map(lambda t, sh: self.gather_leaf(t, sh, "opt"),
+                         opt_state.vc, self.vc_shards))
         return AdamWState(opt_state.count, self.full(opt_state.mu, "opt"),
                           self.full(opt_state.nu, "opt"))
 
@@ -277,39 +363,54 @@ class DataParallel:
 
     # -- reductions ----------------------------------------------------------
 
-    def _reduce_leaf(self, g: torch.Tensor, dim: Optional[int]
+    def _reduce_leaf(self, g: torch.Tensor, sh: Optional[Shard]
                      ) -> torch.Tensor:
-        if dim is None:
+        if sh is None:
             return comms.all_reduce(g, "sum", self.group, tag="grad")
-        moved = g.movedim(dim, 0)
-        out = comms.reduce_scatter(moved, self.group, tag="grad")
-        return out.movedim(0, dim)
+        moved = g.movedim(sh.dim, 0)
+        out = comms.reduce_scatter(moved, sh.group, tag="grad")
+        if sh.rest is not None:     # the replicas of the block: summed
+            out = comms.all_reduce(out, "sum", sh.rest, tag="grad")
+        return out.movedim(0, sh.dim)
 
     def reduce_grads(self, grads, weight: torch.Tensor):
         """The weighted sum over ranks of ``weight * grads``: all-reduced
         replicated leaves, reduce-scattered blocks of the sharded ones."""
-        return tree_map(lambda g, d: self._reduce_leaf(g * weight, d),
-                        grads, self.dims)
+        return tree_map(lambda g, sh: self._reduce_leaf(g * weight, sh),
+                        grads, self.shards)
 
     def global_norm(self, grads) -> torch.Tensor:
         """The norm of the whole gradient: a block's squared sum is
-        all-reduced, a replicated leaf's counted once."""
-        sq = {True: [], False: []}
-        for g, d in zip(tree_leaves(grads), tree_leaves(self.dims)):
-            sq[d is None].append(torch.sum(torch.square(g.to(torch.float32))))
+        all-reduced over its split's group (one all-reduce a split), a
+        replicated leaf's counted once."""
+        rep, split = [], {}
+        for g, sh in zip(tree_leaves(grads), tree_leaves(self.shards)):
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            if sh is None:
+                rep.append(sq)
+            else:
+                split.setdefault(sh.axes, (sh.group, []))[1].append(sq)
         dev = tree_leaves(grads)[0].device
-        total = sum(sq[True], torch.zeros((), device=dev))
-        if sq[False]:
+        total = sum(rep, torch.zeros((), device=dev))
+        for group, sqs in split.values():
             total = total + comms.all_reduce(
-                sum(sq[False]).reshape(1), "sum", self.group, tag="norm")[0]
+                sum(sqs).reshape(1), "sum", group, tag="norm")[0]
         return torch.sqrt(total)
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
-                       weight: Optional[torch.Tensor] = None
-                       ) -> Dict[str, torch.Tensor]:
+                       weight: Optional[torch.Tensor] = None,
+                       split: bool = False) -> Dict[str, torch.Tensor]:
         """Metrics over the group in one all-reduce: counts (integer
         metrics and ``tokens``) summed, the rest averaged (by ``weight``
-        when given: each rank's share of the targets)."""
+        when given: each rank's share of the targets).  Under a token
+        ``split`` the telemetry stats (``tel/...``) are already the
+        group's, equal on every rank: kept as they are."""
+        tel = {n: v for n, v in metrics.items()
+               if split and n.startswith("tel/")}
+        rest = {n: v for n, v in metrics.items() if n not in tel}
+        return {**self._reduce_metrics(rest, weight), **tel}
+
+    def _reduce_metrics(self, metrics, weight):
         names = list(metrics)
         count = [n == "tokens" or not metrics[n].is_floating_point()
                  for n in names]
@@ -363,17 +464,22 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
             "fsdp=False).")
     # one collector for the step's life; None keeps the plain step
     collector = telemetry.TelemetryCollector() if tcfg.telemetry else None
-    if dp is not None and collector is not None and not spmd:
-        raise NotImplementedError(
-            "telemetry on a data axis > 1 without fp8 compression: the "
-            "reference's stats there are of the global batch, a rank sees "
-            "its slice (ROADMAP queue A)")
     ctx = (rules.manual_over(rules.dp_axes) if rules is not None
            else None)
+    # the mean-gradient step quantizes the global batch's groups
+    split = dp.token_split() if dp is not None and not spmd else None
+    if opt.name == "adafactor" and dp is not None and dp.sharded:
+        opt_kw = {"shards": dp.shards}
+    else:
+        opt_kw = {}
 
-    def compute_grads(params, batch):
+    def compute_grads(params, batch, rows=None):
+        """Gradients and metrics of ``batch``; ``rows`` takes this rank's
+        rows of it, of each microbatch in turn (the microbatches split
+        the global batch)."""
+        rows = rows or (lambda mb: mb)
         if not (k and k > 1):
-            _, metrics, grads, pg = _grads(model, plan, params, batch,
+            _, metrics, grads, pg = _grads(model, plan, params, rows(batch),
                                            collector)
         else:
             b = batch["tokens"].shape[0]
@@ -382,8 +488,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
                                  "microbatches")
             g_acc, pg, loss_sum, per_mb = None, None, None, []
             for i in range(k):
-                mb = {n: t[i * (b // k):(i + 1) * (b // k)]
-                      for n, t in batch.items()}
+                mb = rows({n: t[i * (b // k):(i + 1) * (b // k)]
+                           for n, t in batch.items()})
                 loss, metrics, g, pg_i = _grads(model, plan, params, mb,
                                                 collector)
                 g_acc = g if g_acc is None else tree_map(torch.add, g_acc,
@@ -419,22 +525,27 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
 
     def reduce_mean(params, batch):
         """The mean gradient of the global batch (blocks of the fsdp
-        leaves), clipped by the whole gradient's norm."""
+        leaves), clipped by the whole gradient's norm; the per-layer
+        gradient norms (telemetry) of the reduced gradient."""
         full = dp.full(params) if dp.sharded else params
-        grads, metrics = compute_grads(full, dp.rows(batch))
+        grads, metrics = compute_grads(full, batch, dp.rows)
         del full
         with phase_span("collective"):
             weight = dp.token_weight(metrics)
             grads = dp.reduce_grads(grads, weight)
-            metrics = dp.reduce_metrics(metrics, weight)
+            metrics = dp.reduce_metrics(metrics, weight, split=True)
             norm = dp.global_norm(grads) if dp.sharded else None
+            if collector is not None:
+                whole = dp.full(grads, "telemetry") if dp.sharded else grads
+                metrics.update(telemetry.grad_norm_metrics(whole))
+                del whole
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=norm)
         return grads, metrics, gnorm
 
     def train_step(params, opt_state, comp_state,
                    batch: Dict[str, torch.Tensor], step,
                    lr_scale: float = 1.0):
-        with layers.sharding_context(ctx):
+        with layers.sharding_context(ctx, split):
             if dp is None:
                 grads, metrics = compute_grads(params, batch)
                 if collector is not None:
@@ -453,7 +564,8 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
         # backed-off LR equals the reference's bit for bit
         lr = lr_fn(step) * torch.tensor(lr_scale, dtype=torch.float32)
         with phase_span("optim"):
-            params, opt_state = opt.update(grads, opt_state, params, lr)
+            params, opt_state = opt.update(grads, opt_state, params, lr,
+                                           **opt_kw)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
@@ -470,10 +582,11 @@ def make_eval_step(model: Model, plan, *,
     plan = as_plan(plan, model.cfg.n_layers)
     dp = DataParallel.of(model, rules)
     ctx = rules.manual_over(rules.dp_axes) if rules is not None else None
+    split = dp.token_split() if dp is not None else None
 
     @torch.no_grad()
     def eval_step(params, batch):
-        with layers.sharding_context(ctx):
+        with layers.sharding_context(ctx, split):
             if dp is None:
                 return model.loss(params, batch, plan)[1]
             full = dp.full(params) if dp.sharded else params

@@ -51,11 +51,13 @@ with a world of ``prod(mesh_shape)`` ranks; every rank builds the same
 ``Trainer``, draws the same seeded init and takes its block; rank 0
 logs and writes checkpoints (the others join their gathers); every
 rank reads them.  A mesh axis other than the data axes larger than 1
-raises ``NotImplementedError`` (ROADMAP queue A), as do the few
-combinations the data-parallel step cannot run yet (telemetry without
-compression, fsdp with adafactor).  ``ModelConfig.remat`` is honoured
-in ``models.stack``; ``scan_layers`` changes no numbers (the port loops
-over layers either way).
+raises ``NotImplementedError`` (ROADMAP queue A).  Without compression
+the data-parallel step is the one-device step of the global batch (quant
+groups spanning the batch share one amax across the ranks; telemetry
+reduces its stats over them); fsdp runs with AdamW or adafactor, and a
+spec may shard over part of the data axes (``rules=``).
+``ModelConfig.remat`` is honoured in ``models.stack``; ``scan_layers``
+changes no numbers (the port loops over layers either way).
 """
 from __future__ import annotations
 

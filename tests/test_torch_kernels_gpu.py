@@ -860,3 +860,78 @@ def test_narrow_panel_packs_as_the_tile_qdq(cuda):
                                  trans=True, emit_trans=True)
     assert torch.equal(_bits(packed.dequantize().to(torch.bfloat16)),
                        _bits(ref))
+
+
+def _amax_words(x, mode):
+    """The f32 amax words (as int32) of a quant-orientation operand's
+    cross-block groups: one per quant row (token), one (tensor)."""
+    a = x.abs().float()
+    a = a.amax(dim=1) if mode == "token" else a.amax().reshape(1)
+    return a.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,fmt,trans", [("token", "fp8_e4m3", True),
+                                            ("tensor", "fp8_e5m2", True),
+                                            ("tensor", "fp4_e2m1", False)])
+@pytest.mark.parametrize("stats", [False, True])
+def test_quantize_rows_shared_amax(cuda, mode, fmt, trans, stats, dtype):
+    """The shared-amax entry, as a data-parallel rank runs it: the
+    reduction axis (200 quant rows x 2 x 256 columns) split in two, each
+    half quantized with its amax words maxed with the other half's
+    (``amax_reduce``) and its SR noise keyed from its origin: each half
+    bitwise the same columns of the whole operand's QDQ, bitwise the plain
+    version's same entry, stats bitwise too; the amax and the QDQ are two
+    launches (the stats fold two more)."""
+    whole = _rand((200, 512), dtype, 41)
+    halves = (whole[:, :256], whole[:, 256:])
+    kw = dict(mode=mode, fmt_name=fmt, trans=trans, emit_trans=False,
+              collect_stats=stats)
+    y_whole = qr.quantize_rows(whole.T.contiguous() if trans else whole,
+                               sr=True, seed=SEED, **kw)
+    for i, part in enumerate(halves):
+        other = _amax_words(halves[1 - i], mode)
+
+        def share(words, other=other):
+            torch.maximum(words, other, out=words)
+        x = part.T.contiguous() if trans else part.contiguous()
+        qr.KERNEL.reset()
+        got = qr.quantize_rows(x, sr=True, seed=SEED, sr_origin=(0, 256 * i),
+                               amax_reduce=share, **kw)
+        assert qr.KERNEL.launches == 2 + 2 * stats
+        ref = qr.quantize_rows_plain(x, seed=SEED, sr_origin=(0, 256 * i),
+                                     amax_reduce=share, **kw)
+        torch.cuda.synchronize()
+        if stats:
+            (got, st), (ref, st_ref) = got, ref
+            _assert_stats(st, st_ref)
+        want = (y_whole[0] if stats else y_whole)[:, 256 * i:256 * (i + 1)]
+        assert torch.equal(_bits(got), _bits(ref))
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qmm_stream_sr_origin(cuda, dtype):
+    """The stream kernel's SR keyed from each operand's origin: the wgrad
+    product of the second half of 512 tokens (A' = x^T, B' = g, both
+    block groups along the tokens, SR) equals the plain version, and its
+    B panel, quantized alone, equals the same columns of the whole
+    operand's panel."""
+    x = _rand((512, 192), dtype, 42)
+    g = _rand((512, 320), dtype, 43)
+    kw = dict(a_mode="block", b_mode="block", a_fmt="fp4_e2m1",
+              b_fmt="fp4_e2m1", trans_a=True, a_sr=True, b_sr=True,
+              seed_a=SEED, seed_b=SEED + 1)
+    origin = dict(sr_origin_a=(0, 256), sr_origin_b=(0, 256))
+    y = qs.qmm_stream(x[256:], g[256:], **kw, **origin)
+    plain = kw.copy()
+    del plain["a_sr"], plain["b_sr"]
+    ref = qs.qmm_stream_plain(x[256:], g[256:], **plain, **origin)
+    torch.cuda.synchronize()
+    _assert_gemm_close(y, ref)
+    whole = qr.quantize_rows(g, mode="block", fmt_name="fp4_e2m1",
+                             trans=True, sr=True, seed=SEED + 1)
+    half = qr.quantize_rows(g[256:], mode="block", fmt_name="fp4_e2m1",
+                            trans=True, sr=True, seed=SEED + 1,
+                            sr_origin=(0, 256))
+    assert torch.equal(_bits(half), _bits(whole[:, 256:]))

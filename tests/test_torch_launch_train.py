@@ -103,6 +103,22 @@ def test_unported_flags_raise():
     assert not dist.is_initialized()
 
 
+def test_telemetry_and_three_axis_mesh_flags():
+    """``--telemetry`` turns the stats on; a three-entry ``--mesh`` names
+    its axes (pod, data, model), and ``--mesh 1,1,1`` runs a mesh of this
+    process alone with both data axes in its rules (the 2- and 4-rank
+    data-axis cases: test_torch_spmd_train)."""
+    import torch.distributed as dist
+    tcfg = cli.train_config(cli.parse_args(["--mesh", "2,2,1",
+                                            "--telemetry"]))
+    assert tcfg.mesh_axes == ("pod", "data", "model") and tcfg.telemetry
+    out = cli.main(["--device", "cpu", "--steps", "1", "--batch", "2",
+                    "--seq", "32", "--mesh", "1,1,1", "--telemetry"])
+    assert out["trainer"].rules.dp_axes == ("pod", "data")
+    assert any(k.startswith("tel/") for k in out["trainer"].history[-1])
+    assert not dist.is_initialized()
+
+
 # The reference CLI's line formats (src/repro/launch/train.py and its
 # Trainer's log), and the port's roofline line.
 STEP = re.compile(r"^step +\d+ loss \d+\.\d{4} gnorm \d+\.\d{3} "

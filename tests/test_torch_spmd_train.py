@@ -16,6 +16,7 @@ Bars:
 Spawned ranks meet through a ``FileStore`` under ``tmp_path``
 (``torch_dist_workers``); torchrun runs ``--standalone`` (a free port).
 """
+import dataclasses
 import importlib
 import json
 import os
@@ -37,6 +38,9 @@ from repro.train.trainer import Trainer as JTrainer  # noqa: E402
 from repro_torch.analysis import qlint  # noqa: E402
 from repro_torch.analysis.trace import collective_bytes  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.quantize import QuantSpec  # noqa: E402
+from repro_torch.core.recipe import (MM_FFN_PAPER, MM_FP8,  # noqa: E402
+                                     RECIPES)
 from repro_torch.optim import compressed_reduce_dp  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -155,27 +159,82 @@ def test_resume_with_residuals_bit_for_bit(tmp_path):
 MESH_TOL = {"none": dict(loss=1e-5, grad_norm=1e-4, params=1e-4),
             "fp8": dict(loss=1e-4, grad_norm=1e-3, params=1e-3)}
 
+# The data axis made whole (the uncompressed step is the one-device
+# function of the global batch): paper_fp4 at 4 x 128 (a rank holds 256
+# tokens, so the FFN's 128-token block groups end on rank boundaries),
+# two steps, fsdp on (over "qdq", with telemetry) and off (over "pallas":
+# the kernels' plain versions).  The shared amax makes each rank quantize
+# the global batch's groups, so the runs differ from the reference's by
+# f32 summation order and the FP4 / FP8 roundings it flips (the port's
+# single-device paper_fp4 gap, test_torch_train's TRAIN_TOL); bars ten
+# times MESH_TOL["none"] (read: loss 4.8e-6, grad norm 1.3e-4, params
+# 2.7e-4).  The learning rate is 1e-4: AdamW's first updates are +-lr
+# wherever a gradient is not near zero, so an element that a flip moves
+# across zero moves by 2 lr, 1.2e-3 at the default 6e-4 (read after one
+# step on 12 of 8192 elements), past the params bar.  The split itself is
+# held tight against the port's one process (ONE_TOL).  Telemetry ("qdq"
+# on both sides: the reference's forward stats there are sampled, as the
+# port's), step 0: taps and the forward-side counts (clip, underflow)
+# bitwise, the backward-side rates within 5e-4 (test_torch_telemetry's
+# bar), the rest within TEL_RTOL of the reference and 1e-5 of the port's
+# one process.  adafactor with fsdp and the (2, 2, 1) mesh with the embed
+# leaves over "data" alone: bf16, MESH_TOL["none"] (adafactor read: loss
+# 8.1e-8, params 3.0e-8).
+FP4 = dict(recipe="paper_fp4", global_batch=4, seq_len=128,
+           learning_rate=1e-4)
+FP4_TOL = {k: 10 * v for k, v in MESH_TOL["none"].items()}
+# the 2 ranks against the port's one process on the whole batch: the
+# ranks' partial sums are the only difference (read: loss 8e-8, params 0;
+# a rank's local amax instead of the shared one reads 1.1e-3 on the
+# step-1 loss and 2.2e-3 on the params)
+ONE_TOL = 1e-6
+# the float stats against the reference (step 0): its activations and
+# cotangents differ from the port's in f32 summation order, which moves an
+# element across an FP4 / FP8 rounding edge now and then (read: dgrad_g
+# rel_err 6.1e-4, layer 1's FFN wgrad_x rel_err 1.1e-4, gnorm 5.8e-5,
+# relative; the reference's own 1- and 2-device rows agree to 1e-5)
+TEL_RTOL = 2e-3
+NEW_CASES = {
+    "fp4_fsdp": (dict(), dict(FP4, telemetry=True), 2),
+    "fp4_nofsdp": (dict(linear_impl="pallas"), dict(FP4, fsdp=False), 2),
+    "adafactor": (dict(optimizer="adafactor"), dict(), 2),
+}
+
 REF_MESH = textwrap.dedent("""
     import os, sys, json
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     os.environ["JAX_PLATFORMS"] = "cpu"
     import jax, numpy as np
     from repro.configs.base import TrainConfig, get_config
     from repro.data.pipeline import SyntheticLM
+    from repro.distributed.mesh import make_mesh
+    from repro.distributed.sharding import default_rules
     from repro.models import build_model
     from repro.train.trainer import Trainer
     out_dir = sys.argv[1]
+    new_cases = json.loads(sys.argv[2])
     cfg = get_config("tiny").replace(dtype="float32")
-    model = build_model(cfg)
-    cases = {"fsdp": dict(), "nofsdp": dict(fsdp=False),
-             "fp8": dict(fsdp=False, grad_compression="fp8")}
+    cases = {"fsdp": ({}, dict(), 3), "nofsdp": ({}, dict(fsdp=False), 3),
+             "fp8": ({}, dict(fsdp=False, grad_compression="fp8"), 3),
+             **new_cases, "partial": ({}, dict(), 3)}
     res = {}
-    for name, over in cases.items():
-        tr = Trainer(model, TrainConfig(recipe="bf16", total_steps=3,
-                                        global_batch=4, seq_len=32,
-                                        log_every=0, mesh_shape=(2, 1),
-                                        **over),
-                     SyntheticLM(cfg.vocab_size, 32, 4))
+    for name, (model_over, over, steps) in cases.items():
+        # the port's impl choice changes no reference number
+        model_over = {k: v for k, v in model_over.items()
+                      if k != "linear_impl"}
+        model = build_model(cfg.replace(**model_over))
+        kw = dict(recipe="bf16", total_steps=steps, global_batch=4,
+                  seq_len=32, log_every=0, mesh_shape=(2, 1))
+        kw.update(over)
+        rules = None
+        if name == "partial":
+            kw.pop("mesh_shape")
+            rules = default_rules(
+                make_mesh((2, 2, 1), ("pod", "data", "model")), cfg,
+                overrides={"embed": ("data",)})
+        tr = Trainer(model, TrainConfig(**kw),
+                     SyntheticLM(cfg.vocab_size, kw["seq_len"],
+                                 kw["global_batch"]), rules=rules)
         st = tr.init_state()
         if name == "fsdp":
             np.savez(os.path.join(out_dir, "init.npz"), **{
@@ -184,6 +243,10 @@ REF_MESH = textwrap.dedent("""
         st = tr.train(st)
         res[name] = {"loss": [r["loss"] for r in tr.history],
                      "grad_norm": [r["grad_norm"] for r in tr.history]}
+        if over.get("telemetry"):
+            res[name]["rows"] = [{k: float(v) for k, v in r.items()
+                                  if k.startswith("tel/")}
+                                 for r in tr.history]
         np.savez(os.path.join(out_dir, name + ".npz"), *[
             np.asarray(v) for v in jax.tree.leaves(st.params)])
     print(json.dumps(res))
@@ -199,48 +262,266 @@ def _unflatten(npz, like):
         jax.tree_util.tree_structure(like), leaves)
 
 
-def test_two_rank_mesh_matches_reference(tmp_path):
-    """2 gloo ranks on a (2, 1) mesh, fsdp on and off, and fp8 compression
-    with fsdp off, against the reference's ``Trainer`` on 2 forced CPU
-    devices, from the same init: per-step loss and grad norm, final
-    params; the fsdp run's blocks are half the embed leaves."""
+@pytest.fixture(scope="module")
+def ref_mesh(tmp_path_factory):
+    """The reference's runs (one subprocess, 4 forced CPU devices): its
+    rows by case, its final params' directory and the shared init."""
+    out_dir = tmp_path_factory.mktemp("ref_mesh")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-c", REF_MESH, str(tmp_path)],
+    out = subprocess.run([sys.executable, "-c", REF_MESH, str(out_dir),
+                          json.dumps(NEW_CASES)],
                          env=env, capture_output=True, text=True,
-                         timeout=600)
+                         timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
     ref = json.loads(out.stdout.strip().splitlines()[-1])
     jcfg = importlib.import_module("repro.configs.tiny").CONFIG.replace(
         dtype="float32")
     like = j_build(jcfg).abstract_params()
-    init = _unflatten(np.load(tmp_path / "init.npz"), like)
+    init = _unflatten(np.load(out_dir / "init.npz"), like)
+    return ref, out_dir, init, like
+
+
+def _check_run(ranks, ref, out_dir, like, name, tol):
+    """Every rank's rows and params equal; rank 0's per-step loss and
+    grad norm and its final params against the reference's case
+    ``name``."""
+    got = ranks[0]
+    for r in ranks[1:]:
+        assert [{k: v for k, v in h.items() if k != "dt"}
+                for h in r["history"]] == \
+            [{k: v for k, v in h.items() if k != "dt"}
+             for h in got["history"]]
+        for a, b in zip(r["params"], got["params"]):
+            np.testing.assert_array_equal(a, b)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(
+            [h[key] for h in got["history"]], ref[name][key],
+            rtol=tol[key], err_msg=f"{name} {key}")
+    want = np.load(out_dir / f"{name}.npz")
+    want = [want[f"arr_{i}"] for i in range(len(want.files))]
+    port_tree = params_from_jax(
+        jax.tree.unflatten(jax.tree.structure(like), want),
+        importlib.import_module("repro_torch.configs.tiny").CONFIG)
+    for a, b in zip(got["params"], tree_leaves(port_tree)):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0,
+                                   atol=tol["params"], err_msg=name)
+    return got
+
+
+def test_two_rank_mesh_matches_reference(tmp_path, ref_mesh):
+    """2 gloo ranks on a (2, 1) mesh, fsdp on and off, and fp8 compression
+    with fsdp off, against the reference's ``Trainer`` on 2 forced CPU
+    devices, from the same init: per-step loss and grad norm, final
+    params; the fsdp run's blocks are half the embed leaves."""
+    ref, out_dir, init, like = ref_mesh
     for name, over in (("fsdp", dict()), ("nofsdp", dict(fsdp=False)),
                        ("fp8", dict(fsdp=False, grad_compression="fp8"))):
         tol = MESH_TOL["fp8" if name == "fp8" else "none"]
         ranks = run_ranks("train_mesh", 2, tmp_path / name, over, 3, "",
                           init)
-        got = ranks[0]
-        for r in ranks[1:]:
-            assert [{k: v for k, v in h.items() if k != "dt"}
-                    for h in r["history"]] == \
-                [{k: v for k, v in h.items() if k != "dt"}
-                 for h in got["history"]]
-            for a, b in zip(r["params"], got["params"]):
-                np.testing.assert_array_equal(a, b)
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(
-                [h[key] for h in got["history"]], ref[name][key],
-                rtol=tol[key], err_msg=f"{name} {key}")
-        want = np.load(tmp_path / f"{name}.npz")
-        want = [want[f"arr_{i}"] for i in range(len(want.files))]
-        port_tree = params_from_jax(
-            jax.tree.unflatten(jax.tree.structure(like), want),
-            importlib.import_module("repro_torch.configs.tiny").CONFIG)
-        for a, b in zip(got["params"], tree_leaves(port_tree)):
-            np.testing.assert_allclose(a, b.numpy(), rtol=0,
-                                       atol=tol["params"], err_msg=name)
+        got = _check_run(ranks, ref, out_dir, like, name, tol)
         if name == "fsdp":
             assert got["local_shapes"][0][-1] * 2 == got["params"][0].shape[-1]
+
+
+# port-only: the kernels' stats vectors (linear_impl "pallas", flash) on
+# 2 ranks against one process (the same code on the whole batch)
+PORT_CASES = {"telemetry_pallas": (
+    dict(linear_impl="pallas", attention_impl="pallas"),
+    dict(FP4, telemetry=True), 1)}
+
+
+def _port_over(model_over, over):
+    return dict(over, model=model_over)
+
+
+@pytest.fixture(scope="module")
+def new_ranks(tmp_path_factory, ref_mesh):
+    """The new cases on 2 gloo ranks in one process group."""
+    cases = [(name, _port_over(*case[:2]), case[2])
+             for name, case in {**NEW_CASES, **PORT_CASES}.items()]
+    return run_ranks("train_cases", 2, tmp_path_factory.mktemp("new"),
+                     cases, ref_mesh[2])
+
+
+@pytest.mark.parametrize("name", ["fp4_fsdp", "fp4_nofsdp"])
+def test_two_rank_paper_fp4_matches_reference(name, ref_mesh, new_ranks):
+    """paper_fp4 on 2 ranks (fsdp on over "qdq" with telemetry, off over
+    "pallas") against the reference's 2-device ``Trainer``: quant groups
+    that span
+    the batch share one amax, so each rank quantizes the global batch's
+    groups, within ten times the bf16 bars."""
+    ref, out_dir, init, like = ref_mesh
+    got = _check_run([r[name] for r in new_ranks], ref, out_dir, like,
+                     name, FP4_TOL)
+    assert all(np.isfinite(h["loss"]) for h in got["history"])
+    # the last step's collectives: the shared amax words, audit clean
+    census, findings = qlint.audit_comms(got["census"], expect_fp8=False)
+    assert findings == []
+    assert census["amax_allreduces"] > 0 and census["amax_words"] > 0
+    # the same step in one process of the port on the whole batch
+    model_over, over, steps = NEW_CASES[name]
+    one = _tiny_trainer(_port_over(model_over, over), steps=steps)
+    state = one.train(one.init_state(params=params_from_jax(
+        init, one.model.cfg)))
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in got["history"]],
+                                   [h[key] for h in one.history],
+                                   rtol=ONE_TOL, err_msg=key)
+    for a, b in zip(got["params"], tree_leaves(state.params)):
+        np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=ONE_TOL)
+
+
+def _assert_tel_rows(got_rows, ref_rows, what, float_rtol=1e-5):
+    """Each row's ``tel/...`` stats: the taps and the forward-side counts
+    (clip, underflow) equal, the backward-side rates within 5e-4, every
+    other stat within ``float_rtol``; every miss is reported."""
+    misses = []
+    for got, ref in zip(got_rows, ref_rows):
+        got = {k: v for k, v in got.items() if k.startswith("tel/")}
+        assert set(got) == set(ref), (what, set(got) ^ set(ref))
+        for key, want in ref.items():
+            stat = key.rsplit("/", 1)[1]
+            have = float(got[key])
+            if stat == "taps" or (stat in ("clip", "underflow")
+                                  and not key.startswith("tel/bwd/")):
+                ok = have == want
+            elif stat in ("clip", "underflow"):
+                ok = abs(have - want) <= 5e-4
+            else:
+                ok = abs(have - want) <= float_rtol * abs(want) + 1e-12
+            if not ok:
+                misses.append((key, have, want))
+    assert not misses, (what, len(misses), misses[:12])
+
+
+def test_two_rank_telemetry_matches_reference(ref_mesh, new_ranks):
+    """Telemetry on (2, 1) without compression: every rank's stats rows
+    equal; step 0's taps and forward-side counts bitwise the reference's
+    2-device ``Trainer``'s, the rest within the stated bars; and the
+    kernels' stats vectors (summed, min'd, max'd over the ranks) against
+    one process of the port on the whole batch."""
+    ref, out_dir, _, like = ref_mesh
+    got = _check_run([r["fp4_fsdp"] for r in new_ranks], ref, out_dir,
+                     like, "fp4_fsdp", FP4_TOL)
+    # step 0 (the same parameters): later rows follow the runs' flips
+    _assert_tel_rows(got["history"][:1], ref["fp4_fsdp"]["rows"][:1],
+                     "reference", float_rtol=TEL_RTOL)
+    for name, rows in (("fp4_fsdp", got["history"]), ("telemetry_pallas",
+                       new_ranks[0]["telemetry_pallas"]["history"])):
+        model_over, over, steps = {**NEW_CASES, **PORT_CASES}[name]
+        one = _tiny_trainer(_port_over(model_over, over), steps=steps)
+        one.train(one.init_state(params=params_from_jax(
+            ref_mesh[2], one.model.cfg)))
+        _assert_tel_rows(rows, [{k: float(v) for k, v in h.items()
+                                 if k.startswith("tel/")}
+                                for h in one.history], f"one process {name}")
+    assert any("/fwd_x/" in k for k in rows[0])
+
+
+def test_two_rank_adafactor_fsdp_matches_reference(ref_mesh, new_ranks):
+    """adafactor with fsdp on (2, 1): the factored moments reduce over the
+    sharded embed dim; against the reference's 2-device ``Trainer``, and
+    the gathered factors have the full leaves' shapes."""
+    ref, out_dir, _, like = ref_mesh
+    got = _check_run([r["adafactor"] for r in new_ranks], ref, out_dir,
+                     like, "adafactor", MESH_TOL["none"])
+    assert got["local_shapes"][0][-1] * 2 == got["params"][0].shape[-1]
+    assert got["mu"] and len(got["mu"]) == 2 * len(got["params"])
+
+
+def test_partial_data_axes_matches_reference(tmp_path, ref_mesh):
+    """A (2, 2, 1) (pod, data, model) mesh of 4 gloo ranks whose embed
+    leaves shard over "data" alone (a ``default_rules`` override): blocks
+    gathered and reduce-scattered over the data sub-group, all-reduced
+    over pod; against the reference on 4 forced CPU devices."""
+    ref, out_dir, init, like = ref_mesh
+    over = dict(mesh_shape=(2, 2, 1), mesh_axes=("pod", "data", "model"),
+                embed_axes=("data",))
+    ranks = run_ranks("train_mesh", 4, tmp_path, over, 3, "", init)
+    got = _check_run(ranks, ref, out_dir, like, "partial",
+                     MESH_TOL["none"])
+    assert got["local_shapes"][0][-1] * 2 == got["params"][0].shape[-1]
+    ops = {(r.op, r.tag, r.group_size) for r in got["census"]}
+    assert {("all-gather", "param", 2), ("reduce-scatter", "grad", 2),
+            ("all-reduce", "grad", 2)} <= ops
+
+
+# one MM_FP8 linear's wgrad operands, its tensor-scaled variant, and
+# fine_grained_fp4's SR wgrad (the kernels' plain versions, SR keyed by
+# the global rows), 512 tokens on 2 ranks; a block group straddling the
+# rank boundary (2 x 96 tokens) under paper_fp4's FFN wgrad
+TENSOR_WGRAD = dataclasses.replace(
+    MM_FP8, wgrad_x=QuantSpec("fp8_e4m3", "tensor"),
+    wgrad_g=QuantSpec("fp8_e5m2", "tensor"))
+OPERAND_CASES = [
+    ("token_qdq", "qdq", MM_FP8, 512),
+    ("token_pallas", "pallas", MM_FP8, 512),
+    ("tensor_qdq", "qdq", TENSOR_WGRAD, 512),
+    ("tensor_pallas", "pallas", TENSOR_WGRAD, 512),
+    ("sr_block_pallas", "pallas", RECIPES["fine_grained_fp4"].ffn_linear,
+     512),
+    ("straddle_qdq", "qdq", MM_FFN_PAPER, 192),
+    ("straddle_pallas", "pallas", MM_FFN_PAPER, 192)]
+
+
+@pytest.fixture(scope="module")
+def operand_ranks(tmp_path_factory):
+    return run_ranks("wgrad_operands", 2, tmp_path_factory.mktemp("ops"),
+                     OPERAND_CASES, "fp8")
+
+
+@pytest.mark.parametrize("name", [c[0] for c in OPERAND_CASES
+                                  if not c[0].startswith("straddle")])
+def test_wgrad_operands_bitwise(name, operand_ranks):
+    """On 2 ranks each holding 256 of 512 tokens, a linear's wgrad
+    operands Q(x^T) and Q(g) (token, tensor, SR block groups) equal the
+    same rows of one process's bit for bit, and the ranks' dw sum to its
+    dw; the control (the rank's local amax, SR keyed from 0) misses on
+    some rank."""
+    missed = False
+    for r in operand_ranks:
+        case = r[name]
+        for got, want in zip(case["split"][:2], case["whole"][:2]):
+            np.testing.assert_array_equal(got, want)
+        missed |= any(not np.array_equal(a, b) for a, b in
+                      zip(case["local"][:2], case["whole"][:2]))
+    assert missed
+    np.testing.assert_allclose(
+        sum(r[name]["split"][2] for r in operand_ranks),
+        operand_ranks[0][name]["whole"][2], rtol=1e-5, atol=1e-4)
+
+
+def test_moe_load_balance_under_a_split(operand_ranks):
+    """olmoe-1b-7b ``REDUCED`` under fp8 (token groups: the experts'
+    wgrads share their amax) on 2 ranks of two router groups each: the
+    ranks' mean loss, load-balancing and z-losses, drop fraction and
+    their gradients' sum (each weighted by the rank's half of the
+    targets) are one process's on the whole batch.  The load-balancing
+    loss multiplies two means over every token: its expert-count
+    fractions are all-reduced over the group."""
+    split = [r["moe"]["split"] for r in operand_ranks]
+    whole = operand_ranks[0]["moe"]["whole"]
+    np.testing.assert_allclose(np.mean([s_["loss"] for s_ in split]),
+                               whole["loss"], rtol=1e-6)
+    for key in ("moe_load_balance", "moe_router_z", "moe_frac_dropped"):
+        np.testing.assert_allclose(
+            np.mean([s_["metrics"][key] for s_ in split]),
+            whole["metrics"][key], rtol=1e-6, err_msg=key)
+    for i, want in enumerate(whole["grads"]):
+        got = 0.5 * (split[0]["grads"][i] + split[1]["grads"][i])
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("name", ["straddle_qdq", "straddle_pallas"])
+def test_straddling_block_group_raises(name, operand_ranks):
+    """A 128-token block group along the tokens that straddles the rank
+    boundary (96 tokens a rank) raises ``ValueError`` naming the rows."""
+    for r in operand_ranks:
+        assert "error" in r[name]
+        assert "96 token rows" in r[name]["error"]
 
 
 def test_two_rank_fp8_reduction_bitwise(tmp_path):

@@ -66,22 +66,34 @@ def psum_sum(rank, world, x):
 
 def _tiny_trainer(over: dict, ckpt_dir: str = "", steps: int = 3):
     """A ``Trainer`` of ``tiny`` in f32 (the reference's test sizes:
-    global batch 4 x 32), ``over`` its ``TrainConfig`` fields."""
+    global batch 4 x 32), ``over`` its ``TrainConfig`` fields, and under
+    ``"model"`` the config's fields to replace; ``"embed_axes"`` builds
+    the rules of the mesh ``mesh_shape`` x ``mesh_axes`` with the embed
+    leaves over those data axes alone."""
     import importlib
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train.trainer import Trainer
+    over = dict(over)
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
-    cfg = cfg.replace(dtype="float32")
+    cfg = cfg.replace(dtype="float32", **over.pop("model", {}))
+    embed_axes = over.pop("embed_axes", None)
     kw = dict(recipe="bf16", total_steps=steps, global_batch=4, seq_len=32,
               log_every=0)
     if ckpt_dir:
         kw.update(checkpoint_every=2, checkpoint_dir=ckpt_dir)
     kw.update(over)
+    rules = None
+    if embed_axes is not None:
+        from repro_torch.distributed.mesh import make_mesh
+        from repro_torch.distributed.sharding import default_rules
+        rules = default_rules(make_mesh(kw.pop("mesh_shape"),
+                                        kw.pop("mesh_axes")), cfg,
+                              overrides={"embed": embed_axes})
     model = build_model(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, kw["seq_len"], kw["global_batch"])
-    return Trainer(model, TrainConfig(**kw), pipe)
+    return Trainer(model, TrainConfig(**kw), pipe, rules=rules)
 
 
 def _rows(tr) -> list:
@@ -90,13 +102,16 @@ def _rows(tr) -> list:
 
 
 def _full(tr, state):
-    """(params, AdamW mu, residuals) as full trees (a checkpoint's)."""
+    """(params, AdamW mu or adafactor's [vr, vc], residuals) as full trees
+    (a checkpoint's)."""
+    opt = (state.opt_state if tr.dp is None
+           else tr.dp.full_opt_state(state.opt_state))
+    mu = opt.mu if hasattr(opt, "mu") else [opt.vr, opt.vc]
     if tr.dp is None:
-        return state.params, state.opt_state.mu, state.comp_state
+        return state.params, mu, state.comp_state
     comp = tr._gather_comp(state.comp_state) if tr._spmd else \
         state.comp_state
-    return (tr.dp.full(state.params), tr.dp.full(state.opt_state.mu),
-            comp)
+    return tr.dp.full(state.params), mu, comp
 
 
 def _np_leaves(tree) -> list:
@@ -107,14 +122,16 @@ def _np_leaves(tree) -> list:
 
 
 def train_mesh(rank, world, over, steps, ckpt_dir="", params=None):
-    """``_tiny_trainer`` on a (world, 1) mesh for ``steps`` steps (from
-    the reference's ``params``, a numpy tree, when given): its history,
-    its full params / moments / residuals and the census of its last
-    step."""
+    """``_tiny_trainer`` on a (world, 1) mesh (unless ``over`` names one)
+    for ``steps`` steps (from the reference's ``params``, a numpy tree,
+    when given): its history, its full params / moments (AdamW's mu, or
+    adafactor's row and column factors) / residuals and the census of its
+    last step."""
     from repro_torch.convert import params_from_jax
     from repro_torch.distributed import comms
     from repro_torch.tree import tree_leaves
-    tr = _tiny_trainer(dict(over, mesh_shape=(world, 1)), ckpt_dir, steps)
+    tr = _tiny_trainer(dict(dict(mesh_shape=(world, 1)), **over), ckpt_dir,
+                       steps)
     state = tr.init_state(params=None if params is None else
                           params_from_jax(params, tr.model.cfg))
     if steps > 1:
@@ -167,3 +184,111 @@ def resume_mesh(rank, world, ckpt_dir, steps):
     state = tr.train(state)
     return {"start": start, "history": _rows(tr),
             "params": _np_leaves(_full(tr, state)[0])}
+
+
+def train_cases(rank, world, cases, params=None):
+    """``train_mesh`` of each ``(name, over, steps)`` of ``cases`` in
+    turn, in this one process group: {name: its result}."""
+    return {name: train_mesh(rank, world, over, steps, "", params)
+            for name, over, steps in cases}
+
+
+def _linear_case(impl, recipe, x, w, c, split):
+    """One quantized linear ``y = x @ w`` under ``impl`` with the
+    cotangent ``c`` (``split``: this rank's token split, or None): the
+    wgrad role's quantized operands as captured (x's QDQ in x's (M, K)
+    layout, g's in (M, N)), and dw."""
+    from repro_torch.core import qlinear as ql
+    from repro_torch.kernels import fp4_matmul as fm
+    from repro_torch.nn import layers
+    seen = []
+
+    def capture(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            seen.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        return wrapped
+    orig = (ql.qdq, fm.quantize_rows)
+    ql.qdq, fm.quantize_rows = capture(ql.qdq), capture(fm.quantize_rows)
+    try:
+        xr = x.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        with layers.sharding_context(None, split), \
+                fm.use_pipeline("two_pass"):
+            y = ql.qlinear(xr, wr, recipe, impl=impl)
+            (y * c).sum().backward()
+    finally:
+        ql.qdq, fm.quantize_rows = orig
+    qa, qb = seen[-2:]        # the wgrad role quantizes last: A', B'
+    if impl == "qdq":         # A' = x^T, quantized in (K, M)
+        qa = qa.T
+    return [qa.detach().clone(), qb.detach().clone(), wr.grad.clone()]
+
+
+def _moe_split(rank, world, split, recipe):
+    """olmoe-1b-7b ``REDUCED`` (f32, 4 x 64 tokens: two router groups a
+    rank) under ``recipe``: this rank's loss, metrics and gradients under
+    the token split, and one process's on the whole batch."""
+    import importlib
+    from repro_torch.core.recipe import RECIPES, as_plan
+    from repro_torch.models import build_model
+    from repro_torch.nn import layers
+    from repro_torch.train.train_step import _grads
+    cfg = importlib.import_module("repro_torch.configs.olmoe_1b_7b")
+    cfg = cfg.REDUCED.replace(dtype="float32")
+    model = build_model(cfg, "cpu")
+    params = model.init(0)
+    plan = as_plan(RECIPES[recipe], cfg.n_layers)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
+    batch = {"tokens": toks[:, :-1].int(), "targets": toks[:, 1:].int()}
+    n = 4 // world
+    rows = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+    def run(b, sp):
+        with layers.sharding_context(None, sp):
+            loss, metrics, grads, _ = _grads(model, plan, params, b)
+        from repro_torch.tree import tree_leaves
+        return {"loss": float(loss),
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "grads": [g.numpy() for g in tree_leaves(grads)]}
+    return {"split": run(rows, split), "whole": run(batch, None)}
+
+
+def wgrad_operands(rank, world, cases, moe_recipe=None):
+    """Each case ``(name, impl, recipe, m)``: one linear of (m, 128) x
+    (128, 192) from a seeded draw, on this rank's rows under the token
+    split, on the same rows with no split (the control: local amax, SR
+    keyed from 0), and on all m rows in this process (one process):
+    {name: {"split", "local", "whole"} operand lists, or "error": the
+    ``ValueError`` it raised}; with ``moe_recipe`` also a MoE model's
+    loss and gradients (``"moe"``, ``_moe_split``)."""
+    from repro_torch.core.quantize import TokenSplit
+    split = TokenSplit(dist.group.WORLD, rank, world)
+    out = {}
+    if moe_recipe is not None:
+        out["moe"] = _moe_split(rank, world, split, moe_recipe)
+    for name, impl, recipe, m in cases:
+        rng = np.random.default_rng(7)
+        x = torch.from_numpy(rng.standard_normal((m, 128),
+                                                 dtype=np.float32) * 3)
+        w = torch.from_numpy(rng.standard_normal((128, 192),
+                                                 dtype=np.float32) * 0.1)
+        c = torch.from_numpy(rng.standard_normal((m, 192),
+                                                 dtype=np.float32))
+        n = m // world
+        rows = slice(rank * n, (rank + 1) * n)
+        try:
+            got = _linear_case(impl, recipe, x[rows], w, c[rows], split)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        out[name] = {
+            "split": [t.numpy() for t in got],
+            "local": [t.numpy() for t in _linear_case(
+                impl, recipe, x[rows], w, c[rows], None)],
+            "whole": [t[rows].numpy() if i < 2 else t.numpy() for i, t in
+                      enumerate(_linear_case(impl, recipe, x, w, c,
+                                             None))]}
+    return out
