@@ -176,8 +176,17 @@ code 1):
    gradient payloads in the census (``qlint.audit_comms`` clean).
    ``gloo`` takes CUDA tensors for ``all_reduce`` only: the ranks stage
    ``all_gather`` / ``reduce_scatter`` through host memory
-   (``comms.host_staging``), and the phase says so.  NCCL across cards
-   is not proven by a one-card machine.
+   (``comms.host_staging``), and the phase says so.  Then the model
+   axis: a (1, 2) ("data", "model") mesh, 6 of 12 heads and 1536 of 3072
+   ``d_ff`` a rank (paper_fp4, fsdp, 8 x 1024 tokens on both ranks):
+   every attention operand whose token group meets the split (wo's fwd
+   x / w, wq / wk / wv's dgrad g / w^T), its amax shared over the model
+   group, equals the same columns of one process's QDQ of the two halves
+   joined bit for bit (a control with the rank's own amax must miss);
+   losses and parameters within TP_TOL of one process; the row-parallel
+   sums censused by layer in bytes, the model group's amax words apart
+   (``qlint.audit_comms`` clean); both ranks' launches by kernel.  NCCL
+   across cards is not proven by a one-card machine.
 6. speed_factors — the card's cost calibration (the reference's
    ``measure_speed_factors``): every distinct operand-spec pair of the
    fwd, dgrad and wgrad matmuls of bf16, fp8, paper_fp4 and
@@ -330,7 +339,7 @@ code 1):
    chunk 256, vocab 50280, tied embeddings; 780,148,992 parameters drawn
    on the card), ``SyntheticLM`` (seed 0), 4 x 2048 tokens, paper_fp4
    (every projection FFN-class: FP4 forward, FP8 wgrad), linear_impl
-   "pallas", remat "full", AdamW, 6 steps.  Prints per-step loss and
+   "pallas", remat "full", AdamW, 4 steps.  Prints per-step loss and
    gradient norm, step p50 after the first, tokens/s, peak memory, the
    launches per step, one layer's SSD forward and forward + backward ms
    at the training shape, and the heads of step 0 whose chunk sum of dt
@@ -543,10 +552,20 @@ MESH_STEPS = 2
 # one process's update (read 3.4e-2); "tel_rtol" step 0's float stats
 # (the backward ones read 1.4e-3: the cotangents' flips); one adafactor
 # step ("adafactor_*": read loss 0, params 1.2e-3, one flip).
-DP_LAYERS, DP_ROWS, DP_STEPS = 2, 4, 3
+# Steps: 3 until the model axis's run joined the phase (PR 27's cut).
+DP_LAYERS, DP_ROWS, DP_STEPS = 2, 4, 2
 DP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 5e-2,
           "tel_rtol": 2e-3, "adafactor_loss": 1e-6,
           "adafactor_params": 1.5e-3}
+# train_dp's model-axis run against one process on the same 8 x 1024
+# tokens: the row-parallel outputs are sums of two partial products, each
+# rounded to bf16 first, so the forward's float order differs and a
+# last-bit difference moves a downstream FP4 / FP8 element by a grid
+# step; AdamW then moves such elements' gradients across zero (+-lr).
+# "loss" and "params" as DP_TOL's (the first card run read 1.14e-4 and
+# 2.39e-3: one flip a step); "params_rel" 1e-1 (read 6.7e-2, where the
+# data-parallel run read 3.8e-2: more elements flip).
+TP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 1e-1}
 # The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
 # (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
 # first_last_k with k = 2; op replay of a protected and a middle layer.
@@ -658,10 +677,10 @@ MOE_SERVE_LAYERS = 4
 # 128-wide tile), and out_proj 3072 -> 1536.
 SSM_D, SSM_INNER, SSM_GN, SSM_HEADS = 1536, 3072, 128, 48
 # The train_ssm phase: mamba2-780m at full width and depth, 4 x 2048
-# tokens (chunk 256: 8 chunks a row), 6 steps, AdamW, remat.  The SSD's
-# reference NaN condition: a head whose chunk sum of dt * |A| passes 88
-# (exp overflows f32 above ~88.7).
-SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 2048, 6
+# tokens (chunk 256: 8 chunks a row), 4 steps (6 until PR 27's cut),
+# AdamW, remat.  The SSD's reference NaN condition: a head whose chunk sum
+# of dt * |A| passes 88 (exp overflows f32 above ~88.7).
+SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 2048, 4
 SSM_TOKENS = SSM_BATCH * SSM_SEQ
 SSM_EXP_OVERFLOW = 88.0
 SSM_PROJ = ("in_z", "in_x", "in_b", "in_c", "in_dt", "out_proj")
@@ -1170,6 +1189,9 @@ def phase_train_kernels(torch, card):
     # fine_grained_fp4's SR wgrad on the stream kernel keyed from the
     # rank's origin
     shared_amax_rows(torch, timer, rows, x, bitwise)
+    # A tensor-parallel rank of tiny's FFN down projection (64 of a 128 K
+    # group a rank), at a wgrad-like M: qmm_stream's amax-in entry
+    passed_amax_rows(torch, timer, rows, bitwise)
 
     # Flash attention forward, causal: (B*H, S, D) = (96, 1024, 64), the
     # training step's; and (48, 1024, 128), the head dimension whose scale
@@ -1280,6 +1302,76 @@ def shared_amax_rows(torch, timer, rows, x, bitwise):
                  + 1e-5 * ref.float().abs().max()).all()):
         raise AssertionError(f"qmm_stream SR from a rank's origin out of "
                              f"tolerance: max err {err.max().item()}")
+
+
+def passed_amax_rows(torch, timer, rows, bitwise):
+    """``qmm_stream``'s amax-in entry (``amax_reduce_a`` / ``_b``) at the
+    forward of a row-parallel FFN down projection on a rank that holds 64
+    of each 128-wide K group (A' = x (4096, 64), block groups; B' = w
+    (64, 768), tile groups), the other half's partial amaxes maxed in
+    (what the model group's window returns): the product of each operand
+    against an identity in pass mode, its quantized panel, bitwise the
+    plain version's same entry; two amax launches, then the stream
+    launch; the full product's timing row (``train_kernels``)."""
+    from repro_torch.kernels import qmm_stream as qs
+    m, k, n = 4096, 64, 768
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(m, 2 * k, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(2 * k, n, generator=g, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    wx = qs.group_amax_plain(x[:, k:], "block").view(torch.int32)
+    ww = qs.group_amax_plain(w[k:].T, "tile").view(torch.int32)
+
+    def share_x(words):
+        torch.maximum(words, wx, out=words)
+
+    def share_w(words):
+        torch.maximum(words, ww, out=words)
+    a, b = x[:, :k].contiguous(), w[:k].contiguous()
+    eye_k = torch.eye(k, dtype=torch.bfloat16, device="cuda")
+    for what, args, kw in (
+            ("A", (a, eye_k), dict(a_mode="block", b_mode="pass",
+                                   a_fmt="fp4_e2m1", b_fmt="bf16",
+                                   amax_reduce_a=share_x)),
+            ("B", (eye_k, b), dict(a_mode="pass", b_mode="tile",
+                                   a_fmt="bf16", b_fmt="fp4_e2m1",
+                                   amax_reduce_b=share_w))):
+        bitwise(qs.qmm_stream(*args, **kw), qs.qmm_stream_plain(*args, **kw),
+                f"qmm_stream amax-in {what} panel")
+        local = {k_: v for k_, v in kw.items()
+                 if not k_.startswith("amax_reduce")}
+        if torch.equal(qs.qmm_stream(*args, **local),
+                       qs.qmm_stream_plain(*args, **kw)):
+            raise AssertionError(f"qmm_stream amax-in {what}: the control "
+                                 "(the rank's own amax) did not miss")
+    kw = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+              b_fmt="fp4_e2m1", amax_reduce_a=share_x,
+              amax_reduce_b=share_w)
+    qs.KERNEL.reset()
+    y = qs.qmm_stream(a, b, **kw)
+    if qs.KERNEL.launches != 3:
+        raise AssertionError(f"qmm_stream amax-in: {qs.KERNEL.launches} "
+                             "launches, not 3")
+    ref = qs.qmm_stream_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs()
+    if not bool((err <= 2.0 ** -7 * ref.float().abs()
+                 + 1e-5 * ref.float().abs().max()).all()):
+        raise AssertionError(f"qmm_stream amax-in out of tolerance: max err "
+                             f"{err.max().item()}")
+    # each input read once (and again by the amax pass: counted once),
+    # the product written once; 2 m n k operations
+    b_ms, b_by = _bound(2 * (m * k + k * n + m * n), 2 * m * n * k,
+                        H100_BF16_FLOPS)
+    rows.append({
+        "name": "qmm_stream", "role": "fwd w_down amax-in (K 64 of 128)",
+        "shape": [m, k, n], "trans": False,
+        "max_abs_err": err.max().item(),
+        "ms": timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=10),
+        "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
+                             iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: torch.matmul(a, b), iters=10)})
 
 
 def phase_moe_kernels(torch, card):
@@ -5485,10 +5577,13 @@ class WgradCapture:
     order, with the call's layout arguments; with ``control`` also its
     input and the
     same input quantized by the plain version with this rank's own amax
-    (no kernel launch)."""
+    (no kernel launch).  ``roles`` / ``shared``: the roles recorded, and
+    only the calls whose amax is shared (``amax_reduce``)."""
 
-    def __init__(self, control: bool = False):
+    def __init__(self, control: bool = False, roles=("wgrad",),
+                 shared: bool = False):
         self.control, self.calls = control, []
+        self.roles, self.shared = roles, shared
 
     def __enter__(self):
         from repro_torch.core import routing
@@ -5501,8 +5596,9 @@ class WgradCapture:
 
         def wrapped(x, **kw):
             y = self._orig(x, **kw)
-            if routing.current_role() == "wgrad" and \
-                    kw["mode"] in ("token", "tensor"):
+            if routing.current_role() in self.roles and \
+                    kw["mode"] in ("token", "tensor") and \
+                    (not self.shared or kw.get("amax_reduce")):
                 rec = {"y": (y[0] if kw.get("collect_stats") else y)
                        .to("cpu", copy=True),
                        "kw": {k: kw[k] for k in ("mode", "fmt_name",
@@ -5602,7 +5698,29 @@ def _dp_rank(rank, world, store, out_dir):
             del grads, red, new
             st = tr.train(st)
             result["fp8"]["losses"] = [r["loss"] for r in tr.history]
-        result["launches"] = {k.name: k.launches for k in kernels}
+            del tr, st
+            result["launches"] = {k.name: k.launches for k in kernels}
+            # the model axis: heads and d_ff split over the two ranks
+            for kern in kernels:
+                kern.reset()
+            tr = Trainer(build_model(cfg), TrainConfig(
+                **dict(kw, mesh_shape=(1, world))), pipeline)
+            st = tr.init_state(seed=0)
+            with WgradCapture(control=True, roles=("fwd", "dgrad"),
+                              shared=True) as cap, \
+                    comms.recording() as log:
+                st = tr.train(st, num_steps=1)
+            st = tr.train(st)
+            full = tr.dp.full(st.params)
+            result["tp"] = {
+                "losses": [r["loss"] for r in tr.history],
+                "census": [r.to_dict() for r in log],
+                "operands": cap.calls,
+                "local_shapes": [tuple(t.shape)
+                                 for t in tree_leaves(st.params)],
+                "params": _host_leaves(full) if rank == 0 else None,
+                "launches": {k.name: k.launches for k in kernels}}
+            del full, tr, st, cap
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -5701,6 +5819,8 @@ def phase_train_dp(torch, card):
     ada_hist, ada_params, _ = _one_process(
         torch, cfg.replace(optimizer="adafactor"),
         TrainConfig(**dict(kw, total_steps=1)), pipeline)
+    tp_hist, tp_params, _ = _one_process(torch, cfg, TrainConfig(**kw),
+                                         pipeline)
     one_s = time.perf_counter() - t0
     print("train_dp: gloo takes CUDA tensors for all_reduce only; the "
           "ranks stage all_gather / reduce_scatter through host memory "
@@ -5773,8 +5893,10 @@ def phase_train_dp(torch, card):
     mean_audit, mean_findings = audit_comms(mean_census, expect_fp8=False)
     launches = {k: sum(r["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
+    tp, tp_gate = model_axis_gates(torch, ranks, tp_hist, tp_params, init,
+                                   cfg)
     tol = DP_TOL
-    failures = []
+    failures = list(tp_gate)
     if not n_ops or op_diff or any(len(rk["mean"]["operands"]) != n_ops
                                    for rk in ranks):
         failures.append(f"wgrad operands: {op_diff} of {world * n_ops} "
@@ -5841,11 +5963,85 @@ def phase_train_dp(torch, card):
                   "residuals_differing": new_diff,
                   "control_residuals_dropped_differing": control,
                   "census": audit},
+          "model_axis": tp,
           "one_process_s": one_s, "ranks_s": ranks_s, "launches": launches,
           "launches_by_rank": [r["launches"] for r in ranks]})
     if failures:
         raise AssertionError("train_dp: " + "; ".join(failures))
-    return launches
+    return {k: launches[k] + tp["launches"][k] for k in launches}
+
+
+def model_axis_gates(torch, ranks, one_hist, one_params, init, cfg):
+    """``train_dp``'s (1, 2) model-axis run against one process: (the
+    emitted record, the failures).  Each shared token-group operand of a
+    rank (its stored layout halved along the split reduction axis) is
+    held bitwise against the same half of one process's QDQ of the two
+    halves joined, its control (the rank's own amax) must miss; losses
+    and params within TP_TOL; the census audit clean, with row-parallel
+    sums by layer and the model group's amax words."""
+    from repro_torch.analysis.qlint import audit_comms
+    from repro_torch.distributed.comms import CollectiveRecord
+    from repro_torch.kernels import quantize_rows as qr
+    tp = [r["tp"] for r in ranks]
+    n_ops = len(tp[0]["operands"])
+    diff, ctl, elems = 0, 0, 0
+    for i in range(n_ops):
+        got = [t["operands"][i] for t in tp]
+        kw = got[0]["kw"]
+        # quant orientation (rows, K): K is stored dim 1, dim 0 under trans
+        whole = qr.quantize_rows(
+            torch.cat([g["x"] for g in got], 0 if kw["trans"] else 1)
+            .cuda(), **kw).cpu()
+        dim = 0 if kw["emit_trans"] else 1
+        for r, g in enumerate(got):
+            n = g["y"].shape[dim]
+            want = whole.narrow(dim, r * n, n)
+            diff += not torch.equal(g["y"].view(torch.int16),
+                                    want.view(torch.int16))
+            ctl += not torch.equal(g["local"].view(torch.int16),
+                                   want.view(torch.int16))
+            elems += g["y"].numel()
+        del whole
+    losses = tp[0]["losses"]
+    one_losses = [r["loss"] for r in one_hist]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    param_err, param_rel = _params_err(tp[0]["params"], one_params, init)
+    census = [CollectiveRecord(**c) for c in tp[0]["census"]]
+    audit, findings = audit_comms(census, expect_fp8=False)
+    launches = {k: sum(t["launches"][k] for t in tp)
+                for k in tp[0]["launches"]}
+    failures = []
+    if not n_ops or diff or any(len(t["operands"]) != n_ops for t in tp):
+        failures.append(f"model axis: {diff} of {2 * n_ops} shared "
+                        "operands differ from one process's columns")
+    if not ctl:
+        failures.append("model axis: the control (each rank's own amax) "
+                        "did not miss")
+    if not loss_err <= TP_TOL["loss"] or \
+            not param_err <= TP_TOL["params"] or \
+            not param_rel <= TP_TOL["params_rel"]:
+        failures.append(f"model axis vs one process: loss rel err "
+                        f"{loss_err}, param abs err {param_err}, rel "
+                        f"{param_rel} ({TP_TOL})")
+    if findings or not audit["tp_sums"] or not audit["amax_model_ops"]:
+        failures.append(f"model axis comms audit: {audit}, "
+                        f"{[f.to_dict() for f in findings]}")
+    if not all(np.isfinite(losses)) or min(launches.values()) <= 0:
+        failures.append(f"model axis: losses {losses}, launches "
+                        f"{launches}")
+    heads = [sh for sh in tp[0]["local_shapes"] if len(sh) == 3]
+    record = {"mesh": [1, 2], "heads_a_rank": cfg.n_heads // 2,
+              "d_ff_a_rank": cfg.d_ff // 2,
+              "losses": losses, "one_process_losses": one_losses,
+              "loss_rel_err": loss_err, "param_abs_err": param_err,
+              "param_rel_err": param_rel, "tol": TP_TOL,
+              "shared_operands": {"captured": 2 * n_ops, "elements": elems,
+                                  "differing": diff,
+                                  "control_local_amax_differing": ctl},
+              "local_stack_shapes": heads, "census": audit,
+              "launches": launches,
+              "launches_by_rank": [t["launches"] for t in tp]}
+    return record, failures
 
 
 def phase_blockwise(torch, card):
@@ -6044,6 +6240,13 @@ def main() -> int:
                                    "max_abs_err", "route")}
                 for r in rows if r["name"] == name
                 and r.get("causal") is False],
+            # the amax-in entry (a tensor-parallel rank's straddling K)
+            "amax_in_rows": [
+                {k: r[k] for k in ("role", "shape", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err")}
+                for r in rows if r["name"] == name
+                and "amax-in" in r.get("role", "")],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

@@ -435,31 +435,58 @@ def audit_comms(records, *, expect_fp8: bool) -> Tuple[
     codes; a wider payload means the gradient bytes went uncompressed.
     The f32 amax reductions of the shared scales are scale metadata,
     censused apart and not flagged.  So are the quant groups' shared
-    amax reductions of a data-parallel token split (tag ``amax``): they
-    are counted as words (one a quant group), never as payloads, and one
-    that is not a MAX over 4-byte words is a violation.  Returns (census,
-    findings)."""
+    amax reductions of a data-parallel token split (tag ``amax``) and of
+    a tensor-parallel model split (tag ``amax_model``): they are counted
+    as words (one a quant group and rank), never as payloads; one over
+    the data group that is not a MAX all-reduce of 4-byte words, or one
+    over the model group that is neither that nor an all-gather of 4-byte
+    words (a block / tile group's window), is a violation.  The
+    tensor-parallel sums (``tp_fwd``: a row-parallel output, ``tp_bwd``:
+    a column-parallel input's cotangent) are censused by layer, in
+    bytes.  Returns (census, findings)."""
     findings: List[Finding] = []
     grad = [r for r in records if r.tag in _GRAD_TAGS]
     amax = [r for r in records if r.tag == "amax"]
+    amax_model = [r for r in records if r.tag == "amax_model"]
+    tp = [r for r in records if r.tag in ("tp_fwd", "tp_bwd")]
+    tp_bytes: Dict[str, Dict[str, int]] = {}
+    for r in tp:
+        by_layer = tp_bytes.setdefault(r.tag, {})
+        by_layer[r.layer or "-"] = by_layer.get(r.layer or "-", 0) \
+            + r.nbytes
     census = {"grad_payload_dtypes": dict(Counter(r.dtype for r in grad)),
               "scale_allreduce_dtypes": dict(Counter(
                   r.dtype for r in records if r.tag == "scale")),
               "amax_allreduces": len(amax),
               "amax_words": sum(math.prod(r.shape) for r in amax),
+              "amax_model_ops": len(amax_model),
+              "amax_model_words": sum(math.prod(r.shape)
+                                      for r in amax_model),
+              "tp_sums": len(tp),
+              "tp_bytes_by_layer": tp_bytes,
               "other": dict(Counter(f"{r.tag}:{r.op}:{r.dtype}"
                                     for r in records
                                     if r.tag not in _GRAD_TAGS
-                                    + ("scale", "amax"))),
+                                    + ("scale", "amax", "amax_model",
+                                       "tp_fwd", "tp_bwd"))),
               "grad_payload_bytes": sum(r.nbytes for r in grad),
               "bytes": collective_bytes(records)}
-    for r in amax:
-        if (r.op, r.reduce_op) != ("all-reduce", "max") or \
+    for r in amax + amax_model:
+        ok = {("all-reduce", "max")} | (
+            {("all-gather", "")} if r.tag == "amax_model" else set())
+        if (r.op, r.reduce_op) not in ok or \
                 r.nbytes != 4 * math.prod(r.shape):
             findings.append(Finding(
-                "comms", "violation", f"{r.op}[amax]",
-                f"a shared amax travels as a MAX all-reduce of 4-byte "
-                f"words, not {r.op} {r.reduce_op} of {r.dtype}"))
+                "comms", "violation", f"{r.op}[{r.tag}]",
+                f"a shared amax travels as a MAX all-reduce (or, over the "
+                f"model group, an all-gather) of 4-byte words, not "
+                f"{r.op} {r.reduce_op} of {r.dtype}"))
+    for r in tp:
+        if (r.op, r.reduce_op) != ("all-reduce", "sum"):
+            findings.append(Finding(
+                "comms", "violation", f"{r.op}[{r.tag}]",
+                f"a tensor-parallel sum travels as a SUM all-reduce, not "
+                f"{r.op} {r.reduce_op}"))
     if expect_fp8:
         if not grad:
             findings.append(Finding(

@@ -56,6 +56,19 @@ noise by the global rows, so the split step quantizes as one process
 does.  ``_QMatmul`` keeps the forward's split for its backward, which
 autograd may run on a thread of its own.
 
+Tensor parallelism (``core.quantize.ModelSplit``, the Megatron layout):
+``qlinear(..., tp="col")`` holds a block of the weight's output features
+N, ``tp="row"`` a block of its reduction axis K.  Each role names the
+operand axes so split (``ROLE_MODEL``): a group meeting the split shares
+its amax over the model group (a ``block`` / ``tile`` group a rank holds
+part of is maxed over the ranks it spans) and the kernels key their SR
+noise by the global columns, so each rank's operands are one process's
+slices.  A row-parallel output is the sum of the ranks' partial products
+(all-reduced in f32 over the model group, tag ``tp_fwd``); a
+column-parallel input's cotangent is the sum of the ranks' partial
+``dx`` (tag ``tp_bwd``).  With no model split installed ``tp`` is
+ignored.
+
 Telemetry (``telemetry.collect``): with a collector installed, each
 quantized linear records its forward-side operand stats (under
 ``"pallas"`` the fwd_x / fwd_w slots come from the kernels' stats
@@ -80,16 +93,17 @@ import torch
 
 from repro_torch.core import routing
 from repro_torch.core.packed import PackedTensor
-from repro_torch.core.quantize import (BF16_SPEC, QuantSpec, qdq,
-                                       qdq_scope_name, splitting,
-                                       token_split)
+from repro_torch.core.quantize import (BF16_SPEC, QuantSpec, model_split,
+                                       qdq, qdq_scope_name, split_state,
+                                       splitting, token_split)
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.kernels.rounding import fold_seed
 from repro_torch.telemetry import collect as telemetry
 
 __all__ = ["qlinear", "qmatmul", "pallas_qmatmul_stats", "packed_linear",
            "dot_qdq", "kernel_quant_mode", "kernel_unsupported_reason",
-           "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY", "ROLE_TOKENS"]
+           "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY", "ROLE_TOKENS",
+           "ROLE_MODEL", "model_grad_sum"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
@@ -98,6 +112,15 @@ ZERO_KEY = (0, 0)   # the reference's _zero_key(): the key every layer uses
 # tokens (None: the weight): fwd x (M, K), dgrad g (M, N), wgrad x^T (K,
 # M) and g (M, N)
 ROLE_TOKENS = {"fwd": (0, None), "dgrad": (0, None), "wgrad": (1, 0)}
+# per tensor-parallel layout and role, the axis of A' and of B' split over
+# the model group (None: whole): a column-parallel weight holds a block of
+# N (fwd w (K, N), dgrad g (M, N) and w^T (N, K), wgrad g (M, N)); a
+# row-parallel one a block of K (fwd x (M, K) and w (K, N), dgrad w^T
+# (N, K), wgrad x^T (K, M))
+ROLE_MODEL = {"col": {"fwd": (None, 1), "dgrad": (1, 0),
+                      "wgrad": (None, 1)},
+              "row": {"fwd": (1, 0), "dgrad": (None, 1),
+                      "wgrad": (0, None)}}
 
 
 def _generator(spec: QuantSpec, salt: int, which: int, device):
@@ -122,14 +145,16 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             spec_b: QuantSpec, *, trans_a: bool = False,
             trans_b: bool = False, salt: int = 0,
             role: Optional[str] = None, route: str = "qdq",
-            reasons=(), census=None, tokens=(None, None)) -> torch.Tensor:
+            reasons=(), census=None, tokens=(None, None),
+            model=(None, None)) -> torch.Tensor:
     """QDQ both operands of ``A' @ B'`` (``A' = a.T`` under ``trans_a``,
     same for B'; reduction axes 1 and 0), then the matmul in the input
     dtype; ``salt`` seeds a stochastic spec's noise.  With a ``census``
     (``_census()``) and a ``role`` the call records one ``route`` event
     (``qdq``, or ``qdq_fallback`` with its ``reasons``).  3-D operands
     pair by pair, every pair with the same noise.  ``tokens``: the axis
-    of A' and of B' that runs over tokens (``ROLE_TOKENS``)."""
+    of A' and of B' that runs over tokens (``ROLE_TOKENS``); ``model``:
+    the axis split over the model group (``ROLE_MODEL``)."""
     if census is not None and role is not None:
         routing.record(role, route, spec_a.to_str(), spec_b.to_str(),
                        reasons=reasons, sr_a=spec_a.stochastic,
@@ -143,15 +168,15 @@ def dot_qdq(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     if a.dim() == 3:
         return torch.stack([dot_qdq(x, y, spec_a, spec_b, trans_a=trans_a,
                                     trans_b=trans_b, salt=salt,
-                                    tokens=tokens)
+                                    tokens=tokens, model=model)
                             for x, y in zip(a, b)])
     return torch.matmul(
         qdq(a.T if trans_a else a, spec_a, 1,
             generator=_generator(spec_a, salt, 0, a.device),
-            token_axis=tokens[0]),
+            token_axis=tokens[0], model_axis=model[0]),
         qdq(b.T if trans_b else b, spec_b, 0,
             generator=_generator(spec_b, salt, 1, b.device),
-            token_axis=tokens[1]))
+            token_axis=tokens[1], model_axis=model[1]))
 
 
 def kernel_unsupported_reason(spec: QuantSpec) -> Optional[str]:
@@ -202,7 +227,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                trans_b: bool = False, salt: int = 0,
                pipeline: Optional[str] = None, collect_stats: bool = False,
                role: Optional[str] = None, census=None,
-               tokens=(None, None)):
+               tokens=(None, None), model=(None, None)):
     """One matmul role ``Q(A') @ Q(B')`` through the fused kernels, the
     operands read in their stored layout; with ``collect_stats`` returns
     ``(y, (stats_a, stats_b))``.  A spec they cannot realize takes
@@ -217,7 +242,8 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
         _warn_fallback(a, spec_a, spec_b, reasons)
         y = dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a, trans_b=trans_b,
                     salt=salt, role=role, route="qdq_fallback",
-                    reasons=reasons, census=census, tokens=tokens)
+                    reasons=reasons, census=census, tokens=tokens,
+                    model=model)
         return (y, (None, None)) if collect_stats else y
     from repro_torch.kernels.ops import pallas_qmm
     with routing.role_scope(role):
@@ -225,7 +251,7 @@ def _dot_fused(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                           mode_b=mode_b, trans_a=trans_a, trans_b=trans_b,
                           key_data=ZERO_KEY, salt=salt, pipeline=pipeline,
                           collect_stats=collect_stats, role=role,
-                          census=census, tokens=tokens)
+                          census=census, tokens=tokens, model=model)
 
 
 def _check_impl(impl: str) -> Optional[str]:
@@ -267,21 +293,72 @@ def packed_linear(x: torch.Tensor, w: PackedTensor, recipe: MatmulRecipe,
 def _role(impl: str, a, b, spec_a: QuantSpec, spec_b: QuantSpec, *,
           trans_a: bool = False, trans_b: bool = False, salt: int = 0,
           collect_stats: bool = False, role: Optional[str] = None,
-          census=None):
+          census=None, tp: Optional[str] = None):
     """One matmul role under ``impl`` (stored operands, trans flags; the
     SR salt of the role); stats only under the fused impls.  ``role``
     (fwd | dgrad | wgrad) and ``census`` feed the routing census; the
-    role's token axes (``ROLE_TOKENS``; none without a role) the
+    role's token axes (``ROLE_TOKENS``; none without a role) and, under
+    a model split, its model-split axes (``ROLE_MODEL[tp]``) the
     quantize layer."""
     tokens = ROLE_TOKENS.get(role, (None, None))
+    model = (ROLE_MODEL[tp][role] if tp is not None and role is not None
+             and model_split() is not None else (None, None))
     if impl == "qdq":
         return dot_qdq(a, b, spec_a, spec_b, trans_a=trans_a,
                        trans_b=trans_b, salt=salt, role=role, census=census,
-                       tokens=tokens)
+                       tokens=tokens, model=model)
     return _dot_fused(a, b, spec_a, spec_b, trans_a=trans_a,
                       trans_b=trans_b, salt=salt, pipeline=_check_impl(impl),
                       collect_stats=collect_stats, role=role, census=census,
-                      tokens=tokens)
+                      tokens=tokens, model=model)
+
+
+def _sum_over(t: torch.Tensor, group, tag: str,
+              layer: Optional[str]) -> torch.Tensor:
+    """The sum of every model rank's ``t``, added in f32 and rounded once
+    to ``t``'s dtype."""
+    from repro_torch.distributed import comms
+    total = t.to(torch.float32, copy=True).contiguous()
+    comms.all_reduce(total, "sum", group, tag=tag, layer=layer)
+    return total.to(t.dtype)
+
+
+class _ModelSum(torch.autograd.Function):
+    """A row-parallel output: the ranks' partial products summed over the
+    model group (tag ``tp_fwd``); the cotangent, the same on every rank,
+    passes through."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        return _sum_over(y, group, "tp_fwd", routing.current_layer())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelGradSum(torch.autograd.Function):
+    """A column-parallel input, the same on every rank: the identity, whose
+    cotangent is the sum of the ranks' partial ``dx`` over the model group
+    (tag ``tp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.layer = group, routing.current_layer()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous(), ctx.group, "tp_bwd",
+                         ctx.layer), None
+
+
+def model_grad_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose cotangent is summed over the model group (a
+    column-parallel input, or a replicated output that each rank reads a
+    part of); ``x`` itself without a model split."""
+    split = model_split()
+    return x if split is None else _ModelGradSum.apply(x, split.group)
 
 
 class _QMatmul(torch.autograd.Function):
@@ -293,13 +370,13 @@ class _QMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, recipe: MatmulRecipe, impl: str,
-                collect_stats: bool):
+                collect_stats: bool, tp: Optional[str] = None):
         ctx.save_for_backward(x, w)
         ctx.recipe, ctx.impl, ctx.census = recipe, impl, _census()
-        ctx.split = token_split()
+        ctx.split, ctx.tp = split_state(), tp
         out = _role(impl, x, w, recipe.fwd_x, recipe.fwd_w, salt=0,
                     collect_stats=collect_stats, role="fwd",
-                    census=ctx.census)
+                    census=ctx.census, tp=tp)
         if not collect_stats:
             return out
         y, stats = out
@@ -314,38 +391,40 @@ class _QMatmul(torch.autograd.Function):
         # the forward's census on this (autograd's) thread, for the
         # kernel and QDQ markers of a qlint capture
         with routing.replaying(None if ctx.census is None
-                               else ctx.census[0]), splitting(ctx.split):
+                               else ctx.census[0]), splitting(*ctx.split):
             if ctx.needs_input_grad[0]:
                 # dgrad: dx = Q(g) @ Q(w^T), w read transposed in place
                 dx = _role(ctx.impl, g, w, r.dgrad_g, r.dgrad_w,
                            trans_b=True, salt=2, role="dgrad",
-                           census=ctx.census).to(x.dtype)
+                           census=ctx.census, tp=ctx.tp).to(x.dtype)
             if ctx.needs_input_grad[1]:
                 # wgrad: dw = Q(x^T) @ Q(g), x read transposed in place
                 dw = _role(ctx.impl, x, g, r.wgrad_x, r.wgrad_g,
                            trans_a=True, salt=4, role="wgrad",
-                           census=ctx.census).to(w.dtype)
-        return dx, dw, None, None, None
+                           census=ctx.census, tp=ctx.tp).to(w.dtype)
+        return dx, dw, None, None, None, None
 
 
 def qmatmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe, *,
-            impl: str = "qdq") -> torch.Tensor:
+            impl: str = "qdq", tp: Optional[str] = None) -> torch.Tensor:
     """``y = Q(x2d) @ Q(w)`` for a (M, K) x (K, N) pair, differentiable
     (the reference's ``qmatmul`` / ``pallas_qmatmul`` custom_vjp), or a
-    batch of E pairs, (E, M, K) x (E, K, N) -> (E, M, N)."""
+    batch of E pairs, (E, M, K) x (E, K, N) -> (E, M, N).  ``tp``: the
+    weight's tensor-parallel layout (``col`` | ``row``; the product of a
+    row-parallel pair is the rank's partial sum)."""
     _check_impl(impl)
     return _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe, impl,
-                          False)
+                          False, tp)
 
 
 def pallas_qmatmul_stats(x2d: torch.Tensor, w: torch.Tensor,
-                         recipe: MatmulRecipe):
+                         recipe: MatmulRecipe, tp: Optional[str] = None):
     """``qmatmul(impl="pallas")`` that also returns the forward's stats
     vectors ``(y, (stats_x, stats_w))``, from the same kernel launch that
     quantizes the operands for the product (None for a pass operand);
     ``y`` and the gradients are those of ``qmatmul``."""
     y, sx, sw = _QMatmul.apply(x2d.contiguous(), w.contiguous(), recipe,
-                               "pallas", True)
+                               "pallas", True, tp)
     return y, (sx, sw)
 
 
@@ -358,13 +437,23 @@ def matmul_impl(impl: str):
 
 def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
             bias: Optional[torch.Tensor] = None,
-            impl: str = "qdq") -> torch.Tensor:
+            impl: str = "qdq", tp: Optional[str] = None) -> torch.Tensor:
     """Linear over the last axis of ``x``: (..., K) @ (K, N) -> (..., N),
     quantized per the recipe (forward specs now, backward specs in the
-    gradient); a passthrough recipe is one plain matmul."""
+    gradient); a passthrough recipe is one plain matmul.  ``tp``: ``w``
+    is the rank's block of a column- (``col``) or row-parallel (``row``)
+    weight under the installed model split (module docstring; ignored
+    without one); the bias, the same on every rank, is added after the
+    row-parallel sum."""
     if isinstance(w, PackedTensor):
         return packed_linear(x, w, recipe, bias=bias, impl=impl)
     _check_impl(impl)
+    split = model_split()
+    if tp not in (None, "col", "row"):
+        raise ValueError(f"unknown tensor-parallel layout {tp!r}")
+    tp = tp if split is not None else None
+    if tp == "col":
+        x = _ModelGradSum.apply(x, split.group)
     k = x.shape[-1]
     x2d = x.reshape(-1, k)
     if recipe.is_passthrough:
@@ -385,18 +474,25 @@ def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
                     and (ma != "pass" or mb != "pass")):
                 from repro_torch.kernels.fp4_matmul import (
                     finalize_quant_stats, reduce_quant_stats)
-                y, (sa, sb) = pallas_qmatmul_stats(x2d, w, recipe)
-                # x's rows are a rank's tokens: its stats the group's
-                split = token_split()
-                if split is not None and sa is not None:
+                y, (sa, sb) = pallas_qmatmul_stats(x2d, w, recipe, tp)
+                # x's rows are a rank's tokens: its stats the group's;
+                # an operand split over the model group: the group's too
+                tsplit = token_split()
+                if tsplit is not None and sa is not None:
+                    sa = reduce_quant_stats(sa, tsplit.group)
+                if tp == "row" and sa is not None:
                     sa = reduce_quant_stats(sa, split.group)
+                if tp is not None and sb is not None:
+                    sb = reduce_quant_stats(sb, split.group)
                 fused_fwd = {slot: None if s is None
                              else finalize_quant_stats(s)
                              for slot, s in (("fwd_x", sa), ("fwd_w", sb))}
-        telemetry.tap_matmul(x2d, w, recipe, fused_fwd=fused_fwd)
+        telemetry.tap_matmul(x2d, w, recipe, fused_fwd=fused_fwd, tp=tp)
         if y is None:
-            y = qmatmul(x2d, w, recipe, impl=impl)
-        y = telemetry.grad_tap(y, recipe)
+            y = qmatmul(x2d, w, recipe, impl=impl, tp=tp)
+        y = telemetry.grad_tap(y, recipe, tp=tp)
+    if tp == "row":
+        y = _ModelSum.apply(y, split.group)
     y = y.reshape(*x.shape[:-1], w.shape[-1])
     if bias is not None:
         y = y + bias

@@ -22,6 +22,18 @@ its amax (MAX) over the data group before ``scale_from_amax``
 stays local when a rank's token count is a multiple of its edge (the
 groups then end on rank boundaries) and raises ``ValueError`` otherwise
 (:func:`spans_ranks`).
+
+A tensor-parallel step splits a weight's heads / ``mlp`` dim over the
+model group (``ModelSplit``, installed beside the token split): a
+column-parallel linear holds a block of its output features N, a
+row-parallel one a block of its reduction axis K.  ``model_axis`` names
+the operand axis so split; a group whose extent along it is the whole
+axis (``tensor``, a ``token`` group along its reduction axis) shares its
+amax (MAX over the model group), a ``block`` / ``tile`` group of edge B
+stays local when a rank holds a multiple of B, and when a rank holds a
+divisor of B each group spans B / n neighbouring ranks, whose partial
+amaxes are all-gathered and maxed over that window
+(:func:`model_span`); any other count raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -41,7 +53,8 @@ __all__ = ["QuantSpec", "BF16_SPEC", "qdq", "quantize_dequantize",
            "compute_scale", "scale_from_amax", "pow2_floor",
            "underflow_rate", "qdq_scope_name", "scale_logical_axes",
            "TokenSplit", "token_split", "splitting", "spans_ranks",
-           "share_amax"]
+           "share_amax", "ModelSplit", "model_split", "split_state",
+           "model_span", "share_model_amax", "window_max"]
 
 
 def qdq_scope_name(spec: "QuantSpec") -> str:
@@ -197,24 +210,54 @@ class TokenSplit:
         return self.index * n
 
 
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """A rank's share of a tensor-parallel step's model axis: rank
+    ``index`` of ``size`` in ``group`` holds, of every model-split axis,
+    the entries ``index * n ... (index + 1) * n`` (``n`` its local
+    count)."""
+
+    group: Any
+    index: int
+    size: int
+
+    def offset(self, n: int) -> int:
+        """This rank's first entry of a split axis it holds ``n`` of."""
+        return self.index * n
+
+
 _SPLIT = threading.local()
 
 
 def token_split() -> Optional[TokenSplit]:
-    """The split installed on this thread (None: the whole batch)."""
+    """The token split installed on this thread (None: the whole
+    batch)."""
     return getattr(_SPLIT, "value", None)
 
 
+def model_split() -> Optional[ModelSplit]:
+    """The model split installed on this thread (None: whole weights)."""
+    return getattr(_SPLIT, "model", None)
+
+
+def split_state():
+    """``(token split, model split)`` of this thread, for
+    ``splitting(*state)`` on another thread (autograd's)."""
+    return token_split(), model_split()
+
+
 @contextlib.contextmanager
-def splitting(split: Optional[TokenSplit]):
-    """Install ``split`` on this thread inside the block (None: none;
-    a split of size 1 is none)."""
-    prev = token_split()
+def splitting(split: Optional[TokenSplit],
+              model: Optional[ModelSplit] = None):
+    """Install the token ``split`` and the ``model`` split on this thread
+    inside the block (None: none; a split of size 1 is none)."""
+    prev = split_state()
     _SPLIT.value = split if split is not None and split.size > 1 else None
+    _SPLIT.model = model if model is not None and model.size > 1 else None
     try:
         yield
     finally:
-        _SPLIT.value = prev
+        _SPLIT.value, _SPLIT.model = prev
 
 
 def spans_ranks(granularity: str, block: int, tokens: int,
@@ -250,6 +293,62 @@ def share_amax(amax: torch.Tensor, split: TokenSplit) -> torch.Tensor:
     return words.to(amax.dtype)
 
 
+def model_span(granularity: str, block: int, n: int,
+               along_reduction: bool) -> Optional[str]:
+    """How a quant group meets a model-split axis that a rank holds ``n``
+    entries of (the operand's reduction axis, or the other): ``"share"``
+    when the group runs along the whole axis (a ``tensor`` group, a
+    ``token`` group along its reduction axis), ``"window"`` when a
+    ``block`` / ``tile`` group of edge ``block`` spans ``block / n``
+    ranks (``n`` divides it), None when every group is a rank's own; a
+    count that neither divides the edge nor is a multiple of it raises
+    ``ValueError``."""
+    if granularity == "tensor" or (granularity == "token"
+                                   and along_reduction):
+        return "share"
+    if granularity == "tile" or (granularity == "block"
+                                 and along_reduction):
+        if n % block == 0:
+            return None
+        if block % n == 0:
+            return "window"
+        raise ValueError(
+            f"a {granularity}{block} quant group along a model-split axis: "
+            f"each rank holds {n} of it, neither a divisor nor a multiple "
+            f"of {block} (choose a model axis that leaves each rank a "
+            "divisor or a multiple of the group edge)")
+    return None
+
+
+def window_max(words: torch.Tensor, split: ModelSplit, n: int,
+               block: int) -> torch.Tensor:
+    """Each rank's partial amaxes (``words``, in place; any dtype that
+    orders as the floats do) maxed over the window of ``block / n``
+    neighbouring ranks whose entries make up its groups: an all-gather
+    over the model group, tag ``amax_model``."""
+    from repro_torch.distributed import comms
+    w = block // n
+    parts = comms.all_gather(words, split.group, tag="amax_model")
+    first = (split.index // w) * w
+    words.copy_(parts[first:first + w].amax(dim=0))
+    return words
+
+
+def share_model_amax(amax: torch.Tensor, split: ModelSplit, kind: str,
+                     n: int, block: int) -> torch.Tensor:
+    """The amax of groups that meet the model split as ``kind``
+    (``model_span``): MAX all-reduced over the model group (``share``)
+    or maxed over each group's window of ranks (``window``), f32 on the
+    wire, tag ``amax_model``; in ``amax``'s dtype."""
+    from repro_torch.distributed import comms
+    words = amax.to(torch.float32, copy=True).contiguous()
+    if kind == "share":
+        comms.all_reduce(words, "max", split.group, tag="amax_model")
+    else:
+        window_max(words, split, n, block)
+    return words.to(amax.dtype)
+
+
 def _group_amax(xb: torch.Tensor, granularity: str,
                 reduction_axis: int) -> torch.Tensor:
     mag = xb.abs()  # amax in the input dtype (exact)
@@ -274,12 +373,15 @@ def compute_scale(x2d: torch.Tensor, spec: QuantSpec,
 def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
                         reduction_axis: int, *,
                         generator: Optional[torch.Generator] = None,
-                        token_axis: Optional[int] = None) -> torch.Tensor:
+                        token_axis: Optional[int] = None,
+                        model_axis: Optional[int] = None) -> torch.Tensor:
     """Simulated low-precision representation of ``x2d`` (Eq. 1-7), in
     ``x2d``'s dtype.  ``generator`` feeds stochastic specs.
     ``token_axis``: the axis of ``x2d`` that runs over tokens (None: a
     weight); inside a :func:`splitting` region a group spanning the
-    tokens shares its amax across the data group (module docstring)."""
+    tokens shares its amax across the data group (module docstring).
+    ``model_axis``: the axis split over the model group under a model
+    split (None: none); a group meeting it shares its amax there."""
     if spec.is_passthrough:
         return x2d
     fmt = spec.format
@@ -293,6 +395,13 @@ def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
             spec.granularity, spec.block, x2d.shape[token_axis],
             token_axis == reduction_axis):
         amax = share_amax(amax, split)
+    msplit = model_split() if model_axis is not None else None
+    if msplit is not None:
+        n = x2d.shape[model_axis]
+        kind = model_span(spec.granularity, spec.block, n,
+                          model_axis == reduction_axis)
+        if kind is not None:
+            amax = share_model_amax(amax, msplit, kind, n, spec.block)
     scale = scale_from_amax(amax, fmt, spec.pow2_scale).to(x2d.dtype)
     gen = generator if spec.stochastic else None
     y = F.round_to_format(xb / scale, fmt, generator=gen) * scale

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -39,7 +39,12 @@ class CollectiveRecord:
     HLO kind (``all-reduce`` | ``all-gather`` | ``reduce-scatter``);
     ``shape`` / ``nbytes`` the payload one rank puts on the wire (its
     input); ``tag`` what it carries (``grad``, ``grad_codes``, ``scale``,
-    ``param``, ``norm``, ``metric``)."""
+    ``param``, ``norm``, ``metric``, ``amax`` / ``amax_model`` (a quant
+    group's shared amax words over the data / the model group),
+    ``tp_fwd`` / ``tp_bwd`` (a row-parallel output's sum / a
+    column-parallel input's cotangent sum over the model group));
+    ``layer`` the model layer that issued it (``"L3"``; "" outside
+    one)."""
 
     op: str
     dtype: str
@@ -48,6 +53,7 @@ class CollectiveRecord:
     group_size: int
     tag: str = ""
     reduce_op: str = ""
+    layer: str = ""
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -78,13 +84,14 @@ def host_staging(on: bool = True):
 
 
 def _note(op: str, t: torch.Tensor, group, tag: str,
-          reduce_op: str = "") -> None:
+          reduce_op: str = "", layer: Optional[str] = None) -> None:
     if not _RECORDS:
         return
     rec = CollectiveRecord(
         op=op, dtype=str(t.dtype).replace("torch.", ""),
         shape=tuple(t.shape), nbytes=t.numel() * t.element_size(),
-        group_size=dist.get_world_size(group), tag=tag, reduce_op=reduce_op)
+        group_size=dist.get_world_size(group), tag=tag, reduce_op=reduce_op,
+        layer=layer or "")
     for log in _RECORDS:
         log.append(rec)
 
@@ -106,9 +113,9 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None, *,
-               tag: str = "") -> torch.Tensor:
+               tag: str = "", layer: Optional[str] = None) -> torch.Tensor:
     """In-place all-reduce (``op``: sum | max) of ``t``; returns ``t``."""
-    _note("all-reduce", t, group, tag, op)
+    _note("all-reduce", t, group, tag, op, layer)
     dist.all_reduce(t, op=_OPS[op], group=group)
     return t
 

@@ -79,6 +79,20 @@
 // pair draws the same noise, as the vmapped TPU kernel does (its program
 // ids are the unbatched grid's).  A batched launch has no stats epilogue
 // (the reference's batched telemetry taps recompute their stats).
+//
+// Block amaxes passed in (a tensor-parallel rank holding part of a block /
+// tile group: a row-parallel weight's K block, a column-parallel one's N
+// block, smaller than the group edge).  The TPU kernel sees the whole
+// group; a rank's tile holds part of it.  The entry then runs in two
+// calls, as quantize_rows' shared amax does: amax_phase 1 writes each
+// group's partial amax of the operands given a word buffer (uint32 f32
+// bits, (groups along the quant rows, K groups), atomicMax into words the
+// wrapper zeroed; one warp a quant row of a K group, group_amax_kernel),
+// the caller reduces the words over the ranks each group spans, and
+// amax_phase 2 runs the stream kernel taking each group's scale from its
+// word instead of its staged tile.  The codec, the order of every sum and
+// the noise are unchanged, so a rank's result is the slice of the whole
+// group's.  Bound: bytes (one read of each operand for the amax pass).
 #include "codec.cuh"
 #include "gemm_sm90.cuh"
 
@@ -94,7 +108,19 @@ struct Operand {
   codec::Fmt f;
   codec::Sr sr;
   float* part;  // row partials (quant rows, n_ks, 8), or null: no stats
+  // each group's amax as f32 bits ((rows or row groups, n_ks)), or null:
+  // the group's amax comes from the staged tile
+  const unsigned int* amax;
 };
+
+// The scale of the group holding quant row grow at K step k0 from the
+// passed-in words (block: a row's group; tile: its 128-row group).
+__device__ __forceinline__ float passed_scale(const Operand& op, int grow,
+                                              int k0, int n_ks) {
+  const int g = op.mode == codec::kTile ? grow / codec::kGroup : grow;
+  return codec::group_scale(
+      __uint_as_float(op.amax[(long)g * n_ks + k0 / kBK]), op.f);
+}
 
 // QDQ one quant row of a shared tile by one warp, in place: lane l owns
 // the k = l + 32 j elements, at(j) their shared-memory slot.  The scale
@@ -109,7 +135,9 @@ __device__ __forceinline__ void qdq_row(At at, const Operand& op,
 #pragma unroll
   for (int j = 0; j < 4; ++j) xv[j] = codec::to_f32(at(j));
   float s = tile_s;
-  if (op.mode == codec::kBlock) {
+  if (op.mode == codec::kBlock && op.amax) {
+    s = passed_scale(op, grow, k0, n_ks);
+  } else if (op.mode == codec::kBlock) {
     float m = fmaxf(fmaxf(fabsf(xv[0]), fabsf(xv[1])),
                     fmaxf(fabsf(xv[2]), fabsf(xv[3])));
     for (int o = 16; o > 0; o >>= 1)
@@ -145,7 +173,9 @@ __device__ void qdq_a_tile(T (*As)[kBK + kPad], const T* __restrict__ a,
                            int trans_a, int n_ks, bool stats) {
   if (op.mode == codec::kPass) return;
   float tile_s = 0.f;
-  if (op.mode == codec::kTile) {
+  if (op.mode == codec::kTile && op.amax) {
+    tile_s = passed_scale(op, m0, k0, n_ks);
+  } else if (op.mode == codec::kTile) {
     const int t0 = m0 - m0 % codec::kGroup, t1 = min(t0 + codec::kGroup, M);
     const int k1 = min(k0 + kBK, K);
     tile_s = codec::group_scale(
@@ -166,7 +196,9 @@ __device__ void qdq_b_tile(T (*Bs)[BN + kPad], const T* __restrict__ b,
                            int trans_b, int n_ks, bool stats) {
   if (op.mode == codec::kPass) return;
   float tile_s = 0.f;
-  if (op.mode == codec::kTile) {
+  if (op.mode == codec::kTile && op.amax) {
+    tile_s = passed_scale(op, n0, k0, n_ks);
+  } else if (op.mode == codec::kTile) {
     const int t0 = n0 - n0 % codec::kGroup, t1 = min(t0 + codec::kGroup, N);
     const int k1 = min(k0 + kBK, K);
     tile_s = codec::group_scale(
@@ -253,6 +285,45 @@ __global__ void __launch_bounds__(kThreads, 5)
   }
 }
 
+// amax_phase 1: the partial amax of every group of one operand in quant
+// orientation (rows, K), stored (rows, K) or, under trans, (K, rows): one
+// warp a quant row of a 128-wide K group, lane l reading k = l + 32 j,
+// atomicMax of the f32 bits into the group's word (tile: 128 rows share
+// a word).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    group_amax_kernel(const T* __restrict__ x, int rows, int K, int trans,
+                      int tile, unsigned int* __restrict__ words) {
+  const int n_ks = (K + kBK - 1) / kBK;
+  const int kg = blockIdx.x, lane = threadIdx.x & 31;
+  const int r = blockIdx.y * (kThreads / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;  // a whole warp
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = kg * kBK + lane + 32 * j;
+    if (k < K)
+      m = fmaxf(m, fabsf(codec::to_f32(
+                       x[trans ? (long)k * rows + r : (long)r * K + k])));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0)
+    atomicMax(words + (long)(tile ? r / codec::kGroup : r) * n_ks + kg,
+              __float_as_uint(m));
+}
+
+template <typename T>
+int launch_amax(const void* x, int rows, int K, int trans, int mode,
+                void* words, cudaStream_t s) {
+  const dim3 grid((K + kBK - 1) / kBK, (rows + kThreads / 32 - 1) /
+                                           (kThreads / 32));
+  group_amax_kernel<T><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), rows, K, trans, mode == codec::kTile,
+      static_cast<unsigned int*>(words));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int BM, int BN, bool TA, bool TB>
 void run(const void* a, const void* b, void* c, int M, int N, int K,
          int batch, const Operand& oa, const Operand& ob, cudaStream_t s) {
@@ -303,7 +374,12 @@ __device__ __forceinline__ void qdq_stage(uint8_t* tile, const Operand& op,
   static_assert(kGroups == 1 || kGroups == 2, "a stage of 128 or 256 rows");
   if (op.mode == codec::kPass) return;
   float tile_s[kGroups] = {};
-  if (op.mode == codec::kTile) {
+  if (op.mode == codec::kTile && op.amax) {
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      if (mn0 + codec::kGroup * j < rows)
+        tile_s[j] = passed_scale(op, mn0 + codec::kGroup * j, k0, n_ks);
+  } else if (op.mode == codec::kTile) {
     // Group g's bytes: K-major, rows 128 g .. 128 g + 127 of each 64-wide
     // panel of kExtent rows; MN-major, panels 2 g and 2 g + 1.
     const auto* w = reinterpret_cast<const __nv_bfloat162*>(tile);
@@ -431,7 +507,10 @@ extern "C" int qmm_stream_route(int dtype, int M) {
 // takes 193 KB of dynamic shared memory (3 stages of two 32 KB tiles at
 // 128 x 128, 2 stages of 32 + 64 KB where one side is 256), the FMA
 // kernels stay under the 48 KB static limit (f32 32x32 tiles, 34 KB with
-// the pad; 16x32 for M <= 16).
+// the pad; 16x32 for M <= 16).  a_amax / b_amax: null, or the operand's
+// group words (block / tile, unbatched; see the header): amax_phase 1
+// fills them (zeroed by the caller) and launches nothing else, 2 runs the
+// product reading them; 0 is the one-call entry (both null).
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  int M, int N, int K, int batch, int dtype,
                                  int a_mode,
@@ -444,20 +523,43 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
                                  unsigned int a_col0, unsigned int b_row0,
                                  unsigned int b_col0, void** a_stats,
                                  void** b_stats, int bm, int bn,
-                                 void* stream) {
+                                 void* stream, void* a_amax, void* b_amax,
+                                 int amax_phase) {
   const Operand oa{a_mode, codec::make_fmt(a_qmax, a_emin, a_mbits, a_pow2),
                    {a_sr, a_seed, a_row0, a_col0},
-                   a_stats ? static_cast<float*>(a_stats[0]) : nullptr};
+                   a_stats ? static_cast<float*>(a_stats[0]) : nullptr,
+                   static_cast<const unsigned int*>(a_amax)};
   const Operand ob{b_mode, codec::make_fmt(b_qmax, b_emin, b_mbits, b_pow2),
                    {b_sr, b_seed, b_row0, b_col0},
-                   b_stats ? static_cast<float*>(b_stats[0]) : nullptr};
+                   b_stats ? static_cast<float*>(b_stats[0]) : nullptr,
+                   static_cast<const unsigned int*>(b_amax)};
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
       b_mode < codec::kPass || b_mode > codec::kTile ||
       (dtype != 0 && dtype != 1) || batch > 65535 ||
       (batch > 1 && (a_stats || b_stats)) || !sm90::tile_built(bm, bn))
     return (int)cudaErrorInvalidValue;
+  const bool words = a_amax || b_amax;
+  if (amax_phase < 0 || amax_phase > 2 || (amax_phase == 0) == words ||
+      (words && batch != 1) || (a_amax && a_mode == codec::kPass) ||
+      (b_amax && b_mode == codec::kPass) ||
+      (amax_phase == 1 && (a_stats || b_stats)))
+    return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0 || batch <= 0) return 0;
+  if (amax_phase == 1) {  // the operands' group amaxes alone
+    // A's quant orientation is A' (M, K); B's is B'^T (N, K), stored
+    // transposed unless trans_b
+    int err = 0;
+    if (a_amax)
+      err = dtype ? launch_amax<__nv_bfloat16>(a, M, K, trans_a, a_mode,
+                                               a_amax, s)
+                  : launch_amax<float>(a, M, K, trans_a, a_mode, a_amax, s);
+    if (!err && b_amax)
+      err = dtype ? launch_amax<__nv_bfloat16>(b, N, K, !trans_b, b_mode,
+                                               b_amax, s)
+                  : launch_amax<float>(b, N, K, !trans_b, b_mode, b_amax, s);
+    return err;
+  }
   const bool extra = a_sr || b_sr || a_stats || b_stats;
   int err;
   if (sm90::tensor_core_route(dtype, M))

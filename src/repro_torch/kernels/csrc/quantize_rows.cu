@@ -42,7 +42,11 @@
 // share.  The entry then runs in two calls (amax_phase 1 and 2): the amax
 // kernel into the zeroed words, then, once the caller has all-reduced
 // those words (MAX, over the data group: the words are non-negative f32
-// bits, which order as integers), the QDQ kernel reading them.
+// bits, which order as integers), the QDQ kernel reading them.  A
+// tensor-parallel rank holds a block of a row-parallel operand's K: a
+// row-major token group (one quant row) then spans the model group's
+// ranks too, so the two calls take it as well (row_amax_kernel writes
+// each row's amax into its word; the token kernel reads it).
 //
 // Stochastic rounding (sr) keys each element's noise by its (quant row,
 // col) plus the operand's origin (row0, col0), whatever block owns it.
@@ -161,12 +165,13 @@ __device__ __forceinline__ Vec<T, V> qdq_vec(const Vec<T, V>& a, T sc,
 
 // Row-major token and tensor groups: one warp per quant row, V elements
 // (16 bytes, or 1 when the row is not 16-byte aligned) a lane load.
-// tensor_amax: the whole-tensor amax (tensor mode), else the row's own.
+// amax: the whole-tensor amax (tensor mode), each row's given amax
+// (per_row: a token group shared over ranks), or null: the row's own.
 template <typename T, int V, bool kExtra>
 __global__ void __launch_bounds__(kThreads)
     quantize_tok_kernel(const T* __restrict__ x, T* __restrict__ y,
                         int rows, int cols, codec::Fmt f, int emit_trans,
-                        const unsigned int* __restrict__ tensor_amax,
+                        const unsigned int* __restrict__ amax, int per_row,
                         codec::Sr sr, float* __restrict__ part, int n_ks) {
   using P = Vec<T, V>;
   const int lane = threadIdx.x & 31;
@@ -174,7 +179,7 @@ __global__ void __launch_bounds__(kThreads)
   if (r >= rows) return;  // whole warps leave; no block barrier follows
   x += blockIdx.z * (long)rows * cols;
   y += blockIdx.z * (long)rows * cols;
-  if (tensor_amax) tensor_amax += blockIdx.z;
+  if (amax) amax += blockIdx.z * (per_row ? (long)rows : 1L);
   const P* xr = reinterpret_cast<const P*>(x + (long)r * cols);
   const int nv = cols / V;
   P cache[kCache];
@@ -189,7 +194,7 @@ __global__ void __launch_bounds__(kThreads)
         m = fmaxf(m, fabsf(codec::to_f32(cache[j].v[e])));
     }
   }
-  if (!tensor_amax) {
+  if (!amax) {
     for (int i = lane + 32 * kCache; i < nv; i += 32) {
       const P a = xr[i];
 #pragma unroll
@@ -199,8 +204,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int o = 16; o > 0; o >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   }
-  const float s =
-      codec::group_scale(tensor_amax ? __uint_as_float(*tensor_amax) : m, f);
+  const float s = codec::group_scale(
+      amax ? __uint_as_float(amax[per_row ? r : 0]) : m, f);
   const T sc = codec::from_f32<T>(s);
   auto put = [&](int i, const P& q) {
     if (emit_trans) {
@@ -334,6 +339,24 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
+// Each row-major quant row's amax into its word (amax_phase 1 of a token
+// group shared over ranks): one warp a row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    row_amax_kernel(const T* __restrict__ x, int rows, int cols,
+                    unsigned int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= rows) return;
+  x += blockIdx.z * (long)rows * cols + (long)r * cols;
+  float m = 0.f;
+  for (int c = lane; c < cols; c += 32)
+    m = fmaxf(m, fabsf(codec::to_f32(x[c])));
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) out[blockIdx.z * (long)rows + r] = __float_as_uint(m);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tensor_amax_kernel(const T* __restrict__ x, long n,
@@ -351,12 +374,12 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int V>
 void launch_tok(const T* x, T* y, int rows, int cols, int batch,
                 const codec::Fmt& f, int emit_trans,
-                const unsigned int* tensor_amax, const codec::Sr& sr,
+                const unsigned int* amax, int per_row, const codec::Sr& sr,
                 float* part, int n_ks, cudaStream_t s) {
   auto* kern = (sr.on || part) ? quantize_tok_kernel<T, V, true>
                                : quantize_tok_kernel<T, V, false>;
   kern<<<dim3((rows + kWarps - 1) / kWarps, 1, batch), kThreads, 0, s>>>(
-      x, y, rows, cols, f, emit_trans, tensor_amax, sr, part, n_ks);
+      x, y, rows, cols, f, emit_trans, amax, per_row, sr, part, n_ks);
 }
 
 // amax_phase: 0 runs the whole QDQ; 1 only reduces a cross-block amax
@@ -380,10 +403,13 @@ int launch(const void* xv, void* yv, int rows, int cols, int batch,
         <<<dim3(want < 1024 ? (int)want : 1024, 1, batch), kThreads, 0, s>>>(
             x, n, scratch);
   }
-  if (amax_phase == 1) {  // the transposed token groups' amax alone
-    if (mode == codec::kToken)
+  if (amax_phase == 1) {  // the token groups' amax alone
+    if (mode == codec::kToken && trans)
       col_amax_kernel<T><<<dim3((rows + 31) / 32, n_ks, batch), kThreads, 0,
                            s>>>(x, rows, cols, scratch);
+    else if (mode == codec::kToken)
+      row_amax_kernel<T><<<dim3((rows + kWarps - 1) / kWarps, 1, batch),
+                           kThreads, 0, s>>>(x, rows, cols, scratch);
     return (int)cudaGetLastError();
   }
   if (mode == codec::kTile || (mode == codec::kBlock && !trans)) {
@@ -407,14 +433,17 @@ int launch(const void* xv, void* yv, int rows, int cols, int batch,
         part, n_ks);
   } else {  // token, tensor: row-major
     constexpr int V = 16 / sizeof(T);
-    const unsigned int* amax = mode == codec::kTensor ? scratch : nullptr;
+    // a shared token group reads its row's word (amax_phase 2)
+    const int per_row = mode == codec::kToken && amax_phase == 2;
+    const unsigned int* amax =
+        mode == codec::kTensor || per_row ? scratch : nullptr;
     if (cols % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(y) % 16 == 0)
-      launch_tok<T, V>(x, y, rows, cols, batch, f, emit_trans, amax, sr,
-                       part, n_ks, s);
+      launch_tok<T, V>(x, y, rows, cols, batch, f, emit_trans, amax,
+                       per_row, sr, part, n_ks, s);
     else
-      launch_tok<T, 1>(x, y, rows, cols, batch, f, emit_trans, amax, sr,
-                       part, n_ks, s);
+      launch_tok<T, 1>(x, y, rows, cols, batch, f, emit_trans, amax,
+                       per_row, sr, part, n_ks, s);
   }
   return (int)cudaGetLastError();
 }
@@ -433,11 +462,11 @@ inline bool cross_block_amax(int mode, int trans) {
 // under emit_trans.  dtype: 0 = float32, 1 = bfloat16.  mode: codec::Mode
 // (not kPass).  scratch: zeroed uint32s on the device, one per operand for
 // tensor mode and one per quant row of each operand for a transposed token
-// launch (null otherwise).  amax_phase (a cross-block amax only): 0 the
-// whole pass; 1 the amax alone, reduced into the scratch, and nothing
-// written to y; 2 the QDQ alone, from the scratch as the caller left it
-// (a data-parallel rank's shared amax: the caller all-reduces the words,
-// MAX, between 1 and 2).  sr / seed: stochastic rounding; row0 / col0:
+// launch or a shared token launch (null otherwise).  amax_phase (tensor
+// and token groups only): 0 the whole pass; 1 the amax alone, reduced
+// into the scratch, and nothing written to y; 2 the QDQ alone, from the
+// scratch as the caller left it (a shared amax: the caller all-reduces
+// the words, MAX, over the ranks between 1 and 2).  sr / seed: stochastic rounding; row0 / col0:
 // the operand's origin in quant orientation, added to each element's
 // coordinates before its noise is drawn.  stats: null, or (row partials
 // (rows, ceil(cols / 128), 8), slab partials (ceil(rows / 128),
@@ -458,7 +487,9 @@ extern "C" int quantize_rows_launch(const void* x, void* y, int rows,
   auto s = static_cast<cudaStream_t>(stream);
   if (batch > 65535 || (batch > 1 && p)) return (int)cudaErrorInvalidValue;
   if (rows <= 0 || cols <= 0 || batch <= 0) return 0;
-  if (cross_block_amax(mode, trans) ? !sc : amax_phase != 0)
+  if (amax_phase != 0 && mode != codec::kTensor && mode != codec::kToken)
+    return (int)cudaErrorInvalidValue;
+  if ((cross_block_amax(mode, trans) || amax_phase != 0) != (sc != nullptr))
     return (int)cudaErrorInvalidValue;
   if (amax_phase < 0 || amax_phase > 2 || (amax_phase == 1 && p))
     return (int)cudaErrorInvalidValue;

@@ -206,11 +206,24 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
     axis: ``sr_origin_a`` / ``sr_origin_b`` key the SR noise from the
     operand's origin in the global operand (quant orientation), and
     ``amax_reduce_a`` / ``amax_reduce_b`` share a token / tensor group's
-    amax across ranks (``quantize_rows``; those modes take ``two_pass``,
-    so the stream kernel never needs it).
+    amax across ranks (``quantize_rows``; those modes take ``two_pass``).
+    Given for a ``block`` / ``tile`` operand (a tensor-parallel rank
+    holding part of each group), the amaxes are reduced between the
+    stream kernel's amax launch and its product (``qmm_stream``): such a
+    call runs the stream pipeline, whatever ``pipeline`` says, as the one
+    that takes the scales in.
     """
     if a_mode not in QUANT_MODES or b_mode not in QUANT_MODES:
         raise ValueError(f"unknown modes {(a_mode, b_mode)}")
+    passed = [fn is not None and mode in ("block", "tile") for fn, mode in
+              ((amax_reduce_a, a_mode), (amax_reduce_b, b_mode))]
+    if any(passed):
+        if not stream_supported(a_mode, b_mode):
+            raise NotImplementedError(
+                f"a {a_mode} x {b_mode} product whose block / tile groups "
+                "span ranks: only the stream pipeline takes the groups' "
+                "amaxes in, and it does not run token / tensor groups")
+        pipeline = "stream"
     pipeline = resolve_pipeline(pipeline, a_mode, b_mode)
     (bm, bn, _), key = resolve_qmm_tiles(a, b, a_mode, b_mode, trans_a,
                                          trans_b, bm, bn, bk)
@@ -229,7 +242,9 @@ def fused_qmm(a: torch.Tensor, b: torch.Tensor, *,
                           trans_a=trans_a, trans_b=trans_b, a_sr=a_sr,
                           b_sr=b_sr, seed_a=seed_a, seed_b=seed_b,
                           sr_origin_a=sr_origin_a, sr_origin_b=sr_origin_b,
-                          collect_stats=collect_stats, bm=bm, bn=bn)
+                          collect_stats=collect_stats, bm=bm, bn=bn,
+                          amax_reduce_a=amax_reduce_a,
+                          amax_reduce_b=amax_reduce_b)
     # Each quantize pass writes in its operand's stored layout (emit_trans
     # undoes trans), so tiled_mm keeps the original trans flags.  Stats, as
     # in the reference, come from the quantized operands only.

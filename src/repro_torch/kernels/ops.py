@@ -17,8 +17,9 @@ from typing import Optional
 import torch
 
 from repro_torch.core import routing
-from repro_torch.core.quantize import (QuantSpec, TokenSplit,
-                                       spans_ranks, token_split)
+from repro_torch.core.quantize import (QuantSpec, model_span,
+                                       model_split, spans_ranks,
+                                       token_split, window_max)
 from repro_torch.distributed import comms
 from repro_torch.kernels import quantize as _q
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -42,22 +43,47 @@ def fp4_matmul(x: torch.Tensor, w: torch.Tensor, *,
                      b_fmt=w_fmt)
 
 
-def _split_args(split: TokenSplit, side: str, x: torch.Tensor,
-                trans: bool, mode: str, axis: int) -> dict:
+def _split_args(side: str, x: torch.Tensor, trans: bool, mode: str,
+                tokens: Optional[int], model: Optional[int]) -> dict:
     """``fused_qmm``'s split arguments of one operand whose effective
-    axis ``axis`` (of A' or B') runs over tokens: the SR origin of its
-    rows in the global operand and, for a group spanning the tokens, the
-    amax all-reduce (MAX over the data group, tag ``amax``)."""
+    axis ``tokens`` (of A' or B') runs over the tokens of the installed
+    token split and whose effective axis ``model`` is split over the
+    model group (None: not split): the SR origin of its element (0, 0) in
+    the global operand and, for groups that meet a split, the amax's
+    reduction (``amax_reduce_*``): a MAX all-reduce over the data group
+    (tag ``amax``) and over the model group (tag ``amax_model``), or the
+    window max over the ranks a straddling block / tile group spans
+    (``core.quantize.model_span``)."""
     rows, cols = x.shape[-2:]
     eff = (cols, rows) if trans else (rows, cols)
-    n = eff[axis]
-    # quant orientation: A' itself, B'^T (its reduction K on axis 1)
-    q_axis = axis if side == "a" else 1 - axis
-    out = {f"sr_origin_{side}": ((split.offset(n), 0) if q_axis == 0
-                                 else (0, split.offset(n)))}
-    if spans_ranks(mode, 128, n, q_axis == 1):
-        out[f"amax_reduce_{side}"] = lambda words: comms.all_reduce(
-            words, "max", split.group, tag="amax")
+    origin, reducers = [0, 0], []
+    for axis, split, data in ((tokens, token_split(), True),
+                              (model, model_split(), False)):
+        if axis is None or split is None:
+            continue
+        n = eff[axis]
+        # quant orientation: A' itself, B'^T (its reduction K on axis 1)
+        q_axis = axis if side == "a" else 1 - axis
+        origin[q_axis] += split.offset(n)
+        if data:
+            if spans_ranks(mode, 128, n, q_axis == 1):
+                reducers.append(lambda w, g=split.group: comms.all_reduce(
+                    w, "max", g, tag="amax"))
+            continue
+        kind = model_span(mode, 128, n, q_axis == 1)
+        if kind == "share":
+            reducers.append(lambda w, g=split.group: comms.all_reduce(
+                w, "max", g, tag="amax_model"))
+        elif kind == "window":
+            reducers.append(lambda w, sp=split, n=n: window_max(
+                w, sp, n, 128))
+    out = {f"sr_origin_{side}": tuple(origin)}
+    if reducers:
+        def reduce(words):
+            for fn in reducers:
+                fn(words)
+            return words
+        out[f"amax_reduce_{side}"] = reduce
     return out
 
 
@@ -69,7 +95,7 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
                bm: Optional[int] = None, bn: Optional[int] = None,
                bk: Optional[int] = None, collect_stats: bool = False,
                role: Optional[str] = None, census=None,
-               tokens=(None, None)):
+               tokens=(None, None), model=(None, None)):
     """Per-role quantized matmul ``Q(A') @ Q(B')`` through the fused
     pipeline (``mode_*`` from ``core.qlinear.kernel_quant_mode``).  The
     name is the reference's; here it runs the CUDA kernels.  3-D
@@ -93,7 +119,10 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
     (``core.quantize.splitting``) such an operand keys its SR noise by
     its global rows and shares a token-spanning group's amax across the
     data group; a block / tile group straddling a rank boundary raises
-    ``ValueError``."""
+    ``ValueError``.  ``model``: for A' and B', the effective axis split
+    over the model group (``core.qlinear.ROLE_MODEL``): inside a model
+    split the operand keys its SR noise by its global columns and shares
+    the amax of a group meeting the split across the ranks it spans."""
     a_sr = spec_a.stochastic and mode_a != "pass"
     b_sr = spec_b.stochastic and mode_b != "pass"
     if census is not None:
@@ -106,14 +135,15 @@ def pallas_qmm(a: torch.Tensor, b: torch.Tensor, spec_a: QuantSpec,
             log=census[0])
     if (a_sr or b_sr) and key_data is None:
         raise ValueError("a stochastic spec needs key_data")
-    split, kw = token_split(), {}
-    if split is not None:
-        for side, x, trans, mode, axis in (("a", a, trans_a, mode_a,
-                                            tokens[0]),
-                                           ("b", b, trans_b, mode_b,
-                                            tokens[1])):
-            if axis is not None and mode != "pass":
-                kw.update(_split_args(split, side, x, trans, mode, axis))
+    kw = {}
+    if token_split() is not None or model_split() is not None:
+        for side, x, trans, mode, t_axis, m_axis in (
+                ("a", a, trans_a, mode_a, tokens[0], model[0]),
+                ("b", b, trans_b, mode_b, tokens[1], model[1])):
+            if (t_axis is not None or m_axis is not None) \
+                    and mode != "pass":
+                kw.update(_split_args(side, x, trans, mode, t_axis,
+                                      m_axis))
     return fused_qmm(
         a, b, a_mode=mode_a, b_mode=mode_b, a_fmt=spec_a.fmt,
         b_fmt=spec_b.fmt, a_pow2=spec_a.pow2_scale,

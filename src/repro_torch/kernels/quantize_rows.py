@@ -19,12 +19,13 @@ A data-parallel rank holds a share of the token axis (``core.quantize.
 TokenSplit``).  ``sr_origin`` is the operand's element (0, 0) in the
 global operand, in quant orientation: the SR noise is keyed by the global
 coordinates, so a rank draws the one-process noise of its rows.
-``amax_reduce`` (tensor groups and transposed token groups: the groups
-whose amax spans blocks) splits the launch in two around the caller's
-reduction: the amax kernel writes each group's amax as uint32 words (the
-f32 bits; non-negative floats order as integers), ``amax_reduce(words)``
-all-reduces them in place (MAX, over the data group), and the QDQ kernel
-reads them.  The plain version takes the same entry.
+``amax_reduce`` (tensor and token groups: a data split's groups along
+the tokens, a model split's along a row-parallel K) splits the launch in
+two around the caller's reduction: the amax kernel writes each group's
+amax as uint32 words (the f32 bits; non-negative floats order as
+integers), ``amax_reduce(words)`` all-reduces them in place (MAX, over
+the ranks), and the QDQ kernel reads them.  The plain version takes the
+same entry.
 """
 from __future__ import annotations
 
@@ -88,10 +89,9 @@ def cross_block(mode: str, trans: bool) -> bool:
 
 
 def _check_reduce(mode: str, trans: bool, amax_reduce) -> None:
-    if amax_reduce is not None and not cross_block(mode, trans):
-        raise ValueError(f"amax_reduce takes the cross-block groups "
-                         f"(tensor, transposed token), not {mode!r} with "
-                         f"trans={trans}")
+    if amax_reduce is not None and mode not in ("token", "tensor"):
+        raise ValueError(f"amax_reduce takes token and tensor groups, not "
+                         f"{mode!r}")
 
 
 def _words(amax: torch.Tensor, amax_reduce) -> torch.Tensor:
@@ -183,12 +183,12 @@ def quantize_rows(x: torch.Tensor, *, mode: str, fmt_name: str,
     if y.numel() == 0:
         return (y, stats[-1].zero_()) if collect_stats else y
     # the amax of a group that spans blocks (the whole tensor; a stored
-    # column under trans) is reduced by a kernel of its own into zeroed
-    # uint32s: one, or one per quant row
+    # column under trans), or that is shared, is reduced by a kernel of
+    # its own into zeroed uint32s: one, or one per quant row
     spans = cross_block(mode, trans)
     scratch = (torch.zeros(batch * (rows if mode == "token" else 1),
                            dtype=torch.int32, device=x.device)
-               if spans else None)
+               if spans or amax_reduce is not None else None)
     ptrs = [None] * 3 if stats is None else [t.data_ptr() for t in stats]
     flags = dict(operands=(x,), trans=trans or emit_trans,
                  batched=x.dim() == 3)

@@ -13,16 +13,19 @@ config, as in the reference), so with no flag the CLI trains what the
 reference's CLI trains; ``--linear-impl pallas --attention-impl pallas``
 runs the quantized matmuls and the attention forward on the CUDA
 kernels.  ``--grad-compression fp8`` compresses the gradients (error
-feedback).  ``--mesh d,1`` trains data-parallel on a (data, model) mesh
-of ``d`` ranks, ``--mesh p,d,1`` on a (pod, data, model) mesh of ``p *
-d`` (the batch and the fsdp blocks over both data axes), launched with
-``torchrun``, NCCL on ``--device cuda`` and ``gloo`` on ``--device
-cpu``::
+feedback).  ``--mesh d,m`` trains on a (data, model) mesh of ``d * m``
+ranks, ``--mesh p,d,m`` on a (pod, data, model) mesh of ``p * d * m``
+(the batch and the fsdp blocks over the data axes; a dense model's
+heads, kv_heads, mlp and vocab over ``model``, tensor-parallel),
+launched with ``torchrun``, NCCL on ``--device cuda`` and ``gloo`` on
+``--device cpu``::
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
         --device cpu --mesh 2,1 --grad-compression fp8 --no-fsdp
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
         --device cpu --mesh 2,1 --telemetry --linear-impl pallas
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --device cpu --mesh 2,2 --recipe paper_fp4
 
 (with no ``torchrun`` a mesh of one rank runs in this process alone).
 Without compression the data-parallel step is the one-device step of the
@@ -31,7 +34,8 @@ ranks, and ``--telemetry`` (the quant stats and gradient norms in every
 step's row) reduces its stats over them; a rank's token count must then
 be a multiple of 128 wherever a block group runs along the tokens
 (``ValueError`` otherwise).  A model axis larger than 1 raises
-``NotImplementedError``.  Rank 0 prints.
+``NotImplementedError`` for a model other than a dense attention stack
+and under ``--grad-compression fp8``.  Rank 0 prints.
 
 Prints the reference's lines (the per-step log, ``eval:``, ``step-time:``
 p50 / p95 / p99, tokens/s and MFU) and one ``roofline[...]`` line from
@@ -78,10 +82,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--grad-compression", default="none")
     ap.add_argument("--mesh", default="",
-                    help="mesh shape, e.g. '4,1' (axes data,model) or "
-                         "'2,2,1' (pod,data,model); one rank a data "
-                         "shard, under torchrun; empty = single-device "
-                         "step")
+                    help="mesh shape, e.g. '4,1' or '2,2' (axes "
+                         "data,model) or '2,2,1' (pod,data,model); one "
+                         "rank a device, under torchrun; empty = "
+                         "single-device step")
     ap.add_argument("--no-fsdp", action="store_true",
                     help="replicate embed params over the data axes "
                          "(required with --grad-compression fp8)")

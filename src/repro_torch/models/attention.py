@@ -42,6 +42,8 @@ import torch
 
 from repro_torch import constant
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qlinear import model_grad_sum
+from repro_torch.core.quantize import model_split
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.nn.layers import linear, rope
@@ -152,14 +154,28 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
     """Self-attention sublayer.  With ``cache`` the new K/V are written
     into it in place (at ``cache_len``, a scalar or per-slot (B,) tensor)
-    and attention reads the whole cache."""
+    and attention reads the whole cache.
+
+    Under tensor parallelism the weights are the rank's blocks (the
+    Megatron layout; ``_local_heads``): ``wq`` / ``wk`` / ``wv``
+    column-parallel over the heads, ``wo`` row-parallel, and the core runs
+    on the rank's heads.  KV heads that the rules keep whole (their count
+    does not divide the model axis) are projected whole on every rank;
+    each rank reads the KV heads its query heads use, and the cotangent of
+    K / V is summed over the model group before their linears'
+    backward."""
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(x, params["wq"], recipe, cfg).reshape(b, sq, cfg.n_heads, hd)
-    k = linear(x, params["wk"], recipe, cfg).reshape(
-        b, sq, cfg.n_kv_heads, hd)
-    v = linear(x, params["wv"], recipe, cfg).reshape(
-        b, sq, cfg.n_kv_heads, hd)
+    nq, nkv, q_tp, kv_tp, kv_pick = _local_heads(params, cfg)
+    q = linear(x, params["wq"], recipe, cfg, tp=q_tp).reshape(b, sq, nq, hd)
+    k = linear(x, params["wk"], recipe, cfg, tp=kv_tp)
+    v = linear(x, params["wv"], recipe, cfg, tp=kv_tp)
+    if kv_pick is not None:
+        k, v = model_grad_sum(k), model_grad_sum(v)
+    k = k.reshape(b, sq, -1, hd)
+    v = v.reshape(b, sq, -1, hd)
+    if kv_pick is not None:
+        k, v = k[:, :, kv_pick], v[:, :, kv_pick]
     if cfg.pos_emb == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -178,8 +194,35 @@ def attention(params, cfg: ModelConfig, x: torch.Tensor,
                                             cfg.kv_cache_format)
         out = _by_row(q, k_all, v_all, positions, k_pos, causal=causal,
                       window=window, chunk=cfg.attention_chunk)
-    out = out.reshape(b, sq, cfg.n_heads * hd)
-    return linear(out, params["wo"], recipe, cfg)
+    out = out.reshape(b, sq, nq * hd)
+    return linear(out, params["wo"], recipe, cfg, tp="row" if q_tp else None)
+
+
+def _local_heads(params, cfg: ModelConfig):
+    """``(query heads, KV heads the core reads, wq's tp, wk / wv's tp,
+    the KV heads' slice of whole K / V or None)`` of the weights this
+    rank holds: the config's counts on one process; under a model split
+    the rank's query heads (``wq`` a block, column-parallel) and its KV
+    heads (``wk`` / ``wv`` blocks), or, KV kept whole, the slice of KV
+    heads its query heads ``index * nq ...`` use."""
+    hd = cfg.resolved_head_dim
+    nq = params["wq"].shape[-1] // hd
+    nkv = params["wk"].shape[-1] // hd
+    if nq == cfg.n_heads:
+        if nkv != cfg.n_kv_heads:
+            raise ValueError("KV heads split over the model axis under "
+                             "whole query heads")
+        return nq, nkv, None, None, None
+    split = model_split()
+    if split is None or split.size * nq != cfg.n_heads:
+        raise ValueError(f"wq holds {nq} of {cfg.n_heads} heads outside a "
+                         "model split of that size")
+    if nkv != cfg.n_kv_heads:
+        return nq, nkv, "col", "col", None
+    rep = cfg.n_heads // cfg.n_kv_heads        # query heads a KV head
+    first = split.index * nq // rep
+    n = max(1, nq // rep)
+    return nq, n, "col", None, slice(first, first + n)
 
 
 def _by_row(q, k, v, q_pos, k_pos, **kw) -> torch.Tensor:

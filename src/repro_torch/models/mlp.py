@@ -29,13 +29,18 @@ def mlp_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 def mlp(params, cfg: ModelConfig, x: torch.Tensor,
         recipe: MatmulRecipe) -> torch.Tensor:
     """x (B, S, D) -> (B, S, D); gelu or swiglu, matmuls per ``recipe``,
-    the nonlinearity in the compute dtype."""
+    the nonlinearity in the compute dtype.  Under tensor parallelism the
+    weights are the rank's blocks of ``d_ff`` (the Megatron layout): up
+    and gate column-parallel, down row-parallel (its output summed over
+    the model group)."""
+    split = params["w_up"].shape[-1] != cfg.d_ff
+    col, row = ("col", "row") if split else (None, None)
     if cfg.activation == "swiglu":
-        g = linear(x, params["w_gate"], recipe, cfg)
-        u = linear(x, params["w_up"], recipe, cfg)
+        g = linear(x, params["w_gate"], recipe, cfg, tp=col)
+        u = linear(x, params["w_up"], recipe, cfg, tp=col)
         h = ACTIVATIONS["silu"](g) * u
     else:
         h = ACTIVATIONS[cfg.activation](
-            linear(x, params["w_up"], recipe, cfg))
+            linear(x, params["w_up"], recipe, cfg, tp=col))
     h = shard_hint(h, ("batch", "seq", "mlp"))
-    return linear(h, params["w_down"], recipe, cfg)
+    return linear(h, params["w_down"], recipe, cfg, tp=row)

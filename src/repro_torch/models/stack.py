@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import routing
-from repro_torch.core.quantize import splitting, token_split
+from repro_torch.core.quantize import split_state, splitting
 from repro_torch.core.recipe import LayerRecipe, PrecisionPlan
 from repro_torch.kernels.build import recomputing
 from repro_torch.models import attention as attn_lib
@@ -222,7 +222,7 @@ def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.remat_policy != "full":
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
     tel, census, split = (telemetry.snapshot(), routing.active(),
-                          token_split())
+                          split_state())
     calls = []
 
     def run(x_):
@@ -230,9 +230,9 @@ def remat(fn, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             calls.append(1)
             return fn(x_, True)
         # the recompute may run on autograd's thread: the forward's token
-        # split goes with it, so it quantizes as the forward did
+        # and model splits go with it, so it quantizes as the forward did
         with recomputing(), telemetry.replaying(tel), \
-                routing.replaying(census), splitting(split):
+                routing.replaying(census), splitting(*split):
             return fn(x_, False)
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 

@@ -10,22 +10,26 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.nn.functional import pad as F_pad
 
 from repro_torch import constant
 from repro_torch.core.qlinear import qlinear
-from repro_torch.core.quantize import TokenSplit, splitting
+from repro_torch.core.quantize import ModelSplit, TokenSplit, splitting
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["linear", "gelu", "silu", "relu2", "rms_norm", "layer_norm",
            "apply_norm", "rope", "sincos_positions", "ACTIVATIONS",
            "set_sharding_context", "get_sharding_context",
-           "sharding_context", "shard_hint"]
+           "sharding_context", "shard_hint", "UNSPLIT_MODEL_AXES"]
 
 
 def linear(x: torch.Tensor, w, recipe: MatmulRecipe, cfg, *,
-           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quantized linear with the implementation ``cfg.linear_impl``."""
-    return qlinear(x, w, recipe, bias=bias, impl=cfg.linear_impl)
+           bias: Optional[torch.Tensor] = None,
+           tp: Optional[str] = None) -> torch.Tensor:
+    """Quantized linear with the implementation ``cfg.linear_impl``;
+    ``tp``: ``w`` is the rank's block of a column- or row-parallel weight
+    (``core.qlinear``)."""
+    return qlinear(x, w, recipe, bias=bias, impl=cfg.linear_impl, tp=tp)
 
 
 def gelu(x):
@@ -54,17 +58,41 @@ def relu2(x):
 ACTIVATIONS = {"gelu": gelu, "silu": silu, "relu2": relu2}
 
 
+# On the card PyTorch picks a reduction's launch shape by its number of
+# outputs, so the mean of one row among 8 can differ in its last bits from
+# the same row's mean alone: a decode step of 8 slots then left sequential
+# generation (mamba2's norms, chip_smoke's serve_ssm at 8 requests).  A
+# CUDA tensor of at most ROW_INVARIANT_ROWS rows (a decode step: one row a
+# slot) is padded with zero rows to that count before its mean, so every
+# such call reduces at one launch shape and a row's mean is its own, as
+# the MoE router pads its rows (``models.moe.ROUTER_ROWS``); more rows
+# (prefill, training) and CPU tensors reduce as they are.
+ROW_INVARIANT_ROWS = 16
+
+
+def _row_mean(fn, xf: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim of ``fn(xf)`` (elementwise, ``fn(0) =
+    0``), keepdim; at the padded shape under the rule above."""
+    rows = xf.numel() // max(xf.shape[-1], 1)
+    if not (xf.is_cuda and rows <= ROW_INVARIANT_ROWS):
+        return fn(xf).mean(dim=-1, keepdim=True)
+    padded = F_pad(xf.reshape(rows, xf.shape[-1]),
+                   (0, 0, 0, ROW_INVARIANT_ROWS - rows))
+    return fn(padded).mean(dim=-1, keepdim=True)[:rows].reshape(
+        *xf.shape[:-1], 1)
+
+
 def rms_norm(x, scale, eps=1e-5):
     xf = x.to(torch.float32)
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = _row_mean(lambda t: t * t, xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
 def layer_norm(x, scale, bias, eps=1e-5):
     xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    mu = _row_mean(lambda t: t, xf)
+    var = _row_mean(lambda t: t, (xf - mu) ** 2)
     y = (xf - mu) * torch.rsqrt(var + eps)
     y = y * (1.0 + scale.to(torch.float32)) + bias.to(torch.float32)
     return y.to(x.dtype)
@@ -120,7 +148,12 @@ def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # no-op, as the reference's.  The port holds each rank's own block of a
 # data-parallel step, so a hint that maps only to axes of size 1 (the
 # data axes are stripped by the step's ``manual_over``) is a no-op too;
-# a hint that would shard over a larger axis raises.
+# a hint that would shard over a larger data axis raises.  Under tensor
+# parallelism the model code already holds the rank's slice of every
+# heads / mlp activation (its weights are the rank's blocks), or the
+# whole tensor where the port keeps it whole (the gathered vocab): a
+# hint over the model axis is a no-op, except for the logical axes the
+# port does not split yet (``experts``, ``mamba_*``), which raise.
 #
 # The data-manual region of a data-parallel step that reduces the mean
 # gradient (``train.train_step``'s ``reduce_mean`` and the eval step) also
@@ -143,14 +176,20 @@ def get_sharding_context():
     return getattr(_CTX, "value", None)
 
 
+# The logical axes whose split over the model axis the port refuses
+UNSPLIT_MODEL_AXES = ("experts", "mamba_inner", "mamba_groups",
+                      "mamba_heads")
+
+
 @contextlib.contextmanager
-def sharding_context(ctx, split: Optional[TokenSplit] = None):
-    """Install ``ctx`` (and the token ``split``, None: none) inside the
-    block."""
+def sharding_context(ctx, split: Optional[TokenSplit] = None,
+                     model: Optional[ModelSplit] = None):
+    """Install ``ctx`` (and the token ``split`` and the ``model`` split,
+    None: none) inside the block."""
     prev = get_sharding_context()
     set_sharding_context(ctx)
     try:
-        with splitting(split):
+        with splitting(split, model):
             yield
     finally:
         set_sharding_context(prev)
@@ -159,18 +198,26 @@ def sharding_context(ctx, split: Optional[TokenSplit] = None):
 def shard_hint(x: torch.Tensor,
                axes: Sequence[Optional[str]]) -> torch.Tensor:
     """``x`` itself; raises ``NotImplementedError`` when the context would
-    shard it over a mesh axis larger than 1 (tensor parallelism, or the
-    data axes outside a data-manual region)."""
+    shard it over a data axis larger than 1 (outside a data-manual
+    region), or over the model axis along a logical axis the port does
+    not split (``UNSPLIT_MODEL_AXES``)."""
     ctx = get_sharding_context()
     if ctx is None:
         return x
     sharding = ctx.activation_sharding(tuple(axes), x.shape)
     for dim, names in sharding.dim_axes().items():
-        if ctx.axis_size(names) > 1:
+        if ctx.axis_size(names) <= 1:
+            continue
+        if names != ("model",):
             raise NotImplementedError(
                 f"shard_hint{tuple(axes)}: dim {dim} would shard over mesh "
                 f"axes {names} (size {ctx.axis_size(names)}); the port "
                 "runs data parallelism over rank-local slices (run under "
-                "rules.manual_over(rules.dp_axes)) and has no tensor "
-                "parallelism yet (ROADMAP queue A)")
+                "rules.manual_over(rules.dp_axes))")
+        if axes[dim] in UNSPLIT_MODEL_AXES:
+            raise NotImplementedError(
+                f"shard_hint{tuple(axes)}: {axes[dim]!r} over the model "
+                "axis (size {}): the port splits heads, kv_heads, mlp and "
+                "vocab over it; expert parallelism and mamba on the model "
+                "axis are ROADMAP queue A".format(ctx.axis_size(names)))
     return x

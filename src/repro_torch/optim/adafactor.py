@@ -10,12 +10,14 @@ computed in f32.
 
 Under fsdp a parameter leaf is a block of a dim sharded over a data
 group; ``update(..., shards=)`` then takes, for each leaf, that dim and
-group (``train_step.DataParallel.shards``; None: a whole leaf).  A mean
-over the sharded dim (a factor's row or column mean, the row factors'
-mean, the update's RMS) sums the block, all-reduces the sums over the
-group and divides by the global count, so each rank's factors are the
-blocks (or, reduced over the sharded dim, the whole) of the one-device
-factors, as the reference's ``opt_state_shardings`` lays them out.
+group (``train_step.DataParallel.opt_shards``; None: a whole leaf), or
+a tuple of such splits (a data block of one dim and a tensor-parallel
+block of another).  A mean over a split dim (a factor's row or column
+mean, the row factors' mean, the update's RMS) sums the block,
+all-reduces the sums over that split's group and divides by the global
+count, so each rank's factors are the blocks (or, reduced over the split
+dim, the whole) of the one-device factors, as the reference's
+``opt_state_shardings`` lays them out.
 """
 from __future__ import annotations
 
@@ -40,18 +42,23 @@ def _mean(x: torch.Tensor, dims, shard, keepdim: bool = False
           ) -> torch.Tensor:
     """``x.mean(dims)`` (None: every dim) of a tensor whose dim
     ``shard.dim`` is a block over ``shard.group`` (``shard`` None: x is
-    whole): the partial sums all-reduced, over the global count."""
+    whole; a tuple: one block a split): the partial sums all-reduced over
+    each split group of a reduced dim, over the global count."""
     alldims = tuple(range(x.dim())) if dims is None else dims
-    if shard is None or shard.dim not in alldims:
+    shards = shard if isinstance(shard, tuple) else (shard,)
+    shards = [sh for sh in shards if sh is not None and sh.dim in alldims]
+    if not shards:
         return x.mean() if dims is None else x.mean(dim=dims,
                                                     keepdim=keepdim)
     total = x.sum() if dims is None else x.sum(dim=dims, keepdim=keepdim)
-    total = comms.all_reduce(total.contiguous(), "sum", shard.group,
-                             tag="opt")
     n = 1
     for d in alldims:
         n *= x.shape[d]
-    return total / (n * shard.size)
+    for sh in shards:
+        total = comms.all_reduce(total.contiguous(), "sum", sh.group,
+                                 tag="opt")
+        n *= sh.size
+    return total / n
 
 
 def adafactor(decay: float = 0.8, eps: float = 1e-30,

@@ -36,7 +36,13 @@ operand, so each tap computes its share's sums (counts, squared sums,
 the extreme scales) from the global groups (a token-spanning group's
 amax shared, the subsampled rows the global operand's) and reduces them
 over the data group before it finalizes them: every rank then holds one
-process's stats (counts exactly, squared sums to rounding).
+process's stats (counts exactly, squared sums to rounding).  Under a
+tensor-parallel model split (``core.quantize.ModelSplit``) an operand
+split over the model group (a column-parallel weight's N block, a
+row-parallel one's K block, their activations and cotangents) is
+treated the same way over the model group: groups meeting the split
+share their amax, the subsampled lines are the global operand's, and
+the sums are reduced over the model group.
 """
 from __future__ import annotations
 
@@ -50,9 +56,11 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.core import routing
 from repro_torch.core.quantize import (QuantSpec, _blocked_view,
-                                       _group_amax, scale_from_amax,
-                                       share_amax, spans_ranks,
-                                       splitting, token_split)
+                                       _group_amax, model_span,
+                                       model_split, scale_from_amax,
+                                       share_amax, share_model_amax,
+                                       spans_ranks, split_state, splitting,
+                                       token_split)
 from repro_torch.distributed import comms
 from repro_torch.core.recipe import MatmulRecipe
 
@@ -237,12 +245,15 @@ def _statable(spec: QuantSpec) -> bool:
     return not spec.is_passthrough and spec.fmt != "fp16"
 
 
-def _subsample(a2d: torch.Tensor, axis: int, token_axis, split
-               ) -> torch.Tensor:
+def _subsample(a2d: torch.Tensor, axis: int, token_axis, split,
+               model_axis=None, msplit=None) -> torch.Tensor:
     """Every ``stride``-th line of ``a2d`` along ``axis``, ``stride`` from
     the global operand's count there; a rank's share of the token axis
-    keeps the lines the global operand's subsample keeps."""
+    (or of a model-split axis) keeps the lines the global operand's
+    subsample keeps."""
     n = a2d.shape[axis]
+    if msplit is not None and axis == model_axis:
+        split, token_axis = msplit, model_axis
     if split is None or axis != token_axis:
         stride = n // _SAMPLE_GROUPS
         if stride <= 1:
@@ -257,7 +268,8 @@ def _subsample(a2d: torch.Tensor, axis: int, token_axis, split
 
 def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
                   reduction_axis: int,
-                  token_axis: Optional[int] = None
+                  token_axis: Optional[int] = None,
+                  model_axis: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """Quant-health stats of one matmul operand under ``spec`` (f32 0-dim
     tensors), in one blocked pass, as the reference computes them.
@@ -269,11 +281,14 @@ def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
     rates become a sample mean.  ``token_axis``: the axis that runs over
     tokens (None: a weight); inside a token split the stats are the
     global operand's, reduced over the data group (module docstring).
+    ``model_axis``: the axis split over the model group (None: whole).
     """
     fmt = spec.format
     split = token_split() if token_axis is not None else None
+    msplit = model_split() if model_axis is not None else None
     if spec.granularity in ("token", "block"):
-        a2d = _subsample(a2d, 1 - reduction_axis, token_axis, split)
+        a2d = _subsample(a2d, 1 - reduction_axis, token_axis, split,
+                         model_axis, msplit)
     rows, cols = a2d.shape
     af = _blocked_view(a2d, spec.granularity, spec.block,
                        reduction_axis).to(torch.float32)
@@ -283,6 +298,12 @@ def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
             spec.granularity, spec.block, a2d.shape[token_axis],
             token_axis == reduction_axis):
         amax = share_amax(amax, split)
+    if msplit is not None:
+        m = a2d.shape[model_axis]
+        kind = model_span(spec.granularity, spec.block, m,
+                          model_axis == reduction_axis)
+        if kind is not None:
+            amax = share_model_amax(amax, msplit, kind, m, spec.block)
     scale = scale_from_amax(amax, fmt, spec.pow2_scale)
     q = F.round_to_format(af / scale, fmt) * scale
     nonzero = mag > 0
@@ -291,9 +312,10 @@ def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
     clipped = (mag > scale * (fmt.max_value * (1.0 + 1e-6))).sum()
     smax, smin = scale.max(), scale.min()
     n = rows * cols
-    if split is not None:
-        under, nz, clipped, err2, val2, smax, smin, n = _reduce_sums(
-            split, under, nz, clipped, err2, val2, smax, smin, n)
+    for sp in (split, msplit):
+        if sp is not None:
+            under, nz, clipped, err2, val2, smax, smin, n = _reduce_sums(
+                sp, under, nz, clipped, err2, val2, smax, smin, n)
     underflow = under / torch.clamp(nz, min=1)
     rel_err = torch.sqrt(err2 / torch.clamp(val2, min=1e-30))
     clip = clipped / n
@@ -330,18 +352,22 @@ _FWD_SLOTS = (
     ("dgrad_w", 1, "dgrad_w", 1),  # w^T quantized over N == w over axis 1
 )
 _TOKEN_AXIS = (0, None)            # of (x, w)
+# of (x, w), per tensor-parallel layout: the axis split over the model
+# group (a column-parallel w's N, a row-parallel pair's K)
+_MODEL_AXIS = {None: (None, None), "col": (None, 1), "row": (1, 0)}
 
 
 def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
-               fused_fwd: Optional[Dict[str, Optional[Dict]]] = None
-               ) -> None:
+               fused_fwd: Optional[Dict[str, Optional[Dict]]] = None,
+               tp: Optional[str] = None) -> None:
     """Record the forward-computable operand stats of one quantized matmul
     into the current frame; no-op without a collector.  ``fused_fwd``
     carries the fwd_x / fwd_w stats that the kernels' epilogue already
     produced (full operand, no subsampling); those slots skip the
     re-computation here.  3-D operands, (E, C, K) x (E, K, N), are a
     batched (per-expert) matmul: each slot's stats are computed per
-    expert and averaged, as the reference's ``tap_matmul_batched``."""
+    expert and averaged, as the reference's ``tap_matmul_batched``.
+    ``tp``: the weight's tensor-parallel layout (``core.qlinear``)."""
     col = active()
     if col is None:
         return
@@ -363,7 +389,8 @@ def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
                      for k in per_e[0]}
         else:
             stats = operand_stats(ops[op_i], spec, axis,
-                                  _TOKEN_AXIS[op_i])
+                                  _TOKEN_AXIS[op_i],
+                                  _MODEL_AXIS[tp][op_i])
         for stat, v in stats.items():
             fr.stats[f"{scope}/mm{j}/{slot}/{stat}"] = v
 
@@ -384,14 +411,17 @@ def make_probes(n_layers: int, device=None) -> Dict[str, torch.Tensor]:
             for c in PROBE_CLASSES}
 
 
-def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
+def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe,
+                     tp: Optional[str] = None) -> torch.Tensor:
     g2 = g.reshape(-1, g.shape[-1])
     vals = []
+    # g's columns are a column-parallel weight's N block
+    m_axis = 1 if tp == "col" else None
     # dgrad: g reduced over N (axis 1); wgrad: g reduced over M (axis 0);
     # g's rows are tokens
     for spec, axis in ((recipe.dgrad_g, 1), (recipe.wgrad_g, 0)):
         if _statable(spec):
-            s = operand_stats(g2, spec, axis, 0)
+            s = operand_stats(g2, spec, axis, 0, m_axis)
             vals += [s["clip"], s["underflow"], s["rel_err"]]
         else:
             vals += [torch.zeros((), device=g.device)] * 3
@@ -403,6 +433,10 @@ def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
         # loss's: the squared sums are scaled back by size^2 (exact)
         gnorm_sq = comms.all_reduce(gnorm_sq.reshape(1), "sum", split.group,
                                     tag="telemetry")[0] / split.size ** 2
+    msplit = model_split()
+    if m_axis is not None and msplit is not None:
+        gnorm_sq = comms.all_reduce(gnorm_sq.reshape(1), "sum",
+                                    msplit.group, tag="telemetry")[0]
     vals.append(gnorm_sq)
     vals.append(torch.ones((), device=g.device))   # tap count
     return torch.stack(vals)
@@ -411,24 +445,26 @@ def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
 class _GradTap(torch.autograd.Function):
     """Identity on ``y``; its backward passes the cotangent on unchanged
     and returns the cotangent's stats as the probe's gradient, in row
-    ``row`` (under the forward's token split: autograd may run the
-    backward on a thread of its own)."""
+    ``row`` (under the forward's token and model splits: autograd may run
+    the backward on a thread of its own)."""
 
     @staticmethod
-    def forward(ctx, y, probe, row: int, recipe: MatmulRecipe):
+    def forward(ctx, y, probe, row: int, recipe: MatmulRecipe,
+                tp: Optional[str] = None):
         ctx.row, ctx.recipe, ctx.shape = row, recipe, probe.shape
-        ctx.split = token_split()
+        ctx.split, ctx.tp = split_state(), tp
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
         gp = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
-        with splitting(ctx.split):
-            gp[ctx.row] = _cotangent_stats(g, ctx.recipe)
-        return g, gp, None, None
+        with splitting(*ctx.split):
+            gp[ctx.row] = _cotangent_stats(g, ctx.recipe, ctx.tp)
+        return g, gp, None, None, None
 
 
-def grad_tap(y: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
+def grad_tap(y: torch.Tensor, recipe: MatmulRecipe,
+             tp: Optional[str] = None) -> torch.Tensor:
     """Identity whose backward writes the cotangent's quant stats into the
     current layer's row of its module class's probe; the forward value
     and the cotangent passed upstream are untouched."""
@@ -441,7 +477,7 @@ def grad_tap(y: torch.Tensor, recipe: MatmulRecipe) -> torch.Tensor:
     idx = col.layer_index
     last = probe.shape[0] - 1
     row = last if idx is None else min(idx, last)
-    return _GradTap.apply(y, probe, row, recipe)
+    return _GradTap.apply(y, probe, row, recipe, tp)
 
 
 def _vec_metrics(vec: torch.Tensor, prefix: str,

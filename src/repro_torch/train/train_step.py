@@ -14,12 +14,11 @@ With it off the step has no collector and no probes: it is the plain
 step.
 
 Data parallelism (``rules``, a ``distributed.sharding.ShardingRules``
-over a live ``DeviceMesh``; only its data axes may be larger than 1):
-``torch.distributed`` runs one process a data shard, each holding the
-whole step.  Each rank takes its rows of the global batch (rows
-``i*B/dp ...``, as ``rules.batch_sharding`` splits dim 0) and runs the
-model under ``rules.manual_over(rules.dp_axes)`` (its slice is already
-the data shard: a data hint is a no-op).  The reduction follows the
+over a live ``DeviceMesh``): ``torch.distributed`` runs one process a
+device, each holding the whole step.  Each rank takes its rows of the
+global batch (rows ``i*B/dp ...``, as ``rules.batch_sharding`` splits dim
+0) and runs the model under ``rules.manual_over(rules.dp_axes)`` (its
+slice is already the data shard: a data hint is a no-op).  The reduction follows the
 reference's two orders:
 
   * ``grad_compression="fp8"`` with a data axis > 1: quantize before
@@ -49,7 +48,21 @@ reference's two orders:
     others'.  Adafactor's factored moments reduce over the sharded dim
     (``optim.adafactor``, ``shards=``).
 
-With no rules, or a data axis of 1, the step is the single-device step:
+Tensor parallelism (a ``model`` axis > 1, a dense attention stack): the
+heads / kv_heads / mlp leaves are each rank's blocks of the model group
+and are used as blocks (``models.attention``, ``models.mlp``: the
+Megatron layout, the row-parallel sums and the cotangent sums placed
+there); a ``vocab`` leaf that the rules split is gathered whole for the
+forward, as fsdp's blocks are, and its gradient sliced back.  The region
+carries the model split (``core.quantize.ModelSplit``) beside the token
+split, so a quant group that meets it shares its amax over the model
+group.  Every leaf's gradient is then the same on every model rank of a
+data shard, or the rank's block, and reduces over the data group alone;
+the clip's norm sums each block's squares over its groups
+(``DataParallel.global_norm``).
+
+With no rules, or data and model axes of 1, the step is the
+single-device step:
 clip, then ``fp8_compress_grads`` (the reference's order there), and no
 collective.  Every collective goes through ``distributed.comms``, which
 records it for the census.
@@ -64,7 +77,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.qlinear import matmul_impl
-from repro_torch.core.quantize import TokenSplit
+from repro_torch.core.quantize import ModelSplit, TokenSplit
 from repro_torch.core.recipe import as_plan
 from repro_torch.distributed import comms
 from repro_torch.distributed.sharding import (Sharding, ShardingRules,
@@ -139,15 +152,34 @@ def _grads(model: Model, plan, params, batch, collector=None):
 # Mesh structure
 # ---------------------------------------------------------------------------
 
-def check_rules(rules: ShardingRules) -> None:
+def model_size(rules: Optional[ShardingRules]) -> int:
+    """The size of the rules' ``model`` axis (1 without one)."""
+    if rules is None or "model" not in rules.axis_names:
+        return 1
+    return rules.axis_size(("model",))
+
+
+def check_rules(rules: ShardingRules, model: Optional[Model] = None
+                ) -> None:
     """Raise ``NotImplementedError`` for a mesh axis other than the data
-    axes that is larger than 1 (the port has no tensor parallelism)."""
+    axes and ``model`` that is larger than 1, and, on a model axis > 1,
+    for what the port does not split over it yet: a model other than a
+    dense attention stack (expert parallelism, mamba on the model axis,
+    the cross-attention families) and fp8 gradient compression."""
     for name in rules.axis_names:
-        if name not in rules.dp_axes and rules.axis_size((name,)) > 1:
+        if name not in rules.dp_axes and name != "model" \
+                and rules.axis_size((name,)) > 1:
             raise NotImplementedError(
                 f"mesh axis {name!r} of size {rules.axis_size((name,))}: "
-                "the port runs data parallelism only; the model axis "
-                "through the kernels is ROADMAP queue A")
+                "the port splits the data axes and 'model'")
+    if model is not None and model_size(rules) > 1 \
+            and model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"a {model.cfg.family} model on a model axis of "
+            f"{model_size(rules)}: the port splits a dense attention "
+            "stack's heads, kv_heads, mlp and vocab; expert parallelism, "
+            "mamba and cross attention on the model axis are ROADMAP "
+            "queue A")
 
 
 def compression_state_sharding(rules: ShardingRules, param_shardings):
@@ -192,16 +224,34 @@ def train_step_shardings(model: Model, tcfg: TrainConfig,
 _GROUPS: Dict[Any, Any] = {}
 
 
-def _data_group(rules: ShardingRules):
-    """The process group of the data axes (the whole mesh: every other
-    axis is 1)."""
-    mesh, axes = rules.mesh, rules.dp_axes
-    if len(axes) == 1:
-        return mesh.get_group(axes[0])
-    ranks = tuple(sorted(mesh.mesh.flatten().tolist()))
+def _ranks_group(ranks: Tuple[int, ...]):
+    """The process group of ``ranks`` (made once; every rank of the world
+    must ask for every such group in the same order)."""
     if ranks not in _GROUPS:
         _GROUPS[ranks] = dist.new_group(list(ranks))
     return _GROUPS[ranks]
+
+
+def _data_group(rules: ShardingRules):
+    """The process group of the data axes: the ranks that share this
+    rank's coordinates on every other axis (the whole mesh when every
+    other axis is 1).  Every rank makes every such group, in one
+    order."""
+    mesh, axes = rules.mesh, rules.dp_axes
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in keep]
+    grid = mesh.mesh.permute(rest + keep).reshape(
+        -1, rules.axis_size(axes))
+    mine = dist.get_rank()
+    out = None
+    for row in grid.tolist():
+        group = _ranks_group(tuple(sorted(row)))
+        if mine in row:
+            out = group
+    return out
 
 
 def _axes_group(rules: ShardingRules, axes: Tuple[str, ...]):
@@ -246,34 +296,73 @@ def _factor_dims(dim: int, nd: int):
             dim if dim < nd - 2 else (nd - 2 if dim == nd - 1 else None))
 
 
+def _factors(sh: Optional[Shard], nd: int):
+    """(vr's, vc's) layout of a parameter split as ``sh``."""
+    if sh is None:
+        return None, None
+    return tuple(sh.at(d) for d in _factor_dims(sh.dim, nd))
+
+
+def _present(*shards) -> Optional[Tuple[Shard, ...]]:
+    """The shards that are not None, or None when there is none."""
+    out = tuple(sh for sh in shards if sh is not None)
+    return out or None
+
+
 class DataParallel:
-    """A rank's side of a data-parallel mesh: its data group, its index
-    there, and for each parameter leaf its layout on the data axes
-    (``shards``: a ``Shard``, None: replicated; ``dims``: the dims)."""
+    """A rank's side of a (data, model) mesh: its data group and index
+    there, its model group and index there, and for each parameter leaf
+    its layout: on the data axes (``shards``: a ``Shard``, None:
+    replicated; ``dims``: the dims) and on the model axis (``mshards``;
+    ``gathered``: a ``vocab`` leaf, gathered whole before the forward, its
+    gradient sliced back).
+
+    The model axis is the Megatron layout: the heads / kv_heads / mlp
+    leaves are used as the rank's blocks (``models.attention`` /
+    ``models.mlp`` place the row-parallel sums and the cotangent sums of
+    the column-parallel inputs), so their gradients are the rank's
+    blocks; a leaf the rules keep whole over ``model`` (norms, biases, KV
+    heads whose count does not divide the axis, an odd vocab) has the same
+    gradient on every model rank (every activation it meets is summed
+    over the model group first), so every gradient is reduced over the
+    data group alone."""
 
     def __init__(self, model: Model, rules: ShardingRules):
         self.rules = rules
         self.size = rules.dp_size
-        self.group = _data_group(rules)
-        self.index = dist.get_rank(self.group)
-        self.shards = tree_map(self._shard,
-                               rules.param_shardings(model.param_specs()))
+        self.msize = model_size(rules)
+        self.group = _data_group(rules) if rules.dp_axes else None
+        self.index = (dist.get_rank(self.group) if self.group is not None
+                      else 0)
+        self.mgroup = (rules.mesh.get_group("model") if self.msize > 1
+                       else None)
+        self.mindex = (dist.get_rank(self.mgroup) if self.mgroup is not None
+                       else 0)
+        specs = model.param_specs()
+        shardings = rules.param_shardings(specs)
+        self.shards = tree_map(self._shard, shardings)
         self.dims = tree_map(lambda sh: None if sh is None else sh.dim,
                              self.shards)
         self.sharded = any(d is not None for d in tree_leaves(self.dims))
-        nds = map_specs(lambda sp: len(sp.shape), model.param_specs())
-        factors = tree_map(
-            lambda sh, nd: (None, None) if sh is None else
-            tuple(sh.at(d) for d in _factor_dims(sh.dim, nd)),
-            self.shards, nds)
-        self.vr_shards = tree_map(lambda f: f[0], factors)
-        self.vc_shards = tree_map(lambda f: f[1], factors)
+        self.mshards = tree_map(self._mshard, shardings)
+        self.gathered = tree_map(
+            lambda sh, axes: sh is not None and axes[sh.dim] == "vocab",
+            self.mshards, map_specs(lambda sp: tuple(sp.axes), specs))
+        self.msharded = any(sh is not None
+                            for sh in tree_leaves(self.mshards))
+        nds = map_specs(lambda sp: len(sp.shape), specs)
+        dfac = tree_map(_factors, self.shards, nds)
+        mfac = tree_map(_factors, self.mshards, nds)
+        self.vr_shards = tree_map(lambda d, m: (d[0], m[0]), dfac, mfac)
+        self.vc_shards = tree_map(lambda d, m: (d[1], m[1]), dfac, mfac)
+        # adafactor's means: every split of a leaf (None: a whole leaf)
+        self.opt_shards = tree_map(_present, self.shards, self.mshards)
 
     def _shard(self, sh: Sharding) -> Optional[Shard]:
         dp = self.rules.dp_axes
         dims = [d for d, names in sh.dim_axes().items()
                 if any(a in dp for a in names)]
-        if not dims:
+        if not dims or self.size <= 1:
             return None
         axes = tuple(a for a in sh.dim_axes()[dims[0]] if a in dp)
         if axes == dp:
@@ -284,20 +373,47 @@ class DataParallel:
                      self.rules.axis_size(axes),
                      _axes_group(self.rules, rest))
 
+    def _mshard(self, sh: Sharding) -> Optional[Shard]:
+        if self.msize <= 1:
+            return None
+        dims = [d for d, names in sh.dim_axes().items() if "model" in names]
+        if not dims:
+            return None
+        return Shard(dims[0], ("model",), self.mgroup, self.mindex,
+                     self.msize)
+
     @staticmethod
     def of(model: Model, rules: Optional[ShardingRules]
            ) -> Optional["DataParallel"]:
-        """None without rules or on a data axis of 1 (the single-device
-        step); raises for a model axis > 1."""
+        """None without rules or on a mesh whose data and model axes are
+        1 (the single-device step); raises for what the port does not
+        split (``check_rules``)."""
         if rules is None:
             return None
-        check_rules(rules)
-        return DataParallel(model, rules) if rules.dp_size > 1 else None
+        check_rules(rules, model)
+        if rules.dp_size > 1 or model_size(rules) > 1:
+            return DataParallel(model, rules)
+        return None
 
-    def token_split(self) -> TokenSplit:
+    @property
+    def world(self) -> int:
+        """The ranks that run the step (data x model)."""
+        return self.size * self.msize
+
+    def token_split(self) -> Optional[TokenSplit]:
         """The split of the tokens over the data group (this rank holds
-        rows ``index * n ...`` of every token axis)."""
+        rows ``index * n ...`` of every token axis); None on a data axis
+        of 1."""
+        if self.size <= 1:
+            return None
         return TokenSplit(self.group, self.index, self.size)
+
+    def model_split(self) -> Optional[ModelSplit]:
+        """The split of the heads / mlp axes over the model group; None on
+        a model axis of 1."""
+        if self.msize <= 1:
+            return None
+        return ModelSplit(self.mgroup, self.mindex, self.msize)
 
     # -- layout ------------------------------------------------------------
 
@@ -317,40 +433,69 @@ class DataParallel:
         parts = comms.all_gather(t, sh.group, tag=tag)
         return torch.cat(list(parts.unbind(0)), sh.dim)
 
+    def _block2(self, t, pair):
+        return self.block(self.block(t, pair[0]), pair[1])
+
+    def _gather2(self, t, pair, tag):
+        return self.gather_leaf(self.gather_leaf(t, pair[1], tag), pair[0],
+                                tag)
+
     def local(self, tree):
         """Blocks of a full params-shaped tree (params, mu, nu)."""
-        return tree_map(self.block, tree, self.shards)
+        return tree_map(lambda t, d, m: self._block2(t, (d, m)), tree,
+                        self.shards, self.mshards)
 
     def full(self, tree, tag: str = "param"):
-        return tree_map(lambda t, sh: self.gather_leaf(t, sh, tag), tree,
-                        self.shards)
+        return tree_map(lambda t, d, m: self._gather2(t, (d, m), tag), tree,
+                        self.shards, self.mshards)
+
+    def forward_params(self, params):
+        """The tree the forward reads: the data blocks gathered (fsdp),
+        the model blocks kept but those of the gathered (``vocab``)
+        leaves."""
+        if not (self.sharded or any(tree_leaves(self.gathered))):
+            return params
+        return tree_map(
+            lambda t, d, m, g: self.gather_leaf(
+                self.gather_leaf(t, d), m if g else None),
+            params, self.shards, self.mshards, self.gathered)
+
+    def local_grads(self, grads):
+        """The gradients of ``forward_params``'s tree as the rank's model
+        blocks (a gathered leaf's gradient, the same on every model rank,
+        sliced back)."""
+        if not any(tree_leaves(self.gathered)):
+            return grads
+        return tree_map(lambda g, m, gat: self.block(g, m) if gat else g,
+                        grads, self.mshards, self.gathered)
 
     def local_opt_state(self, opt_state):
-        if not self.sharded:
+        if not (self.sharded or self.msharded):
             return opt_state
         if isinstance(opt_state, AdafactorState):
             return AdafactorState(
                 opt_state.count,
-                tree_map(self.block, opt_state.vr, self.vr_shards),
-                tree_map(self.block, opt_state.vc, self.vc_shards))
+                tree_map(self._block2, opt_state.vr, self.vr_shards),
+                tree_map(self._block2, opt_state.vc, self.vc_shards))
         return AdamWState(opt_state.count, self.local(opt_state.mu),
                           self.local(opt_state.nu))
 
     def full_opt_state(self, opt_state):
-        if not self.sharded:
+        if not (self.sharded or self.msharded):
             return opt_state
         if isinstance(opt_state, AdafactorState):
             return AdafactorState(
                 opt_state.count,
-                tree_map(lambda t, sh: self.gather_leaf(t, sh, "opt"),
+                tree_map(lambda t, p: self._gather2(t, p, "opt"),
                          opt_state.vr, self.vr_shards),
-                tree_map(lambda t, sh: self.gather_leaf(t, sh, "opt"),
+                tree_map(lambda t, p: self._gather2(t, p, "opt"),
                          opt_state.vc, self.vc_shards))
         return AdamWState(opt_state.count, self.full(opt_state.mu, "opt"),
                           self.full(opt_state.nu, "opt"))
 
     def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's rows of the global batch."""
+        """This rank's rows of the global batch (every model rank of a data
+        shard holds the same rows)."""
         out = {}
         for k, v in batch.items():
             if v.shape[0] % self.size:
@@ -374,37 +519,45 @@ class DataParallel:
         return out.movedim(0, sh.dim)
 
     def reduce_grads(self, grads, weight: torch.Tensor):
-        """The weighted sum over ranks of ``weight * grads``: all-reduced
-        replicated leaves, reduce-scattered blocks of the sharded ones."""
+        """The weighted sum over the data group of ``weight * grads``:
+        all-reduced replicated leaves, reduce-scattered blocks of the
+        sharded ones (the model blocks as they are: each model rank
+        reduces its own)."""
         return tree_map(lambda g, sh: self._reduce_leaf(g * weight, sh),
                         grads, self.shards)
 
     def global_norm(self, grads) -> torch.Tensor:
         """The norm of the whole gradient: a block's squared sum is
-        all-reduced over its split's group (one all-reduce a split), a
-        replicated leaf's counted once."""
-        rep, split = [], {}
-        for g, sh in zip(tree_leaves(grads), tree_leaves(self.shards)):
+        all-reduced over each group its leaf is split over (one
+        all-reduce a kind of split), a whole leaf's counted once."""
+        buckets: Dict[Any, list] = {}
+        for g, d, m in zip(tree_leaves(grads), tree_leaves(self.shards),
+                           tree_leaves(self.mshards)):
             sq = torch.sum(torch.square(g.to(torch.float32)))
-            if sh is None:
-                rep.append(sq)
-            else:
-                split.setdefault(sh.axes, (sh.group, []))[1].append(sq)
+            key = (None if d is None else d.axes, m is not None)
+            buckets.setdefault(key, (d, m, []))[2].append(sq)
         dev = tree_leaves(grads)[0].device
-        total = sum(rep, torch.zeros((), device=dev))
-        for group, sqs in split.values():
-            total = total + comms.all_reduce(
-                sum(sqs).reshape(1), "sum", group, tag="norm")[0]
+        total = torch.zeros((), device=dev)
+        for d, m, sqs in buckets.values():
+            part = sum(sqs).reshape(1)
+            if d is not None:
+                part = comms.all_reduce(part, "sum", d.group, tag="norm")
+            if m is not None:
+                part = comms.all_reduce(part, "sum", m.group, tag="norm")
+            total = total + part[0]
         return torch.sqrt(total)
 
     def reduce_metrics(self, metrics: Dict[str, torch.Tensor],
                        weight: Optional[torch.Tensor] = None,
                        split: bool = False) -> Dict[str, torch.Tensor]:
-        """Metrics over the group in one all-reduce: counts (integer
-        metrics and ``tokens``) summed, the rest averaged (by ``weight``
-        when given: each rank's share of the targets).  Under a token
-        ``split`` the telemetry stats (``tel/...``) are already the
-        group's, equal on every rank: kept as they are."""
+        """Metrics over the data group in one all-reduce (the model ranks
+        of a data shard hold the same ones): counts (integer metrics and
+        ``tokens``) summed, the rest averaged (by ``weight`` when given:
+        each rank's share of the targets).  Under a token ``split`` the
+        telemetry stats (``tel/...``) are already the group's, equal on
+        every rank: kept as they are.  On a data axis of 1, as they are."""
+        if self.size <= 1:
+            return dict(metrics)
         tel = {n: v for n, v in metrics.items()
                if split and n.startswith("tel/")}
         rest = {n: v for n, v in metrics.items() if n not in tel}
@@ -427,6 +580,8 @@ class DataParallel:
     def token_weight(self, metrics) -> torch.Tensor:
         """This rank's share of the global batch's targets (f32)."""
         n = metrics["tokens"].detach().to(torch.float32).reshape(1)
+        if self.size <= 1:
+            return torch.ones((), dtype=torch.float32, device=n.device)
         total = comms.all_reduce(n.clone(), "sum", self.group, tag="metric")
         return (n / total)[0]
 
@@ -451,6 +606,10 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
                           tcfg.warmup_frac, tcfg.min_lr_frac)
     k = tcfg.microbatch
     use_compression = tcfg.grad_compression == "fp8"
+    if use_compression and model_size(rules) > 1:
+        raise NotImplementedError(
+            "fp8 gradient compression on a model axis > 1: the port "
+            "compresses over the data axes of a data-parallel mesh")
     dp = DataParallel.of(model, rules)
     spmd = dp is not None and use_compression
     if spmd and dp.sharded:
@@ -468,8 +627,10 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
            else None)
     # the mean-gradient step quantizes the global batch's groups
     split = dp.token_split() if dp is not None and not spmd else None
-    if opt.name == "adafactor" and dp is not None and dp.sharded:
-        opt_kw = {"shards": dp.shards}
+    msplit = dp.model_split() if dp is not None else None
+    if opt.name == "adafactor" and dp is not None and (dp.sharded
+                                                       or dp.msharded):
+        opt_kw = {"shards": dp.opt_shards}
     else:
         opt_kw = {}
 
@@ -525,18 +686,22 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
 
     def reduce_mean(params, batch):
         """The mean gradient of the global batch (blocks of the fsdp
-        leaves), clipped by the whole gradient's norm; the per-layer
-        gradient norms (telemetry) of the reduced gradient."""
-        full = dp.full(params) if dp.sharded else params
+        leaves and of the model-split ones), clipped by the whole
+        gradient's norm; the per-layer gradient norms (telemetry) of the
+        reduced gradient."""
+        full = dp.forward_params(params)
         grads, metrics = compute_grads(full, batch, dp.rows)
         del full
+        split_any = dp.sharded or dp.msharded
         with phase_span("collective"):
-            weight = dp.token_weight(metrics)
-            grads = dp.reduce_grads(grads, weight)
-            metrics = dp.reduce_metrics(metrics, weight, split=True)
-            norm = dp.global_norm(grads) if dp.sharded else None
+            grads = dp.local_grads(grads)
+            if dp.size > 1:
+                weight = dp.token_weight(metrics)
+                grads = dp.reduce_grads(grads, weight)
+                metrics = dp.reduce_metrics(metrics, weight, split=True)
+            norm = dp.global_norm(grads) if split_any else None
             if collector is not None:
-                whole = dp.full(grads, "telemetry") if dp.sharded else grads
+                whole = dp.full(grads, "telemetry") if split_any else grads
                 metrics.update(telemetry.grad_norm_metrics(whole))
                 del whole
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, norm=norm)
@@ -545,7 +710,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, plan, *,
     def train_step(params, opt_state, comp_state,
                    batch: Dict[str, torch.Tensor], step,
                    lr_scale: float = 1.0):
-        with layers.sharding_context(ctx, split):
+        with layers.sharding_context(ctx, split, msplit):
             if dp is None:
                 grads, metrics = compute_grads(params, batch)
                 if collector is not None:
@@ -583,14 +748,15 @@ def make_eval_step(model: Model, plan, *,
     dp = DataParallel.of(model, rules)
     ctx = rules.manual_over(rules.dp_axes) if rules is not None else None
     split = dp.token_split() if dp is not None else None
+    msplit = dp.model_split() if dp is not None else None
 
     @torch.no_grad()
     def eval_step(params, batch):
-        with layers.sharding_context(ctx, split):
+        with layers.sharding_context(ctx, split, msplit):
             if dp is None:
                 return model.loss(params, batch, plan)[1]
-            full = dp.full(params) if dp.sharded else params
-            metrics = model.loss(full, dp.rows(batch), plan)[1]
+            metrics = model.loss(dp.forward_params(params), dp.rows(batch),
+                                 plan)[1]
             return dp.reduce_metrics(metrics, dp.token_weight(metrics))
 
     return eval_step

@@ -50,8 +50,13 @@ be initialised by the caller (``torchrun``, or a spawn with a store)
 with a world of ``prod(mesh_shape)`` ranks; every rank builds the same
 ``Trainer``, draws the same seeded init and takes its block; rank 0
 logs and writes checkpoints (the others join their gathers); every
-rank reads them.  A mesh axis other than the data axes larger than 1
-raises ``NotImplementedError`` (ROADMAP queue A).  Without compression
+rank reads them.  A ``model`` axis larger than 1 splits a dense
+attention stack over the model group (Megatron's column- and
+row-parallel linears, ``models.attention`` / ``models.mlp``), each rank
+holding its blocks of the heads / kv_heads / mlp / vocab leaves and
+checkpoints holding the full arrays; any other axis, or a model other
+than a dense stack on the model axis, raises ``NotImplementedError``
+(ROADMAP queue A).  Without compression
 the data-parallel step is the one-device step of the global batch (quant
 groups spanning the batch share one amax across the ranks; telemetry
 reduces its stats over them); fsdp runs with AdamW or adafactor, and a
@@ -499,7 +504,7 @@ class Trainer:
         the model's ``ModelDims`` flops against the peak of the devices
         that ran the step (each rank of a mesh one)."""
         tokens = self.tcfg.global_batch * self.tcfg.seq_len
-        ranks = self.dp.size if self.dp is not None else 1
+        ranks = self.dp.world if self.dp is not None else 1
         return self.timer.summary(
             tokens_per_step=tokens,
             flops_per_step=train_step_flops(self.dims, tokens),

@@ -935,3 +935,130 @@ def test_qmm_stream_sr_origin(cuda, dtype):
                             trans=True, sr=True, seed=SEED + 1,
                             sr_origin=(0, 256))
     assert torch.equal(_bits(half), _bits(whole[:, 256:]))
+
+
+def _eye(n, dtype):
+    return torch.eye(n, dtype=dtype, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8, 192])
+@pytest.mark.parametrize("trans", [False, True])
+def test_qmm_stream_passed_amax_panels(cuda, dtype, m, trans):
+    """The stream kernel's amax-in entry as a tensor-parallel rank runs it
+    (``amax_reduce_a`` / ``amax_reduce_b``): a K of 128 split in two (64
+    a rank), each half's block groups (A) and tile groups (B, split along
+    K, then along its 128 quant rows) maxed with the other half's partial
+    amaxes.  The other operand an identity in pass mode, so the product
+    is the quantized panel itself (a zero's sign aside): bitwise the plain
+    version's same entry and equal to the same columns of the whole
+    operand's QDQ (SR keyed from the half's origin); an amax launch an
+    operand, then the product."""
+    whole = _rand((m, 128), dtype, 71)
+    want = qr.quantize_rows_plain(whole, mode="block", fmt_name="fp4_e2m1",
+                                  seed=SEED)
+    for i in range(2):
+        half, other = (whole[:, 64 * i:64 * (i + 1)],
+                       whole[:, 64 * (1 - i):64 * (2 - i)])
+        words = qs.group_amax_plain(other, "block").view(torch.int32)
+
+        def share(w, words=words):
+            torch.maximum(w, words, out=w)
+        a = half.T.contiguous() if trans else half.contiguous()
+        kw = dict(a_mode="block", b_mode="pass", a_fmt="fp4_e2m1",
+                  b_fmt="bf16", trans_a=trans, seed_a=SEED,
+                  sr_origin_a=(0, 64 * i), amax_reduce_a=share)
+        qs.KERNEL.reset()
+        got = qs.qmm_stream(a, _eye(64, dtype), a_sr=True, **kw)
+        assert qs.KERNEL.launches == 2
+        ref = qs.qmm_stream_plain(a, _eye(64, dtype), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref))
+        # the identity's product keeps values, not the sign of a zero
+        assert torch.equal(got, want[:, 64 * i:64 * (i + 1)])
+    # B' (K, N): tile groups split along K, then along N (B's quant rows)
+    wb = _rand((128, 192), dtype, 72) * 0.1
+    want_b = qr.quantize_rows_plain(wb, mode="tile", fmt_name="fp4_e2m1",
+                                    trans=True, emit_trans=True)
+    for split_k in (True, False):
+        for i in range(2):
+            if split_k:
+                half = wb[64 * i:64 * (i + 1)]
+                other = wb[64 * (1 - i):64 * (2 - i)]
+                cut = want_b[64 * i:64 * (i + 1)]
+            else:
+                half = wb[:, 64 * i:64 * (i + 1)]
+                other = wb[:, 64 * (1 - i):64 * (2 - i)]
+                cut = want_b[:, 64 * i:64 * (i + 1)]
+            words = qs.group_amax_plain(other.T, "tile").view(torch.int32)
+
+            def share(w, words=words):
+                torch.maximum(w, words, out=w)
+            b = half.T.contiguous() if trans else half.contiguous()
+            k = half.shape[0]
+            kw = dict(a_mode="pass", b_mode="tile", a_fmt="bf16",
+                      b_fmt="fp4_e2m1", trans_b=trans, amax_reduce_b=share)
+            got = qs.qmm_stream(_eye(k, dtype), b, **kw)
+            ref = qs.qmm_stream_plain(_eye(k, dtype), b, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(ref))
+            assert torch.equal(got, cut)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8, 4096])
+def test_qmm_stream_passed_amax_product(cuda, dtype, m):
+    """The FFN down projection's forward on one tensor-parallel rank
+    (A' = x (m, 64) block, B' = w (64, 768) tile, both groups spanning
+    the two halves of K = 128), with the stats epilogue: the product
+    within the GEMM bar of the plain version's same entry, the stats
+    bitwise (counts, extrema) / rtol 1e-6 (sums); two amax launches, the
+    product and the stats fold."""
+    x = _rand((m, 128), dtype, 73)
+    w = _rand((128, 768), dtype, 74) * 0.05
+    wx = qs.group_amax_plain(x[:, 64:], "block").view(torch.int32)
+    ww = qs.group_amax_plain(w[64:].T, "tile").view(torch.int32)
+    kw = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+              b_fmt="fp4_e2m1", collect_stats=True,
+              amax_reduce_a=lambda t: torch.maximum(t, wx, out=t),
+              amax_reduce_b=lambda t: torch.maximum(t, ww, out=t))
+    a, b = x[:, :64].contiguous(), w[:64].contiguous()
+    qs.KERNEL.reset()
+    y, (sa, sb) = qs.qmm_stream(a, b, **kw)
+    assert qs.KERNEL.launches == 2 + 3
+    ref, (ra, rb) = qs.qmm_stream_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    _assert_gemm_close(y, ref)
+    _assert_stats(sa, ra)
+    _assert_stats(sb, rb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stats", [False, True])
+def test_quantize_rows_shared_row_token(cuda, dtype, stats):
+    """A row-major token group shared over ranks (a row-parallel x's
+    fwd operand: each rank holds half of K): the row amax launch, the
+    caller's MAX with the other half's words, the QDQ reading them;
+    bitwise the plain version's same entry and the whole operand's
+    columns."""
+    whole = _rand((200, 512), dtype, 75)
+    want = qr.quantize_rows(whole, mode="token", fmt_name="fp8_e4m3")
+    for i in range(2):
+        part = whole[:, 256 * i:256 * (i + 1)].contiguous()
+        other = _amax_words(whole[:, 256 * (1 - i):256 * (2 - i)], "token")
+
+        def share(words, other=other):
+            torch.maximum(words, other, out=words)
+        kw = dict(mode="token", fmt_name="fp8_e4m3", amax_reduce=share,
+                  collect_stats=stats)
+        qr.KERNEL.reset()
+        got = qr.quantize_rows(part, **kw)
+        assert qr.KERNEL.launches == 2 + 2 * stats
+        ref = qr.quantize_rows_plain(part, **kw)
+        torch.cuda.synchronize()
+        if stats:
+            (got, st), (ref, st_ref) = got, ref
+            _assert_stats(st, st_ref)
+        assert torch.equal(_bits(got), _bits(ref))
+        assert torch.equal(_bits(got),
+                           _bits(want[:, 256 * i:256 * (i + 1)]))

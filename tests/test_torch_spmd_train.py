@@ -19,6 +19,7 @@ Spawned ranks meet through a ``FileStore`` under ``tmp_path``
 import dataclasses
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -199,6 +200,29 @@ NEW_CASES = {
     "fp4_nofsdp": (dict(linear_impl="pallas"), dict(FP4, fsdp=False), 2),
     "adafactor": (dict(optimizer="adafactor"), dict(), 2),
 }
+# Tensor parallelism (the model axis): tiny on (1, 2) under paper_fp4 (the
+# kernels' plain versions: the FFN's block and tile groups span the two
+# ranks' 64 of d_ff; two steps) and fp8 (token groups along the split
+# heads), and on (2, 2) under paper_fp4 (one step each: the test time),
+# against the reference's Trainer on the same
+# meshes at FP4_TOL, and against the port's one process on the step-0
+# loss (the same parameters) at TP_ONE_TOL: unlike a data split, a model
+# split changes the order of float summation in the forward (a
+# row-parallel output is the sum of the ranks' partial products), and a
+# last-bit difference moves a downstream FP4 / FP8 element by a whole
+# grid step (read: 4.8e-6 relative on tp_fp4's step-0 loss, 0 on tp_fp8's).
+# Later steps also carry AdamW's +-lr moves of the gradient elements such
+# a flip takes across zero (tp_fp8's step-1 loss read 1.7e-4 off one
+# process, within FP4_TOL of the reference): they are held to the
+# reference alone.
+TP_ONE_TOL = 2e-5
+TP_CASES = {
+    "tp_fp4": (dict(linear_impl="pallas"), dict(FP4, mesh_shape=(1, 2)),
+               2),
+    "tp_fp8": (dict(), dict(FP4, recipe="fp8", mesh_shape=(1, 2)), 1),
+    "tp_fp4_2x2": (dict(linear_impl="pallas"),
+                   dict(FP4, mesh_shape=(2, 2)), 1),
+}
 
 REF_MESH = textwrap.dedent("""
     import os, sys, json
@@ -269,7 +293,7 @@ def ref_mesh(tmp_path_factory):
     out_dir = tmp_path_factory.mktemp("ref_mesh")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", REF_MESH, str(out_dir),
-                          json.dumps(NEW_CASES)],
+                          json.dumps({**NEW_CASES, **TP_CASES})],
                          env=env, capture_output=True, text=True,
                          timeout=900)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -339,7 +363,9 @@ def _port_over(model_over, over):
 def new_ranks(tmp_path_factory, ref_mesh):
     """The new cases on 2 gloo ranks in one process group."""
     cases = [(name, _port_over(*case[:2]), case[2])
-             for name, case in {**NEW_CASES, **PORT_CASES}.items()]
+             for name, case in {**NEW_CASES, **PORT_CASES,
+                                **TP_CASES}.items()
+             if math.prod(case[1].get("mesh_shape", (2,))) == 2]
     return run_ranks("train_cases", 2, tmp_path_factory.mktemp("new"),
                      cases, ref_mesh[2])
 
@@ -370,6 +396,36 @@ def test_two_rank_paper_fp4_matches_reference(name, ref_mesh, new_ranks):
                                    rtol=ONE_TOL, err_msg=key)
     for a, b in zip(got["params"], tree_leaves(state.params)):
         np.testing.assert_allclose(a, b.numpy(), rtol=0, atol=ONE_TOL)
+
+
+@pytest.mark.parametrize("name", list(TP_CASES))
+def test_tensor_parallel_matches_reference(name, tmp_path, ref_mesh,
+                                           new_ranks):
+    """tiny on a model axis of 2 ((1, 2) over 2 gloo ranks, (2, 2) over
+    4): heads, kv_heads, mlp and the vocab (gathered for the embedding and
+    the head) split over the model group, quant groups meeting the split
+    sharing their amax; against the reference's ``Trainer`` on the same
+    mesh at FP4_TOL, and the port's one process on the step-0 loss at
+    TP_ONE_TOL;
+    the step's collectives audit clean, the row-parallel sums and the
+    model group's amax words counted apart."""
+    ref, out_dir, init, like = ref_mesh
+    model_over, over, steps = TP_CASES[name]
+    if math.prod(over["mesh_shape"]) == 2:
+        ranks = [r[name] for r in new_ranks]
+    else:
+        ranks = run_ranks("train_mesh", 4, tmp_path,
+                          _port_over(model_over, over), steps, "", init)
+    got = _check_run(ranks, ref, out_dir, like, name, FP4_TOL)
+    assert got["local_shapes"][0][0] * 2 == got["params"][0].shape[0]
+    census, findings = qlint.audit_comms(got["census"], expect_fp8=False)
+    assert findings == []
+    assert census["tp_sums"] > 0 and census["amax_model_ops"] > 0
+    one_over = {k: v for k, v in over.items() if k != "mesh_shape"}
+    one = _tiny_trainer(_port_over(model_over, one_over), steps=steps)
+    one.train(one.init_state(params=params_from_jax(init, one.model.cfg)))
+    np.testing.assert_allclose(got["history"][0]["loss"],
+                               one.history[0]["loss"], rtol=TP_ONE_TOL)
 
 
 def _assert_tel_rows(got_rows, ref_rows, what, float_rtol=1e-5):

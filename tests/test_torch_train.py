@@ -345,9 +345,11 @@ def test_trainer_refuses_unported_features(tmp_path):
     plan presets, remat, ``loss_chunk`` and adafactor: the tests below
     and test_torch_checkpoint; the controller and its cost calibration:
     test_torch_controller; fp8 gradient compression and data-parallel
-    meshes: test_torch_spmd_train).  ``grad_compression`` and
+    meshes: test_torch_spmd_train; the model axis of a dense stack:
+    test_torch_tensor_parallel).  ``grad_compression`` and
     ``mesh_shape`` are accepted; a ``model`` axis larger than 1 raises
-    (no tensor parallelism), and so does a mesh larger than the world.
+    for a model the port does not split over it (MoE here), and so does
+    a mesh larger than the world.
     ``remat_policy="dots"`` raises: no selective-checkpoint policy sees
     the port's matmul kernels."""
     import torch.distributed as dist
@@ -355,9 +357,12 @@ def test_trainer_refuses_unported_features(tmp_path):
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
+    moe = importlib.import_module(
+        "repro_torch.configs.olmoe_1b_7b").REDUCED
     with pytest.raises(NotImplementedError, match="queue A"):
-        Trainer(model, TrainConfig(), pipe, rules=default_rules(
-            AbstractMesh((1, 2), ("data", "model")), cfg))
+        Trainer(t_build(moe, "cpu"), TrainConfig(), pipe,
+                rules=default_rules(AbstractMesh((1, 2),
+                                                 ("data", "model")), moe))
     Trainer(model, TrainConfig(grad_compression="fp8"), pipe)
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,

@@ -292,3 +292,119 @@ def wgrad_operands(rank, world, cases, moe_recipe=None):
                       enumerate(_linear_case(impl, recipe, x, w, c,
                                              None))]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (the model axis)
+# ---------------------------------------------------------------------------
+
+_ROLES = ("fwd", "dgrad", "wgrad")
+
+
+def _model_linear(impl, recipe, tp, x, w, c, msplit):
+    """One linear ``y = x @ w`` (``tp``: col | row, ``x`` / ``w`` / ``c``
+    this rank's blocks) with the cotangent ``c`` under the model split
+    ``msplit`` (None: none): the QDQ'd operands of its three roles as
+    captured, each ``(role, side, effective operand)`` (A' / B' of the
+    role), and ``[y, dx, dw]``."""
+    from repro_torch.core import qlinear as ql
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.nn import layers
+    seen, current = [], [None]
+
+    def track(fn):                  # the role of each matmul
+        def wrapped(*a, **k):
+            current[0] = k.get("role")
+            return fn(*a, **k)
+        return wrapped
+
+    def capture_qdq(fn):            # "qdq": A' then B', every role
+        def wrapped(x2d, spec, *a, **k):
+            out = fn(x2d, spec, *a, **k)
+            i = len(seen)
+            seen.append((_ROLES[i // 2], "ab"[i % 2], out))
+            return out
+        return wrapped
+
+    def capture_grid(fn):           # kernels: quant orientation, no pass
+        def wrapped(x2d, spec, *a, **k):
+            out = fn(x2d, spec, *a, **k)
+            if not spec.is_passthrough:
+                role = current[0]
+                specs = {"fwd": (recipe.fwd_x, recipe.fwd_w),
+                         "dgrad": (recipe.dgrad_g, recipe.dgrad_w),
+                         "wgrad": (recipe.wgrad_x, recipe.wgrad_g)}[role]
+                done = sum(r == role for r, _, _ in seen)
+                side = "b" if done or specs[0].is_passthrough else "a"
+                seen.append((role, side, out.T if side == "b" else out))
+            return out
+        return wrapped
+    orig = (ql.qdq, qs.qdq_grid_ref, qr.qdq_grid_ref, ql._role)
+    ql._role = track(ql._role)
+    if impl == "qdq":
+        ql.qdq = capture_qdq(ql.qdq)
+    else:
+        qs.qdq_grid_ref = capture_grid(qs.qdq_grid_ref)
+        qr.qdq_grid_ref = capture_grid(qr.qdq_grid_ref)
+    try:
+        xr = x.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        with layers.sharding_context(None, None, msplit):
+            y = ql.qlinear(xr, wr, recipe, impl=impl, tp=tp)
+            (y * c).sum().backward()
+    finally:
+        ql.qdq, qs.qdq_grid_ref, qr.qdq_grid_ref, ql._role = orig
+    return ([(r, s, t.detach().clone()) for r, s, t in seen],
+            [y.detach().clone(), xr.grad.clone(), wr.grad.clone()])
+
+
+def model_operands(rank, world, cases):
+    """Each case ``(name, impl, recipe, tp, (m, k, n))``: one linear of
+    (m, k) x (k, n) from a seeded draw, its weight (and the activation
+    or cotangent that meets the split) cut to this rank's block of the
+    model axis: {name: {"split": operands under the model split, "local":
+    the same blocks with no split (the control: each rank's own amax, SR
+    keyed from 0), "whole": one process's operands on the whole tensors
+    cut to this rank's block along each operand's split axis, "outs" /
+    "outs_whole": [y, dx, dw]}}, or {"error": the ``ValueError``}."""
+    from repro_torch.core.qlinear import ROLE_MODEL
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES, MatmulRecipe
+    msplit = ModelSplit(dist.group.WORLD, rank, world)
+    out = {}
+    for name, impl, recipe, tp, (m, k, n) in cases:
+        if not isinstance(recipe, MatmulRecipe):
+            recipe = getattr(RECIPES[recipe[0]], recipe[1])
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                             * 3)
+        w = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)
+                             * 0.1)
+        c = torch.from_numpy(rng.standard_normal((m, n), dtype=np.float32))
+
+        def blk(t, dim):
+            size = t.shape[dim] // world
+            return t.narrow(dim, rank * size, size)
+        if tp == "col":
+            xs, ws, cs = x, blk(w, 1), blk(c, 1)
+        else:
+            xs, ws, cs = blk(x, 1), blk(w, 0), c
+        try:
+            ops, outs = _model_linear(impl, recipe, tp, xs, ws, cs, msplit)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        local, _ = _model_linear(impl, recipe, tp, xs, ws, cs, None)
+        whole, outs_whole = _model_linear(impl, recipe, tp, x, w, c, None)
+        cut = []
+        for role, side, t in whole:
+            axis = ROLE_MODEL[tp][role]["ab".index(side)]
+            cut.append(t if axis is None else blk(t, axis))
+        out[name] = {
+            "split": [(r, s, t.numpy()) for r, s, t in ops],
+            "local": [t.numpy() for _, _, t in local],
+            "whole": [t.contiguous().numpy() for t in cut],
+            "outs": [t.numpy() for t in outs],
+            "outs_whole": [t.numpy() for t in outs_whole]}
+    return out
