@@ -38,8 +38,11 @@ code 1):
    of the 8192 tokens) through ``quantize_rows``' shared-amax entry (its
    amax words maxed with the other rank's between the amax and the QDQ
    launches: bitwise its plain version's same entry and the whole
-   operand's rows, the rank's own amax missing) and the stream kernel's
-   SR keyed from a rank's origin.  QDQ panels
+   operand's rows, the rank's own amax missing), the stream kernel's
+   SR keyed from a rank's origin, and its amax-in entry (a rank's half
+   of every 128-wide group along K, the other half's amaxes maxed in)
+   unbatched and batched over 3 experts (each pair bitwise its own
+   launch, the panels bitwise the plain version's).  QDQ panels
    bitwise, GEMM outputs within one bf16 ulp (+1e-5 max|y|), the stream
    kernel bitwise against quantize_rows + tiled_mm in the same layout,
    attention within
@@ -73,11 +76,12 @@ code 1):
    logits end to end beside a control that must miss (see OP_BOUND).  A
    ``profile`` line splits 5 batched decode steps by kernel from a
    ``torch.profiler`` trace.
-3b. serve_swa — serves h2o-danube-3-4b at full width and a sixth of its
-   depth (4 of its 24 layers, SWA_LAYERS: cut to 12 so that the whole
-   run stays near half its time limit with the MoE phases, then to 8 to
-   make room for ``train_cli``, then to 4 for the data-parallel phases
-   (5b-5d); d 3840, 32 heads and
+3b. serve_swa — serves h2o-danube-3-4b at full width and a twelfth of
+   its depth (2 of its 24 layers, SWA_LAYERS: cut to 12 so that the
+   whole run stays near half its time limit with the MoE phases, then to
+   8 to make room for ``train_cli``, then to 4 for the data-parallel
+   phases (5b-5d), then to 2 for train_dp's expert_axis run); d 3840,
+   32 heads and
    8 KV heads of 120, d_ff 10240, vocab 32000, sliding window 4096;
    seeded init drawn on the card) through the packed-FP4
    ``ContinuousBatcher`` (fp8 KV, paper_fp4, linear_impl "pallas",
@@ -185,8 +189,24 @@ code 1):
    joined bit for bit (a control with the rank's own amax must miss);
    losses and parameters within TP_TOL of one process; the row-parallel
    sums censused by layer in bytes, the model group's amax words apart
-   (``qlint.audit_comms`` clean); both ranks' launches by kernel.  NCCL
-   across cards is not proven by a one-card machine.
+   (``qlint.audit_comms`` clean); both ranks' launches by kernel.  Then
+   the experts on the model axis (the expert_axis run): olmoe-1b-7b at
+   full width (d 2048, 16 heads, 64 experts top-8, d_ff 1024, vocab
+   50304) cut to 2 of 16 layers (EP_LAYERS), a (1, 2) mesh, 32 experts
+   and 8 heads a rank, paper_fp4, both impls "pallas", adafactor, no
+   remat, 2 steps of 2 x 2048 tokens, first in this process on whole
+   experts: each rank's layer-0 MoE output, input cotangent and router
+   gradient on the one-process run's step-0 input and output cotangent
+   equal one process's bit for bit, its expert leaves' gradients its
+   experts' block of one process's (a control, the rank's combine over
+   its own experts alone, must miss); losses and parameters within
+   EP_TOL of one process, and, with the heads whole on both ranks (the
+   control run: the experts alone split), within EP_HEADS_TOL; the
+   expert gathers (``ep_fwd`` / ``ep_bwd``)
+   censused by layer in bf16 (``qlint.audit_comms`` clean); every
+   ``qmm_stream`` launch of the experts batched over the rank's 32
+   (9 a layer-step), in the launches line.  NCCL across cards is not
+   proven by a one-card machine.
 6. speed_factors — the card's cost calibration (the reference's
    ``measure_speed_factors``): every distinct operand-spec pair of the
    fwd, dgrad and wgrad matmuls of bf16, fp8, paper_fp4 and
@@ -231,11 +251,13 @@ code 1):
    9-11 bit for bit (rows, final params and moments, controller state).
    A ``train_adaptive_profile`` line splits one step of the
    searcher-edited plan, telemetry on, by kernel.
-8. train_large — trains llama-1b at full published width and depth (48
-   layers, d 1280, 20 heads of 64, d_ff 3392, vocab 32000, rope, swiglu,
-   rmsnorm, untied head; seeded init), ``SyntheticLM`` (seed 0), global
-   batch 4 x 2048, paper_fp4 under the ``first_last_k`` plan (k = 2:
-   layers 0, 1, 46, 47 on the protected FP8 row), both impls "pallas",
+8. train_large — trains llama-1b at full published width (d 1280, 20
+   heads of 64, d_ff 3392, vocab 32000, rope, swiglu, rmsnorm, untied
+   head; seeded init), its depth cut to 24 of its 48 layers
+   (LARGE_LAYERS: the expert_axis run of train_dp came in),
+   ``SyntheticLM`` (seed 0), global batch 4 x 2048, paper_fp4 under the
+   ``first_last_k`` plan (k = 2: layers 0, 1, 22, 23 on the protected
+   FP8 row), both impls "pallas",
    ``remat=True`` / "full", AdamW, 7 steps with the §3.3 switch on the
    last.  Prints per-step loss and plan, step p50 after the first,
    tokens/s, peak memory per step and launches per kernel per step
@@ -244,7 +266,7 @@ code 1):
    ``tiled_mm`` and ``flash_attention`` launch on the tensor-core route,
    each also in a recompute; each step's plan (read from the plan the
    step ran) FP8 in the protected layers, FP4 elsewhere, bf16 after the
-   switch; an op replay of step 0's layers 0 (FP8) and 24 (FP4), as in
+   switch; an op replay of step 0's layers 0 (FP8) and 12 (FP4), as in
    phase 4, with its control.
 8a0. autotune — the tuning table (``kernels/autotune.py``) on the card,
    within AUTOTUNE_BUDGET_S (45 s; its seconds printed): the committed
@@ -308,12 +330,13 @@ code 1):
    on the CPU (their first MOE_REPLAY_EXPERTS experts) within OP_BOUND,
    and a control (the w_up forward with its activation unquantized) that
    must miss it.
-8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 4 of its
+8c. serve_moe — olmoe-1b-7b at full width, its depth cut to 2 of its
    16 layers (MOE_SERVE_LAYERS: at 16 it took 133.0 s of an 840.8 s
-   run, at 12 91.4 s and at 8 61.8 s; 8 since the autotune phase and
-   the larger build of the tiled GEMM kernels came in, 4 since the
-   data-parallel phases (5b-5d) did, which keeps the whole run within
-   the 809.4-879.6 s it took before them; weights drawn on the card in
+   run, at 12 91.4 s, at 8 61.8 s and at 4 31.8 s; 8 since the autotune
+   phase and the larger build of the tiled GEMM kernels came in, 4 since
+   the data-parallel phases (5b-5d) did, which keeps the whole run
+   within the 809.4-879.6 s it took before them, 2 since train_dp's
+   expert_axis run did; weights drawn on the card in
    bf16, experts packed to FP4 matrix by matrix, the f32 router dense)
    through the ``ContinuousBatcher``: fp8 KV, paper_fp4, every stage
    captured, 8 slots, max_len 2048, 16 requests of 16-512 prompt tokens (requests 0
@@ -480,9 +503,11 @@ each mode's time beside its mode-off time, its plain time and its bound
 of its tile launch at each shape from a profiler trace).
 
 Every phase keeps the full depth of its model but ``serve_swa``, cut to
-4 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 4 of 16 layers
+2 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 2 of 16 layers
 (MOE_SERVE_LAYERS), ``vlm``, cut to its first 5 layers (VLM_LAYERS),
-and ``train_dp``, cut to 2 of 12 layers (DP_LAYERS).
+``train_large``, cut to 24 of 48 layers (LARGE_LAYERS), and
+``train_dp``, cut to 2 of 12 layers (DP_LAYERS) and, in its
+expert_axis run, to 2 of olmoe-1b-7b's 16 (EP_LAYERS).
 Exits non-zero without a result when there is no CUDA device or when
 the port is not beside this script.
 """
@@ -566,11 +591,41 @@ DP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 5e-2,
 # 2.39e-3: one flip a step); "params_rel" 1e-1 (read 6.7e-2, where the
 # data-parallel run read 3.8e-2: more elements flip).
 TP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 1e-1}
+# train_dp's expert_axis run: olmoe-1b-7b (arXiv:2409.02060) at full
+# width, cut to EP_LAYERS of 16 layers, on a (1, 2) ("data", "model")
+# mesh of the two gloo ranks: 32 of 64 experts and 8 of 16 heads a rank,
+# paper_fp4, both impls "pallas", adafactor (as train_moe), no remat,
+# EP_STEPS steps of EP_BATCH x EP_SEQ tokens (router groups of 1024,
+# capacity 160: 40,960 expert rows).  The MoE sublayer is one process's
+# bits on every rank; the steps are not: the attention's row-parallel
+# sums change the forward's summation order, a router tie may then pick
+# another expert, and adafactor magnifies what differs (its first step,
+# beta2 = 0, divides each gradient element by the factored root of the
+# squares: one process's largest update read 0.373, 621 lr, in an
+# expert leaf).  EP_TOL against one process on the same tokens, set from
+# the first card run: "loss" relative (read 2.57e-5), "params_rel" the
+# L2 norm of the difference over that of one process's update (read
+# 0.313; the largest element's difference read 0.651, above any one-
+# process update, so no element bar holds this run).  The control run
+# keeps the heads whole on both ranks, so only the experts split and the
+# forward is one process's bits (step 0's loss must equal one
+# process's); only adafactor's update RMS and the clip's norm sum over
+# the model group in another order, and what it reads comes from those
+# sums (not isolated further; the losses read equal at both steps).
+# EP_HEADS_TOL, set from its first card run: "loss" relative (read 0 at
+# both steps), "params" the largest element's difference (read 2.23e-3,
+# below the largest update, 0.373, by 167 times), "params_rel" as
+# EP_TOL's (read 6.63e-3: the attention's sums make the 0.313).
+EP_LAYERS, EP_BATCH, EP_SEQ, EP_STEPS = 2, 2, 2048, 2
+EP_TOL = {"loss": 2.5e-4, "params_rel": 0.5}
+EP_HEADS_TOL = {"loss": 1e-6, "params": 1e-2, "params_rel": 2e-2}
 # The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
 # (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
 # first_last_k with k = 2; op replay of a protected and a middle layer.
+# Depth: 24 of 48 layers since train_dp's expert_axis run (the seconds
+# it adds; 48 until then).
 LARGE_BATCH, LARGE_SEQ, LARGE_STEPS, LARGE_K = 4, 2048, 7, 2
-LARGE_REPLAY_LAYERS = (0, 24)
+LARGE_LAYERS, LARGE_REPLAY_LAYERS = 24, (0, 12)
 # The train_cli phase: launch/train.py run in process on llama3.2-3b at
 # full width and depth, 4 x 2048 tokens, 4 AdamW steps of paper_fp4 (5
 # until train_dp's data-parallel gates grew) with both impls "pallas"
@@ -629,7 +684,7 @@ SLICE_EAGER = 4
 # its 24 layers, 4 slots over a cache of max_len 8192 (a ring of 4096
 # positions a layer), 8 requests of 3840-4096 prompt tokens and 384 new
 # tokens each: every one decodes past the window.
-SWA_LAYERS = 4
+SWA_LAYERS = 2
 SWA_SLOTS, SWA_MAX_LEN, SWA_REQUESTS, SWA_NEW = 4, 8192, 8, 384
 SWA_PROMPT = (3840, 4096)
 # The ring check: request 0's tokens teacher-forced through an f32 engine
@@ -671,7 +726,7 @@ MOE_EXACT_PROMPTS = (128, 256)
 # serve_moe's depth: 4 of olmoe's 16 layers, cut so that the whole run
 # with the data-parallel phases stays within the 809.4-879.6 s it took
 # before them
-MOE_SERVE_LAYERS = 4
+MOE_SERVE_LAYERS = 2
 # mamba2-780m's projection shapes: d 1536 -> d_inner 3072 (in_z, in_x),
 # n_groups x d_state 128 (in_b, in_c), 48 heads (in_dt: N below one
 # 128-wide tile), and out_proj 3072 -> 1536.
@@ -1370,6 +1425,82 @@ def passed_amax_rows(torch, timer, rows, bitwise):
         "ms": timer.ms(lambda: qs.qmm_stream(a, b, **kw), iters=10),
         "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **kw),
                              iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": timer.ms(lambda: torch.matmul(a, b), iters=10)})
+    passed_amax_batched_rows(torch, timer, rows, bitwise)
+
+
+def passed_amax_batched_rows(torch, timer, rows, bitwise):
+    """The amax-in entry batched over experts (an MoE layer whose d_ff is
+    split inside every expert: 3 experts, a rank holding 64 of each
+    128-wide K group of the down projection, A' = h (3, 1280, 64) block
+    groups, B' = w (3, 64, 2048) tile groups), each pair's words maxed
+    with the other half's: the quantized panels (each operand times the
+    identity) bitwise the plain version's; each pair of the batched
+    launch bitwise that pair's own unbatched launch; two amax launches
+    and the stream launch, batched; the product's timing row
+    (``train_kernels``)."""
+    from repro_torch.kernels import qmm_stream as qs
+    e, m, k, n = 3, 1280, 64, 2048
+    g = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(e, m, 2 * k, generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(e, 2 * k, n, generator=g, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    wx = torch.stack([qs.group_amax_plain(t[:, k:], "block")
+                      for t in x]).view(torch.int32)
+    ww = torch.stack([qs.group_amax_plain(t[k:].T, "tile")
+                      for t in w]).view(torch.int32)
+
+    def share(other):
+        def fn(words):
+            torch.maximum(words, other, out=words)
+        return fn
+    a, b = x[:, :, :k].contiguous(), w[:, :k].contiguous()
+    eye_k = torch.eye(k, dtype=torch.bfloat16,
+                      device="cuda").expand(e, k, k).contiguous()
+    for what, args, kw in (
+            ("A", (a, eye_k), dict(a_mode="block", b_mode="pass",
+                                   a_fmt="fp4_e2m1", b_fmt="bf16",
+                                   amax_reduce_a=share(wx))),
+            ("B", (eye_k, b), dict(a_mode="pass", b_mode="tile",
+                                   a_fmt="bf16", b_fmt="fp4_e2m1",
+                                   amax_reduce_b=share(ww)))):
+        bitwise(qs.qmm_stream(*args, **kw), qs.qmm_stream_plain(*args, **kw),
+                f"qmm_stream batched amax-in {what} panel")
+    kw = dict(a_mode="block", b_mode="tile", a_fmt="fp4_e2m1",
+              b_fmt="fp4_e2m1")
+    qs.KERNEL.reset()
+    y = qs.qmm_stream(a, b, amax_reduce_a=share(wx),
+                      amax_reduce_b=share(ww), **kw)
+    counts = qs.KERNEL.counts()
+    if counts["launches"] != 3 or counts["batched"] != 3:
+        raise AssertionError(f"qmm_stream batched amax-in: {counts}, not "
+                             "3 batched launches")
+    for i in range(e):
+        bitwise(y[i], qs.qmm_stream(a[i], b[i], amax_reduce_a=share(wx[i]),
+                                    amax_reduce_b=share(ww[i]), **kw),
+                f"qmm_stream batched amax-in pair {i} against its own "
+                "launch")
+    ref = qs.qmm_stream_plain(a, b, amax_reduce_a=share(wx),
+                              amax_reduce_b=share(ww), **kw)
+    torch.cuda.synchronize()
+    err = (y.float() - ref.float()).abs()
+    if not bool((err <= 2.0 ** -7 * ref.float().abs()
+                 + 1e-5 * ref.float().abs().max()).all()):
+        raise AssertionError(f"qmm_stream batched amax-in out of "
+                             f"tolerance: max err {err.max().item()}")
+    full = dict(kw, amax_reduce_a=share(wx), amax_reduce_b=share(ww))
+    b_ms, b_by = _bound(2 * e * (m * k + k * n + m * n), 2 * e * m * n * k,
+                        H100_BF16_FLOPS)
+    rows.append({
+        "name": "qmm_stream",
+        "role": "fwd w_down amax-in batched (3 experts, K 64 of 128)",
+        "shape": [e, m, k, n], "trans": False,
+        "max_abs_err": err.max().item(),
+        "ms": timer.ms(lambda: qs.qmm_stream(a, b, **full), iters=10),
+        "plain_ms": timer.ms(lambda: qs.qmm_stream_plain(a, b, **full),
+                             iters=3),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": timer.ms(lambda: torch.matmul(a, b), iters=10)})
 
@@ -3627,9 +3758,9 @@ def phase_train_adaptive(torch, card, cal_path):
 
 
 def phase_train_large(torch, card):
-    """Train llama-1b at full published width and depth (see the module
-    docstring): remat, first_last_k, 4 x 2048 tokens.  Gate the run;
-    return the path's launch counts."""
+    """Train llama-1b at full published width, LARGE_LAYERS deep (see
+    the module docstring): remat, first_last_k, 4 x 2048 tokens.  Gate
+    the run; return the path's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data import SyntheticLM
@@ -3641,7 +3772,8 @@ def phase_train_large(torch, card):
 
     kernels = (qmm_stream.KERNEL, quantize_rows.KERNEL, tiled_mm.KERNEL,
                flash_attention.KERNEL)
-    cfg = get_config("llama-1b").replace(linear_impl="pallas",
+    cfg = get_config("llama-1b").replace(n_layers=LARGE_LAYERS,
+                                         linear_impl="pallas",
                                          attention_impl="pallas",
                                          remat=True, remat_policy="full")
     tcfg = TrainConfig(recipe="paper_fp4", total_steps=LARGE_STEPS,
@@ -5721,9 +5853,279 @@ def _dp_rank(rank, world, store, out_dir):
                 "params": _host_leaves(full) if rank == 0 else None,
                 "launches": {k.name: k.launches for k in kernels}}
             del full, tr, st, cap
+            torch.cuda.empty_cache()
+            result["ep"] = _ep_rank(torch, rank, world, kernels, out_dir)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _ep_cfg():
+    """The expert_axis run's config (EP_LAYERS' comment)."""
+    from repro_torch.configs import get_config
+    return get_config("olmoe-1b-7b").replace(
+        n_layers=EP_LAYERS, linear_impl="pallas", attention_impl="pallas",
+        remat=False, optimizer="adafactor", scan_layers=False)
+
+
+def _ep_run(torch, mesh=None, whole_heads=False):
+    """The expert_axis run's (trainer, pipeline), on a (1, ``mesh``)
+    mesh or (None) in one process; ``whole_heads``: the mesh's rules
+    with the attention's heads kept whole on every rank (the control
+    run: the experts alone split)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    cfg = _ep_cfg()
+    pipeline = SyntheticLM(cfg.vocab_size, EP_SEQ, EP_BATCH, seed=0)
+    kw = dict(recipe="paper_fp4", total_steps=EP_STEPS,
+              global_batch=EP_BATCH, seq_len=EP_SEQ, log_every=0)
+    rules = None
+    if mesh:
+        kw["mesh_shape"] = (1, mesh)
+        if whole_heads:
+            whole = dict.fromkeys(("heads", "kv_heads"))
+            rules = default_rules(make_mesh((1, mesh), ("data", "model")),
+                                  cfg, overrides=whole, act_overrides=whole)
+    return Trainer(build_model(cfg), TrainConfig(**kw), pipeline,
+                   rules=rules), pipeline
+
+
+def _ep_sublayer(torch, x, g, rank=None, world=1, partial=False):
+    """Layer 0's MoE sublayer of the expert_axis run's init (``init(0)``
+    drawn on the card, cast as the model casts it) on the step-0 input
+    ``x`` with the output cotangent ``g``: on whole experts, or on rank
+    ``rank``'s 32 under the model split of the world's group
+    (``partial``: the control, the rank's combine over its own experts
+    alone, ``moe.partial_combine``).  [y, dx, the router's gradient, the
+    expert leaves' gradients (w_down, w_gate, w_up: the rank's experts)]
+    on the host."""
+    import contextlib
+    import torch.distributed as dist
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.nn import layers
+    cfg = _ep_cfg()
+    model = build_model(cfg)
+    full = model.init(0, on_device=True)
+    ffn = {k: v for k, v in full["stack"]["layers"][0]["ffn"].items()}
+    del full
+    msplit = None
+    if rank is not None:
+        msplit = ModelSplit(dist.group.WORLD, rank, world)
+        ffn = {k: v if k == "router" else v.chunk(world, 0)[rank].clone()
+               for k, v in ffn.items()}
+    leaves = {k: (v if k == "router" else v.to(torch.bfloat16))
+              .requires_grad_() for k, v in ffn.items()}
+    xr = x.clone().requires_grad_()
+    with moe_lib.partial_combine() if partial else \
+            contextlib.nullcontext(), \
+            layers.sharding_context(None, None, msplit):
+        y, _ = moe_lib.moe(leaves, cfg, xr,
+                           RECIPES["paper_fp4"].ffn_linear)
+        y.backward(g)
+    out = [y.detach().cpu(), xr.grad.cpu()] + [
+        leaves[k].grad.cpu() for k in ("router", "w_down", "w_gate",
+                                       "w_up")]
+    del leaves, xr, y
+    return out
+
+
+def _ep_one_process(torch, out_dir):
+    """The expert_axis run in this process on whole experts: its losses,
+    its final params (on the card), its step-0 layer-0 MoE input and
+    output cotangent (saved to ``out_dir`` for the ranks) and the
+    sublayer's one-process (y, dx, router gradient) on them."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.tree import tree_leaves
+    tr, _ = _ep_run(torch)
+    st = tr.init_state(seed=0, on_device=True)
+    cap = {}
+    orig = moe_lib.moe
+
+    def capture(params, cfg, x, recipe):
+        y, aux = orig(params, cfg, x, recipe)
+        if "x" not in cap:
+            cap["x"] = x.detach().clone()
+            y.register_hook(lambda g: cap.setdefault("g", g.detach().clone()))
+        return y, aux
+    moe_lib.moe = capture
+    try:
+        st = tr.train(st, num_steps=1)
+    finally:
+        moe_lib.moe = orig
+    st = tr.train(st)
+    losses = [r["loss"] for r in tr.history]
+    params = [t.detach() for t in tree_leaves(st.params)]
+    del tr, st
+    torch.cuda.empty_cache()
+    torch.save({"x": cap["x"].cpu(), "g": cap["g"].cpu()},
+               os.path.join(out_dir, "ep_inputs.pt"))
+    sub = _ep_sublayer(torch, cap["x"], cap["g"])
+    torch.cuda.empty_cache()
+    return {"losses": losses, "params": params, "sublayer": sub}
+
+
+def _ep_rank(torch, rank, world, kernels, out_dir):
+    """A rank's side of the expert_axis run: the layer-0 sublayer on the
+    one-process run's step-0 input and cotangent (and the control), then
+    EP_STEPS steps on the (1, world) mesh (step 0's census, the kernels'
+    counts) with its final params gathered (saved by rank 0), then the
+    same steps with the heads whole on both ranks (the control run: its
+    losses, its gathered params saved by rank 0)."""
+    from repro_torch.distributed import comms
+    from repro_torch.tree import tree_leaves
+    inp = torch.load(os.path.join(out_dir, "ep_inputs.pt"))
+    x, g = inp["x"].cuda(), inp["g"].cuda()
+    sub = _ep_sublayer(torch, x, g, rank, world)
+    control = _ep_sublayer(torch, x, g, rank, world, partial=True)[0]
+    del x, g, inp
+    torch.cuda.empty_cache()
+    tr, _ = _ep_run(torch, world)
+    st = tr.init_state(seed=0, on_device=True)
+    torch.cuda.empty_cache()
+    for kern in kernels:
+        kern.reset()
+    with comms.recording() as log:
+        st = tr.train(st, num_steps=1)
+    st = tr.train(st)
+    counts = {k.name: k.counts() for k in kernels}
+    local = [tuple(t.shape) for t in tree_leaves(st.params)]
+    full = tr.dp.full(st.params)
+    if rank == 0:
+        torch.save(_host_leaves(full), os.path.join(out_dir,
+                                                    "ep_params.pt"))
+    out = {"losses": [r["loss"] for r in tr.history],
+           "census": [r.to_dict() for r in log], "counts": counts,
+           "local_shapes": local, "sublayer": sub, "control_y": control}
+    del full, tr, st
+    torch.cuda.empty_cache()
+    # the control run: the same steps with the heads whole on both ranks
+    tr, _ = _ep_run(torch, world, whole_heads=True)
+    st = tr.train(tr.init_state(seed=0, on_device=True))
+    full = tr.dp.full(st.params)
+    if rank == 0:
+        torch.save(_host_leaves(full), os.path.join(out_dir,
+                                                    "ep_heads_params.pt"))
+    out["whole_heads_losses"] = [r["loss"] for r in tr.history]
+    del full, tr, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_axis_gates(torch, ranks, one, out_dir):
+    """``train_dp``'s expert_axis run against one process: (the emitted
+    record, the failures, the run's launch counts, its batched launch
+    counts).  Gates: each rank's layer-0 MoE output, input cotangent and
+    router gradient bitwise one process's, its expert leaves' gradients
+    (the batched wgrad launches over its 32 experts) bitwise its experts'
+    block of one process's, the control (a combine over the rank's own
+    experts) missing; the control run (heads whole on both ranks) within
+    EP_HEADS_TOL of one process, the run within EP_TOL; the census audit
+    clean with the expert gathers by layer in bf16; the batched launches
+    over the rank's 32 experts."""
+    from repro_torch.analysis.qlint import audit_comms
+    from repro_torch.distributed.comms import CollectiveRecord
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    ep = [r["ep"] for r in ranks]
+    whole = one["sublayer"]
+    differing, ctl = [], []
+    for rank, e in enumerate(ep):
+        row = []
+        for i, (a, b) in enumerate(zip(e["sublayer"], whole)):
+            if i >= 3:          # an expert leaf: the rank's block
+                b = b.chunk(len(ep), 0)[rank]
+            row.append(int((a.view(torch.int16) != b.view(torch.int16))
+                           .sum()) if a.dtype == torch.bfloat16
+                       else int((a != b).sum()))
+        differing.append(row)
+        ctl.append(int((e["control_y"].view(torch.int16)
+                        != whole[0].view(torch.int16)).sum()))
+    init = [t for t in tree_leaves(build_model(_ep_cfg()).init(
+        0, on_device=True))]
+    errs = {}
+    for key, losses in (("ep", ep[0]["losses"]),
+                        ("ep_heads", ep[0]["whole_heads_losses"])):
+        got = [t.cuda() for t in torch.load(os.path.join(
+            out_dir, f"{key}_params.pt"))]
+        p_abs, p_rel = _params_err(got, one["params"], init)
+        del got
+        torch.cuda.empty_cache()
+        errs[key] = {"losses": losses,
+                     "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                         zip(losses, one["losses"])),
+                     "param_abs_err": p_abs, "param_rel_err": p_rel}
+    # one process's largest update of any element, for scale
+    max_update = max(float((b - c).abs().max())
+                     for b, c in zip(one["params"], init))
+    del init
+    torch.cuda.empty_cache()
+    losses, one_losses = ep[0]["losses"], one["losses"]
+    census = [CollectiveRecord(**c) for c in ep[0]["census"]]
+    audit, findings = audit_comms(census, expect_fp8=False,
+                                  compute_dtype="bfloat16")
+    launches = {k: sum(e["counts"][k]["launches"] for e in ep)
+                for k in ep[0]["counts"]}
+    batched = {k: sum(e["counts"][k]["batched"] for e in ep)
+               for k in ep[0]["counts"]}
+    # a MoE layer-step on a rank: fwd, dgrad and wgrad of w_gate, w_up
+    # and w_down, each one launch batched over its 32 experts
+    want_batched = 9 * EP_LAYERS * EP_STEPS * len(ep)
+    failures = []
+    if any(any(d) for d in differing):
+        failures.append(f"expert_axis sublayer: elements of (y, dx, router "
+                        f"grad, w_down / w_gate / w_up grads) off one "
+                        f"process's by rank: {differing}")
+    if not all(ctl):
+        failures.append(f"expert_axis: the control (a combine over the "
+                        f"rank's own experts) did not miss: {ctl}")
+    if errs["ep_heads"]["losses"][0] != one_losses[0]:
+        failures.append(f"expert_axis: with the heads whole step 0's loss "
+                        f"{errs['ep_heads']['losses'][0]} is not one "
+                        f"process's {one_losses[0]}")
+    for key, tol in (("ep_heads", EP_HEADS_TOL), ("ep", EP_TOL)):
+        e = errs[key]
+        if not (e["loss_rel_err"] <= tol["loss"]
+                and e["param_abs_err"] <= tol.get("params", np.inf)
+                and e["param_rel_err"] <= tol["params_rel"]):
+            failures.append(f"expert_axis {key} vs one process: {e} "
+                            f"({tol})")
+    layers_seen = set(audit["ep_bytes_by_layer"].get("ep_fwd", {}))
+    if findings or audit["ep_ops"] != {"ep_fwd": EP_LAYERS,
+                                       "ep_bwd": EP_LAYERS} or \
+            layers_seen != {f"L{i}" for i in range(EP_LAYERS)}:
+        failures.append(f"expert_axis comms audit: {audit}, "
+                        f"{[f.to_dict() for f in findings]}")
+    if batched["qmm_stream"] != want_batched or \
+            not all(np.isfinite(losses)) or min(launches.values()) <= 0:
+        failures.append(f"expert_axis: losses {losses}, launches "
+                        f"{launches}, batched {batched} (qmm_stream "
+                        f"{want_batched} expected)")
+    cfg = _ep_cfg()
+    record = {"model": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "mesh": [1, len(ep)],
+              "experts_a_rank": cfg.moe.num_experts // len(ep),
+              "heads_a_rank": cfg.n_heads // len(ep),
+              "tokens": EP_BATCH * EP_SEQ, "steps": EP_STEPS,
+              "optimizer": cfg.optimizer, "recipe": "paper_fp4",
+              "sublayer_differing_y_dx_router_wdown_wgate_wup": differing,
+              "control_partial_combine_differing": ctl,
+              "one_process_losses": one_losses, "run": errs["ep"],
+              "tol": EP_TOL, "whole_heads_run": errs["ep_heads"],
+              "whole_heads_tol": EP_HEADS_TOL,
+              "one_process_max_abs_update": max_update,
+              "local_expert_shapes": [sh for sh in ep[0]["local_shapes"]
+                                      if len(sh) == 3 and sh[0] == 32],
+              "census": audit, "launches": launches,
+              "batched_launches": batched,
+              "launches_by_rank": [e["counts"] for e in ep]}
+    return record, failures, launches, batched
 
 
 def _one_process(torch, cfg, tcfg, pipeline, capture=False):
@@ -5795,8 +6197,11 @@ def phase_train_dp(torch, card):
     adafactor fsdp step within DP_TOL of one process; with compression
     (fsdp off) each rank's reduced gradients and residual bitwise
     ``compressed_reduce_dp`` over the two ranks' stacked gradients in one
-    process; 1-byte gradient payloads in the census.  Returns the path's
-    launch counts (both ranks')."""
+    process; 1-byte gradient payloads in the census.  Then the model
+    axis: gpt2's heads and d_ff on (1, 2) (``model_axis_gates``), and
+    olmoe-1b-7b's experts on (1, 2), 32 a rank (``expert_axis_gates``).
+    Returns the path's launch counts (both ranks') and the expert_axis
+    run's batched ones."""
     import torch.multiprocessing as mp
     from repro_torch.analysis.qlint import audit_comms
     from repro_torch.configs.base import TrainConfig
@@ -5827,11 +6232,21 @@ def phase_train_dp(torch, card):
           "(comms.host_staging)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
+        ep_one = _ep_one_process(torch, tmp)
+        ep_one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         mp.spawn(_dp_rank, args=(world, os.path.join(tmp, "store"), tmp),
                  nprocs=world, join=True)
         ranks_s = time.perf_counter() - t0
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(world)]
+        t0 = time.perf_counter()
+        ep, ep_gate, ep_launches, ep_batched = expert_axis_gates(
+            torch, ranks, ep_one, tmp)
+        ep["one_process_s"], ep["gates_s"] = ep_one_s, \
+            time.perf_counter() - t0
+        del ep_one
+        torch.cuda.empty_cache()
     mean = ranks[0]["mean"]
     one_losses = [r["loss"] for r in one_hist]
     loss_err = max(abs(a - b) / abs(b)
@@ -5896,7 +6311,7 @@ def phase_train_dp(torch, card):
     tp, tp_gate = model_axis_gates(torch, ranks, tp_hist, tp_params, init,
                                    cfg)
     tol = DP_TOL
-    failures = list(tp_gate)
+    failures = list(tp_gate) + ep_gate
     if not n_ops or op_diff or any(len(rk["mean"]["operands"]) != n_ops
                                    for rk in ranks):
         failures.append(f"wgrad operands: {op_diff} of {world * n_ops} "
@@ -5963,12 +6378,13 @@ def phase_train_dp(torch, card):
                   "residuals_differing": new_diff,
                   "control_residuals_dropped_differing": control,
                   "census": audit},
-          "model_axis": tp,
+          "model_axis": tp, "expert_axis": ep,
           "one_process_s": one_s, "ranks_s": ranks_s, "launches": launches,
           "launches_by_rank": [r["launches"] for r in ranks]})
     if failures:
         raise AssertionError("train_dp: " + "; ".join(failures))
-    return {k: launches[k] + tp["launches"][k] for k in launches}
+    return ({k: launches[k] + tp["launches"][k] + ep_launches[k]
+             for k in launches}, ep_batched)
 
 
 def model_axis_gates(torch, ranks, one_hist, one_params, init, cfg):
@@ -6147,7 +6563,7 @@ def main() -> int:
     lap("train_compressed")
     mesh_launches = phase_train_mesh(torch, card)
     lap("train_mesh")
-    dp_launches = phase_train_dp(torch, card)
+    dp_launches, dp_batched = phase_train_dp(torch, card)
     lap("train_dp")
     with tempfile.TemporaryDirectory() as cal_dir:
         cal_path = phase_speed_factors(torch, card, cal_dir)
@@ -6163,7 +6579,8 @@ def main() -> int:
     lap("train_moe")
     moe_serve_launches, moe_serve_batched = phase_serve_moe(torch, card)
     lap("serve_moe")
-    moe_batched = {"train": moe_train_batched, "serve": moe_serve_batched}
+    moe_batched = {"train": moe_train_batched, "serve": moe_serve_batched,
+                   "train_dp": dp_batched}
     ssm_train_launches = phase_train_ssm(torch, card)
     lap("train_ssm")
     ssm_serve_launches = phase_serve_ssm(torch, card)
@@ -6222,7 +6639,8 @@ def main() -> int:
             "batched_launches_by_path": {
                 path: counts[name] for path, counts in (
                     ("train_moe", moe_batched["train"]),
-                    ("serve_moe", moe_batched["serve"]))
+                    ("serve_moe", moe_batched["serve"]),
+                    ("train_dp", moe_batched["train_dp"]))
                 if name in counts},
             "batched_rows": [
                 {k: r[k] for k in ("role", "shape", "ms", "plain_ms",

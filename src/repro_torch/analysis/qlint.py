@@ -424,7 +424,8 @@ def audit_graph_vs_census(graph: Dict[str, Any],
     return findings
 
 
-def audit_comms(records, *, expect_fp8: bool) -> Tuple[
+def audit_comms(records, *, expect_fp8: bool,
+                compute_dtype: Optional[str] = None) -> Tuple[
         Dict[str, Any], List[Finding]]:
     """Gradient payload audit over a step's recorded collectives (the
     counterpart of the reference's ``audit_hlo_comms``).
@@ -443,17 +444,25 @@ def audit_comms(records, *, expect_fp8: bool) -> Tuple[
     words (a block / tile group's window), is a violation.  The
     tensor-parallel sums (``tp_fwd``: a row-parallel output, ``tp_bwd``:
     a column-parallel input's cotangent) are censused by layer, in
-    bytes.  Returns (census, findings)."""
+    bytes; so are the expert-parallel gathers (``ep_fwd``: a rank's
+    expert outputs, ``ep_bwd``: its experts' input cotangents), counted
+    apart: one that is not an all-gather, or (``compute_dtype`` given,
+    e.g. ``"bfloat16"``) whose payload is not in the compute dtype, is a
+    violation.  Returns (census, findings)."""
     findings: List[Finding] = []
     grad = [r for r in records if r.tag in _GRAD_TAGS]
     amax = [r for r in records if r.tag == "amax"]
     amax_model = [r for r in records if r.tag == "amax_model"]
     tp = [r for r in records if r.tag in ("tp_fwd", "tp_bwd")]
-    tp_bytes: Dict[str, Dict[str, int]] = {}
-    for r in tp:
-        by_layer = tp_bytes.setdefault(r.tag, {})
-        by_layer[r.layer or "-"] = by_layer.get(r.layer or "-", 0) \
-            + r.nbytes
+    ep = [r for r in records if r.tag in ("ep_fwd", "ep_bwd")]
+
+    def by_layer(recs):
+        out: Dict[str, Dict[str, int]] = {}
+        for r in recs:
+            layers = out.setdefault(r.tag, {})
+            layers[r.layer or "-"] = layers.get(r.layer or "-", 0) \
+                + r.nbytes
+        return out
     census = {"grad_payload_dtypes": dict(Counter(r.dtype for r in grad)),
               "scale_allreduce_dtypes": dict(Counter(
                   r.dtype for r in records if r.tag == "scale")),
@@ -463,12 +472,15 @@ def audit_comms(records, *, expect_fp8: bool) -> Tuple[
               "amax_model_words": sum(math.prod(r.shape)
                                       for r in amax_model),
               "tp_sums": len(tp),
-              "tp_bytes_by_layer": tp_bytes,
+              "tp_bytes_by_layer": by_layer(tp),
+              "ep_ops": dict(Counter(r.tag for r in ep)),
+              "ep_bytes_by_layer": by_layer(ep),
               "other": dict(Counter(f"{r.tag}:{r.op}:{r.dtype}"
                                     for r in records
                                     if r.tag not in _GRAD_TAGS
                                     + ("scale", "amax", "amax_model",
-                                       "tp_fwd", "tp_bwd"))),
+                                       "tp_fwd", "tp_bwd", "ep_fwd",
+                                       "ep_bwd"))),
               "grad_payload_bytes": sum(r.nbytes for r in grad),
               "bytes": collective_bytes(records)}
     for r in amax + amax_model:
@@ -487,6 +499,17 @@ def audit_comms(records, *, expect_fp8: bool) -> Tuple[
                 "comms", "violation", f"{r.op}[{r.tag}]",
                 f"a tensor-parallel sum travels as a SUM all-reduce, not "
                 f"{r.op} {r.reduce_op}"))
+    for r in ep:
+        if r.op != "all-gather":
+            findings.append(Finding(
+                "comms", "violation", f"{r.op}[{r.tag}]",
+                f"an expert-parallel exchange travels as an all-gather, "
+                f"not {r.op} {r.reduce_op}"))
+        elif compute_dtype is not None and r.dtype != compute_dtype:
+            findings.append(Finding(
+                "comms", "violation", f"{r.op}[{r.tag}]",
+                f"an expert-parallel gather moves {r.dtype}, not the "
+                f"compute dtype {compute_dtype}"))
     if expect_fp8:
         if not grad:
             findings.append(Finding(
@@ -702,7 +725,7 @@ def _audit_step(trainer, plan: Optional[PrecisionPlan], label: str,
                    cfg.linear_impl, prof=prof)
     if trainer.dp is not None:
         comms_census, findings = audit_comms(
-            rec, expect_fp8=trainer._spmd)
+            rec, expect_fp8=trainer._spmd, compute_dtype=cfg.dtype)
         report.summary["comms"] = comms_census
         report.extend(findings)
     census, findings = recompile_census(trainer)

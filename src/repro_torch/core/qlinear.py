@@ -103,7 +103,7 @@ from repro_torch.telemetry import collect as telemetry
 __all__ = ["qlinear", "qmatmul", "pallas_qmatmul_stats", "packed_linear",
            "dot_qdq", "kernel_quant_mode", "kernel_unsupported_reason",
            "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY", "ROLE_TOKENS",
-           "ROLE_MODEL", "model_grad_sum"]
+           "ROLE_MODEL", "model_grad_sum", "model_sum"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
@@ -361,6 +361,14 @@ def model_grad_sum(x: torch.Tensor) -> torch.Tensor:
     return x if split is None else _ModelGradSum.apply(x, split.group)
 
 
+def model_sum(y: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of every rank's partial ``y`` (a
+    row-parallel product, tag ``tp_fwd``), its cotangent passed through;
+    ``y`` itself without a model split."""
+    split = model_split()
+    return y if split is None else _ModelSum.apply(y, split.group)
+
+
 class _QMatmul(torch.autograd.Function):
     """``Q(x) @ Q(w)`` with the recipe's backward matmuls (STE).  With
     ``collect_stats`` the forward also returns its quantized operands'
@@ -492,7 +500,7 @@ def qlinear(x: torch.Tensor, w, recipe: MatmulRecipe, *,
             y = qmatmul(x2d, w, recipe, impl=impl, tp=tp)
         y = telemetry.grad_tap(y, recipe, tp=tp)
     if tp == "row":
-        y = _ModelSum.apply(y, split.group)
+        y = model_sum(y)
     y = y.reshape(*x.shape[:-1], w.shape[-1])
     if bias is not None:
         y = y + bias

@@ -42,7 +42,9 @@ class CollectiveRecord:
     ``param``, ``norm``, ``metric``, ``amax`` / ``amax_model`` (a quant
     group's shared amax words over the data / the model group),
     ``tp_fwd`` / ``tp_bwd`` (a row-parallel output's sum / a
-    column-parallel input's cotangent sum over the model group));
+    column-parallel input's cotangent sum over the model group),
+    ``ep_fwd`` / ``ep_bwd`` (an expert-parallel rank's expert outputs /
+    its experts' input cotangents, all-gathered over the model group));
     ``layer`` the model layer that issued it (``"L3"``; "" outside
     one)."""
 
@@ -120,10 +122,10 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None, *,
     return t
 
 
-def all_gather(t: torch.Tensor, group=None, *, tag: str = ""
-               ) -> torch.Tensor:
+def all_gather(t: torch.Tensor, group=None, *, tag: str = "",
+               layer: Optional[str] = None) -> torch.Tensor:
     """(n, *t.shape): every rank's ``t`` stacked in group-rank order."""
-    _note("all-gather", t, group, tag)
+    _note("all-gather", t, group, tag, layer=layer)
     n = dist.get_world_size(group)
     src = t.contiguous()
     staged = _staged(src, group)

@@ -93,6 +93,10 @@
 // word instead of its staged tile.  The codec, the order of every sum and
 // the noise are unchanged, so a rank's result is the slice of the whole
 // group's.  Bound: bytes (one read of each operand for the amax pass).
+// A batched call (the experts of an MoE layer whose d_ff is split inside
+// every expert) takes one word buffer a pair, back to back: the amax
+// kernel's blockIdx.z is the pair, as the product's, and each block reads
+// its pair's words, so every pair is the unbatched entry on that pair.
 #include "codec.cuh"
 #include "gemm_sm90.cuh"
 
@@ -108,18 +112,22 @@ struct Operand {
   codec::Fmt f;
   codec::Sr sr;
   float* part;  // row partials (quant rows, n_ks, 8), or null: no stats
-  // each group's amax as f32 bits ((rows or row groups, n_ks)), or null:
-  // the group's amax comes from the staged tile
+  // each group's amax as f32 bits ((rows or row groups, n_ks)) a pair,
+  // or null: the group's amax comes from the staged tile
   const unsigned int* amax;
+  long amax_pair;  // words a pair of a batch
 };
 
 // The scale of the group holding quant row grow at K step k0 from the
-// passed-in words (block: a row's group; tile: its 128-row group).
+// passed-in words of this block's pair (block: a row's group; tile: its
+// 128-row group).
 __device__ __forceinline__ float passed_scale(const Operand& op, int grow,
                                               int k0, int n_ks) {
   const int g = op.mode == codec::kTile ? grow / codec::kGroup : grow;
   return codec::group_scale(
-      __uint_as_float(op.amax[(long)g * n_ks + k0 / kBK]), op.f);
+      __uint_as_float(op.amax[blockIdx.z * op.amax_pair + (long)g * n_ks +
+                              k0 / kBK]),
+      op.f);
 }
 
 // QDQ one quant row of a shared tile by one warp, in place: lane l owns
@@ -289,15 +297,18 @@ __global__ void __launch_bounds__(kThreads, 5)
 // orientation (rows, K), stored (rows, K) or, under trans, (K, rows): one
 // warp a quant row of a 128-wide K group, lane l reading k = l + 32 j,
 // atomicMax of the f32 bits into the group's word (tile: 128 rows share
-// a word).
+// a word); blockIdx.z is the pair of a batch, per_pair its words.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     group_amax_kernel(const T* __restrict__ x, int rows, int K, int trans,
-                      int tile, unsigned int* __restrict__ words) {
+                      int tile, long per_pair,
+                      unsigned int* __restrict__ words) {
   const int n_ks = (K + kBK - 1) / kBK;
   const int kg = blockIdx.x, lane = threadIdx.x & 31;
   const int r = blockIdx.y * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;  // a whole warp
+  x += blockIdx.z * (long)rows * K;
+  words += blockIdx.z * per_pair;
   float m = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -313,14 +324,23 @@ __global__ void __launch_bounds__(kThreads)
               __float_as_uint(m));
 }
 
+// The words a pair of an operand of rows quant rows holds (groups along
+// the rows, K groups).
+long pair_words(int rows, int K, int mode) {
+  const long groups =
+      mode == codec::kTile ? (rows + codec::kGroup - 1) / codec::kGroup
+                           : rows;
+  return groups * ((K + kBK - 1) / kBK);
+}
+
 template <typename T>
-int launch_amax(const void* x, int rows, int K, int trans, int mode,
-                void* words, cudaStream_t s) {
-  const dim3 grid((K + kBK - 1) / kBK, (rows + kThreads / 32 - 1) /
-                                           (kThreads / 32));
+int launch_amax(const void* x, int rows, int K, int batch, int trans,
+                int mode, void* words, cudaStream_t s) {
+  const dim3 grid((K + kBK - 1) / kBK,
+                  (rows + kThreads / 32 - 1) / (kThreads / 32), batch);
   group_amax_kernel<T><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), rows, K, trans, mode == codec::kTile,
-      static_cast<unsigned int*>(words));
+      pair_words(rows, K, mode), static_cast<unsigned int*>(words));
   return (int)cudaGetLastError();
 }
 
@@ -508,7 +528,7 @@ extern "C" int qmm_stream_route(int dtype, int M) {
 // 128 x 128, 2 stages of 32 + 64 KB where one side is 256), the FMA
 // kernels stay under the 48 KB static limit (f32 32x32 tiles, 34 KB with
 // the pad; 16x32 for M <= 16).  a_amax / b_amax: null, or the operand's
-// group words (block / tile, unbatched; see the header): amax_phase 1
+// group words (block / tile, one buffer a pair; see the header): amax_phase 1
 // fills them (zeroed by the caller) and launches nothing else, 2 runs the
 // product reading them; 0 is the one-call entry (both null).
 extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
@@ -528,11 +548,13 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
   const Operand oa{a_mode, codec::make_fmt(a_qmax, a_emin, a_mbits, a_pow2),
                    {a_sr, a_seed, a_row0, a_col0},
                    a_stats ? static_cast<float*>(a_stats[0]) : nullptr,
-                   static_cast<const unsigned int*>(a_amax)};
+                   static_cast<const unsigned int*>(a_amax),
+                   pair_words(M, K, a_mode)};
   const Operand ob{b_mode, codec::make_fmt(b_qmax, b_emin, b_mbits, b_pow2),
                    {b_sr, b_seed, b_row0, b_col0},
                    b_stats ? static_cast<float*>(b_stats[0]) : nullptr,
-                   static_cast<const unsigned int*>(b_amax)};
+                   static_cast<const unsigned int*>(b_amax),
+                   pair_words(N, K, b_mode)};
   auto s = static_cast<cudaStream_t>(stream);
   if (a_mode < codec::kPass || a_mode > codec::kTile ||
       b_mode < codec::kPass || b_mode > codec::kTile ||
@@ -541,7 +563,7 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
     return (int)cudaErrorInvalidValue;
   const bool words = a_amax || b_amax;
   if (amax_phase < 0 || amax_phase > 2 || (amax_phase == 0) == words ||
-      (words && batch != 1) || (a_amax && a_mode == codec::kPass) ||
+      (a_amax && a_mode == codec::kPass) ||
       (b_amax && b_mode == codec::kPass) ||
       (amax_phase == 1 && (a_stats || b_stats)))
     return (int)cudaErrorInvalidValue;
@@ -551,13 +573,15 @@ extern "C" int qmm_stream_launch(const void* a, const void* b, void* c,
     // transposed unless trans_b
     int err = 0;
     if (a_amax)
-      err = dtype ? launch_amax<__nv_bfloat16>(a, M, K, trans_a, a_mode,
-                                               a_amax, s)
-                  : launch_amax<float>(a, M, K, trans_a, a_mode, a_amax, s);
+      err = dtype ? launch_amax<__nv_bfloat16>(a, M, K, batch, trans_a,
+                                               a_mode, a_amax, s)
+                  : launch_amax<float>(a, M, K, batch, trans_a, a_mode,
+                                       a_amax, s);
     if (!err && b_amax)
-      err = dtype ? launch_amax<__nv_bfloat16>(b, N, K, !trans_b, b_mode,
-                                               b_amax, s)
-                  : launch_amax<float>(b, N, K, !trans_b, b_mode, b_amax, s);
+      err = dtype ? launch_amax<__nv_bfloat16>(b, N, K, batch, !trans_b,
+                                               b_mode, b_amax, s)
+                  : launch_amax<float>(b, N, K, batch, !trans_b, b_mode,
+                                       b_amax, s);
     return err;
   }
   const bool extra = a_sr || b_sr || a_stats || b_stats;

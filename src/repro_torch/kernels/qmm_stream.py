@@ -35,7 +35,10 @@ entry does: the amax launch writes the operand's partial amax of every
 group (uint32 words, the f32 bits, (groups along the quant rows, K
 groups); non-negative floats order as integers), ``amax_reduce(words)``
 reduces them in place (over the ranks each group spans), and the stream
-kernel reads each group's scale from the words.
+kernel reads each group's scale from the words.  A batched call (the
+experts of an MoE layer whose ``d_ff`` is split inside every expert)
+takes the words of every pair, (E, groups, K groups), in one amax launch
+and one ``amax_reduce`` call; each pair reads its own.
 """
 from __future__ import annotations
 
@@ -91,6 +94,19 @@ def _reduced(amax: torch.Tensor, amax_reduce) -> torch.Tensor:
     return words.view(torch.float32)
 
 
+def _batch_words(x: torch.Tensor, mode: str, trans: bool, amax_reduce):
+    """For a batch of operands (E, ., .), stored ``x.T`` of their quant
+    orientation under ``trans``: each pair's ``amax_reduce`` stand-in,
+    which writes that pair's words from one ``amax_reduce`` call over
+    every pair's (None each without a reduction)."""
+    if amax_reduce is None:
+        return [None] * x.shape[0]
+    words = _reduced(torch.stack([group_amax_plain(t.T if trans else t,
+                                                   mode) for t in x]),
+                     amax_reduce).view(torch.int32)
+    return [lambda w, mine=mine: w.copy_(mine) for mine in words]
+
+
 def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
                      b_mode: str, a_fmt: str, b_fmt: str,
                      a_pow2: bool = False, b_pow2: bool = False,
@@ -108,11 +124,15 @@ def qmm_stream_plain(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     if a.dim() == 3:
         if collect_stats:
             raise ValueError("a batched product has no stats")
+        # one reduction of every pair's words, as the kernel's entry
+        given_a = _batch_words(a, a_mode, trans_a, amax_reduce_a)
+        given_b = _batch_words(b, b_mode, not trans_b, amax_reduce_b)
         return torch.stack([qmm_stream_plain(
             x, y, a_mode=a_mode, b_mode=b_mode, a_fmt=a_fmt, b_fmt=b_fmt,
             a_pow2=a_pow2, b_pow2=b_pow2, trans_a=trans_a, trans_b=trans_b,
             seed_a=seed_a, seed_b=seed_b, sr_origin_a=sr_origin_a,
-            sr_origin_b=sr_origin_b) for x, y in zip(a, b)])
+            sr_origin_b=sr_origin_b, amax_reduce_a=ga, amax_reduce_b=gb)
+            for x, y, ga, gb in zip(a, b, given_a, given_b)])
     ae = a.T if trans_a else a
     bq_orient = b if trans_b else b.T          # B in quant orientation
     (m, k), n = ae.shape, bq_orient.shape[0]
@@ -151,18 +171,18 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     ``collect_stats`` (None for a pass operand); CUDA tensors launch the
     kernel (and, with stats, the two fold kernels) at tiling (bm, bn),
     CPU tensors take the plain version.  ``amax_reduce_a`` /
-    ``amax_reduce_b`` (a block / tile operand, unbatched): the group
-    amaxes reduced by the caller between an amax launch and the stream
-    launch (module docstring)."""
+    ``amax_reduce_b`` (a block / tile operand): the group amaxes reduced
+    by the caller between an amax launch and the stream launch, every
+    pair's in one call (module docstring)."""
     check_tiling(bm, bn)
     for mode in (a_mode, b_mode):
         if mode not in STREAM_MODES:
             raise ValueError(f"the stream pipeline takes {STREAM_MODES}, "
                              f"not {mode!r}")
     for mode, fn in ((a_mode, amax_reduce_a), (b_mode, amax_reduce_b)):
-        if fn is not None and (mode == "pass" or a.dim() == 3):
-            raise ValueError("amax_reduce takes an unbatched block / tile "
-                             f"operand, not {mode!r} of {a.dim()} dims")
+        if fn is not None and mode == "pass":
+            raise ValueError("amax_reduce takes a block / tile operand, "
+                             f"not {mode!r}")
     a_sr, b_sr = a_sr and a_mode != "pass", b_sr and b_mode != "pass"
     if (a_sr and seed_a is None) or (b_sr and seed_b is None):
         raise ValueError("stochastic rounding needs a seed")
@@ -195,8 +215,8 @@ def qmm_stream(a: torch.Tensor, b: torch.Tensor, *, a_mode: str,
     # the shared amaxes' words: zeroed, one a group, the amax launch's
     n_ks = -(-k // GROUP)
     words = [None if fn is None else torch.zeros(
-        (-(-rows // GROUP) if mode == "tile" else rows, n_ks),
-        dtype=torch.int32, device=a.device)
+        (*a.shape[:-2], -(-rows // GROUP) if mode == "tile" else rows,
+         n_ks), dtype=torch.int32, device=a.device)
         for fn, mode, rows in ((amax_reduce_a, a_mode, m),
                                (amax_reduce_b, b_mode, n))]
     n_words = sum(w is not None for w in words)

@@ -151,9 +151,10 @@ def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # a hint that would shard over a larger data axis raises.  Under tensor
 # parallelism the model code already holds the rank's slice of every
 # heads / mlp activation (its weights are the rank's blocks), or the
-# whole tensor where the port keeps it whole (the gathered vocab): a
-# hint over the model axis is a no-op, except for the logical axes the
-# port does not split yet (``experts``, ``mamba_*``), which raise.
+# whole tensor where the port keeps it whole (the gathered vocab), and
+# the MoE sublayer holds its own experts (or its block of each expert's
+# ``mlp``): a hint over the model axis is a no-op, except for the logical
+# axes the port does not split yet (``mamba_*``), which raise.
 #
 # The data-manual region of a data-parallel step that reduces the mean
 # gradient (``train.train_step``'s ``reduce_mean`` and the eval step) also
@@ -177,8 +178,7 @@ def get_sharding_context():
 
 
 # The logical axes whose split over the model axis the port refuses
-UNSPLIT_MODEL_AXES = ("experts", "mamba_inner", "mamba_groups",
-                      "mamba_heads")
+UNSPLIT_MODEL_AXES = ("mamba_inner", "mamba_groups", "mamba_heads")
 
 
 @contextlib.contextmanager
@@ -217,7 +217,7 @@ def shard_hint(x: torch.Tensor,
         if axes[dim] in UNSPLIT_MODEL_AXES:
             raise NotImplementedError(
                 f"shard_hint{tuple(axes)}: {axes[dim]!r} over the model "
-                "axis (size {}): the port splits heads, kv_heads, mlp and "
-                "vocab over it; expert parallelism and mamba on the model "
-                "axis are ROADMAP queue A".format(ctx.axis_size(names)))
+                "axis (size {}): the port splits heads, kv_heads, mlp, "
+                "experts and vocab over it; mamba on the model axis is "
+                "ROADMAP queue A".format(ctx.axis_size(names)))
     return x

@@ -42,7 +42,12 @@ split over the model group (a column-parallel weight's N block, a
 row-parallel one's K block, their activations and cotangents) is
 treated the same way over the model group: groups meeting the split
 share their amax, the subsampled lines are the global operand's, and
-the sums are reduced over the model group.
+the sums are reduced over the model group.  Under expert parallelism a
+rank's expert taps see its own E/m experts: the per-expert stats (each
+expert's operands whole) are summed over the model group and divided by
+E, the reference's mean over every expert, and the cotangent of a rank's
+expert outputs is its contiguous block of the rows of the whole
+(expert-major) cotangent, split over the model group along them.
 """
 from __future__ import annotations
 
@@ -357,17 +362,34 @@ _TOKEN_AXIS = (0, None)            # of (x, w)
 _MODEL_AXIS = {None: (None, None), "col": (None, 1), "row": (1, 0)}
 
 
+def _expert_mean(per_e, ep: bool) -> Dict[str, torch.Tensor]:
+    """The mean over experts of per-expert stat dicts; ``ep``: the
+    rank's block of experts spread over the model group (their sums
+    all-reduced, tag ``telemetry``, over every rank's count)."""
+    stacked = torch.stack([torch.stack([s_[k] for s_ in per_e])
+                           for k in per_e[0]])           # (stats, E)
+    split = model_split()
+    if not ep or split is None:
+        vals = stacked.mean(dim=1)
+    else:
+        vals = comms.all_reduce(stacked.sum(dim=1), "sum", split.group,
+                                tag="telemetry") / (len(per_e) * split.size)
+    return dict(zip(per_e[0], vals.unbind()))
+
+
 def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
                fused_fwd: Optional[Dict[str, Optional[Dict]]] = None,
-               tp: Optional[str] = None) -> None:
+               tp: Optional[str] = None, ep: bool = False) -> None:
     """Record the forward-computable operand stats of one quantized matmul
     into the current frame; no-op without a collector.  ``fused_fwd``
     carries the fwd_x / fwd_w stats that the kernels' epilogue already
     produced (full operand, no subsampling); those slots skip the
     re-computation here.  3-D operands, (E, C, K) x (E, K, N), are a
     batched (per-expert) matmul: each slot's stats are computed per
-    expert and averaged, as the reference's ``tap_matmul_batched``.
-    ``tp``: the weight's tensor-parallel layout (``core.qlinear``)."""
+    expert and averaged, as the reference's ``tap_matmul_batched``
+    (``ep``: the operands are an expert-parallel rank's block of the
+    experts).  ``tp``: the weight's tensor-parallel layout
+    (``core.qlinear``; inside every expert for 3-D operands)."""
     col = active()
     if col is None:
         return
@@ -383,10 +405,10 @@ def tap_matmul(x2d: torch.Tensor, w: torch.Tensor, recipe: MatmulRecipe,
         if pre is not None:
             stats = pre
         elif ops[op_i].dim() == 3:
-            per_e = [operand_stats(a, spec, axis, _TOKEN_AXIS[op_i])
+            per_e = [operand_stats(a, spec, axis, _TOKEN_AXIS[op_i],
+                                   _MODEL_AXIS[tp][op_i])
                      for a in ops[op_i]]
-            stats = {k: torch.stack([s_[k] for s_ in per_e]).mean()
-                     for k in per_e[0]}
+            stats = _expert_mean(per_e, ep)
         else:
             stats = operand_stats(ops[op_i], spec, axis,
                                   _TOKEN_AXIS[op_i],
@@ -412,11 +434,13 @@ def make_probes(n_layers: int, device=None) -> Dict[str, torch.Tensor]:
 
 
 def _cotangent_stats(g: torch.Tensor, recipe: MatmulRecipe,
-                     tp: Optional[str] = None) -> torch.Tensor:
+                     tp: Optional[str] = None,
+                     ep: bool = False) -> torch.Tensor:
     g2 = g.reshape(-1, g.shape[-1])
     vals = []
-    # g's columns are a column-parallel weight's N block
-    m_axis = 1 if tp == "col" else None
+    # g's columns are a column-parallel weight's N block; an
+    # expert-parallel rank's rows its experts' block
+    m_axis = 0 if ep else (1 if tp == "col" else None)
     # dgrad: g reduced over N (axis 1); wgrad: g reduced over M (axis 0);
     # g's rows are tokens
     for spec, axis in ((recipe.dgrad_g, 1), (recipe.wgrad_g, 0)):
@@ -450,24 +474,26 @@ class _GradTap(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, probe, row: int, recipe: MatmulRecipe,
-                tp: Optional[str] = None):
+                tp: Optional[str] = None, ep: bool = False):
         ctx.row, ctx.recipe, ctx.shape = row, recipe, probe.shape
-        ctx.split, ctx.tp = split_state(), tp
+        ctx.split, ctx.tp, ctx.ep = split_state(), tp, ep
         return y.view_as(y)
 
     @staticmethod
     def backward(ctx, g):
         gp = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
         with splitting(*ctx.split):
-            gp[ctx.row] = _cotangent_stats(g, ctx.recipe, ctx.tp)
-        return g, gp, None, None, None
+            gp[ctx.row] = _cotangent_stats(g, ctx.recipe, ctx.tp, ctx.ep)
+        return g, gp, None, None, None, None
 
 
 def grad_tap(y: torch.Tensor, recipe: MatmulRecipe,
-             tp: Optional[str] = None) -> torch.Tensor:
+             tp: Optional[str] = None, ep: bool = False) -> torch.Tensor:
     """Identity whose backward writes the cotangent's quant stats into the
     current layer's row of its module class's probe; the forward value
-    and the cotangent passed upstream are untouched."""
+    and the cotangent passed upstream are untouched.  ``tp`` / ``ep``:
+    as ``tap_matmul``'s (``y`` a column-parallel product's N block, or an
+    expert-parallel rank's experts' rows)."""
     col = active()
     if col is None or col.probes is None:
         return y
@@ -477,7 +503,7 @@ def grad_tap(y: torch.Tensor, recipe: MatmulRecipe,
     idx = col.layer_index
     last = probe.shape[0] - 1
     row = last if idx is None else min(idx, last)
-    return _GradTap.apply(y, probe, row, recipe, tp)
+    return _GradTap.apply(y, probe, row, recipe, tp, ep)
 
 
 def _vec_metrics(vec: torch.Tensor, prefix: str,

@@ -48,11 +48,13 @@ reference's two orders:
     others'.  Adafactor's factored moments reduce over the sharded dim
     (``optim.adafactor``, ``shards=``).
 
-Tensor parallelism (a ``model`` axis > 1, a dense attention stack): the
-heads / kv_heads / mlp leaves are each rank's blocks of the model group
-and are used as blocks (``models.attention``, ``models.mlp``: the
-Megatron layout, the row-parallel sums and the cotangent sums placed
-there); a ``vocab`` leaf that the rules split is gathered whole for the
+Tensor parallelism (a ``model`` axis > 1, a dense attention stack or
+an MoE model): the heads / kv_heads / mlp / experts leaves are each
+rank's blocks of the model group and are used as blocks
+(``models.attention``, ``models.mlp``: the Megatron layout, the
+row-parallel sums and the cotangent sums placed there; ``models.moe``: a
+rank's experts, their outputs gathered, or its block of every expert's
+``d_ff``); a ``vocab`` leaf that the rules split is gathered whole for the
 forward, as fsdp's blocks are, and its gradient sliced back.  The region
 carries the model split (``core.quantize.ModelSplit``) beside the token
 split, so a quant group that meets it shares its amax over the model
@@ -163,9 +165,10 @@ def check_rules(rules: ShardingRules, model: Optional[Model] = None
                 ) -> None:
     """Raise ``NotImplementedError`` for a mesh axis other than the data
     axes and ``model`` that is larger than 1, and, on a model axis > 1,
-    for what the port does not split over it yet: a model other than a
-    dense attention stack (expert parallelism, mamba on the model axis,
-    the cross-attention families) and fp8 gradient compression."""
+    for a model the port does not split over it yet: one with mamba
+    mixers (``ssm``, ``hybrid``) or cross attention (``vlm``, ``audio``).
+    A dense attention stack and an MoE model (expert parallelism, or
+    ``d_ff`` split inside every expert) split."""
     for name in rules.axis_names:
         if name not in rules.dp_axes and name != "model" \
                 and rules.axis_size((name,)) > 1:
@@ -173,13 +176,13 @@ def check_rules(rules: ShardingRules, model: Optional[Model] = None
                 f"mesh axis {name!r} of size {rules.axis_size((name,))}: "
                 "the port splits the data axes and 'model'")
     if model is not None and model_size(rules) > 1 \
-            and model.cfg.family != "dense":
+            and model.cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"a {model.cfg.family} model on a model axis of "
             f"{model_size(rules)}: the port splits a dense attention "
-            "stack's heads, kv_heads, mlp and vocab; expert parallelism, "
-            "mamba and cross attention on the model axis are ROADMAP "
-            "queue A")
+            "stack's heads, kv_heads, mlp and vocab and an MoE model's "
+            "experts; mamba and cross attention on the model axis are "
+            "ROADMAP queue A")
 
 
 def compression_state_sharding(rules: ShardingRules, param_shardings):
@@ -317,11 +320,11 @@ class DataParallel:
     ``gathered``: a ``vocab`` leaf, gathered whole before the forward, its
     gradient sliced back).
 
-    The model axis is the Megatron layout: the heads / kv_heads / mlp
-    leaves are used as the rank's blocks (``models.attention`` /
-    ``models.mlp`` place the row-parallel sums and the cotangent sums of
-    the column-parallel inputs), so their gradients are the rank's
-    blocks; a leaf the rules keep whole over ``model`` (norms, biases, KV
+    The model axis is the Megatron layout: the heads / kv_heads / mlp /
+    experts leaves are used as the rank's blocks (``models.attention`` /
+    ``models.mlp`` / ``models.moe`` place the row-parallel sums, the
+    cotangent sums of the column-parallel inputs and the expert
+    gathers), so their gradients are the rank's blocks; a leaf the rules keep whole over ``model`` (norms, biases, KV
     heads whose count does not divide the axis, an odd vocab) has the same
     gradient on every model rank (every activation it meets is summed
     over the model group first), so every gradient is reduced over the
@@ -409,8 +412,8 @@ class DataParallel:
         return TokenSplit(self.group, self.index, self.size)
 
     def model_split(self) -> Optional[ModelSplit]:
-        """The split of the heads / mlp axes over the model group; None on
-        a model axis of 1."""
+        """The split of the heads / mlp / experts axes over the model
+        group; None on a model axis of 1."""
         if self.msize <= 1:
             return None
         return ModelSplit(self.mgroup, self.mindex, self.msize)

@@ -1,11 +1,18 @@
-"""fp8 gradient compression and the recorded collectives on the card.
-Marked ``gpu``; each test skips without a CUDA device.
+"""fp8 gradient compression, the recorded collectives and an MoE layer
+split over the model axis on the card.  Marked ``gpu``; each test skips
+without a CUDA device.
 
 Bars: bitwise.  The compression is RTN QDQ, IEEE division and exact
 fp8 sums, so a CUDA tensor's result equals the CPU's bit for bit; over
 a world of one NCCL rank ``compressed_psum`` equals
 ``fp8_compress_grads`` (the shared scale is the tensor's own) and its
-gradient payload is 1-byte codes.
+gradient payload is 1-byte codes.  The batched amax-in entry's quantized
+panels (a rank's half of every 128-wide group, maxed over two gloo
+ranks) equal its plain version's bit for bit.  The d_ff-split MoE
+sublayer through the kernels against the same ranks through the plain
+versions: relative L2 ``EXPERT_TP_RTOL`` (the products' f32
+accumulation order, and the FP4 / FP8 elements it flips downstream),
+which the kernels with each rank's own amax must exceed on the output.
 """
 import numpy as np
 import pytest
@@ -86,3 +93,42 @@ def test_nccl_world_of_one(card, tmp_path):
             t.numel() for t in tree_leaves(g))
     finally:
         dist.destroy_process_group()
+
+
+# set from the card (NVIDIA H100 80GB HBM3, 700 W): the kernels read at
+# most 1.3e-4 from the plain versions on any output, the own-amax
+# control 3.2e-2 (fp8) and 1.5e-1 (paper_fp4) on the sublayer's output
+EXPERT_TP_RTOL = 1e-3
+
+
+def _rel(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def test_expert_tensor_parallel_on_card(card, tmp_path):
+    """olmoe-1b-7b ``REDUCED`` with 3 experts on two gloo ranks on the
+    card, d_ff split inside every expert: under paper_fp4 the batched
+    amax-in entry of ``qmm_stream`` (block / tile groups a rank holds 32
+    of 128 of) and under fp8 the batched shared amax of ``quantize_rows``
+    (token groups along the row-parallel K) launch, and the sublayer's
+    output, input cotangent and gradients match the plain versions'; the
+    control (the kernels with each rank's own amax) misses the output;
+    the entry's panels are bitwise the plain version's."""
+    from torch_dist_workers import run_ranks
+    recipes = ("paper_fp4", "fp8")
+    ranks = run_ranks("expert_tp_card", 2, tmp_path, recipes)
+    for rank, r in enumerate(ranks):
+        assert r["panels"] == 0
+        for recipe in recipes:
+            case = r[recipe]
+            errs = [_rel(g, w) for g, w in zip(case["kernels"],
+                                               case["plain"])]
+            own = [_rel(g, w) for g, w in zip(case["own"], case["plain"])]
+            print(f"rank {rank} {recipe}: kernels {errs} own amax {own}")
+            assert max(errs) <= EXPERT_TP_RTOL, (recipe, errs)
+            assert own[0] > EXPERT_TP_RTOL, (recipe, own)
+            counts = case["launches"]
+            name = "qmm_stream" if recipe == "paper_fp4" else \
+                "quantize_rows"
+            assert counts[name]["batched"] > 0, (recipe, counts)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 
@@ -224,6 +225,11 @@ TP_CASES = {
                    dict(FP4, mesh_shape=(2, 2)), 1),
 }
 
+# a (2, 2, 1) (pod, data, model) mesh with the embed leaves over "data"
+PARTIAL_CASE = {"partial": (dict(), dict(
+    mesh_shape=(2, 2, 1), mesh_axes=("pod", "data", "model"),
+    embed_axes=("data",)), 3)}
+
 REF_MESH = textwrap.dedent("""
     import os, sys, json
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -287,21 +293,42 @@ def _unflatten(npz, like):
 
 
 @pytest.fixture(scope="module")
-def ref_mesh(tmp_path_factory):
-    """The reference's runs (one subprocess, 4 forced CPU devices): its
-    rows by case, its final params' directory and the shared init."""
+def ref_start(tmp_path_factory):
+    """The reference's runs started (one subprocess, 4 forced CPU
+    devices) and, meanwhile, the init they all start from, drawn here as
+    its ``Trainer`` draws it: (the process, its output directory, the
+    init, the params' abstract tree)."""
     out_dir = tmp_path_factory.mktemp("ref_mesh")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    out = subprocess.run([sys.executable, "-c", REF_MESH, str(out_dir),
-                          json.dumps({**NEW_CASES, **TP_CASES})],
-                         env=env, capture_output=True, text=True,
-                         timeout=900)
-    assert out.returncode == 0, out.stderr[-3000:]
-    ref = json.loads(out.stdout.strip().splitlines()[-1])
-    jcfg = importlib.import_module("repro.configs.tiny").CONFIG.replace(
-        dtype="float32")
-    like = j_build(jcfg).abstract_params()
-    init = _unflatten(np.load(out_dir / "init.npz"), like)
+    proc = subprocess.Popen([sys.executable, "-c", REF_MESH, str(out_dir),
+                             json.dumps({**NEW_CASES, **TP_CASES})],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        jcfg = importlib.import_module("repro.configs.tiny").CONFIG.replace(
+            dtype="float32")
+        model = j_build(jcfg)
+        init = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0),
+                                                   jnp.float32))
+        yield proc, out_dir, init, model.abstract_params()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def ref_mesh(ref_start):
+    """The reference's runs: its rows by case, its final params'
+    directory, the shared init (the subprocess's own, checked equal to
+    the one the ranks started from) and the params' abstract tree."""
+    proc, out_dir, init, like = ref_start
+    out, err = proc.communicate(timeout=900)
+    assert proc.returncode == 0, err[-3000:]
+    ref = json.loads(out.strip().splitlines()[-1])
+    saved = _unflatten(np.load(out_dir / "init.npz"), like)
+    for a, b in zip(jax.tree.leaves(saved), jax.tree.leaves(init)):
+        np.testing.assert_array_equal(a, b)
     return ref, out_dir, init, like
 
 
@@ -332,17 +359,21 @@ def _check_run(ranks, ref, out_dir, like, name, tol):
     return got
 
 
-def test_two_rank_mesh_matches_reference(tmp_path, ref_mesh):
+# the first data-parallel cases: bf16 on (2, 1), 3 steps each
+MESH_CASES = {"fsdp": (dict(), dict(), 3),
+              "nofsdp": (dict(), dict(fsdp=False), 3),
+              "fp8": (dict(), dict(fsdp=False, grad_compression="fp8"), 3)}
+
+
+def test_two_rank_mesh_matches_reference(new_ranks, ref_mesh):
     """2 gloo ranks on a (2, 1) mesh, fsdp on and off, and fp8 compression
     with fsdp off, against the reference's ``Trainer`` on 2 forced CPU
     devices, from the same init: per-step loss and grad norm, final
     params; the fsdp run's blocks are half the embed leaves."""
     ref, out_dir, init, like = ref_mesh
-    for name, over in (("fsdp", dict()), ("nofsdp", dict(fsdp=False)),
-                       ("fp8", dict(fsdp=False, grad_compression="fp8"))):
+    for name in MESH_CASES:
         tol = MESH_TOL["fp8" if name == "fp8" else "none"]
-        ranks = run_ranks("train_mesh", 2, tmp_path / name, over, 3, "",
-                          init)
+        ranks = [r[name] for r in new_ranks]
         got = _check_run(ranks, ref, out_dir, like, name, tol)
         if name == "fsdp":
             assert got["local_shapes"][0][-1] * 2 == got["params"][0].shape[-1]
@@ -360,14 +391,27 @@ def _port_over(model_over, over):
 
 
 @pytest.fixture(scope="module")
-def new_ranks(tmp_path_factory, ref_mesh):
-    """The new cases on 2 gloo ranks in one process group."""
-    cases = [(name, _port_over(*case[:2]), case[2])
-             for name, case in {**NEW_CASES, **PORT_CASES,
-                                **TP_CASES}.items()
-             if math.prod(case[1].get("mesh_shape", (2,))) == 2]
-    return run_ranks("train_cases", 2, tmp_path_factory.mktemp("new"),
-                     cases, ref_mesh[2])
+def rank_runs(tmp_path_factory, ref_start):
+    """Every case of the 2-rank meshes in one process group, then the
+    4-rank ones (the (2, 2) model axis, the partial data axes) in another,
+    while the reference runs."""
+    init = ref_start[2]
+    cases = {**MESH_CASES, **NEW_CASES, **PORT_CASES, **TP_CASES}
+    two = [(name, _port_over(*case[:2]), case[2])
+           for name, case in cases.items()
+           if math.prod(case[1].get("mesh_shape", (2,))) == 2]
+    four = [(name, _port_over(*case[:2]), case[2])
+            for name, case in {**TP_CASES, **PARTIAL_CASE}.items()
+            if math.prod(case[1].get("mesh_shape", (2,))) == 4]
+    tmp = tmp_path_factory.mktemp("new")
+    return {"two": run_ranks("train_cases", 2, tmp / "two", two, init),
+            "four": run_ranks("train_cases", 4, tmp / "four", four, init)}
+
+
+@pytest.fixture(scope="module")
+def new_ranks(rank_runs):
+    """The 2-rank cases' results, rank by rank."""
+    return rank_runs["two"]
 
 
 @pytest.mark.parametrize("name", ["fp4_fsdp", "fp4_nofsdp"])
@@ -399,8 +443,7 @@ def test_two_rank_paper_fp4_matches_reference(name, ref_mesh, new_ranks):
 
 
 @pytest.mark.parametrize("name", list(TP_CASES))
-def test_tensor_parallel_matches_reference(name, tmp_path, ref_mesh,
-                                           new_ranks):
+def test_tensor_parallel_matches_reference(name, rank_runs, ref_mesh):
     """tiny on a model axis of 2 ((1, 2) over 2 gloo ranks, (2, 2) over
     4): heads, kv_heads, mlp and the vocab (gathered for the embedding and
     the head) split over the model group, quant groups meeting the split
@@ -411,11 +454,8 @@ def test_tensor_parallel_matches_reference(name, tmp_path, ref_mesh,
     model group's amax words counted apart."""
     ref, out_dir, init, like = ref_mesh
     model_over, over, steps = TP_CASES[name]
-    if math.prod(over["mesh_shape"]) == 2:
-        ranks = [r[name] for r in new_ranks]
-    else:
-        ranks = run_ranks("train_mesh", 4, tmp_path,
-                          _port_over(model_over, over), steps, "", init)
+    world = math.prod(over["mesh_shape"])
+    ranks = [r[name] for r in rank_runs["two" if world == 2 else "four"]]
     got = _check_run(ranks, ref, out_dir, like, name, FP4_TOL)
     assert got["local_shapes"][0][0] * 2 == got["params"][0].shape[0]
     census, findings = qlint.audit_comms(got["census"], expect_fp8=False)
@@ -486,15 +526,13 @@ def test_two_rank_adafactor_fsdp_matches_reference(ref_mesh, new_ranks):
     assert got["mu"] and len(got["mu"]) == 2 * len(got["params"])
 
 
-def test_partial_data_axes_matches_reference(tmp_path, ref_mesh):
+def test_partial_data_axes_matches_reference(rank_runs, ref_mesh):
     """A (2, 2, 1) (pod, data, model) mesh of 4 gloo ranks whose embed
     leaves shard over "data" alone (a ``default_rules`` override): blocks
     gathered and reduce-scattered over the data sub-group, all-reduced
     over pod; against the reference on 4 forced CPU devices."""
     ref, out_dir, init, like = ref_mesh
-    over = dict(mesh_shape=(2, 2, 1), mesh_axes=("pod", "data", "model"),
-                embed_axes=("data",))
-    ranks = run_ranks("train_mesh", 4, tmp_path, over, 3, "", init)
+    ranks = [r["partial"] for r in rank_runs["four"]]
     got = _check_run(ranks, ref, out_dir, like, "partial",
                      MESH_TOL["none"])
     assert got["local_shapes"][0][-1] * 2 == got["params"][0].shape[-1]
@@ -631,15 +669,15 @@ def test_elastic_resume_2x1_to_1(tmp_path, world_of_one):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
-def test_census_and_audit_comms(tmp_path):
-    """The recorded collectives of a 2-rank step: fp8 gradients travel as
-    1-byte codes (audit clean), the amax reductions are f32 scale words;
-    an uncompressed fsdp step moves f32 gradients (flagged when fp8 was
-    expected), all-gathers its blocks, reduce-scatters their gradients
-    and all-reduces their squared sums (every leaf of ``tiny`` has an
-    embed dim: all are blocks).  qlint's ``--mesh 2,1`` audit of the ranks is clean."""
-    fp8 = run_ranks("train_mesh", 2, tmp_path / "fp8",
-                    dict(fsdp=False, grad_compression="fp8"), 1)[0]
+def test_census_and_audit_comms(tmp_path, new_ranks):
+    """The recorded collectives of a 2-rank step (the last step of the
+    (2, 1) runs): fp8 gradients travel as 1-byte codes (audit clean), the
+    amax reductions are f32 scale words; an uncompressed fsdp step moves
+    f32 gradients (flagged when fp8 was expected), all-gathers its
+    blocks, reduce-scatters their gradients and all-reduces their squared
+    sums (every leaf of ``tiny`` has an embed dim: all are blocks).
+    qlint's ``--mesh 2,1`` audit of the ranks is clean."""
+    fp8 = new_ranks[0]["fp8"]
     census, findings = qlint.audit_comms(fp8["census"], expect_fp8=True)
     assert findings == []
     assert census["grad_payload_dtypes"] == {"uint8": len(
@@ -650,7 +688,7 @@ def test_census_and_audit_comms(tmp_path):
     assert census["grad_payload_bytes"] == total
     b = collective_bytes(fp8["census"])
     assert b["raw_all-gather_uint8"] == total
-    fs = run_ranks("train_mesh", 2, tmp_path / "fsdp", {}, 1)[0]
+    fs = new_ranks[0]["fsdp"]
     census, findings = qlint.audit_comms(fs["census"], expect_fp8=True)
     assert findings and all(f.severity == "violation" for f in findings)
     ops = {(r.op, r.tag) for r in fs["census"]}

@@ -3,8 +3,9 @@ port, held to the JAX reference's layout and to the port's own single
 process.
 
 Bars:
-  * bitwise: each leaf's block on (1, 2), (2, 2) and (1, 4) meshes of
-    ``tiny``, gpt2-125m ``REDUCED`` and gpt2-125m against the slice the
+  * bitwise: each leaf's block on (1, 2), (2, 2), (1, 4) and (1, 16)
+    meshes of ``tiny``, gpt2-125m, olmoe-1b-7b and mixtral-8x22b (full and
+    ``REDUCED``) against the slice the
     reference's ``default_rules(...).param_sharding`` spec gives (KV heads
     kept whole where their count does not divide the axis, gpt2's odd
     vocab kept whole), and the blocks the ranks of a live mesh hold; on
@@ -20,9 +21,9 @@ Bars:
     1e-6 under paper_fp4 (the partial sums' order flips a quantized
     element now and then, which moves the gradient, not the loss);
   * raises: a local K that neither divides the 128 group nor is a
-    multiple of it (``ValueError``, both impls); MoE, mamba and the
-    cross-attention families, and fp8 compression, on a model axis > 1
-    (``NotImplementedError``).
+    multiple of it (``ValueError``, both impls); mamba (mamba2, jamba)
+    and the cross-attention families, and fp8 compression, on a model
+    axis > 1 (``NotImplementedError``).
 
 The reference end to end (its ``Trainer`` on (1, 2) and (2, 2)) is in
 ``tests/test_torch_spmd_train.py``, beside its other meshes.  Spawned
@@ -51,20 +52,22 @@ from repro_torch.distributed import AbstractMesh, default_rules  # noqa
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.nn.params import spec_leaves  # noqa: E402
 from repro_torch.train.train_step import (DataParallel,  # noqa: E402
-                                          make_train_step)
+                                          check_rules, make_train_step)
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from torch_dist_workers import _tiny_trainer, run_ranks  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MESHES = ((1, 2), (2, 2), (1, 4))
+# (1, 16): the production model axis, where mixtral's 8 experts take
+# d_ff inside every expert
+MESHES = ((1, 2), (2, 2), (1, 4), (1, 16))
 
 
 def _config(name):
-    if name == "gpt2-125m-reduced":
-        return (importlib.import_module("repro.configs.gpt2_125m").REDUCED,
-                importlib.import_module(
-                    "repro_torch.configs.gpt2_125m").REDUCED)
+    if name.endswith("-reduced"):
+        mod = name[:-len("-reduced")].replace("-", "_").replace(".", "_")
+        return (importlib.import_module("repro.configs." + mod).REDUCED,
+                importlib.import_module("repro_torch.configs." + mod).REDUCED)
     return j_get_config(name), get_config(name)
 
 
@@ -108,11 +111,15 @@ def _port_paths(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["tiny", "gpt2-125m-reduced",
-                                  "gpt2-125m"])
+                                  "gpt2-125m", "olmoe-1b-7b",
+                                  "olmoe-1b-7b-reduced", "mixtral-8x22b",
+                                  "mixtral-8x22b-reduced"])
 def test_local_blocks_match_reference(arch):
     """Each leaf's block on every mesh equals the slice of the
     reference's spec, leaf for leaf; KV heads whose count does not
-    divide the model axis and an odd vocab stay whole."""
+    divide the model axis and an odd vocab stay whole; an MoE model's
+    expert leaves split over the experts where their count divides the
+    axis, else over each expert's d_ff."""
     jcfg, tcfg = _config(arch)
     jflat = jax.tree_util.tree_flatten_with_path(
         j_build(jcfg).param_specs(), is_leaf=lambda x: hasattr(x, "axes"))[0]
@@ -137,6 +144,10 @@ def test_local_blocks_match_reference(arch):
             if "vocab" in m:
                 assert (got[m["vocab"]] == tcfg.vocab_size) == bool(
                     tcfg.vocab_size % shape[1]), (arch, shape, path)
+            if "experts" in m:
+                ep = tcfg.moe.num_experts % shape[1] == 0
+                assert (got[m["experts"]] < sp.shape[m["experts"]]) == ep
+                assert (got[m["mlp"]] < sp.shape[m["mlp"]]) == (not ep)
 
 
 def test_model_span():
@@ -227,13 +238,18 @@ def test_straddling_model_split_raises(name, operand_ranks):
 
 
 def test_unsplit_families_raise():
-    """MoE, mamba and cross-attention models, and fp8 compression, on a
-    model axis > 1 raise ``NotImplementedError``; on a model axis of 1
-    they take no model split."""
+    """Mamba (mamba2, and jamba's mixers) and cross-attention models, and
+    fp8 compression, on a model axis > 1 raise ``NotImplementedError``;
+    on a model axis of 1 they take no model split; the MoE family passes
+    the check (tests/test_torch_expert_parallel.py trains it)."""
     mesh = AbstractMesh((1, 2), ("data", "model"))
-    for arch in ("olmoe-1b-7b", "mamba2-780m", "whisper-base"):
+    for arch in ("olmoe_1b_7b", "mixtral_8x22b"):
+        cfg = importlib.import_module("repro_torch.configs." + arch).REDUCED
+        check_rules(default_rules(mesh, cfg), build_model(cfg, "meta"))
+    for arch in ("mamba2-780m", "jamba-1.5-large-398b", "whisper-base"):
         cfg = importlib.import_module(
-            "repro_torch.configs." + arch.replace("-", "_")).REDUCED
+            "repro_torch.configs." + arch.replace("-", "_").replace(
+                ".", "_")).REDUCED
         model = build_model(cfg, "meta")
         with pytest.raises(NotImplementedError, match="model axis"):
             DataParallel.of(model, default_rules(mesh, cfg))

@@ -348,8 +348,9 @@ def test_trainer_refuses_unported_features(tmp_path):
     meshes: test_torch_spmd_train; the model axis of a dense stack:
     test_torch_tensor_parallel).  ``grad_compression`` and
     ``mesh_shape`` are accepted; a ``model`` axis larger than 1 raises
-    for a model the port does not split over it (MoE here), and so does
-    a mesh larger than the world.
+    for a model the port does not split over it (mamba2 here; an MoE
+    model splits: test_torch_expert_parallel), and so does a mesh larger
+    than the world.
     ``remat_policy="dots"`` raises: no selective-checkpoint policy sees
     the port's matmul kernels."""
     import torch.distributed as dist
@@ -357,12 +358,12 @@ def test_trainer_refuses_unported_features(tmp_path):
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
-    moe = importlib.import_module(
-        "repro_torch.configs.olmoe_1b_7b").REDUCED
+    ssm = importlib.import_module(
+        "repro_torch.configs.mamba2_780m").REDUCED
     with pytest.raises(NotImplementedError, match="queue A"):
-        Trainer(t_build(moe, "cpu"), TrainConfig(), pipe,
+        Trainer(t_build(ssm, "cpu"), TrainConfig(), pipe,
                 rules=default_rules(AbstractMesh((1, 2),
-                                                 ("data", "model")), moe))
+                                                 ("data", "model")), ssm))
     Trainer(model, TrainConfig(grad_compression="fp8"), pipe)
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,

@@ -67,30 +67,47 @@ def psum_sum(rank, world, x):
 def _tiny_trainer(over: dict, ckpt_dir: str = "", steps: int = 3):
     """A ``Trainer`` of ``tiny`` in f32 (the reference's test sizes:
     global batch 4 x 32), ``over`` its ``TrainConfig`` fields, and under
-    ``"model"`` the config's fields to replace; ``"embed_axes"`` builds
-    the rules of the mesh ``mesh_shape`` x ``mesh_axes`` with the embed
-    leaves over those data axes alone."""
+    ``"model"`` the config's fields to replace (``"experts"``: an MoE
+    config's expert count); ``"arch"`` another config's ``REDUCED`` size
+    instead of ``tiny``; ``"embed_axes"`` builds the rules of the mesh
+    ``mesh_shape`` x ``mesh_axes`` with the embed leaves over those data
+    axes alone, ``"whole_heads"`` the mesh's rules with the attention's
+    heads kept whole on every model rank."""
+    import dataclasses
     import importlib
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train.trainer import Trainer
     over = dict(over)
-    cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
-    cfg = cfg.replace(dtype="float32", **over.pop("model", {}))
+    arch = over.pop("arch", "tiny")
+    mod = importlib.import_module("repro_torch.configs."
+                                  + arch.replace("-", "_"))
+    cfg = mod.CONFIG if arch == "tiny" else mod.REDUCED
+    model_over = dict(over.pop("model", {}))
+    if "experts" in model_over:
+        model_over["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=model_over.pop("experts"))
+    cfg = cfg.replace(**{"dtype": "float32", **model_over})
     embed_axes = over.pop("embed_axes", None)
+    whole_heads = over.pop("whole_heads", False)
     kw = dict(recipe="bf16", total_steps=steps, global_batch=4, seq_len=32,
               log_every=0)
     if ckpt_dir:
         kw.update(checkpoint_every=2, checkpoint_dir=ckpt_dir)
     kw.update(over)
     rules = None
-    if embed_axes is not None:
+    if embed_axes is not None or whole_heads:
         from repro_torch.distributed.mesh import make_mesh
         from repro_torch.distributed.sharding import default_rules
-        rules = default_rules(make_mesh(kw.pop("mesh_shape"),
-                                        kw.pop("mesh_axes")), cfg,
-                              overrides={"embed": embed_axes})
+        shape = kw.pop("mesh_shape")
+        axes = kw.pop("mesh_axes", None) or ("data", "model")
+        whole = dict.fromkeys(("heads", "kv_heads")) if whole_heads else {}
+        rules = default_rules(make_mesh(shape, axes), cfg,
+                              overrides=dict(whole, **(
+                                  {} if embed_axes is None
+                                  else {"embed": embed_axes})),
+                              act_overrides=whole)
     model = build_model(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, kw["seq_len"], kw["global_batch"])
     return Trainer(model, TrainConfig(**kw), pipe, rules=rules)
@@ -407,4 +424,222 @@ def model_operands(rank, world, cases):
             "whole": [t.contiguous().numpy() for t in cut],
             "outs": [t.numpy() for t in outs],
             "outs_whole": [t.numpy() for t in outs_whole]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE on the model axis (expert parallelism, d_ff inside every expert)
+# ---------------------------------------------------------------------------
+
+def _moe_sublayer(cfg, recipe, ffn, x, c, msplit, partial=False):
+    """The MoE sublayer of ``ffn`` (layer params, the rank's blocks) on
+    ``x`` with the output cotangent ``c`` under the model split
+    ``msplit`` (None: whole experts): [y, dx, and each leaf's gradient in
+    ``ffn``'s sorted key order].  ``partial``: the control, each rank's
+    combine over its own experts alone (``moe.partial_combine``)."""
+    import contextlib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.nn import layers
+    xr = x.clone().requires_grad_()
+    leaves = {k: v.clone().requires_grad_() for k, v in ffn.items()}
+    with moe_lib.partial_combine() if partial else \
+            contextlib.nullcontext(), \
+            layers.sharding_context(None, None, msplit):
+        y, _ = moe_lib.moe(leaves, cfg, xr, recipe)
+        (y.to(torch.float32) * c).sum().backward()
+    # f32 holds every bf16 value exactly
+    return [t.float().cpu().numpy() for t in [y.detach(), xr.grad] + [
+        leaves[k].grad for k in sorted(leaves)]]
+
+
+def expert_sublayer(rank, world, cases):
+    """Each case ``(name, arch, over, recipe, impl)``: layer 0's MoE
+    sublayer of ``arch``'s ``REDUCED`` config (``over``: its fields to
+    replace) from ``init(0)``, on a seeded (2, 128, D) input and output
+    cotangent, on this rank's experts under the model split ("split"),
+    the control ("partial"), and in one process on whole experts
+    ("whole"): {name: each one's [y, dx, leaf gradients (sorted keys)]
+    and "keys"}."""
+    import dataclasses
+    import importlib
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.distributed import comms
+    from repro_torch.models import build_model
+    msplit = ModelSplit(dist.group.WORLD, rank, world)
+    out = {}
+    for name, arch, over, recipe, impl in cases:
+        cfg = importlib.import_module(
+            "repro_torch.configs." + arch.replace("-", "_")).REDUCED
+        over = dict(over)
+        if "experts" in over:
+            over["moe"] = dataclasses.replace(
+                cfg.moe, num_experts=over.pop("experts"))
+        cfg = cfg.replace(linear_impl=impl, **over)
+        model = build_model(cfg, "cpu")
+        # layer 0 of the scanned stack (its leaves lead with the layers)
+        ffn = {k: v[0] for k, v in model.cast_params(model.init(0))[
+            "stack"]["groups"]["l00"]["ffn"].items()}
+        mm = RECIPES[recipe].ffn_linear
+        rng = np.random.default_rng(5)
+        dt = getattr(torch, cfg.dtype)
+        x = torch.from_numpy(rng.standard_normal(
+            (2, 128, cfg.d_model), dtype=np.float32)).to(dt)
+        c = torch.from_numpy(rng.standard_normal(
+            (2, 128, cfg.d_model), dtype=np.float32))
+        e = cfg.moe.num_experts
+        ep = e % world == 0
+        mine = {}
+        for k, v in ffn.items():
+            if k == "router":
+                mine[k] = v
+            elif ep:
+                mine[k] = v.chunk(world, 0)[rank]
+            else:       # d_ff: w_gate / w_up's last dim, w_down's dim 1
+                mine[k] = v.chunk(world, 1 if k == "w_down" else 2)[rank]
+        with comms.recording() as log:
+            split = _moe_sublayer(cfg, mm, mine, x, c, msplit)
+        out[name] = {
+            "keys": sorted(ffn), "ep": ep, "split": split,
+            "partial": _moe_sublayer(cfg, mm, mine, x, c, msplit, True),
+            "whole": _moe_sublayer(cfg, mm, ffn, x, c, None),
+            "census": [r.to_dict() for r in log]}
+    return out
+
+
+def moe_axis(rank, world, sublayer_cases, train, inits):
+    """``expert_sublayer`` of ``sublayer_cases``, then ``train_mesh`` of
+    each ``(name, over, steps)`` of ``train`` from the reference's
+    ``inits[name]`` (numpy trees), in this one process group."""
+    out = {"sublayer": expert_sublayer(rank, world, sublayer_cases)}
+    for name, over, steps in train:
+        out[name] = train_mesh(rank, world, over, steps, "", inits[name])
+    return out
+
+
+class _PlainKernels:
+    """While entered, the fused pipeline (``kernels.fp4_matmul``) runs the
+    plain versions of ``qmm_stream``, ``quantize_rows`` and ``tiled_mm``
+    on whatever device its tensors are on."""
+
+    def __enter__(self):
+        from repro_torch.kernels import fp4_matmul
+        from repro_torch.kernels import qmm_stream as qs
+        from repro_torch.kernels import quantize_rows as qr
+        from repro_torch.kernels import tiled_mm as tm
+
+        def stream(a, b, *, a_sr=False, b_sr=False, seed_a=None,
+                   seed_b=None, **kw):
+            return qs.qmm_stream_plain(a, b, seed_a=seed_a if a_sr else None,
+                                       seed_b=seed_b if b_sr else None, **kw)
+
+        def quant(x, *, sr=False, seed=None, **kw):
+            return qr.quantize_rows_plain(x, seed=seed if sr else None, **kw)
+        self._saved = [(n, getattr(fp4_matmul, n)) for n in
+                       ("qmm_stream", "quantize_rows", "tiled_mm")]
+        fp4_matmul.qmm_stream, fp4_matmul.quantize_rows = stream, quant
+        fp4_matmul.tiled_mm = tm.tiled_mm_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import fp4_matmul
+        for n, fn in self._saved:
+            setattr(fp4_matmul, n, fn)
+
+
+class _OwnAmax:
+    """While entered, the kernels' quant groups that meet the model split
+    keep each rank's own amax (``ops.model_span`` finds no group to
+    share): the control of a shared-amax check."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._saved = ops.model_span
+        ops.model_span = lambda *a, **kw: None
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.model_span = self._saved
+
+
+def expert_tp_card(rank, world, recipes):
+    """d_ff split inside every expert on the card: olmoe-1b-7b
+    ``REDUCED`` in bf16 with 3 experts (32 of d_ff's 64 a rank), layer
+    0's MoE sublayer under each recipe of ``recipes`` through the kernels
+    (the batched amax-in entry of ``qmm_stream`` and the batched shared
+    amax of ``quantize_rows``, the windows over the gloo group staged
+    through host memory) and through their plain versions on the same
+    card tensors: {recipe: {"kernels" / "plain": [y, dx, leaf grads] on
+    the host, "own": the kernels with each rank's own amax (the control),
+    "launches": each kernel's counts of the kernels' run}}; and
+    the batched amax-in entry's quantized panels (each expert's operand
+    times the identity) against the plain version's, bitwise
+    ("panels": the number of differing panels)."""
+    import dataclasses
+    import importlib
+    from repro_torch.core.quantize import ModelSplit, window_max
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.distributed import comms
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.models import build_model
+    torch.cuda.set_device(0)
+    msplit = ModelSplit(dist.group.WORLD, rank, world)
+    cfg = importlib.import_module("repro_torch.configs.olmoe_1b_7b").REDUCED
+    cfg = cfg.replace(linear_impl="pallas", moe=dataclasses.replace(
+        cfg.moe, num_experts=3))
+    model = build_model(cfg, "cpu")
+    ffn = {k: v[0] for k, v in model.cast_params(model.init(0))[
+        "stack"]["groups"]["l00"]["ffn"].items()}
+    mine = {k: (v if k == "router" else v.chunk(
+        world, 1 if k == "w_down" else 2)[rank]).cuda()
+        for k, v in ffn.items()}
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 128, cfg.d_model), dtype=np.float32)).to(torch.bfloat16).cuda()
+    c = torch.from_numpy(rng.standard_normal(
+        (2, 128, cfg.d_model), dtype=np.float32)).cuda()
+    kernels = (qs.KERNEL, qr.KERNEL)
+    out = {}
+    with comms.host_staging():
+        for recipe in recipes:
+            mm = RECIPES[recipe].ffn_linear
+            for k in kernels:
+                k.reset()
+            got = _moe_sublayer(cfg, mm, mine, x, c, msplit)
+            launches = {k.name: k.counts() for k in kernels}
+            with _PlainKernels():
+                plain = _moe_sublayer(cfg, mm, mine, x, c, msplit)
+            with _OwnAmax():
+                own = _moe_sublayer(cfg, mm, mine, x, c, msplit)
+            out[recipe] = {"kernels": got, "plain": plain, "own": own,
+                           "launches": launches}
+        # the batched amax-in entry at the down projection's operands:
+        # h (3, 256, 32) block groups along K, w_down (3, 32, 64) tile
+        # groups, each group's amax maxed over both ranks' halves
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        e, m, f, d = 3, 256, 32, cfg.d_model
+        a = torch.randn(e, m, f, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        b = (torch.randn(e, f, d, generator=gen, device="cuda") * 0.05).to(
+            torch.bfloat16)
+
+        def window(words):
+            return window_max(words, msplit, f, 128)
+        eye_k = torch.eye(f, dtype=torch.bfloat16,
+                          device="cuda").expand(e, f, f).contiguous()
+        differing = 0
+        for args, kw in (
+                ((a, eye_k), dict(a_mode="block", b_mode="pass",
+                                  a_fmt="fp4_e2m1", b_fmt="bf16",
+                                  amax_reduce_a=window)),
+                ((eye_k, b), dict(a_mode="pass", b_mode="tile",
+                                  a_fmt="bf16", b_fmt="fp4_e2m1",
+                                  amax_reduce_b=window))):
+            want = qs.qmm_stream_plain(*args, **kw)
+            got = qs.qmm_stream(*args, **kw)
+            differing += sum(not torch.equal(g_, w_)
+                             for g_, w_ in zip(got, want))
+        out["panels"] = differing
     return out
