@@ -205,7 +205,25 @@ code 1):
    expert gathers (``ep_fwd`` / ``ep_bwd``)
    censused by layer in bf16 (``qlint.audit_comms`` clean); every
    ``qmm_stream`` launch of the experts batched over the rank's 32
-   (9 a layer-step), in the launches line.  NCCL across cards is not
+   (9 a layer-step), in the launches line.  Then mamba on the model axis
+   (the ssm_axis run): mamba2-780m at full width (d 1536, 48 SSD heads,
+   one B / C group of 128) cut to 8 of 48 layers (SA_LAYERS), a (1, 2)
+   mesh, 24 heads a rank and the group whole on both, paper_fp4, both
+   impls "pallas", AdamW, no remat, 2 steps of 2 x 2048 tokens, first in
+   this process on whole heads: each rank's layer-0 norm input (the
+   SSD's per-head output times the gate) on the one-process run's
+   step-0 input and output cotangent equals one process's columns bit
+   for bit, its output, input cotangent and every leaf's gradient are
+   within SA_SUBLAYER_TOL of one process's, and the controls miss by
+   more (the rank's own norm statistic on the output, the statistic
+   summed in the forward only on the input's cotangent); every whole
+   leaf's gradient and, after the run, every whole leaf equal on both
+   ranks; losses and parameters within SA_TOL of one process, and three
+   control runs (the mamba leaves whole; the split in float32; float32
+   without quantization) within SA_CONTROL_TOL of one process of their
+   config; the norm's statistic (``tp_norm``: one f32 word a token a
+   layer each way) in the census (``qlint.audit_comms`` clean); its
+   launches in the launches line.  NCCL across cards is not
    proven by a one-card machine.
 6. speed_factors — the card's cost calibration (the reference's
    ``measure_speed_factors``): every distinct operand-spec pair of the
@@ -506,8 +524,9 @@ Every phase keeps the full depth of its model but ``serve_swa``, cut to
 2 of 24 layers (SWA_LAYERS), ``serve_moe``, cut to 2 of 16 layers
 (MOE_SERVE_LAYERS), ``vlm``, cut to its first 5 layers (VLM_LAYERS),
 ``train_large``, cut to 24 of 48 layers (LARGE_LAYERS), and
-``train_dp``, cut to 2 of 12 layers (DP_LAYERS) and, in its
-expert_axis run, to 2 of olmoe-1b-7b's 16 (EP_LAYERS).
+``train_dp``, cut to 2 of 12 layers (DP_LAYERS), in its expert_axis
+run to 2 of olmoe-1b-7b's 16 (EP_LAYERS) and in its ssm_axis run to 8
+of mamba2-780m's 48 (SA_LAYERS).
 Exits non-zero without a result when there is no CUDA device or when
 the port is not beside this script.
 """
@@ -619,11 +638,53 @@ TP_TOL = {"loss": 5e-4, "params": 3.6e-3, "params_rel": 1e-1}
 EP_LAYERS, EP_BATCH, EP_SEQ, EP_STEPS = 2, 2, 2048, 2
 EP_TOL = {"loss": 2.5e-4, "params_rel": 0.5}
 EP_HEADS_TOL = {"loss": 1e-6, "params": 1e-2, "params_rel": 2e-2}
+# train_dp's ssm_axis run: mamba2-780m (arXiv:2405.21060) at full width
+# (d 1536, 48 SSD heads of 64, one B / C group of 128), cut to SA_LAYERS
+# of 48 layers, on a (1, 2) ("data", "model") mesh of the two gloo
+# ranks: 24 heads a rank (in_z / in_x / in_dt column-parallel, out_proj
+# row-parallel, the group whole on both ranks), paper_fp4, both impls
+# "pallas", AdamW, no remat (the step-0 capture of a mixer's cotangent),
+# SA_STEPS steps of SA_BATCH x SA_SEQ tokens (every rank the same rows).
+# The mixer sublayer's norm input is one process's columns bit for bit
+# (per-head SSD math); its output is not: out_proj's row-parallel sum
+# and the norm's statistic add partials in another order.  The rest of
+# the sublayer (y, dx and every leaf's gradient, a split leaf's as one
+# process's block) is held within SA_SUBLAYER_TOL of one process,
+# relative to the max |.|, and both statistic controls (the rank's own
+# on y, the forward-only sum on dx) must miss by more (first card
+# reading: 5.6e-3 at most, in_b's gradient; controls 0.316 and 0.111).
+# SA_TOL against one process on the same tokens: "loss" relative,
+# "params_rel" the L2 norm of the difference over that of one process's
+# update; no element bar (two AdamW steps at lr 6e-4 move an element by
+# at most 2.4e-3 and a sign flip reaches it: the first reading, 2.40e-3).
+# Three control runs, each against one process of its own config:
+# "heads" with the mamba leaves whole on both ranks (only the vocab
+# split and gathered: the forward is one process's bits), "params" there
+# the largest element's difference; "f32" the split in float32, so every
+# partial sum (out_proj's row-parallel output, the column-parallel dx,
+# the norm's statistic) adds unrounded f32 partials; "plain" float32
+# under the bf16 recipe (no quantization): the split's sums alone, with
+# no FP4 rounding for a reordered sum to flip.  Card readings: the split
+# run loss 2.21e-3, rel 0.212; "heads" 0 on all three; "f32" 2.25e-3 and
+# 0.171, so the bf16 rounding of the partials is not the gap; "plain"
+# 5.9e-7 and 5.0e-5, so the split's sums are sound and the gap is FP4
+# roundings that a reordered sum flips, carried through 8 layers.
+SA_LAYERS, SA_BATCH, SA_SEQ, SA_STEPS = 8, 2, 2048, 2
+SA_SUBLAYER_TOL = 1e-2
+SA_TOL = {"loss": 5e-3, "params_rel": 0.3}
+SA_CONTROLS = {"heads": dict(whole_heads=True),
+               "f32": dict(dtype="float32"),
+               "plain": dict(dtype="float32", recipe="bf16")}
+SA_CONTROL_TOL = {
+    "heads": {"loss": 1e-6, "params": 1e-5, "params_rel": 1e-4},
+    "f32": SA_TOL,
+    "plain": {"loss": 1e-5, "params_rel": 1e-3}}
 # The train_large phase: llama-1b, global batch 4 x 2048 tokens, 7 steps
 # (round(7 x (1 - 0.075)) = 6: the §3.3 switch on the last one),
 # first_last_k with k = 2; op replay of a protected and a middle layer.
 # Depth: 24 of 48 layers since train_dp's expert_axis run (the seconds
-# it adds; 48 until then).
+# it adds; 48 until then).  18 layers failed the loss gate (step 5 above
+# step 0 on the card), so the ssm_axis run's seconds were not cut here.
 LARGE_BATCH, LARGE_SEQ, LARGE_STEPS, LARGE_K = 4, 2048, 7, 2
 LARGE_LAYERS, LARGE_REPLAY_LAYERS = 24, (0, 12)
 # The train_cli phase: launch/train.py run in process on llama3.2-3b at
@@ -1668,8 +1729,10 @@ def phase_ssm_kernels(torch, card):
     """``qmm_stream`` at mamba2-780m's projection shapes (module
     docstring, phase 2's ``ssm_kernels`` line): the training step's
     forward, dgrad and wgrad of in_x (N 3072), in_b (N 128), in_dt (N 48,
-    below one tile) and out_proj at 8192 tokens, and the packed decode
-    shape (M = 8) of in_x and in_dt.  Each against its plain version, its
+    below one tile) and out_proj at 8192 tokens, the packed decode
+    shape (M = 8) of in_x and in_dt, and the (1, 2) model axis's blocks
+    at 4096 tokens (forward and wgrad of in_x's N 1536, in_dt's N 24,
+    in_b's whole N 128, out_proj's K 1536).  Each against its plain version, its
     QDQ panels bitwise, the stream kernel bitwise the two-pass pipeline;
     return per-call records."""
     from repro_torch.kernels import qmm_stream as qs
@@ -1712,6 +1775,20 @@ def phase_ssm_kernels(torch, card):
               ("wgrad out_proj", h, g_out, wgrad)]
     calls += [(f"decode {name}", xd, weights[name], packed)
               for name in ("in_x", "in_dt")]
+    # train_dp's ssm_axis shapes (SA_BATCH x SA_SEQ tokens, a rank's 24 of
+    # 48 heads): in_z / in_x column-parallel (N 1536), in_dt (N 24), the
+    # whole group's in_b / in_c (N 128), out_proj row-parallel (K 1536);
+    # each forward and trans-mode wgrad
+    ts = SA_BATCH * SA_SEQ
+    xs, hs = rand(ts, d, scale=2), rand(ts, di // 2, scale=2)
+    for name, n in (("in_x", di // 2), ("in_dt", SSM_HEADS // 2),
+                    ("in_b", SSM_GN)):
+        w, g = rand(d, n, scale=0.05), rand(ts, n, scale=0.01)
+        calls += [(f"tp fwd {name}", xs, w, fp4),
+                  (f"tp wgrad {name}", xs, g, wgrad)]
+    w_o, g_o = rand(di // 2, d, scale=0.05), rand(ts, d, scale=0.01)
+    calls += [("tp fwd out_proj", hs, w_o, fp4),
+              ("tp wgrad out_proj", hs, g_o, wgrad)]
     for role, a, b, kw in calls:
         ta, tb = kw.get("trans_a", False), kw.get("trans_b", False)
         y, route = routed(qs.KERNEL, lambda: qs.qmm_stream(a, b, **kw))
@@ -5855,6 +5932,8 @@ def _dp_rank(rank, world, store, out_dir):
             del full, tr, st, cap
             torch.cuda.empty_cache()
             result["ep"] = _ep_rank(torch, rank, world, kernels, out_dir)
+            torch.cuda.empty_cache()
+            result["ssm"] = _sa_rank(torch, rank, world, kernels, out_dir)
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -6128,6 +6207,324 @@ def expert_axis_gates(torch, ranks, one, out_dir):
     return record, failures, launches, batched
 
 
+def _sa_cfg(dtype=None):
+    """The ssm_axis run's config (SA_LAYERS' comment); ``dtype``: the f32
+    control's."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-780m").replace(
+        n_layers=SA_LAYERS, linear_impl="pallas", remat=False,
+        scan_layers=False)
+    return cfg if dtype is None else cfg.replace(dtype=dtype)
+
+
+def _sa_run(torch, mesh=None, whole_heads=False, dtype=None,
+            recipe="paper_fp4"):
+    """The ssm_axis run's trainer, on a (1, ``mesh``) mesh or (None) in
+    one process; ``whole_heads``: the mesh's rules with every mamba leaf
+    whole on both ranks; ``dtype`` / ``recipe``: the f32 and plain
+    controls' (SA_CONTROLS)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    cfg = _sa_cfg(dtype)
+    pipeline = SyntheticLM(cfg.vocab_size, SA_SEQ, SA_BATCH, seed=0)
+    kw = dict(recipe=recipe, total_steps=SA_STEPS,
+              global_batch=SA_BATCH, seq_len=SA_SEQ, log_every=0)
+    rules = None
+    if mesh:
+        kw["mesh_shape"] = (1, mesh)
+        if whole_heads:
+            whole = dict.fromkeys(("mamba_inner", "mamba_heads",
+                                   "mamba_groups"))
+            rules = default_rules(make_mesh((1, mesh), ("data", "model")),
+                                  cfg, overrides=whole, act_overrides=whole)
+    return Trainer(build_model(cfg), TrainConfig(**kw), pipeline,
+                   rules=rules)
+
+
+def _dist_workers():
+    """``tests/torch_dist_workers.py``: the mamba sublayer's helpers that
+    the CPU tests share (torch only)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_dist_workers
+    return torch_dist_workers
+
+
+def _sa_sublayer(torch, x, g, rank=None, world=1, control=None):
+    """Layer 0's mamba mixer of the ssm_axis run's init (``init(0)``
+    drawn on the card, cast as the model casts it) on the step-0 input
+    ``x`` with the output cotangent ``g``: whole, or rank ``rank``'s
+    heads under the model split of the world's group (``control``: the
+    tests' ``_statistic_control``).  [the norm's input, y, dx, each
+    leaf's gradient in sorted key order], f32 numpy on the host."""
+    import torch.distributed as dist
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.models import build_model
+    from repro_torch.nn import layers
+    workers = _dist_workers()
+    cfg = _sa_cfg()
+    model = build_model(cfg)
+    mixer = model.cast_params(model.init(0, on_device=True))[
+        "stack"]["layers"][0]["mixer"]
+    msplit = None
+    if rank is not None:
+        msplit = ModelSplit(dist.group.WORLD, rank, world)
+        mixer = workers._mamba_blocks(cfg, mixer, rank, world)
+    with layers.sharding_context(None, None, msplit):
+        out = workers._mamba_sublayer(cfg, RECIPES["paper_fp4"].ffn_linear,
+                                      mixer, x, g, control)
+    del mixer, model
+    return out
+
+
+def _sa_one_process(torch, out_dir):
+    """The ssm_axis run in this process on whole heads: its losses, its
+    final params (on the card), its step-0 layer-0 mixer input and output
+    cotangent (saved to ``out_dir`` for the ranks) and the sublayer on
+    them; then the losses and final params of the one-process side of
+    each control run that changes the config (SA_CONTROLS)."""
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.tree import tree_leaves
+    tr = _sa_run(torch)
+    st = tr.init_state(seed=0, on_device=True)
+    cap = {}
+    orig = ssm_lib.mamba_mixer
+
+    def capture(params, cfg, x, recipe, **kw):
+        y = orig(params, cfg, x, recipe, **kw)
+        if "x" not in cap:
+            cap["x"] = x.detach().clone()
+            y.register_hook(lambda g: cap.setdefault("g", g.detach().clone()))
+        return y
+    ssm_lib.mamba_mixer = capture
+    try:
+        st = tr.train(st, num_steps=1)
+    finally:
+        ssm_lib.mamba_mixer = orig
+    st = tr.train(st)
+    losses = [r["loss"] for r in tr.history]
+    params = [t.detach() for t in tree_leaves(st.params)]
+    del tr, st
+    torch.cuda.empty_cache()
+    torch.save({"x": cap["x"].cpu(), "g": cap["g"].cpu()},
+               os.path.join(out_dir, "sa_inputs.pt"))
+    sub = _sa_sublayer(torch, cap["x"], cap["g"])
+    torch.cuda.empty_cache()
+    out = {"losses": losses, "params": params, "sublayer": sub}
+    for key, kw in SA_CONTROLS.items():
+        if "whole_heads" in kw:
+            continue
+        tr = _sa_run(torch, **kw)
+        st = tr.train(tr.init_state(seed=0, on_device=True))
+        out[key] = {"losses": [r["loss"] for r in tr.history],
+                    "params": [t.detach() for t in tree_leaves(st.params)]}
+        del tr, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sa_rank(torch, rank, world, kernels, out_dir):
+    """A rank's side of the ssm_axis run: the layer-0 mixer on the
+    one-process run's step-0 input and cotangent (and its two statistic
+    controls), then SA_STEPS steps on the (1, world) mesh (step 0's
+    census, the kernels' counts, the whole leaves on the host) with its
+    final params gathered (saved by rank 0), then the same steps with
+    changes of each control run (SA_CONTROLS)."""
+    from repro_torch.distributed import comms
+    from repro_torch.tree import tree_leaves
+    inp = torch.load(os.path.join(out_dir, "sa_inputs.pt"))
+    x, g = inp["x"].cuda(), inp["g"].cuda()
+    sub = _sa_sublayer(torch, x, g, rank, world)
+    controls = {c: _sa_sublayer(torch, x, g, rank, world, c)[1:3]
+                for c in ("own", "forward")}
+    del x, g, inp
+    torch.cuda.empty_cache()
+    tr = _sa_run(torch, world)
+    st = tr.init_state(seed=0, on_device=True)
+    for kern in kernels:
+        kern.reset()
+    with comms.recording() as log:
+        st = tr.train(st, num_steps=1)
+    st = tr.train(st)
+    counts = {k.name: k.counts() for k in kernels}
+    full = tr.dp.full(st.params)
+    whole = [p.detach().cpu() for p, sh in zip(
+        tree_leaves(st.params), tree_leaves(tr.dp.mshards)) if sh is None]
+    if rank == 0:
+        torch.save(_host_leaves(full), os.path.join(out_dir,
+                                                    "sa_params.pt"))
+    out = {"losses": [r["loss"] for r in tr.history],
+           "census": [r.to_dict() for r in log], "counts": counts,
+           "local_shapes": [tuple(t.shape) for t in tree_leaves(st.params)],
+           "sublayer": sub, "controls": controls, "whole_leaves": whole}
+    del full, tr, st
+    torch.cuda.empty_cache()
+    for key, kw in SA_CONTROLS.items():
+        tr = _sa_run(torch, world, **kw)
+        st = tr.train(tr.init_state(seed=0, on_device=True))
+        full = tr.dp.full(st.params)
+        if rank == 0:
+            torch.save(_host_leaves(full), os.path.join(
+                out_dir, f"sa_{key}_params.pt"))
+        out[f"{key}_losses"] = [r["loss"] for r in tr.history]
+        del full, tr, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_max(a, b) -> float:
+    """The largest |a - b| over the largest |b| (numpy)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _bits_apart(a, b) -> int:
+    """The elements of two f32 numpy arrays whose bits differ."""
+    return int((np.ascontiguousarray(a).view(np.int32)
+                != np.ascontiguousarray(b).view(np.int32)).sum())
+
+
+def ssm_axis_gates(torch, ranks, one, out_dir):
+    """``train_dp``'s ssm_axis run against one process: (the emitted
+    record, the failures, the run's launch counts).  Gates: each rank's
+    layer-0 norm input bitwise one process's columns; its output, input
+    cotangent and every leaf's gradient (a split leaf's as one process's
+    block) within SA_SUBLAYER_TOL of one process, and both statistic
+    controls missing by more (the rank's own statistic on the output,
+    the forward-only sum on the input's cotangent); every whole leaf's
+    gradient in the sublayer, and every whole leaf after the run,
+    bitwise equal on both ranks; the run within SA_TOL of one process,
+    each control run within its SA_CONTROL_TOL of one process of its
+    config (SA_CONTROLS), the mamba-whole one's step-0 loss equal; the
+    census audit
+    clean with the norm's statistic (``tp_norm``: one f32 word a token
+    each way, a layer-step) in it."""
+    from repro_torch.analysis.qlint import audit_comms
+    from repro_torch.distributed.comms import CollectiveRecord
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+    sa = [r["ssm"] for r in ranks]
+    whole = one["sublayer"]
+    keys = sorted(build_model(_sa_cfg()).param_specs()["stack"]["layers"][
+        0]["mixer"])
+    norm_in_diff, sub_err, ctl = [], [], []
+    split_keys = set()
+    for rank, e in enumerate(sa):
+        got, want = e["sublayer"][0], whole[0]
+        n = got.shape[-1]
+        norm_in_diff.append(_bits_apart(
+            got, want[..., rank * n:(rank + 1) * n]))
+        errs = {}
+        for lab, a, b in zip(["y", "dx"] + keys, e["sublayer"][1:],
+                             whole[1:]):
+            if a.shape != b.shape:
+                split_keys.add(lab)
+                dim = next(d for d in range(a.ndim)
+                           if a.shape[d] != b.shape[d])
+                m = a.shape[dim]
+                b = np.take(b, range(rank * m, (rank + 1) * m), axis=dim)
+            errs[lab] = _rel_max(a, b)
+        sub_err.append(errs)
+        ctl.append({"own_y": _rel_max(e["controls"]["own"][0], whole[1]),
+                    "forward_y": _rel_max(e["controls"]["forward"][0],
+                                          whole[1]),
+                    "forward_dx": _rel_max(e["controls"]["forward"][1],
+                                           whole[2])})
+    whole_grad_diff = sum(
+        _bits_apart(a, b) for k, a, b in zip(
+            keys, sa[0]["sublayer"][3:], sa[1]["sublayer"][3:])
+        if k not in split_keys)
+    whole_leaf_diff = sum(int((a != b).sum()) for a, b in
+                          zip(sa[0]["whole_leaves"], sa[1]["whole_leaves"]))
+    errs = {}
+    for key in ("ssm", *SA_CONTROLS):
+        want = one.get(key, one)
+        init = [t for t in tree_leaves(build_model(_sa_cfg(
+            SA_CONTROLS.get(key, {}).get("dtype"))).init(
+            0, on_device=True))]
+        losses = sa[0]["losses" if key == "ssm" else f"{key}_losses"]
+        got = [t.cuda() for t in torch.load(os.path.join(
+            out_dir, "sa_params.pt" if key == "ssm"
+            else f"sa_{key}_params.pt"))]
+        p_abs, p_rel = _params_err(got, want["params"], init)
+        errs[key] = {"losses": losses,
+                     "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                         zip(losses, want["losses"])),
+                     "param_abs_err": p_abs, "param_rel_err": p_rel}
+        if key == "ssm":
+            max_update = max(float((b - c).abs().max())
+                             for b, c in zip(want["params"], init))
+        del got, init
+        torch.cuda.empty_cache()
+    census = [CollectiveRecord(**c) for c in sa[0]["census"]]
+    audit, findings = audit_comms(census, expect_fp8=False)
+    launches = {k: sum(e["counts"][k]["launches"] for e in sa)
+                for k in sa[0]["counts"]}
+    tokens = SA_BATCH * SA_SEQ
+    failures = []
+    if any(norm_in_diff):
+        failures.append(f"ssm_axis: the norm input's elements off one "
+                        f"process's columns by rank: {norm_in_diff}")
+    if not all(max(e.values()) <= SA_SUBLAYER_TOL for e in sub_err):
+        failures.append(f"ssm_axis: the sublayer off one process by more "
+                        f"than {SA_SUBLAYER_TOL}: {sub_err}")
+    if not all(c["own_y"] > SA_SUBLAYER_TOL
+               and c["forward_dx"] > SA_SUBLAYER_TOL for c in ctl):
+        failures.append(f"ssm_axis: a statistic control did not miss: "
+                        f"{ctl}")
+    if whole_grad_diff or whole_leaf_diff:
+        failures.append(f"ssm_axis: whole leaves differ across the ranks: "
+                        f"{whole_grad_diff} gradient elements, "
+                        f"{whole_leaf_diff} parameter elements")
+    if errs["heads"]["losses"][0] != one["losses"][0]:
+        failures.append(f"ssm_axis: with the mamba leaves whole step 0's "
+                        f"loss {errs['heads']['losses'][0]} is not one "
+                        f"process's {one['losses'][0]}")
+    for key in ("ssm", *SA_CONTROLS):
+        e, tol = errs[key], SA_CONTROL_TOL.get(key, SA_TOL)
+        if not (e["loss_rel_err"] <= tol["loss"]
+                and e["param_abs_err"] <= tol.get("params", np.inf)
+                and e["param_rel_err"] <= tol["params_rel"]):
+            failures.append(f"ssm_axis {key} vs one process: {e} ({tol})")
+    norm_bytes = audit["tp_norm_bytes_by_layer"]
+    if findings or audit["tp_norm_ops"] != 2 * SA_LAYERS or \
+            set(norm_bytes) != {f"L{i}" for i in range(SA_LAYERS)} or \
+            set(norm_bytes.values()) != {2 * 4 * tokens}:
+        failures.append(f"ssm_axis comms audit: {audit}, "
+                        f"{[f.to_dict() for f in findings]}")
+    # mamba2 has no attention: qmm_stream is the path's one kernel
+    if not all(np.isfinite(sa[0]["losses"])) or \
+            launches["qmm_stream"] <= 0:
+        failures.append(f"ssm_axis: losses {sa[0]['losses']}, launches "
+                        f"{launches}")
+    cfg = _sa_cfg()
+    st = cfg.mamba
+    record = {"model": cfg.name, "n_layers": cfg.n_layers,
+              "d_model": cfg.d_model, "mesh": [1, len(sa)],
+              "heads_a_rank": st.expand * cfg.d_model // st.headdim
+              // len(sa), "groups_whole": st.n_groups % len(sa) != 0,
+              "tokens": tokens, "steps": SA_STEPS, "recipe": "paper_fp4",
+              "optimizer": cfg.optimizer,
+              "norm_input_differing": norm_in_diff,
+              "sublayer_rel_err": sub_err, "controls_rel_err": ctl,
+              "sublayer_tol": SA_SUBLAYER_TOL,
+              "whole_leaf_grad_differing": whole_grad_diff,
+              "whole_leaf_param_differing": whole_leaf_diff,
+              "one_process_losses": one["losses"], "run": errs["ssm"],
+              "tol": SA_TOL,
+              "controls": {k: dict(errs[k], tol=SA_CONTROL_TOL[k],
+                                   one_process_losses=one.get(k, one)[
+                                       "losses"]) for k in SA_CONTROLS},
+              "one_process_max_abs_update": max_update,
+              "census": audit, "launches": launches,
+              "launches_by_rank": [e["counts"] for e in sa]}
+    return record, failures, launches
+
+
 def _one_process(torch, cfg, tcfg, pipeline, capture=False):
     """``tcfg``'s run in this process on the whole batch: its history,
     its final params on the host and (``capture``) step 0's quantized
@@ -6235,6 +6632,9 @@ def phase_train_dp(torch, card):
         ep_one = _ep_one_process(torch, tmp)
         ep_one_s = time.perf_counter() - t0
         t0 = time.perf_counter()
+        sa_one = _sa_one_process(torch, tmp)
+        sa_one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
         mp.spawn(_dp_rank, args=(world, os.path.join(tmp, "store"), tmp),
                  nprocs=world, join=True)
         ranks_s = time.perf_counter() - t0
@@ -6246,6 +6646,12 @@ def phase_train_dp(torch, card):
         ep["one_process_s"], ep["gates_s"] = ep_one_s, \
             time.perf_counter() - t0
         del ep_one
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sa, sa_gate, sa_launches = ssm_axis_gates(torch, ranks, sa_one, tmp)
+        sa["one_process_s"], sa["gates_s"] = sa_one_s, \
+            time.perf_counter() - t0
+        del sa_one
         torch.cuda.empty_cache()
     mean = ranks[0]["mean"]
     one_losses = [r["loss"] for r in one_hist]
@@ -6311,7 +6717,7 @@ def phase_train_dp(torch, card):
     tp, tp_gate = model_axis_gates(torch, ranks, tp_hist, tp_params, init,
                                    cfg)
     tol = DP_TOL
-    failures = list(tp_gate) + ep_gate
+    failures = list(tp_gate) + ep_gate + sa_gate
     if not n_ops or op_diff or any(len(rk["mean"]["operands"]) != n_ops
                                    for rk in ranks):
         failures.append(f"wgrad operands: {op_diff} of {world * n_ops} "
@@ -6378,13 +6784,13 @@ def phase_train_dp(torch, card):
                   "residuals_differing": new_diff,
                   "control_residuals_dropped_differing": control,
                   "census": audit},
-          "model_axis": tp, "expert_axis": ep,
+          "model_axis": tp, "expert_axis": ep, "ssm_axis": sa,
           "one_process_s": one_s, "ranks_s": ranks_s, "launches": launches,
           "launches_by_rank": [r["launches"] for r in ranks]})
     if failures:
         raise AssertionError("train_dp: " + "; ".join(failures))
     return ({k: launches[k] + tp["launches"][k] + ep_launches[k]
-             for k in launches}, ep_batched)
+             + sa_launches[k] for k in launches}, ep_batched)
 
 
 def model_axis_gates(torch, ranks, one_hist, one_params, init, cfg):

@@ -444,7 +444,9 @@ def audit_comms(records, *, expect_fp8: bool,
     words (a block / tile group's window), is a violation.  The
     tensor-parallel sums (``tp_fwd``: a row-parallel output, ``tp_bwd``:
     a column-parallel input's cotangent) are censused by layer, in
-    bytes; so are the expert-parallel gathers (``ep_fwd``: a rank's
+    bytes, and the split norms' statistics (``tp_norm``: one f32 word a
+    row each way, a SUM all-reduce, or a violation) apart; so are the
+    expert-parallel gathers (``ep_fwd``: a rank's
     expert outputs, ``ep_bwd``: its experts' input cotangents), counted
     apart: one that is not an all-gather, or (``compute_dtype`` given,
     e.g. ``"bfloat16"``) whose payload is not in the compute dtype, is a
@@ -454,6 +456,7 @@ def audit_comms(records, *, expect_fp8: bool,
     amax = [r for r in records if r.tag == "amax"]
     amax_model = [r for r in records if r.tag == "amax_model"]
     tp = [r for r in records if r.tag in ("tp_fwd", "tp_bwd")]
+    norm = [r for r in records if r.tag == "tp_norm"]
     ep = [r for r in records if r.tag in ("ep_fwd", "ep_bwd")]
 
     def by_layer(recs):
@@ -473,14 +476,16 @@ def audit_comms(records, *, expect_fp8: bool,
                                       for r in amax_model),
               "tp_sums": len(tp),
               "tp_bytes_by_layer": by_layer(tp),
+              "tp_norm_ops": len(norm),
+              "tp_norm_bytes_by_layer": by_layer(norm).get("tp_norm", {}),
               "ep_ops": dict(Counter(r.tag for r in ep)),
               "ep_bytes_by_layer": by_layer(ep),
               "other": dict(Counter(f"{r.tag}:{r.op}:{r.dtype}"
                                     for r in records
                                     if r.tag not in _GRAD_TAGS
                                     + ("scale", "amax", "amax_model",
-                                       "tp_fwd", "tp_bwd", "ep_fwd",
-                                       "ep_bwd"))),
+                                       "tp_fwd", "tp_bwd", "tp_norm",
+                                       "ep_fwd", "ep_bwd"))),
               "grad_payload_bytes": sum(r.nbytes for r in grad),
               "bytes": collective_bytes(records)}
     for r in amax + amax_model:
@@ -499,6 +504,14 @@ def audit_comms(records, *, expect_fp8: bool,
                 "comms", "violation", f"{r.op}[{r.tag}]",
                 f"a tensor-parallel sum travels as a SUM all-reduce, not "
                 f"{r.op} {r.reduce_op}"))
+    for r in norm:
+        if (r.op, r.reduce_op, r.dtype) != ("all-reduce", "sum",
+                                            "float32") or r.shape[-1:] != (1,):
+            findings.append(Finding(
+                "comms", "violation", f"{r.op}[{r.tag}]",
+                f"a norm's split statistic travels as a SUM all-reduce of "
+                f"one f32 word a row, not {r.op} {r.reduce_op} of "
+                f"{r.dtype}{list(r.shape)}"))
     for r in ep:
         if r.op != "all-gather":
             findings.append(Finding(

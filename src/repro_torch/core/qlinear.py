@@ -66,7 +66,9 @@ noise by the global columns, so each rank's operands are one process's
 slices.  A row-parallel output is the sum of the ranks' partial products
 (all-reduced in f32 over the model group, tag ``tp_fwd``); a
 column-parallel input's cotangent is the sum of the ranks' partial
-``dx`` (tag ``tp_bwd``).  With no model split installed ``tp`` is
+``dx`` (tag ``tp_bwd``); a statistic over split columns (the mamba
+mixer's gated norm) is summed both ways (``model_stat_sum``, tag
+``tp_norm``).  With no model split installed ``tp`` is
 ignored.
 
 Telemetry (``telemetry.collect``): with a collector installed, each
@@ -103,7 +105,7 @@ from repro_torch.telemetry import collect as telemetry
 __all__ = ["qlinear", "qmatmul", "pallas_qmatmul_stats", "packed_linear",
            "dot_qdq", "kernel_quant_mode", "kernel_unsupported_reason",
            "matmul_impl", "LINEAR_IMPLS", "ZERO_KEY", "ROLE_TOKENS",
-           "ROLE_MODEL", "model_grad_sum", "model_sum"]
+           "ROLE_MODEL", "model_grad_sum", "model_sum", "model_stat_sum"]
 
 LINEAR_IMPLS = ("qdq", "pallas", "pallas_two_pass")
 _KERNEL_BLOCK = 128
@@ -367,6 +369,33 @@ def model_sum(y: torch.Tensor) -> torch.Tensor:
     ``y`` itself without a model split."""
     split = model_split()
     return y if split is None else _ModelSum.apply(y, split.group)
+
+
+class _ModelStatSum(torch.autograd.Function):
+    """A statistic of rows split over the model group (a norm's sum of
+    squares over a rank's columns): the ranks' partial sums summed in the
+    forward, and the cotangent summed again in the backward, since each
+    rank's cotangent of the statistic covers its own columns alone (tag
+    ``tp_norm``, both ways)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group, ctx.layer = group, routing.current_layer()
+        return _sum_over(t, group, "tp_norm", ctx.layer)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous(), ctx.group, "tp_norm",
+                         ctx.layer), None
+
+
+def model_stat_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of every rank's partial statistic
+    ``t`` (f32), its cotangent summed over the group too (``model_sum``'s
+    identity backward would leave each rank its own columns' share);
+    ``t`` itself without a model split."""
+    split = model_split()
+    return t if split is None else _ModelStatSum.apply(t, split.group)
 
 
 class _QMatmul(torch.autograd.Function):

@@ -294,15 +294,17 @@ def share_amax(amax: torch.Tensor, split: TokenSplit) -> torch.Tensor:
 
 
 def model_span(granularity: str, block: int, n: int,
-               along_reduction: bool) -> Optional[str]:
+               along_reduction: bool,
+               ranks: Optional[int] = None) -> Optional[str]:
     """How a quant group meets a model-split axis that a rank holds ``n``
-    entries of (the operand's reduction axis, or the other): ``"share"``
-    when the group runs along the whole axis (a ``tensor`` group, a
-    ``token`` group along its reduction axis), ``"window"`` when a
-    ``block`` / ``tile`` group of edge ``block`` spans ``block / n``
-    ranks (``n`` divides it), None when every group is a rank's own; a
-    count that neither divides the edge nor is a multiple of it raises
-    ``ValueError``."""
+    entries of (the operand's reduction axis, or the other) over
+    ``ranks`` ranks: ``"share"`` when the group runs along the whole
+    axis (a ``tensor`` group, a ``token`` group along its reduction axis,
+    or a ``block`` / ``tile`` group whose edge covers the whole axis of
+    ``n * ranks``: mamba2's 48 ``in_dt`` heads, 24 a rank), ``"window"``
+    when a ``block`` / ``tile`` group of edge ``block`` spans ``block /
+    n`` ranks (``n`` divides it), None when every group is a rank's own;
+    any other count raises ``ValueError``."""
     if granularity == "tensor" or (granularity == "token"
                                    and along_reduction):
         return "share"
@@ -312,6 +314,8 @@ def model_span(granularity: str, block: int, n: int,
             return None
         if block % n == 0:
             return "window"
+        if ranks is not None and n * ranks <= block:
+            return "share"
         raise ValueError(
             f"a {granularity}{block} quant group along a model-split axis: "
             f"each rank holds {n} of it, neither a divisor nor a multiple "
@@ -399,7 +403,7 @@ def quantize_dequantize(x2d: torch.Tensor, spec: QuantSpec,
     if msplit is not None:
         n = x2d.shape[model_axis]
         kind = model_span(spec.granularity, spec.block, n,
-                          model_axis == reduction_axis)
+                          model_axis == reduction_axis, msplit.size)
         if kind is not None:
             amax = share_model_amax(amax, msplit, kind, n, spec.block)
     scale = scale_from_amax(amax, fmt, spec.pow2_scale).to(x2d.dtype)

@@ -43,6 +43,8 @@ class CollectiveRecord:
     group's shared amax words over the data / the model group),
     ``tp_fwd`` / ``tp_bwd`` (a row-parallel output's sum / a
     column-parallel input's cotangent sum over the model group),
+    ``tp_norm`` (a norm's statistic over columns split over the model
+    group, summed in the forward and its cotangent in the backward),
     ``ep_fwd`` / ``ep_bwd`` (an expert-parallel rank's expert outputs /
     its experts' input cotangents, all-gathered over the model group));
     ``layer`` the model layer that issued it (``"L3"``; "" outside

@@ -70,7 +70,7 @@ def _split_args(side: str, x: torch.Tensor, trans: bool, mode: str,
                 reducers.append(lambda w, g=split.group: comms.all_reduce(
                     w, "max", g, tag="amax"))
             continue
-        kind = model_span(mode, 128, n, q_axis == 1)
+        kind = model_span(mode, 128, n, q_axis == 1, split.size)
         if kind == "share":
             reducers.append(lambda w, g=split.group: comms.all_reduce(
                 w, "max", g, tag="amax_model"))

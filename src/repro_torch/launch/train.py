@@ -15,10 +15,10 @@ runs the quantized matmuls and the attention forward on the CUDA
 kernels.  ``--grad-compression fp8`` compresses the gradients (error
 feedback).  ``--mesh d,m`` trains on a (data, model) mesh of ``d * m``
 ranks, ``--mesh p,d,m`` on a (pod, data, model) mesh of ``p * d * m``
-(the batch and the fsdp blocks over the data axes; a dense model's
-heads, kv_heads, mlp and vocab over ``model``, tensor-parallel),
-launched with ``torchrun``, NCCL on ``--device cuda`` and ``gloo`` on
-``--device cpu``::
+(the batch and the fsdp blocks over the data axes; attention heads,
+kv_heads, mlp, vocab, experts and mamba's SSD heads over ``model``,
+tensor-parallel), launched with ``torchrun``, NCCL on ``--device cuda``
+and ``gloo`` on ``--device cpu``::
 
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
         --device cpu --mesh 2,1 --grad-compression fp8 --no-fsdp
@@ -26,6 +26,8 @@ launched with ``torchrun``, NCCL on ``--device cuda`` and ``gloo`` on
         --device cpu --mesh 2,1 --telemetry --linear-impl pallas
     torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
         --device cpu --mesh 2,2 --recipe paper_fp4
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --arch mamba2-780m --reduced --mesh 1,2 --seq 128
 
 (with no ``torchrun`` a mesh of one rank runs in this process alone).
 Without compression the data-parallel step is the one-device step of the
@@ -34,8 +36,8 @@ ranks, and ``--telemetry`` (the quant stats and gradient norms in every
 step's row) reduces its stats over them; a rank's token count must then
 be a multiple of 128 wherever a block group runs along the tokens
 (``ValueError`` otherwise).  A model axis larger than 1 raises
-``NotImplementedError`` for a model other than a dense attention stack
-and under ``--grad-compression fp8``.  Rank 0 prints.
+``NotImplementedError`` for a model with cross attention (``vlm``,
+``audio``) and under ``--grad-compression fp8``.  Rank 0 prints.
 
 Prints the reference's lines (the per-step log, ``eval:``, ``step-time:``
 p50 / p95 / p99, tokens/s and MFU) and one ``roofline[...]`` line from

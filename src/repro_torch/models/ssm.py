@@ -38,6 +38,22 @@ giving the same forward values:
 Caches are updated in place (``conv`` and ``state`` keep their
 addresses, so a CUDA graph can replay a decode step over them); the
 reference returns a new cache.
+
+Tensor parallelism (a model split installed, the reference's default
+rules): where the head count divides the model axis a rank holds whole
+SSD heads, read off its weights (``_local_heads``): ``in_z`` / ``in_x``
+/ ``in_dt`` column-parallel, ``out_proj`` row-parallel, the conv's
+``x`` channels and ``norm_scale`` its blocks, and ``in_b`` / ``in_c``
+(with their conv) column-parallel where the group count divides the
+axis too.  The SSD runs on the rank's heads alone: its math is per head,
+so the pre-norm ``y`` is one process's columns.  Leaves kept whole but
+read in part (``dt_bias`` / ``a_log`` / ``d_skip`` per head, whole B / C
+per group) pass through ``model_grad_sum`` first, so their gradient is
+the group's sum, the same on every rank.  The gated norm's mean of
+squares runs over the whole ``d_inner``: the ranks' partial sums are
+summed both ways (``nn.layers.rms_norm(width=)``).  Where the heads do
+not divide the axis every leaf is whole and the mixer runs as one
+process on every rank.  A cache (serving) under a split raises.
 """
 from __future__ import annotations
 
@@ -49,6 +65,8 @@ import torch.nn.functional as F_nn
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.qlinear import model_grad_sum
+from repro_torch.core.quantize import model_split
 from repro_torch.core.recipe import MatmulRecipe
 from repro_torch.nn.layers import linear, rms_norm, silu
 from repro_torch.nn.params import ParamSpec
@@ -244,6 +262,45 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 # Mixer sublayer
 # ---------------------------------------------------------------------------
 
+def _gated_norm(v: torch.Tensor, scale: torch.Tensor, d_inner: int
+                ) -> torch.Tensor:
+    """``rms_norm`` of ``v`` over the whole ``d_inner``, of which ``v``
+    may hold a rank's columns (module docstring)."""
+    return rms_norm(v, scale, width=d_inner)
+
+
+def _local_heads(params, cfg: ModelConfig):
+    """``(heads, first head, the heads' tp, B / C's tp, the groups the
+    heads read of whole B / C or None)`` of the weights this rank holds:
+    the config's counts on one process (or heads kept whole); under a
+    model split the rank's ``nh`` heads from ``index * nh``, its groups
+    when ``in_b`` is a block, else an index of the whole groups (a slice
+    where the heads read them evenly)."""
+    st, _, nheads, _ = _dims(cfg)
+    nh = params["in_dt"].shape[-1]
+    gl = params["in_b"].shape[-1] // st.d_state
+    if nh == nheads:
+        if gl != st.n_groups:
+            raise ValueError("B / C groups split over the model axis "
+                             "under whole heads")
+        return nh, 0, None, None, None
+    split = model_split()
+    if split is None or split.size * nh != nheads:
+        raise ValueError(f"in_dt holds {nh} of {nheads} heads outside a "
+                         "model split of that size")
+    h0 = split.index * nh
+    if gl != st.n_groups:
+        if gl * split.size != st.n_groups:
+            raise ValueError(f"in_b holds {gl} of {st.n_groups} groups "
+                             f"on a model axis of {split.size}")
+        return nh, h0, "col", "col", None
+    rep = nheads // st.n_groups            # heads a group
+    if nh % rep == 0 or rep % nh == 0:
+        first = h0 // rep
+        return nh, h0, "col", None, slice(first, first + max(1, nh // rep))
+    return nh, h0, "col", None, [h // rep for h in range(h0, h0 + nh)]
+
+
 def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                 x: torch.Tensor, recipe: MatmulRecipe, *,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -251,18 +308,28 @@ def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Mamba2 block, (B, S, D) -> (B, S, D).  Training: no cache.
     Prefill: ``cache`` (its state and conv history carried in) is
     updated in place.  Decode: S == 1, the cache consumed and updated in
-    place."""
+    place.  Under a model split, the rank's heads (module docstring)."""
     st, d_inner, nheads, _ = _dims(cfg)
     b, s, _ = x.shape
     gn = st.n_groups * st.d_state
     f32 = torch.float32
+    nh, h0, h_tp, g_tp, pick = _local_heads(params, cfg)
+    if h_tp is not None and cache is not None:
+        raise NotImplementedError("a mamba cache under a model split: "
+                                  "the port serves on one process")
 
-    z = linear(x, params["in_z"], recipe, cfg)
-    xr = linear(x, params["in_x"], recipe, cfg)
-    br = linear(x, params["in_b"], recipe, cfg)
-    cr = linear(x, params["in_c"], recipe, cfg)
-    dt_raw = linear(x, params["in_dt"], recipe, cfg)
-    a = -torch.exp(params["a_log"].to(f32))
+    z = linear(x, params["in_z"], recipe, cfg, tp=h_tp)
+    xr = linear(x, params["in_x"], recipe, cfg, tp=h_tp)
+    br = linear(x, params["in_b"], recipe, cfg, tp=g_tp)
+    cr = linear(x, params["in_c"], recipe, cfg, tp=g_tp)
+    dt_raw = linear(x, params["in_dt"], recipe, cfg, tp=h_tp)
+    dt_bias, a_log, d_skip = (params[k] for k in ("dt_bias", "a_log",
+                                                  "d_skip"))
+    if h_tp is not None:     # whole leaves read per head
+        heads = slice(h0, h0 + nh)
+        dt_bias, a_log, d_skip = (model_grad_sum(t)[heads]
+                                  for t in (dt_bias, a_log, d_skip))
+    a = -torch.exp(a_log.to(f32))
 
     if decode:
         if cache is None or s != 1:
@@ -282,14 +349,14 @@ def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
         rep = nheads // st.n_groups
         bh = bmat.repeat_interleave(rep, dim=1).to(f32)
         chh = cmat.repeat_interleave(rep, dim=1).to(f32)
-        dt = softplus(dt_raw[:, 0].to(f32) + params["dt_bias"])   # (b,h)
+        dt = softplus(dt_raw[:, 0].to(f32) + dt_bias)            # (b,h)
         dA = torch.exp(dt * a)
         upd = (xs.to(f32) * dt[..., None])[..., None] * bh[:, :, None, :]
         state = cache["state"] * dA[:, :, None, None] + upd
         # an elementwise product and a sum over N: no batched GEMM, whose
         # algorithm (and so its bits) would depend on the batch's size
         y = (chh[:, :, None, :] * state).sum(-1)                 # (b,h,p)
-        y = y + params["d_skip"][:, None] * xs.to(f32)
+        y = y + d_skip[:, None] * xs.to(f32)
         y = y.reshape(b, 1, d_inner).to(x.dtype)
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(state)
@@ -307,10 +374,13 @@ def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
                                 hb))
         c_c = silu(_causal_conv(cr, params["conv_wc"], params["conv_bc"],
                                 hc))
-        xs = x_c.reshape(b, s, nheads, st.headdim)
-        bmat = b_c.reshape(b, s, st.n_groups, st.d_state)
-        cmat = c_c.reshape(b, s, st.n_groups, st.d_state)
-        dt = softplus(dt_raw.to(f32) + params["dt_bias"])
+        xs = x_c.reshape(b, s, nh, st.headdim)
+        bmat = b_c.reshape(b, s, -1, st.d_state)
+        cmat = c_c.reshape(b, s, -1, st.d_state)
+        if pick is not None:    # whole groups: the ones the heads read
+            bmat = model_grad_sum(bmat)[:, :, pick]
+            cmat = model_grad_sum(cmat)[:, :, pick]
+        dt = softplus(dt_raw.to(f32) + dt_bias)
         chunk = min(st.chunk, s)
         pad = (-s) % chunk
         xs_p, dt_p, b_p, c_p = xs, dt, bmat, cmat
@@ -322,8 +392,8 @@ def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
         y, final_state = ssd_chunked(xs_p, dt_p, a, b_p, c_p, chunk=chunk,
                                      initial_state=init_state)
         y = y[:, :s].to(f32)
-        y = y + params["d_skip"][:, None] * xs.to(f32)
-        y = y.reshape(b, s, d_inner).to(x.dtype)
+        y = y + d_skip[:, None] * xs.to(f32)
+        y = y.reshape(b, s, nh * st.headdim).to(x.dtype)
         if cache is not None:
             # the conv's history for the next call: the last d_conv - 1
             # inputs, taken from the old history where this call is
@@ -333,5 +403,6 @@ def mamba_mixer(params: Dict[str, torch.Tensor], cfg: ModelConfig,
             cache["conv"].copy_(tail)
             cache["state"].copy_(final_state)
 
-    y = rms_norm(y * silu(z), params["norm_scale"])
-    return linear(y, params["out_proj"], recipe, cfg)
+    y = _gated_norm(y * silu(z), params["norm_scale"], d_inner)
+    return linear(y, params["out_proj"], recipe, cfg,
+                  tp="row" if h_tp else None)

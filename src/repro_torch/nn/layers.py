@@ -13,14 +13,14 @@ import torch
 from torch.nn.functional import pad as F_pad
 
 from repro_torch import constant
-from repro_torch.core.qlinear import qlinear
+from repro_torch.core.qlinear import model_stat_sum, qlinear
 from repro_torch.core.quantize import ModelSplit, TokenSplit, splitting
 from repro_torch.core.recipe import MatmulRecipe
 
 __all__ = ["linear", "gelu", "silu", "relu2", "rms_norm", "layer_norm",
            "apply_norm", "rope", "sincos_positions", "ACTIVATIONS",
            "set_sharding_context", "get_sharding_context",
-           "sharding_context", "shard_hint", "UNSPLIT_MODEL_AXES"]
+           "sharding_context", "shard_hint"]
 
 
 def linear(x: torch.Tensor, w, recipe: MatmulRecipe, cfg, *,
@@ -82,9 +82,18 @@ def _row_mean(fn, xf: torch.Tensor) -> torch.Tensor:
         *xf.shape[:-1], 1)
 
 
-def rms_norm(x, scale, eps=1e-5):
+def rms_norm(x, scale, eps=1e-5, width: Optional[int] = None):
+    """RMS norm over the last dim.  ``width``: ``x`` holds this rank's
+    columns of rows ``width`` wide, split over the installed model group
+    (``scale`` its block): the mean of squares is the group's sum of the
+    ranks' partial sums over ``width``, summed both ways
+    (``core.qlinear.model_stat_sum``: the statistic's cotangent on a rank
+    covers its own columns alone)."""
     xf = x.to(torch.float32)
-    var = _row_mean(lambda t: t * t, xf)
+    if width is None or width == x.shape[-1]:
+        var = _row_mean(lambda t: t * t, xf)
+    else:
+        var = model_stat_sum((xf * xf).sum(dim=-1, keepdim=True)) / width
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
@@ -153,8 +162,8 @@ def sincos_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
 # heads / mlp activation (its weights are the rank's blocks), or the
 # whole tensor where the port keeps it whole (the gathered vocab), and
 # the MoE sublayer holds its own experts (or its block of each expert's
-# ``mlp``): a hint over the model axis is a no-op, except for the logical
-# axes the port does not split yet (``mamba_*``), which raise.
+# ``mlp``), and the mamba mixer its whole SSD heads: a hint over the model
+# axis is a no-op.
 #
 # The data-manual region of a data-parallel step that reduces the mean
 # gradient (``train.train_step``'s ``reduce_mean`` and the eval step) also
@@ -177,10 +186,6 @@ def get_sharding_context():
     return getattr(_CTX, "value", None)
 
 
-# The logical axes whose split over the model axis the port refuses
-UNSPLIT_MODEL_AXES = ("mamba_inner", "mamba_groups", "mamba_heads")
-
-
 @contextlib.contextmanager
 def sharding_context(ctx, split: Optional[TokenSplit] = None,
                      model: Optional[ModelSplit] = None):
@@ -199,8 +204,7 @@ def shard_hint(x: torch.Tensor,
                axes: Sequence[Optional[str]]) -> torch.Tensor:
     """``x`` itself; raises ``NotImplementedError`` when the context would
     shard it over a data axis larger than 1 (outside a data-manual
-    region), or over the model axis along a logical axis the port does
-    not split (``UNSPLIT_MODEL_AXES``)."""
+    region)."""
     ctx = get_sharding_context()
     if ctx is None:
         return x
@@ -214,10 +218,4 @@ def shard_hint(x: torch.Tensor,
                 f"axes {names} (size {ctx.axis_size(names)}); the port "
                 "runs data parallelism over rank-local slices (run under "
                 "rules.manual_over(rules.dp_axes))")
-        if axes[dim] in UNSPLIT_MODEL_AXES:
-            raise NotImplementedError(
-                f"shard_hint{tuple(axes)}: {axes[dim]!r} over the model "
-                "axis (size {}): the port splits heads, kv_heads, mlp, "
-                "experts and vocab over it; mamba on the model axis is "
-                "ROADMAP queue A".format(ctx.axis_size(names)))
     return x

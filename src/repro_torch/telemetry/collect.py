@@ -306,7 +306,7 @@ def operand_stats(a2d: torch.Tensor, spec: QuantSpec,
     if msplit is not None:
         m = a2d.shape[model_axis]
         kind = model_span(spec.granularity, spec.block, m,
-                          model_axis == reduction_axis)
+                          model_axis == reduction_axis, msplit.size)
         if kind is not None:
             amax = share_model_amax(amax, msplit, kind, m, spec.block)
     scale = scale_from_amax(amax, fmt, spec.pow2_scale)

@@ -48,13 +48,14 @@ reference's two orders:
     others'.  Adafactor's factored moments reduce over the sharded dim
     (``optim.adafactor``, ``shards=``).
 
-Tensor parallelism (a ``model`` axis > 1, a dense attention stack or
-an MoE model): the heads / kv_heads / mlp / experts leaves are each
-rank's blocks of the model group and are used as blocks
-(``models.attention``, ``models.mlp``: the Megatron layout, the
-row-parallel sums and the cotangent sums placed there; ``models.moe``: a
-rank's experts, their outputs gathered, or its block of every expert's
-``d_ff``); a ``vocab`` leaf that the rules split is gathered whole for the
+Tensor parallelism (a ``model`` axis > 1: a dense attention stack,
+an MoE model, a mamba stack or the hybrid): the heads / kv_heads / mlp /
+experts / mamba leaves are each rank's blocks of the model group and are
+used as blocks (``models.attention``, ``models.mlp``: the Megatron
+layout, the row-parallel sums and the cotangent sums placed there;
+``models.moe``: a rank's experts, their outputs gathered, or its block
+of every expert's ``d_ff``; ``models.ssm``: a rank's whole SSD heads,
+the gated norm's statistic summed both ways); a ``vocab`` leaf that the rules split is gathered whole for the
 forward, as fsdp's blocks are, and its gradient sliced back.  The region
 carries the model split (``core.quantize.ModelSplit``) beside the token
 split, so a quant group that meets it shares its amax over the model
@@ -165,10 +166,11 @@ def check_rules(rules: ShardingRules, model: Optional[Model] = None
                 ) -> None:
     """Raise ``NotImplementedError`` for a mesh axis other than the data
     axes and ``model`` that is larger than 1, and, on a model axis > 1,
-    for a model the port does not split over it yet: one with mamba
-    mixers (``ssm``, ``hybrid``) or cross attention (``vlm``, ``audio``).
-    A dense attention stack and an MoE model (expert parallelism, or
-    ``d_ff`` split inside every expert) split."""
+    for a model the port does not split over it yet: one with cross
+    attention (``vlm``, ``audio``).  A dense attention stack, an MoE
+    model (expert parallelism, or ``d_ff`` split inside every expert), a
+    mamba stack (``ssm``: whole SSD heads a rank) and the hybrid of all
+    three split."""
     for name in rules.axis_names:
         if name not in rules.dp_axes and name != "model" \
                 and rules.axis_size((name,)) > 1:
@@ -176,13 +178,12 @@ def check_rules(rules: ShardingRules, model: Optional[Model] = None
                 f"mesh axis {name!r} of size {rules.axis_size((name,))}: "
                 "the port splits the data axes and 'model'")
     if model is not None and model_size(rules) > 1 \
-            and model.cfg.family not in ("dense", "moe"):
+            and model.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"a {model.cfg.family} model on a model axis of "
-            f"{model_size(rules)}: the port splits a dense attention "
-            "stack's heads, kv_heads, mlp and vocab and an MoE model's "
-            "experts; mamba and cross attention on the model axis are "
-            "ROADMAP queue A")
+            f"{model_size(rules)}: the port splits attention heads, "
+            "kv_heads, mlp, vocab, experts and mamba heads; cross "
+            "attention on the model axis is ROADMAP queue A")
 
 
 def compression_state_sharding(rules: ShardingRules, param_shardings):
@@ -321,14 +322,18 @@ class DataParallel:
     gradient sliced back).
 
     The model axis is the Megatron layout: the heads / kv_heads / mlp /
-    experts leaves are used as the rank's blocks (``models.attention`` /
-    ``models.mlp`` / ``models.moe`` place the row-parallel sums, the
-    cotangent sums of the column-parallel inputs and the expert
-    gathers), so their gradients are the rank's blocks; a leaf the rules keep whole over ``model`` (norms, biases, KV
-    heads whose count does not divide the axis, an odd vocab) has the same
-    gradient on every model rank (every activation it meets is summed
-    over the model group first), so every gradient is reduced over the
-    data group alone."""
+    experts / mamba leaves are used as the rank's blocks
+    (``models.attention`` / ``models.mlp`` / ``models.moe`` /
+    ``models.ssm`` place the row-parallel sums, the cotangent sums of
+    the column-parallel inputs, the expert gathers and the gated norm's
+    statistic), so their gradients are the rank's blocks; a leaf the
+    rules keep whole over ``model`` (norms, biases, KV heads whose count
+    does not divide the axis, an odd vocab, mamba's per-head
+    ``dt_bias`` / ``a_log`` / ``d_skip`` and B / C groups that do not
+    divide it) has the same gradient on every model rank (every
+    activation it meets is summed over the model group first, and a whole
+    leaf a rank reads in part passes ``model_grad_sum`` before the
+    slice), so every gradient is reduced over the data group alone."""
 
     def __init__(self, model: Model, rules: ShardingRules):
         self.rules = rules

@@ -44,6 +44,7 @@ from repro_torch.train.serving_runtime import (  # noqa: E402
     DecodeEngine, quantize_weights_for_serving)
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REF_EXPECT = os.path.join(TESTS, "qlint_expected_tiny.json")

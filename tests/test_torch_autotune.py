@@ -43,6 +43,7 @@ from repro_torch.kernels.build import TILINGS  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.train.train_step import make_optimizer  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 # the module (``repro.kernels`` exports a function of the same name)
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")

@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from repro_torch.kernels import build
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 
 @pytest.fixture

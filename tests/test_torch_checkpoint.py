@@ -34,6 +34,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.optim.adamw import AdamWState  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 OVER = dict(dtype="float32", linear_impl="pallas", attention_impl="pallas")
 # test_torch_train.TRAIN_TOL["paper_fp4"]

@@ -26,6 +26,7 @@ from repro_torch.nn.params import spec_leaves  # noqa: E402
 from repro_torch.optim import compression as tc  # noqa: E402
 
 from torch_dist_workers import run_ranks  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 
 def _shapes():

@@ -29,6 +29,7 @@ from repro_torch.core.recipe import RECIPES as T_RECIPES  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.nn.layers import ACTIVATIONS  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 NEW = ("gpt2_335m", "gpt2_774m", "llama_1b", "h2o_danube_3_4b",
        "llama3_2_3b", "nemotron_4_15b", "granite_34b")

@@ -40,6 +40,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.telemetry import controller as t_ctrl  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 PKGS = {"j": (j_base, j_recipe, j_cost, j_ctrl, JSched),
         "t": (t_base, t_recipe, t_cost, t_ctrl, TargetPrecisionSchedule)}

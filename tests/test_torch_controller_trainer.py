@@ -39,6 +39,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 # (a): frontier errors are means of the telemetry rows' rel_err over a
 # window of training steps.  Port and reference start from the same

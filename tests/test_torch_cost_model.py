@@ -26,6 +26,7 @@ from repro.core.recipe import RECIPES as J_RECIPES  # noqa: E402
 from repro_torch.core import cost_model as tc  # noqa: E402
 from repro_torch.core.recipe import PrecisionPlan  # noqa: E402
 from repro_torch.core.recipe import RECIPES  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ARCHS = {"tiny": 64, "gpt2-125m": 1024, "llama-1b": 2048}
 # A measured-looking table: exact, swapped, format-only and missing keys,

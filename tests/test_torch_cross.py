@@ -53,6 +53,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.nn.layers import sincos_positions  # noqa: E402
 from repro_torch.optim import adafactor, adamw  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 VLM, AUDIO = "llama_3_2_vision_90b", "whisper_base"
 # max |diff| / max |ref| of a sublayer's output (f32: summation order)

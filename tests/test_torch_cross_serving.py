@@ -40,6 +40,7 @@ from repro_torch.core.recipe import RECIPES as T_RECIPES  # noqa: E402
 from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.train import serve as t_serve  # noqa: E402
 from repro_torch.train import serving_runtime as t_rt  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 VLM, AUDIO = "llama_3_2_vision_90b", "whisper_base"
 TOL = 1e-5

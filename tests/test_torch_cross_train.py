@@ -43,6 +43,7 @@ from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from test_torch_cross import (AUDIO, BATCH, SEQ, VLM, _batch,  # noqa: E402
                               _cfgs, _np, _states, open_gates)
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 # the Trainer bars of tests/test_torch_train.py
 TRAIN_TOL = {"paper_fp4": dict(loss=1e-2, grad_norm=3e-2, params=1e-2),

@@ -34,6 +34,7 @@ from repro_torch.train.serve import generate  # noqa: E402
 from repro_torch.train.serving_runtime import (  # noqa: E402
     ContinuousBatcher, DecodeEngine, quantize_weights_for_serving,
     serving_memory_report)
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 # Max |logit difference| / max |logit| allowed.  Measured on the CPU:
 # f32 <= 5.2e-7 (summation order of the GEMMs); bf16 0 (bitwise).  The

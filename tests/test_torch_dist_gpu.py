@@ -1,5 +1,5 @@
-"""fp8 gradient compression, the recorded collectives and an MoE layer
-split over the model axis on the card.  Marked ``gpu``; each test skips
+"""fp8 gradient compression, the recorded collectives, and an MoE layer
+and a mamba mixer split over the model axis on the card.  Marked ``gpu``; each test skips
 without a CUDA device.
 
 Bars: bitwise.  The compression is RTN QDQ, IEEE division and exact
@@ -13,6 +13,9 @@ sublayer through the kernels against the same ranks through the plain
 versions: relative L2 ``EXPERT_TP_RTOL`` (the products' f32
 accumulation order, and the FP4 / FP8 elements it flips downstream),
 which the kernels with each rank's own amax must exceed on the output.
+mamba2-780m's mixer with its heads split over two ranks through the
+kernels against the plain versions at ``MAMBA_TP_RTOL``, which the
+control (each rank's own norm statistic) must exceed on the output.
 """
 import numpy as np
 import pytest
@@ -132,3 +135,27 @@ def test_expert_tensor_parallel_on_card(card, tmp_path):
             name = "qmm_stream" if recipe == "paper_fp4" else \
                 "quantize_rows"
             assert counts[name]["batched"] > 0, (recipe, counts)
+
+
+# the mamba mixer through the kernels against the plain versions (bf16:
+# the products' f32 accumulation order and the FP4 / FP8 elements it
+# flips), predicted before the card's first reading
+MAMBA_TP_RTOL = 1e-2
+
+
+def test_mamba_tensor_parallel_on_card(card, tmp_path):
+    """mamba2-780m's mixer at full width on two gloo ranks on the card,
+    24 of 48 heads a rank, paper_fp4: through the kernels (in_dt's 24
+    columns sharing their tile's amax, out_proj row-parallel, the norm's
+    statistic summed both ways) the norm input, output, input cotangent
+    and gradients match the plain versions'; the control (each rank's
+    own statistic) misses the output; ``qmm_stream`` launched."""
+    from torch_dist_workers import run_ranks
+    ranks = run_ranks("mamba_tp_card", 2, tmp_path)
+    for rank, r in enumerate(ranks):
+        errs = [_rel(g, w) for g, w in zip(r["kernels"], r["plain"])]
+        own = [_rel(g, w) for g, w in zip(r["own"], r["plain"])]
+        print(f"rank {rank} mamba: kernels {errs} own statistic {own}")
+        assert max(errs) <= MAMBA_TP_RTOL, errs
+        assert own[1] > MAMBA_TP_RTOL, own
+        assert r["launches"]["qmm_stream"]["launches"] > 0

@@ -28,7 +28,8 @@ Bars:
     alone split), whose forward is one process's bits.
 
 The reference runs in one subprocess beside the ranks; the ranks run
-every case in one process group (``torch_dist_workers.moe_axis``).
+every case in one process group (``torch_dist_workers.moe_axis``), the
+4-rank case in another beside it, and the one-process runs meanwhile.
 """
 import dataclasses
 import importlib
@@ -53,7 +54,8 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.nn.params import spec_leaves  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-from torch_dist_workers import _tiny_trainer, run_ranks  # noqa: E402
+from torch_dist_workers import _tiny_trainer, start_ranks  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "olmoe-1b-7b"
@@ -211,11 +213,12 @@ def runs(tmp_path_factory):
         train = {name: (name, _port_over(name, tmp), steps) for name, (
             *_, steps) in {**TRAIN_CASES, **PORT_CASES}.items()}
         two = [c for n, c in train.items() if n != "ep_2x2"]
-        ranks = run_ranks("moe_axis", 2, tmp, SUBLAYER_CASES, two, inits)
-        ranks4 = run_ranks("train_cases", 4, tmp / "four",
-                           [train["ep_2x2"]], inits["ep_2x2"])
+        ranks = start_ranks("moe_axis", 2, tmp, SUBLAYER_CASES, two, inits)
+        ranks4 = start_ranks("train_cases", 4, tmp / "four",
+                             [train["ep_2x2"]], inits["ep_2x2"])
         one = {name: _one_process(name, tmp, inits[name])
                for name in set(ONE_OF.values())}
+        ranks, ranks4 = ranks(), ranks4()
         out, err = ref.communicate(timeout=600)
     finally:
         if ref.poll() is None:

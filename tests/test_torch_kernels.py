@@ -30,6 +30,7 @@ from repro_torch.kernels import fp4_matmul as t_fm  # noqa: E402
 from repro_torch.kernels import qmm_stream, quantize_rows  # noqa: E402
 from repro_torch.kernels import tiled_mm  # noqa: E402
 from repro_torch.kernels.ops import pallas_qmm as t_pallas_qmm  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 

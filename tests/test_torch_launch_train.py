@@ -28,6 +28,7 @@ from repro_torch.launch import train as cli  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.train.serving_runtime import (  # noqa: E402
     ContinuousBatcher, quantize_weights_for_serving)
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ARGVS = [
     [],

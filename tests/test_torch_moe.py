@@ -53,6 +53,7 @@ from repro_torch.optim import adafactor, adamw  # noqa: E402
 from repro_torch.optim import clip_by_global_norm  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 t_fm = importlib.import_module("repro_torch.kernels.fp4_matmul")

@@ -52,6 +52,7 @@ from repro_torch.train.serving_runtime import (  # noqa: E402
 from repro_torch.train.train_step import make_optimizer  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 # tests/test_torch_decode.py's bar: max |logit diff| / max |logit|
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}

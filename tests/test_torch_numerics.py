@@ -29,6 +29,7 @@ from repro_torch.core import recipe as t_recipe  # noqa: E402
 from repro_torch.kernels import fp4_matmul as t_fm  # noqa: E402
 from repro_torch.kernels import rounding as t_rounding  # noqa: E402
 from repro_torch.nn import layers as t_layers  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 

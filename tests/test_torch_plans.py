@@ -11,6 +11,7 @@ pytest.importorskip("jax")
 
 from repro.core import recipe as j  # noqa: E402
 from repro_torch.core import recipe as t  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 DEPTHS = (4, 48)
 RECIPE_NAMES = sorted(j.RECIPES)

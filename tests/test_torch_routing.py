@@ -44,6 +44,7 @@ from repro_torch.train.serving_runtime import (  # noqa: E402
     DecodeEngine, quantize_weights_for_serving)
 from repro_torch.train.train_step import make_optimizer  # noqa: E402
 from repro_torch.train.train_step import make_train_step  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 SEQ, BATCH = 64, 2
 

@@ -32,6 +32,7 @@ from repro_torch.nn.params import map_specs  # noqa: E402
 from repro_torch.optim import get_optimizer  # noqa: E402
 from repro_torch.train.train_step import \
     compression_state_sharding as t_comp_sh  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 MESHES = {(1,): ("data",), (4, 1): ("data", "model"),
           (2, 2): ("data", "model"), (16, 16): ("data", "model"),

@@ -46,7 +46,9 @@ from repro_torch.core.recipe import (MM_FFN_PAPER, MM_FP8,  # noqa: E402
 from repro_torch.optim import compressed_reduce_dp  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
-from torch_dist_workers import _tiny_trainer, run_ranks  # noqa: E402
+from torch_dist_workers import (_tiny_trainer, run_ranks,  # noqa: E402
+                                start_ranks)
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -392,9 +394,9 @@ def _port_over(model_over, over):
 
 @pytest.fixture(scope="module")
 def rank_runs(tmp_path_factory, ref_start):
-    """Every case of the 2-rank meshes in one process group, then the
+    """Every case of the 2-rank meshes in one process group and the
     4-rank ones (the (2, 2) model axis, the partial data axes) in another,
-    while the reference runs."""
+    both groups running while the reference runs."""
     init = ref_start[2]
     cases = {**MESH_CASES, **NEW_CASES, **PORT_CASES, **TP_CASES}
     two = [(name, _port_over(*case[:2]), case[2])
@@ -404,8 +406,9 @@ def rank_runs(tmp_path_factory, ref_start):
             for name, case in {**TP_CASES, **PARTIAL_CASE}.items()
             if math.prod(case[1].get("mesh_shape", (2,))) == 4]
     tmp = tmp_path_factory.mktemp("new")
-    return {"two": run_ranks("train_cases", 2, tmp / "two", two, init),
-            "four": run_ranks("train_cases", 4, tmp / "four", four, init)}
+    two = start_ranks("train_cases", 2, tmp / "two", two, init)
+    four = start_ranks("train_cases", 4, tmp / "four", four, init)
+    return {"two": two(), "four": four()}
 
 
 @pytest.fixture(scope="module")

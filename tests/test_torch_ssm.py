@@ -53,6 +53,7 @@ from repro_torch.nn.params import init_params as t_init  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ARCHS = ("mamba2_780m", "jamba_1_5_large_398b")
 # max |diff| / max |ref|, f32: the SSD's and the mixer's summation order

@@ -45,6 +45,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.train import serve as t_serve  # noqa: E402
 from repro_torch.train import serving_runtime as t_rt  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 NO_EXCESS_PRECISION = {"xla_allow_excess_precision": False}

@@ -59,6 +59,7 @@ from repro_torch.models import build_model as t_build  # noqa: E402
 from repro_torch.telemetry import collect  # noqa: E402
 from repro_torch.telemetry.writer import read_jsonl  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 

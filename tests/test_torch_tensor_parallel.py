@@ -21,9 +21,9 @@ Bars:
     1e-6 under paper_fp4 (the partial sums' order flips a quantized
     element now and then, which moves the gradient, not the loss);
   * raises: a local K that neither divides the 128 group nor is a
-    multiple of it (``ValueError``, both impls); mamba (mamba2, jamba)
-    and the cross-attention families, and fp8 compression, on a model
-    axis > 1 (``NotImplementedError``).
+    multiple of it (``ValueError``, both impls); the cross-attention
+    families, and fp8 compression, on a model axis > 1
+    (``NotImplementedError``).
 
 The reference end to end (its ``Trainer`` on (1, 2) and (2, 2)) is in
 ``tests/test_torch_spmd_train.py``, beside its other meshes.  Spawned
@@ -56,6 +56,7 @@ from repro_torch.train.train_step import (DataParallel,  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 from torch_dist_workers import _tiny_trainer, run_ranks  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (1, 16): the production model axis, where mixtral's 8 experts take
@@ -163,6 +164,11 @@ def test_model_span():
         model_span("block", 128, 96, True)
     with pytest.raises(ValueError, match="holds 192"):
         model_span("tile", 128, 192, False)
+    # an edge over the whole axis (mamba2's in_dt: 48 heads, 24 a rank)
+    assert model_span("tile", 128, 24, False, 2) == "share"
+    assert model_span("block", 128, 24, True, 2) == "share"
+    with pytest.raises(ValueError, match="holds 96"):
+        model_span("block", 128, 96, True, 2)
 
 
 TENSOR_FWD = dataclasses.replace(
@@ -238,15 +244,17 @@ def test_straddling_model_split_raises(name, operand_ranks):
 
 
 def test_unsplit_families_raise():
-    """Mamba (mamba2, and jamba's mixers) and cross-attention models, and
-    fp8 compression, on a model axis > 1 raise ``NotImplementedError``;
-    on a model axis of 1 they take no model split; the MoE family passes
-    the check (tests/test_torch_expert_parallel.py trains it)."""
+    """Cross-attention models (whisper, the vlm), and fp8 compression, on
+    a model axis > 1 raise ``NotImplementedError``; on a model axis of 1
+    they take no model split; the MoE family and mamba (mamba2, and
+    jamba's hybrid) pass the check (tests/test_torch_expert_parallel.py
+    and tests/test_torch_ssm_parallel.py train them)."""
     mesh = AbstractMesh((1, 2), ("data", "model"))
-    for arch in ("olmoe_1b_7b", "mixtral_8x22b"):
+    for arch in ("olmoe_1b_7b", "mixtral_8x22b", "mamba2_780m",
+                 "jamba_1_5_large_398b"):
         cfg = importlib.import_module("repro_torch.configs." + arch).REDUCED
         check_rules(default_rules(mesh, cfg), build_model(cfg, "meta"))
-    for arch in ("mamba2-780m", "jamba-1.5-large-398b", "whisper-base"):
+    for arch in ("llama-3.2-vision-90b", "whisper-base"):
         cfg = importlib.import_module(
             "repro_torch.configs." + arch.replace("-", "_").replace(
                 ".", "_")).REDUCED

@@ -47,6 +47,7 @@ from repro_torch.optim import adamw, clip_by_global_norm  # noqa: E402
 from repro_torch.optim import warmup_cosine  # noqa: E402
 from repro_torch.train.trainer import Trainer  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
+from torch_dist_workers import torch_threads as torch_threads  # noqa
 
 j_fm = importlib.import_module("repro.kernels.fp4_matmul")
 j_flash = importlib.import_module("repro.kernels.flash_attention")
@@ -348,8 +349,9 @@ def test_trainer_refuses_unported_features(tmp_path):
     meshes: test_torch_spmd_train; the model axis of a dense stack:
     test_torch_tensor_parallel).  ``grad_compression`` and
     ``mesh_shape`` are accepted; a ``model`` axis larger than 1 raises
-    for a model the port does not split over it (mamba2 here; an MoE
-    model splits: test_torch_expert_parallel), and so does a mesh larger
+    for a model the port does not split over it (whisper here; an MoE
+    model and mamba split: test_torch_expert_parallel,
+    test_torch_ssm_parallel), and so does a mesh larger
     than the world.
     ``remat_policy="dots"`` raises: no selective-checkpoint policy sees
     the port's matmul kernels."""
@@ -358,12 +360,12 @@ def test_trainer_refuses_unported_features(tmp_path):
     cfg = importlib.import_module("repro_torch.configs.tiny").CONFIG
     model = t_build(cfg, "cpu")
     pipe = SyntheticLM(cfg.vocab_size, 128, 2)
-    ssm = importlib.import_module(
-        "repro_torch.configs.mamba2_780m").REDUCED
+    audio = importlib.import_module(
+        "repro_torch.configs.whisper_base").REDUCED
     with pytest.raises(NotImplementedError, match="queue A"):
-        Trainer(t_build(ssm, "cpu"), TrainConfig(), pipe,
+        Trainer(t_build(audio, "cpu"), TrainConfig(), pipe,
                 rules=default_rules(AbstractMesh((1, 2),
-                                                 ("data", "model")), ssm))
+                                                 ("data", "model")), audio))
     Trainer(model, TrainConfig(grad_compression="fp8"), pipe)
     dist.init_process_group(
         "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,

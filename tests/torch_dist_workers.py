@@ -4,16 +4,35 @@ rank imports this module, not a test module that imports JAX).
 ``run_ranks(name, world, tmp_path, *args)`` spawns ``world`` processes
 that join a ``gloo`` group through a ``FileStore`` under ``tmp_path``
 (never a fixed TCP port: test workers run side by side), call
-``name(rank, world, *args)`` and return its results in rank order.
+``name(rank, world, *args)`` and return its results in rank order;
+``start_ranks`` spawns them and returns the call that waits for them, so
+that a test can run other work (another group, a one-process run) while
+they run.  ``torch_threads`` is the test modules' fixture of PyTorch's
+intra-op threads.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_threads():
+    """A test module that imports this fixture runs on one PyTorch
+    intra-op thread, restored after it: the suite runs several worker
+    processes side by side, and a pool of a thread a core in each
+    oversubscribes the cores (a 2-step ``tiny`` run took 20.9 s on 8
+    threads beside seven busy processes, 3.4 s on one)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def _entry(rank, world, store, out_dir, name, args):
@@ -27,14 +46,26 @@ def _entry(rank, world, store, out_dir, name, args):
         dist.destroy_process_group()
 
 
-def run_ranks(name: str, world: int, tmp_path, *args) -> list:
+def start_ranks(name: str, world: int, tmp_path, *args):
+    """Spawn ``run_ranks``'s processes and return a call that waits for
+    them and returns their results in rank order."""
     out_dir = os.path.join(str(tmp_path), f"{name}_{world}")
     os.makedirs(out_dir, exist_ok=True)
     store = os.path.join(out_dir, "store")
-    mp.spawn(_entry, args=(world, store, out_dir, name, args), nprocs=world,
-             join=True)
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                       weights_only=False) for r in range(world)]
+    ctx = mp.start_processes(_entry, args=(world, store, out_dir, name,
+                                           args),
+                             nprocs=world, join=False, start_method="spawn")
+
+    def results() -> list:
+        while not ctx.join():
+            pass
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    return results
+
+
+def run_ranks(name: str, world: int, tmp_path, *args) -> list:
+    return start_ranks(name, world, tmp_path, *args)()
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +103,8 @@ def _tiny_trainer(over: dict, ckpt_dir: str = "", steps: int = 3):
     instead of ``tiny``; ``"embed_axes"`` builds the rules of the mesh
     ``mesh_shape`` x ``mesh_axes`` with the embed leaves over those data
     axes alone, ``"whole_heads"`` the mesh's rules with the attention's
-    heads kept whole on every model rank."""
+    heads kept whole on every model rank, ``"whole"`` with those logical
+    axes whole (as ``"whole_heads"`` does with the heads)."""
     import dataclasses
     import importlib
     from repro_torch.configs.base import TrainConfig
@@ -90,19 +122,20 @@ def _tiny_trainer(over: dict, ckpt_dir: str = "", steps: int = 3):
             cfg.moe, num_experts=model_over.pop("experts"))
     cfg = cfg.replace(**{"dtype": "float32", **model_over})
     embed_axes = over.pop("embed_axes", None)
-    whole_heads = over.pop("whole_heads", False)
+    whole = tuple(over.pop("whole", ())) + (
+        ("heads", "kv_heads") if over.pop("whole_heads", False) else ())
     kw = dict(recipe="bf16", total_steps=steps, global_batch=4, seq_len=32,
               log_every=0)
     if ckpt_dir:
         kw.update(checkpoint_every=2, checkpoint_dir=ckpt_dir)
     kw.update(over)
     rules = None
-    if embed_axes is not None or whole_heads:
+    if embed_axes is not None or whole:
         from repro_torch.distributed.mesh import make_mesh
         from repro_torch.distributed.sharding import default_rules
         shape = kw.pop("mesh_shape")
         axes = kw.pop("mesh_axes", None) or ("data", "model")
-        whole = dict.fromkeys(("heads", "kv_heads")) if whole_heads else {}
+        whole = dict.fromkeys(whole)
         rules = default_rules(make_mesh(shape, axes), cfg,
                               overrides=dict(whole, **(
                                   {} if embed_axes is None
@@ -643,3 +676,171 @@ def expert_tp_card(rank, world, recipes):
                              for g_, w_ in zip(got, want))
         out["panels"] = differing
     return out
+
+
+# ---------------------------------------------------------------------------
+# mamba on the model axis (whole SSD heads a rank)
+# ---------------------------------------------------------------------------
+
+def _mamba_blocks(cfg, mixer, rank, world):
+    """This rank's blocks of a mamba layer's leaves, as the reference's
+    default rules lay them out on a (1, ``world``) mesh."""
+    from repro_torch.distributed import AbstractMesh, default_rules
+    from repro_torch.models.ssm import mamba_param_specs
+    rules = default_rules(AbstractMesh((1, world), ("data", "model")), cfg)
+    out = {}
+    for k, sp in mamba_param_specs(cfg).items():
+        dims = [d for d, names in rules.param_sharding(sp).dim_axes().items()
+                if "model" in names]
+        out[k] = (mixer[k].chunk(world, dims[0])[rank] if dims
+                  else mixer[k])
+    return out
+
+
+@contextlib.contextmanager
+def _statistic_control(kind=None):
+    """Inside the block a split gated norm takes a control statistic:
+    ``"own"``, each rank's mean of squares over its own columns alone;
+    ``"forward"``, the group's sum in the forward only (``model_sum``:
+    its cotangent the rank's own); ``None``, the mixer's own."""
+    from repro_torch.core import qlinear
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.nn import layers
+    if kind is None:
+        yield
+        return
+    target, name, swap = {
+        "own": (ssm_lib, "_gated_norm",
+                lambda v, scale, d_inner: layers.rms_norm(v, scale)),
+        "forward": (layers, "model_stat_sum", qlinear.model_sum),
+    }[kind]
+    orig = getattr(target, name)
+    setattr(target, name, swap)
+    try:
+        yield
+    finally:
+        setattr(target, name, orig)
+
+
+def _mamba_sublayer(cfg, recipe, mixer, x, c, control=None):
+    """The mamba mixer of ``mixer`` (the rank's blocks) on ``x`` with the
+    output cotangent ``c`` under whatever split is installed
+    (``control``: ``_statistic_control``'s): [the norm's input, y, dx,
+    and each leaf's gradient in sorted key order], f32 numpy on the
+    host."""
+    from repro_torch.models import ssm as ssm_lib
+    seen = []
+    xr = x.clone().requires_grad_()
+    leaves = {k: v.clone().requires_grad_() for k, v in mixer.items()}
+    with _statistic_control(control):
+        orig = ssm_lib._gated_norm
+
+        def capture(v, *a):
+            seen.append(v.detach().clone())
+            return orig(v, *a)
+        ssm_lib._gated_norm = capture
+        try:
+            y = ssm_lib.mamba_mixer(leaves, cfg, xr, recipe)
+            (y.to(torch.float32) * c).sum().backward()
+        finally:
+            ssm_lib._gated_norm = orig
+    return [t.float().cpu().numpy() for t in [seen[0], y.detach(), xr.grad]
+            + [leaves[k].grad for k in sorted(leaves)]]
+
+
+def mamba_sublayer(rank, world, cases):
+    """Each case ``(name, arch, over, recipe, impl)``: layer 0's mamba
+    mixer of ``arch``'s ``REDUCED`` config (``over``: its fields to
+    replace) from ``init(0)``, on a seeded (2, 128, D) input and output
+    cotangent, on this rank's heads under the model split ("split"), the
+    two controls ("own", "forward"), and in one process on whole leaves
+    ("whole"): {name: each one's [norm input, y, dx, leaf gradients
+    (sorted keys)], "keys" and "census"}."""
+    import importlib
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.distributed import comms
+    from repro_torch.models import build_model
+    from repro_torch.nn import layers
+    msplit = ModelSplit(dist.group.WORLD, rank, world)
+    out = {}
+    for name, arch, over, recipe, impl in cases:
+        cfg = importlib.import_module(
+            "repro_torch.configs." + arch.replace("-", "_").replace(
+                ".", "_")).REDUCED.replace(linear_impl=impl, **over)
+        model = build_model(cfg, "cpu")
+        mixer = {k: v[0] for k, v in model.cast_params(model.init(0))[
+            "stack"]["groups"]["l00"]["mixer"].items()}
+        mine = _mamba_blocks(cfg, mixer, rank, world)
+        mm = RECIPES[recipe].ffn_linear
+        rng = np.random.default_rng(5)
+        dt = getattr(torch, cfg.dtype)
+        x = torch.from_numpy(rng.standard_normal(
+            (2, 128, cfg.d_model), dtype=np.float32)).to(dt)
+        c = torch.from_numpy(rng.standard_normal(
+            (2, 128, cfg.d_model), dtype=np.float32))
+        res = {"keys": sorted(mixer), "split_keys": sorted(
+            k for k in mixer if mine[k].shape != mixer[k].shape)}
+        with layers.sharding_context(None, None, msplit):
+            with comms.recording() as log:
+                res["split"] = _mamba_sublayer(cfg, mm, mine, x, c)
+            res["census"] = [r.to_dict() for r in log]
+            for control in ("own", "forward"):
+                res[control] = _mamba_sublayer(cfg, mm, mine, x, c, control)
+        res["whole"] = _mamba_sublayer(cfg, mm, mixer, x, c)
+        out[name] = res
+    return out
+
+
+def ssm_axis(rank, world, sublayer_cases, train, inits):
+    """``mamba_sublayer`` of ``sublayer_cases``, then ``train_mesh`` of
+    each ``(name, over, steps)`` of ``train`` from the reference's
+    ``inits[name]`` (numpy trees), in this one process group."""
+    out = {"sublayer": mamba_sublayer(rank, world, sublayer_cases)}
+    for name, over, steps in train:
+        out[name] = train_mesh(rank, world, over, steps, "", inits[name])
+    return out
+
+
+def mamba_tp_card(rank, world):
+    """mamba2-780m's mixer at full width (one layer of ``init(0)``, bf16)
+    on the card, 24 of its 48 heads a rank, under paper_fp4 through the
+    kernels (in_dt's 24 columns of its one 128-wide tile sharing their
+    amax over the ranks, out_proj's row-parallel K) and through their
+    plain versions on the same card tensors, and the kernels with each
+    rank's own norm statistic (the control): {"kernels" / "plain" /
+    "own": [norm input, y, dx, leaf grads (sorted keys)] on the host,
+    "launches": each kernel's counts of the kernels' run}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import ModelSplit
+    from repro_torch.core.recipe import RECIPES
+    from repro_torch.distributed import comms
+    from repro_torch.kernels import qmm_stream as qs
+    from repro_torch.kernels import quantize_rows as qr
+    from repro_torch.models import build_model
+    from repro_torch.nn import layers
+    torch.cuda.set_device(0)
+    msplit = ModelSplit(dist.group.WORLD, rank, world)
+    cfg = get_config("mamba2-780m").replace(
+        n_layers=1, linear_impl="pallas", scan_layers=False)
+    model = build_model(cfg, "cpu")
+    mixer = model.cast_params(model.init(0))["stack"]["layers"][0]["mixer"]
+    mine = {k: v.cuda() for k, v in
+            _mamba_blocks(cfg, mixer, rank, world).items()}
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(
+        (2, 256, cfg.d_model), dtype=np.float32)).to(torch.bfloat16).cuda()
+    c = torch.from_numpy(rng.standard_normal(
+        (2, 256, cfg.d_model), dtype=np.float32)).cuda()
+    mm = RECIPES["paper_fp4"].ffn_linear
+    kernels = (qs.KERNEL, qr.KERNEL)
+    with comms.host_staging(), layers.sharding_context(None, None, msplit):
+        for k in kernels:
+            k.reset()
+        got = _mamba_sublayer(cfg, mm, mine, x, c)
+        launches = {k.name: k.counts() for k in kernels}
+        with _PlainKernels():
+            plain = _mamba_sublayer(cfg, mm, mine, x, c)
+        own = _mamba_sublayer(cfg, mm, mine, x, c, "own")
+    return {"kernels": got, "plain": plain, "own": own,
+            "launches": launches}
